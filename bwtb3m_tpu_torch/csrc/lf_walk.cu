@@ -22,13 +22,7 @@
 // on an H100 80GB HBM3 at 700 W, ~2.7 TB/s of 128-byte rows.  Ranks and
 // positions are uint32 (n < 2^31 on the paths that call this kernel).
 //
-// Row layouts (bwtb3m_tpu_torch/ops/focc_bp.py, ops/focc.py):
-//   bit-plane (sigma <= 8), 128 bytes per 256-symbol block:
-//     words 0..7 / 8..15 / 16..23  bit planes 0 / 1 / 2, LSB first
-//     words 24..24+sigma-1         occ checkpoints (counts before the block)
-//   byte rows (sigma <= 256), roww bytes per block (multiple of 128):
-//     bytes 0..255                 the block's symbols
-//     bytes 256 + 4c .. +3         occ checkpoint of symbol c, little endian
+// Row layouts and the LF step: focc_rows.cuh (shared with gap_chain.cu).
 //
 // The entry point launches on the caller's stream, does not synchronise
 // and returns cudaGetLastError() right after the launch.
@@ -36,106 +30,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "focc_rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBpRowBytes = 128;
 
-// Bit-plane rows: the whole row is loaded as 8 x 16 bytes, C lives in
-// registers, and word / occ selection is an unrolled select (no local
-// memory, no dependent load).
-struct BitPlaneRows {
-  const uint8_t* rows;
-  uint32_t c[8];
-
-  __device__ __forceinline__ uint32_t step(uint32_t r, uint32_t* sym_out) const {
-    const uint4* row =
-        reinterpret_cast<const uint4*>(rows + (size_t)(r >> 8) * kBpRowBytes);
-    uint32_t w[32];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const uint4 v = __ldg(row + q);
-      w[4 * q + 0] = v.x;
-      w[4 * q + 1] = v.y;
-      w[4 * q + 2] = v.z;
-      w[4 * q + 3] = v.w;
-    }
-    const uint32_t off = r & 255u;
-    const uint32_t wi = off >> 5;
-    const uint32_t bit = off & 31u;
-    uint32_t p0 = 0, p1 = 0, p2 = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      if ((uint32_t)k == wi) {
-        p0 = w[k];
-        p1 = w[8 + k];
-        p2 = w[16 + k];
-      }
-    }
-    const uint32_t b0 = (p0 >> bit) & 1u;
-    const uint32_t b1 = (p1 >> bit) & 1u;
-    const uint32_t b2 = (p2 >> bit) & 1u;
-    const uint32_t sym = b0 | (b1 << 1) | (b2 << 2);
-    // e_j = ~0 where bit j of sym is 0: (plane ^ e_j) marks positions whose
-    // bit j equals sym's bit j
-    const uint32_t e0 = b0 - 1u, e1 = b1 - 1u, e2 = b2 - 1u;
-    uint32_t cnt = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int keep = (int)off - 32 * k;
-      // keep == 0 and keep == 32 selected explicitly: a shift by 32 is
-      // undefined
-      const uint32_t mask =
-          keep <= 0 ? 0u : (keep >= 32 ? 0xFFFFFFFFu : ((1u << keep) - 1u));
-      cnt += __popc((w[k] ^ e0) & (w[8 + k] ^ e1) & (w[16 + k] ^ e2) & mask);
-    }
-    uint32_t occ = 0, base = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if ((uint32_t)j == sym) {
-        occ = w[24 + j];
-        base = c[j];
-      }
-    }
-    *sym_out = sym;
-    return base + occ + cnt;
-  }
-};
-
-// Byte rows: the symbol byte, then a SIMD byte compare over the words
-// before the offset, then the occ word of that symbol.
-struct ByteRows {
-  const uint8_t* rows;
-  const uint32_t* C;
-  int roww;
-
-  __device__ __forceinline__ uint32_t step(uint32_t r, uint32_t* sym_out) const {
-    const uint8_t* row = rows + (size_t)(r >> 8) * (size_t)roww;
-    const uint32_t* rw = reinterpret_cast<const uint32_t*>(row);
-    const uint32_t off = r & 255u;
-    const uint32_t sym = __ldg(row + off);
-    const uint32_t pat = sym * 0x01010101u;
-    const uint32_t nfull = off >> 2;
-    uint32_t bits = 0;  // 8 bits per matching byte
-    for (uint32_t k = 0; k < nfull; ++k) bits += __popc(__vcmpeq4(__ldg(rw + k), pat));
-    const uint32_t rem = off & 3u;
-    if (rem) {
-      bits += __popc(__vcmpeq4(__ldg(rw + nfull), pat) & ((1u << (8u * rem)) - 1u));
-    }
-    const uint32_t occ = __ldg(rw + 64 + sym);
-    *sym_out = sym;
-    return __ldg(C + sym) + occ + (bits >> 3);
-  }
-};
-
-__device__ __forceinline__ BitPlaneRows make_bp(const uint8_t* rows, const uint32_t* C,
-                                                int sigma) {
-  BitPlaneRows b;
-  b.rows = rows;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) b.c[j] = j < sigma ? __ldg(C + j) : 0u;
-  return b;
-}
+using bwt_rows::BitPlaneRows;
+using bwt_rows::ByteRows;
+using bwt_rows::kBpRowBytes;
+using bwt_rows::make_bp;
 
 enum class Visit { kNone, kVerify, kHarvest };
 

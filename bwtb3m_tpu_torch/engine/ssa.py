@@ -29,6 +29,12 @@ from ..util.devices import resolve_device
 from .result import BwtResult
 
 
+def load_sampled_array(path: str):
+    """(rate, values) of a ``.sa`` / ``.isa`` file that ``compute_ssa``
+    wrote."""
+    return formats.read_sampled_array(path)
+
+
 def seed_segments(ranks: np.ndarray, positions: np.ndarray, n: int):
     """Seeds sorted by position plus each lane's segment length: lane i
     walks from positions[i] back to positions[i-1] + 1, and lane 0 (the

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
-interface, at first use, into ``bwtb3m_tpu_torch/build/``; the library is
-loaded with ``ctypes``.  It is rebuilt when a source is newer than it.
-No PyTorch headers are compiled (a file that includes them takes minutes
-to build), so a build takes seconds.  A missing ``nvcc`` or a failed
-build raises: there is no fallback.
+``nvcc`` compiles each ``csrc/<name>.cu`` into its own shared library
+with a plain C interface, ``build/lib<name>.so``, at first use; all
+sources are compiled at once, one ``nvcc`` process each, and every
+library is loaded with ``ctypes``.  A library is rebuilt when its source
+or a shared header (``csrc/*.cuh``) is newer than it.  No PyTorch headers
+are compiled (a file that includes them takes minutes to build), so a
+build takes seconds.  A missing ``nvcc`` or a failed build raises: there
+is no fallback.
 """
 
 from __future__ import annotations
@@ -22,13 +24,27 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-LIB_PATH = os.path.join(BUILD_DIR, "libbwtb3m_kernels.so")
 LOG_PATH = os.path.join(BUILD_DIR, "nvcc.log")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+p_, i_, ll_, u_ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_uint)
+# entry points of each kernel library: name -> (argtypes, restype)
+ENTRY_POINTS = {
+    "lf_walk": {"bwt_lf_walk": ([p_, i_, p_, i_, ll_, p_, p_, p_, p_, p_, p_,
+                                 i_, i_, p_, p_, i_, p_], i_)},
+    "gap_chain": {"bwt_gap_chain": ([p_, i_, p_, p_, ll_, p_, u_, u_, u_, p_,
+                                     p_, p_, p_, p_, p_, ll_, i_, i_, p_],
+                                    i_)},
+}
 
 
 def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, "lib%s.so" % name)
 
 
 def find_nvcc() -> str:
@@ -46,51 +62,68 @@ def find_nvcc() -> str:
                        "CUDA kernels of bwtb3m_tpu_torch cannot be built")
 
 
-def _stale() -> bool:
-    if not os.path.exists(LIB_PATH):
+def _name(src: str) -> str:
+    return os.path.splitext(os.path.basename(src))[0]
+
+
+def _stale(src: str) -> bool:
+    lib = lib_path(_name(src))
+    if not os.path.exists(lib):
         return True
-    built = os.path.getmtime(LIB_PATH)
-    deps = _sources() + glob.glob(os.path.join(CSRC, "*.cuh"))
+    built = os.path.getmtime(lib)
+    deps = [src] + glob.glob(os.path.join(CSRC, "*.cuh"))
     return any(os.path.getmtime(p) > built for p in deps)
 
 
-def build() -> str:
-    """Compile the kernels if needed; returns the library path.
+def build() -> list:
+    """Compile every stale kernel library, all in parallel; returns the
+    library paths.
 
     Concurrent callers serialise on a lock file in the build directory.
     Raises ``RuntimeError`` when ``nvcc`` is missing or fails; the
-    compiler's output (``-Xptxas -v``: registers, spills) is kept in
+    compilers' output (``-Xptxas -v``: registers, spills) is kept in
     ``build/nvcc.log``."""
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not _stale():
-            return LIB_PATH
-        tmp = LIB_PATH + ".tmp"
-        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *_sources()]
+        todo = [s for s in _sources() if _stale(s)]
         t0 = time.monotonic()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        with open(LOG_PATH, "w") as f:
-            f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            f.write("build time %.2f s, exit code %d\n"
-                    % (time.monotonic() - t0, proc.returncode))
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (exit %d):\n%s"
-                               % (proc.returncode, proc.stderr[-4000:]))
-        os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+        procs = []
+        for src in todo:
+            name = _name(src)
+            cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
+                   lib_path(name) + ".tmp", src]
+            procs.append((name, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, cmd, proc in procs:
+            out, _ = proc.communicate()
+            with open(LOG_PATH, "a") as f:
+                f.write(" ".join(cmd) + "\n" + out)
+                f.write("%s: build time %.2f s, exit code %d\n"
+                        % (name, time.monotonic() - t0, proc.returncode))
+            if proc.returncode != 0:
+                failed.append("%s (exit %d):\n%s"
+                              % (name, proc.returncode, out[-4000:]))
+            else:
+                os.replace(lib_path(name) + ".tmp", lib_path(name))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return [lib_path(_name(s)) for s in _sources()]
 
 
-@functools.lru_cache(maxsize=1)
-def load() -> ctypes.CDLL:
-    """Build if needed, load once, and declare the entry points' types."""
-    lib = ctypes.CDLL(build())
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bwt_lf_walk.argtypes = [p, i, p, i, ll, p, p, p, p, p, p, i, i, p,
-                                p, i, p]
-    lib.bwt_lf_walk.restype = i
-    lib.bwt_error_string.argtypes = [i]
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed, load the library of ``csrc/<name>.cu`` once, and
+    declare its entry points' types."""
+    build()
+    lib = ctypes.CDLL(lib_path(name))
+    for fn, (argtypes, restype) in ENTRY_POINTS[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    lib.bwt_error_string.argtypes = [ctypes.c_int]
     lib.bwt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,7 +1,10 @@
-"""Build the fused rank rows on the target device from a host BWT.
+"""Build the fused rank rows on the target device.
 
-Port of ``bwtb3m_tpu/ops/focc_build.py::build_focc_host``.  The reference
-streams the BWT through fixed-shape chunk programs and pads the row count
+Port of ``bwtb3m_tpu/ops/focc_build.py``: ``build_focc_host`` (from a
+host BWT) and ``build_focc_from_rows`` (from a merge region's packed BWT
+bytes already on the device, here ``build_focc_from_packed``).  The
+reference streams the BWT through fixed-shape chunk programs and pads the
+row count
 to a few compiled shapes; neither is needed here (PyTorch compiles no
 shape), so the rows are built in one pass per step and cover exactly
 blocks [0, nb].  Rows 0..nb and C are byte-identical to the reference's
@@ -34,18 +37,35 @@ def _occ_bytes(occ: torch.Tensor) -> torch.Tensor:
 def build_focc_host(bwt: np.ndarray, sigma: int, device):
     """Rank rows for a host uint8 BWT over symbols [0, sigma), built on
     ``device``: bit-plane rows for sigma <= 8, byte rows up to 256."""
+    bwt = np.require(bwt, np.uint8, "CW")
+    return build_focc_device(torch.from_numpy(bwt).to(device), sigma)
+
+
+def build_focc_from_packed(packed: torch.Tensor, n: int, sigma: int,
+                           bits: int):
+    """Rank rows of a merge region from its packed BWT bytes on the
+    device (``ops/devzip.py`` layout: LSB-first nibbles for ``bits=4``,
+    raw bytes for 8).  Rows 0..nb and C equal ``build_focc_host`` on the
+    unpacked symbols, as the reference's ``build_focc_from_rows`` equals
+    its host builder."""
+    from .pack import unpack_bits
+    return build_focc_device(unpack_bits(packed, bits, n), sigma)
+
+
+def build_focc_device(bwt: torch.Tensor, sigma: int):
+    """Rank rows of a uint8 BWT tensor, built on its device."""
     if sigma > 256:
         raise ValueError("fused rank rows store symbols as bytes "
                          "(sigma <= 256)")
-    bwt = np.require(bwt, np.uint8, "CW")
-    n = len(bwt)
+    n = bwt.shape[0]
     if n >= 1 << 31:
         raise ValueError("rank rows hold uint32 counts read as int32 "
                          "here: n < 2^31")
+    device = bwt.device
     nb = max(1, (n + BLOCK - 1) // BLOCK)
     nrows = nb + 1
     sym = torch.full((nrows * BLOCK,), -1, dtype=torch.int16, device=device)
-    sym[:n] = torch.from_numpy(bwt).to(device)
+    sym[:n] = bwt
     blocks = sym.view(nrows, BLOCK)               # pad positions are -1
     per_block = torch.stack([(blocks == c).sum(1) for c in range(sigma)],
                             dim=1)                # int64 [nb+1, sigma]

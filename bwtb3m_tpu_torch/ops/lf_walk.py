@@ -86,7 +86,7 @@ def harvest_walk_plain(focc, r0: torch.Tensor, p0: torch.Tensor,
 
 def _lib():
     from ._build import load
-    return load()
+    return load("lf_walk")
 
 
 def _check(rc: int) -> None:

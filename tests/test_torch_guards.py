@@ -46,6 +46,10 @@ open(inp, "wb").write(rng.choice(np.frombuffer(b"ACGT", np.uint8), 5000).tobytes
 assert dispatch(["bwtb3m", "device=cpu", "verbose=0", inp]) == 0
 assert dispatch(["checkbwt", "device=cpu", "verbose=0", inp, inp + ".bwt"]) == 0
 assert dispatch(["bwtcomputessa", "device=cpu", "verbose=0", inp + ".bwt"]) == 0
+out = inp + ".m.bwt"
+assert dispatch(["bwtb3m", "device=cpu", "verbose=0", "engine=merge",
+                 "mem=16384", "outputfilename=" + out, inp]) == 0
+assert dispatch(["checkbwt", "device=cpu", "verbose=0", inp, out]) == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 assert not loaded, loaded
 print("OK")
@@ -99,18 +103,42 @@ def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"engine": "merge"}, "item 4"),
-    ({"engine": "merge-legacy"}, "item 4"),
+    ({"engine": "merge-legacy"}, "item 10"),
     ({"engine": "sharded"}, "item 9"),
-    ({"max_block_symbols": 512}, "item 4"),      # auto above one block
     ({"bwt_codec": "rlh"}, "item 8"),
     ({"host_mem": 1 << 20}, "item 4"),
+    ({"engine": "merge", "env": "BWTB3M_FORCE_WIDE"}, "item 6"),
+    ({"max_block_symbols": 256, "env": "BWTB3M_FORCE_WIDE"}, "item 6"),
 ])
-def test_unported_build_paths_raise(tmp_path, kw, match):
+def test_unported_build_paths_raise(tmp_path, monkeypatch, kw, match):
+    kw = dict(kw)
+    if "env" in kw:
+        monkeypatch.setenv(kw.pop("env"), "1")
     opts = BwtOptions(input_path=_dna(tmp_path), device="cpu", verbose=0,
                       **kw)
     with pytest.raises(NotImplementedError, match=match):
         compute_bwt(opts)
+
+
+@pytest.mark.parametrize("kw", [{"engine": "merge"},
+                                {"max_block_symbols": 256}])
+def test_merge_engine_paths_run(tmp_path, kw):
+    """engine=merge, and auto above max_block_symbols, take the scaled
+    merge engine (they raised before it was ported)."""
+    inp = _dna(tmp_path)
+    res = compute_bwt(BwtOptions(input_path=inp, device="cpu", verbose=0,
+                                 bwt_only=True, **kw))
+    assert check_bwt(res, np.fromfile(inp, np.uint8), device="cpu")
+
+
+def test_merge_engine_refuses_wide_merges(tmp_path):
+    from bwtb3m_tpu_torch.engine import merge_scaled as ms
+    reg = ms.Region(0, 1 << 32, None, np.zeros(1, np.uint8), None, None, 0,
+                    None)
+    right = ms.Region(1 << 32, (1 << 32) + 256, None, None, None, None, 0,
+                      None)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ms._merge_pair(None, reg, right)
 
 
 def test_sigma_above_256_checks_raise(tmp_path):
