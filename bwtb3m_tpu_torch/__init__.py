@@ -2,19 +2,20 @@
 
 The JAX package ``bwtb3m_tpu`` stays the reference; this package computes
 the same files with PyTorch on an NVIDIA GPU (Hopper, ``sm_90a``).  It
-imports ``torch`` and never ``jax``.  Host-side modules that import no
-JAX are shared with the reference package instead of copied: ``io/``
-(input types, the RLB1 codec, the sidecar formats), ``native`` and
-``util/`` (argument parsing, logging, serialization).  So the port's
-files are the reference's file formats byte for byte.
+imports ``torch`` and never ``jax``, and nothing of ``bwtb3m_tpu``: it
+keeps its own copies of the reference's host-side modules under the same
+names, ``io/`` (input types, the RLB1 codec, the sidecar formats),
+``native/`` (the C++ host codecs, built by g++ at first use into
+``build/``) and ``util/`` (argument parsing, logging, serialization).
+The tests hold the copies to the reference byte for byte.
 
 Layer map of the ported slice:
 
   engine/   BwtOptions -> compute_bwt() -> BwtResult, check_bwt (checkbwt),
             compute_ssa (bwtcomputessa)
   ops/      prefix-doubling suffix sort (torch.sort), rank-row builders,
-            plain rank / LF queries, and the LF-walk kernels
-            (csrc/lf_walk.cu, built with nvcc at first use)
+            plain rank / LF queries, the LF-walk and gap-chain kernels
+            (csrc/*.cu, built with nvcc at first use into build/)
   index/    Huffman wavelet tree writer (.hwt), host numpy
   cli/      ``python -m bwtb3m_tpu_torch <tool>`` for the ported tools
 

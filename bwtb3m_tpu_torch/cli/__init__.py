@@ -18,9 +18,9 @@ from typing import List
 
 import numpy as np
 
-from bwtb3m_tpu.io.inputtypes import parse_input_type
-from bwtb3m_tpu.util.args import ArgInfo
-from bwtb3m_tpu.util.log import VerboseLog
+from ..io.inputtypes import parse_input_type
+from ..util.args import ArgInfo
+from ..util.log import VerboseLog
 
 # reference tools not ported yet -> ROADMAP.md Queue 1 item
 NOT_PORTED = {

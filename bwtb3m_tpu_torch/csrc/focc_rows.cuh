@@ -5,9 +5,15 @@
 //   step(r, &sym)  the LF step: sym = BWT[r], returns C[sym] + rank(sym, r)
 //   rank(c, r)     occurrences of symbol c in BWT[0, r), without C (what
 //                  the reference's rank_batch_f returns)
-// Both read the one row of block r >> 8 and nothing else.
+// Both read the one row of r's block and nothing else.
 //
 // Row layouts (bwtb3m_tpu_torch/ops/focc_bp.py, ops/focc.py):
+//   sector (sigma <= 4), 32 bytes per 64-symbol block, 32-byte aligned:
+//     words 0..1 / 2..3            bit planes 0 / 1, LSB first
+//     words 4..7                   occ checkpoints of symbols 0..3
+//   The unit of a random read from device memory on Hopper is the 32-byte
+//   sector, so a step on these rows moves one sector where the 128-byte
+//   row moves four: the walks are bound by the sectors they gather.
 //   bit-plane (sigma <= 8), 128 bytes per 256-symbol block:
 //     words 0..7 / 8..15 / 16..23  bit planes 0 / 1 / 2, LSB first
 //     words 24..24+sigma-1         occ checkpoints (counts before the block)
@@ -21,7 +27,57 @@
 
 namespace bwt_rows {
 
+constexpr int kSectorRowBytes = 32;
 constexpr int kBpRowBytes = 128;
+
+// Sector rows: the row is two independent 16-byte loads, the planes in
+// the first and the four occ words in the second; C lives in registers.
+// The in-block count is one 64-bit popcount under a prefix mask:
+// off < 64, so the shift is always defined, and off == 0 gives mask 0.
+struct SectorRows {
+  const uint8_t* rows;
+  uint32_t c[4];
+
+  __device__ __forceinline__ void load(uint32_t r, uint4* planes, uint4* occ) const {
+    const uint4* row =
+        reinterpret_cast<const uint4*>(rows + (size_t)(r >> 6) * kSectorRowBytes);
+    *planes = __ldg(row);
+    *occ = __ldg(row + 1);
+  }
+
+  // planes = (plane 0 word 0, plane 0 word 1, plane 1 word 0, plane 1
+  // word 1).  Positions before off whose 2 plane bits equal sym's, plus
+  // the occ checkpoint of sym: rank(sym, r) for r = block * 64 + off.
+  __device__ __forceinline__ static uint32_t count(const uint4& planes, const uint4& occ,
+                                                   uint32_t sym, uint32_t off) {
+    const uint32_t e0 = (sym & 1u) - 1u, e1 = ((sym >> 1) & 1u) - 1u;
+    const uint32_t lo = (planes.x ^ e0) & (planes.z ^ e1);
+    const uint32_t hi = (planes.y ^ e0) & (planes.w ^ e1);
+    const unsigned long long match = ((unsigned long long)hi << 32) | lo;
+    const unsigned long long mask = (1ull << off) - 1ull;
+    const uint32_t o = sym == 0u ? occ.x : (sym == 1u ? occ.y : (sym == 2u ? occ.z : occ.w));
+    return o + (uint32_t)__popcll(match & mask);
+  }
+
+  __device__ __forceinline__ uint32_t step(uint32_t r, uint32_t* sym_out) const {
+    uint4 planes, occ;
+    load(r, &planes, &occ);
+    const uint32_t off = r & 63u;
+    const uint32_t bit = off & 31u;
+    const uint32_t p0 = off < 32u ? planes.x : planes.y;
+    const uint32_t p1 = off < 32u ? planes.z : planes.w;
+    const uint32_t sym = ((p0 >> bit) & 1u) | (((p1 >> bit) & 1u) << 1);
+    const uint32_t base = sym == 0u ? c[0] : (sym == 1u ? c[1] : (sym == 2u ? c[2] : c[3]));
+    *sym_out = sym;
+    return base + count(planes, occ, sym, off);
+  }
+
+  __device__ __forceinline__ uint32_t rank(uint32_t sym, uint32_t r) const {
+    uint4 planes, occ;
+    load(r, &planes, &occ);
+    return count(planes, occ, sym, r & 63u);
+  }
+};
 
 // Bit-plane rows: the whole row is loaded as 8 x 16 bytes, C lives in
 // registers, and word / occ selection is an unrolled select (no local
@@ -142,6 +198,15 @@ __device__ __forceinline__ BitPlaneRows make_bp(const uint8_t* rows, const uint3
   b.rows = rows;
 #pragma unroll
   for (int j = 0; j < 8; ++j) b.c[j] = j < sigma ? __ldg(C + j) : 0u;
+  return b;
+}
+
+__device__ __forceinline__ SectorRows make_sector(const uint8_t* rows, const uint32_t* C,
+                                                  int sigma) {
+  SectorRows b;
+  b.rows = rows;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b.c[j] = j < sigma ? __ldg(C + j) : 0u;
   return b;
 }
 

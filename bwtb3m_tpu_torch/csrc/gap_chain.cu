@@ -19,15 +19,28 @@
 // after the step at p), and ends with the lane's final rank.  The anchor
 // form takes the same steps and keeps only the final rank.
 //
-// What bounds it: one thread per lane, and every step makes one dependent
-// rank-row load (128 bytes on bit-plane rows), as in the LF walk, plus one
-// histogram atomic, which is fire-and-forget (its result is unused, so it
-// compiles to a reduction that does not stall the lane).  The text and gt
-// bytes do not depend on the rank chain and overlap with it.  ~65,536
-// lanes keep enough loads in flight to cover the latency.  The reference
-// read text and gt from phase-aligned 256-symbol rows with every lane
-// padded to one shared column per step; here each lane reads its own byte
-// and takes exactly its own steps, so no padding or masking is needed.
+// One thread per lane; every step makes one dependent rank-row load, as
+// in the LF walk (one 32-byte sector on sector rows, sigma <= 4; four on
+// bit-plane rows), plus one histogram atomic, which is fire-and-forget
+// (its result is unused, so it compiles to a reduction that does not stall
+// the lane).  The text and gt bytes do not depend on the rank chain and
+// overlap with it.  The reference read text and gt from phase-aligned
+// 256-symbol rows with every lane padded to one shared column per step;
+// here each lane reads its own byte and takes exactly its own steps, so no
+// padding or masking is needed.
+//
+// What bounds it: the scattered atomic.  Measured by chip_smoke.py on an
+// NVIDIA H100 80GB HBM3 at 700 W, at the root merge of a 400,000,009-symbol
+// build (268,435,456 steps over 65,536 lanes, 131,564,553 ranks, a 526 MB
+// histogram): the recording form takes 31.6 ms on sector rows and 36.1 ms
+// on bit-plane rows; the same walk without the atomic and the sample write
+// (the anchor form over the same lanes at full length) 8.4 / 15.0 ms, which
+// is the LF walk's rate (32 G steps/s on sector rows).  So 21-23 ms are the
+// atomic's: it reads and writes back a random sector of a histogram ten
+// times the L2, two more random accesses to device memory per step beside
+// the row's one, at the ~38 G random sectors/s the card gives.  2^17 or
+// 2^18 lanes are slower (43-44 ms; more text and gt lines compete for the
+// L1) and 2^15 a little faster (28.0 ms); the callers keep 65,536 (PERF.md).
 //
 // Ranks and positions are uint32 (the caller asserts n < 2^32 and refuses
 // wide merges).  The entry point launches on the caller's stream, does not
@@ -93,6 +106,14 @@ __global__ void chain_bp_kernel(const uint8_t* rows, Chain ch, int nlanes) {
 }
 
 template <bool kRecord>
+__global__ void chain_sector_kernel(const uint8_t* rows, Chain ch, int nlanes) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= nlanes) return;
+  const bwt_rows::SectorRows b{rows, {}};
+  chain_lane<kRecord>(b, ch, j);
+}
+
+template <bool kRecord>
 __global__ void chain_byte_kernel(bwt_rows::ByteRows rows, Chain ch, int nlanes) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= nlanes) return;
@@ -102,7 +123,9 @@ __global__ void chain_byte_kernel(bwt_rows::ByteRows rows, Chain ch, int nlanes)
 template <bool kRecord>
 void launch(const uint8_t* rows, int roww, const Chain& ch, int nlanes, cudaStream_t s) {
   const int grid = (nlanes + kThreads - 1) / kThreads;
-  if (roww == bwt_rows::kBpRowBytes) {
+  if (roww == bwt_rows::kSectorRowBytes) {
+    chain_sector_kernel<kRecord><<<grid, kThreads, 0, s>>>(rows, ch, nlanes);
+  } else if (roww == bwt_rows::kBpRowBytes) {
     chain_bp_kernel<kRecord><<<grid, kThreads, 0, s>>>(rows, ch, nlanes);
   } else {
     chain_byte_kernel<kRecord>
@@ -112,7 +135,8 @@ void launch(const uint8_t* rows, int roww, const Chain& ch, int nlanes, cudaStre
 
 }  // namespace
 
-// A row width of 128 bytes selects the bit-plane layout.  A non-null gap
+// The row width selects the layout: 32 bytes sector rows, 128 bytes
+// bit-plane rows, anything else byte rows.  A non-null gap
 // selects the recording form (then samp must be non-null too); a null gap
 // the anchor form.  Return value: cudaGetLastError() after the launch.
 extern "C" int bwt_gap_chain(const void* rows, int roww, const void* text, const void* gt,

@@ -11,16 +11,31 @@
 //   Visit::kHarvest  bwtb3m_tpu/engine/ssa.py::_harvest_chunk with its host
 //                    loop _harvest_fused: write the SA / ISA samples
 //
-// One thread owns one walk lane.  Every LF step reads the lane's rank row
-// (one 128-byte row for the bit-plane layout), and the symbol, the occ
-// checkpoint and the in-block count all come from that row.  The chain
-// r -> LF(r) is a dependent load per step, so each lane is bound by load
-// latency; the design keeps ~10^5 lanes in flight (one per preisa seed)
-// and issues each row as independent 16-byte loads with no second
-// dependent load inside a step, which turns the walk bandwidth-bound: at
-// 100M symbols (50 MB of rows) 97,657 lanes x 1,024 steps took 4.1-5.0 ms
-// on an H100 80GB HBM3 at 700 W, ~2.7 TB/s of 128-byte rows.  Ranks and
-// positions are uint32 (n < 2^31 on the paths that call this kernel).
+// One thread owns one walk lane.  Every LF step reads the lane's rank row,
+// and the symbol, the occ checkpoint and the in-block count all come from
+// that row.  The chain r -> LF(r) is a dependent load per step, so a lane
+// alone is bound by load latency; ~10^5 lanes in flight (one per preisa
+// seed) and a row read as independent 16-byte loads, with no second
+// dependent load inside a step, hide it.
+//
+// What bounds it then is the random reads a step makes.  The card reads
+// device memory in 32-byte sectors: a 128-byte bit-plane row is four
+// sectors and eight loads per step, a sector row (sigma <= 4: DNA) one
+// sector and two loads.  Measured by chip_smoke.py on an NVIDIA H100 80GB
+// HBM3 at 700 W: at n = 400,000,009 (200 MB of rows, far past the 50 MB
+// L2) 97,657 lanes x 4,096 steps take 11.5 ms on sector rows and 17.7 ms
+// on bit-plane rows (verify visit 14.2 / 21.0, harvest visit 13.7 / 24.2):
+// 35 G against 23 G steps/s.  With the rows inside the L2 (2^24 symbols)
+// sector rows walk 87-105 G steps/s and bit-plane rows 31 G, at every
+// table size: a row's eight loads, each a gather over 32 lines per warp,
+// keep the L1 busy.  Past the L2 the sector walk follows the card's rate
+// of random sector reads, ~38 G/s.  That is 1.2 TB/s of sectors, a third
+// of the 3.35 TB/s the card streams, and bit-plane rows move 23 G x 128
+// bytes = 3.0 TB/s, so a miss seems to cost device memory 64 bytes
+// whatever the sector asks; cudaLimitMaxL2FetchGranularity = 32 changes
+// nothing.  More than ~131,072 lanes lower the rate; PERF.md has the runs.
+// Ranks and positions are uint32 (n < 2^31 on the paths that call this
+// kernel).
 //
 // Row layouts and the LF step: focc_rows.cuh (shared with gap_chain.cu).
 //
@@ -39,7 +54,9 @@ constexpr int kThreads = 256;
 using bwt_rows::BitPlaneRows;
 using bwt_rows::ByteRows;
 using bwt_rows::kBpRowBytes;
+using bwt_rows::kSectorRowBytes;
 using bwt_rows::make_bp;
+using bwt_rows::make_sector;
 
 enum class Visit { kNone, kVerify, kHarvest };
 
@@ -89,6 +106,14 @@ __global__ void lf_walk_bp_kernel(const uint8_t* rows, const uint32_t* C, int si
 }
 
 template <Visit V>
+__global__ void lf_walk_sector_kernel(const uint8_t* rows, const uint32_t* C, int sigma,
+                                      Walk w, int nlanes) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nlanes) return;
+  walk_lane<V>(make_sector(rows, C, sigma), w, i);
+}
+
+template <Visit V>
 __global__ void lf_walk_byte_kernel(ByteRows rows, Walk w, int nlanes) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nlanes) return;
@@ -101,7 +126,9 @@ void launch(const void* rows, int roww, const void* C, int sigma, const Walk& w,
   const int grid = (nlanes + kThreads - 1) / kThreads;
   const auto* rp = static_cast<const uint8_t*>(rows);
   const auto* cp = static_cast<const uint32_t*>(C);
-  if (roww == kBpRowBytes) {
+  if (roww == kSectorRowBytes) {
+    lf_walk_sector_kernel<V><<<grid, kThreads, 0, s>>>(rp, cp, sigma, w, nlanes);
+  } else if (roww == kBpRowBytes) {
     lf_walk_bp_kernel<V><<<grid, kThreads, 0, s>>>(rp, cp, sigma, w, nlanes);
   } else {
     lf_walk_byte_kernel<V><<<grid, kThreads, 0, s>>>(ByteRows{rp, cp, roww}, w, nlanes);
@@ -110,8 +137,9 @@ void launch(const void* rows, int roww, const void* C, int sigma, const Walk& w,
 
 }  // namespace
 
-// A row width of 128 bytes selects the bit-plane layout (byte rows are at
-// least 384 bytes wide).  A non-null text selects the verify visit, a
+// The row width selects the layout: 32 bytes sector rows, 128 bytes
+// bit-plane rows, anything else byte rows (at least 384 bytes wide).  A
+// non-null text selects the verify visit, a
 // non-null sa_out the harvest visit; p0 is read only by a visit.  Return
 // value: cudaGetLastError() after the launch.
 extern "C" int bwt_lf_walk(const void* rows, int roww, const void* C, int sigma,
@@ -140,6 +168,19 @@ extern "C" int bwt_lf_walk(const void* rows, int roww, const void* C, int sigma,
     launch<Visit::kNone>(rows, roww, C, sigma, w, nlanes, s);
   }
   return (int)cudaGetLastError();
+}
+
+// Sets (bytes > 0) and reads back cudaLimitMaxL2FetchGranularity, the
+// bytes the L2 fetches from device memory on a miss; a negative return is
+// minus a cudaError_t.
+extern "C" int bwt_l2_fetch_granularity(int bytes) {
+  if (bytes > 0) {
+    const cudaError_t e = cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, (size_t)bytes);
+    if (e != cudaSuccess) return -(int)e;
+  }
+  size_t v = 0;
+  const cudaError_t e = cudaDeviceGetLimit(&v, cudaLimitMaxL2FetchGranularity);
+  return e != cudaSuccess ? -(int)e : (int)v;
 }
 
 extern "C" const char* bwt_error_string(int code) {

@@ -7,8 +7,9 @@ the BWT on the device, then write ``.bwt`` (RL codec), ``.hist``,
 prefix-doubling sort (``ops/doubling.py``); longer ones (``engine=auto``),
 and every text with ``engine=merge``, take the scaled blockwise merge
 engine (``engine/merge_scaled.py``), after the reference's alphabet
-compaction.  The writers are the reference package's own host modules,
-so every file is byte-identical to the reference's for the same input;
+compaction.  The writers are the port's copies of the reference
+package's host modules (``io/``), so every file is byte-identical to the
+reference's for the same input;
 ``.meta`` keeps ``"format": "bwtb3m_tpu/v1"``, the name of the file
 format.
 
@@ -26,13 +27,12 @@ from typing import Optional
 
 import numpy as np
 
-from bwtb3m_tpu import native
-from bwtb3m_tpu.io import formats
-from bwtb3m_tpu.io.inputtypes import parse_input_type
-from bwtb3m_tpu.util.log import RealTimeClock, VerboseLog, mem_usage_string
-
+from .. import native
+from ..io import formats
+from ..io.inputtypes import parse_input_type
 from ..ops.doubling import suffix_array
 from ..util.devices import resolve_device
+from ..util.log import RealTimeClock, VerboseLog, mem_usage_string
 from ..util.phases import Phases
 from .options import BwtOptions
 from .result import BwtResult, write_bwt
@@ -201,7 +201,7 @@ def _merge_engine(symbols, sigma: int, prate: int, options: BwtOptions,
 
 def main_bwtb3m(argv) -> int:
     """CLI entry: ``bwtb3m key=value ... <input>``."""
-    from bwtb3m_tpu.util.args import ArgInfo
+    from ..util.args import ArgInfo
 
     ai = ArgInfo(argv, progname="bwtb3m")
     if not ai.restargs:

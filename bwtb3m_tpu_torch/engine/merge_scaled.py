@@ -39,14 +39,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from bwtb3m_tpu.util.log import VerboseLog
-
 from ..ops.devzip import (bits_for, cnt_le_at_ranks, device_interleave,
                           gap_cum, rows_from_host_bwt, rows_to_host_bwt,
                           pack_region)
 from ..ops.focc_build import build_focc_from_packed
 from ..ops.gapdev import GapRunner, cmp_rot
 from ..ops.windowsort import block_suffix_order
+from ..util.log import VerboseLog
 from ..util.phases import Phases
 from .checkpoint import MergeCheckpointer, build_key, load_region_file, \
     pack_host

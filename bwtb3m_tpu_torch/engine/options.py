@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from bwtb3m_tpu.util.args import ArgInfo
+from ..util.args import ArgInfo
 
 
 @dataclasses.dataclass

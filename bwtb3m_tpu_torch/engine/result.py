@@ -16,8 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bwtb3m_tpu.io import formats
-from bwtb3m_tpu.io.rl import open_bwt, rl_encode
+from ..io import formats
+from ..io.rl import open_bwt, rl_encode
 
 # one-entry memo of built rank rows, shared across BwtResult instances:
 # checkbwt and bwtcomputessa in one process build the rows once
@@ -76,26 +76,29 @@ class BwtResult:
     def load_preisa(self):
         return formats.read_preisa(self.preisa_path)
 
-    def load_focc(self, device, dense: bool = True, log=None):
+    def load_focc(self, device, dense: bool = True, log=None,
+                  layout: str = "auto"):
         """Fused rank rows of the ``.bwt`` on ``device``: (focc, symbol_map
         or None).  With ``dense``, a sparse alphabet is densified and
-        ``symbol_map[dense_id]`` is the file's symbol.
+        ``symbol_map[dense_id]`` is the file's symbol.  ``layout`` is
+        ``ops/focc_build.py``'s: ``"auto"`` gives sector rows for a dense
+        alphabet of at most 4 symbols (DNA).
 
-        Memoized on (path, mtime, size, dense, device): one process
-        running checkbwt and bwtcomputessa builds the rows once."""
+        Memoized on (path, mtime, size, dense, device, layout): one
+        process running checkbwt and bwtcomputessa builds the rows once."""
         device = torch.device(device)
         st = os.stat(self.bwt_path)
         key = (os.path.abspath(self.bwt_path), st.st_mtime_ns, st.st_size,
-               bool(dense), str(device))
+               bool(dense), str(device), layout)
         hit = _FOCC_CACHE.get(key)
         if hit is not None:
             return hit
-        out = self._build_focc(device, dense, log)
+        out = self._build_focc(device, dense, log, layout)
         _FOCC_CACHE.clear()   # hold at most one (rows are 0.5-5 B/symbol)
         _FOCC_CACHE[key] = out
         return out
 
-    def _build_focc(self, device, dense: bool, log):
+    def _build_focc(self, device, dense: bool, log, layout: str):
         from ..ops.focc_build import build_focc_host
 
         t0 = time.monotonic()
@@ -118,12 +121,12 @@ class BwtResult:
                 symmap = present.astype(np.int64)
         t_dense = time.monotonic() - t0
         t0 = time.monotonic()
-        focc = build_focc_host(bwt, sigma, device)
+        focc = build_focc_host(bwt, sigma, device, layout)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         if log is not None:
             log.v("rank rows: decode %.3fs (host), densify %.3fs (host), "
-                  "build %.3fs (%s), sigma=%d"
+                  "build %.3fs (%s), sigma=%d, %s rows"
                   % (t_decode, t_dense, time.monotonic() - t0, device,
-                     sigma))
+                     sigma, focc.LAYOUT))
         return focc, symmap

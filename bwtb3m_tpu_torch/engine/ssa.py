@@ -21,11 +21,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from bwtb3m_tpu.io import formats
-from bwtb3m_tpu.util.log import VerboseLog
-
+from ..io import formats
 from ..ops.lf_walk import harvest_walk
 from ..util.devices import resolve_device
+from ..util.log import VerboseLog
 from .result import BwtResult
 
 

@@ -19,10 +19,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bwtb3m_tpu.util.log import VerboseLog
-
 from ..ops.lf_walk import verify_walk
 from ..util.devices import resolve_device
+from ..util.log import VerboseLog
 from .result import BwtResult
 from .ssa import seed_segments
 

@@ -14,7 +14,7 @@ from typing import BinaryIO
 
 import numpy as np
 
-from bwtb3m_tpu.util import serial
+from ..util import serial
 
 
 class RankBitVector:

@@ -23,7 +23,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from bwtb3m_tpu.util import serial
+from ..util import serial
 
 from .bitvector import RankBitVector
 from .huffman import HuffmanTree

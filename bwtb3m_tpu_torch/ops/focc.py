@@ -6,15 +6,17 @@ Port of ``bwtb3m_tpu/ops/focc.py``.  One row per 256-symbol block:
                bytes per symbol | zero pad to a multiple of 128 ]
 
 plus the C array.  Rows are ``uint8 [nb+1, roww]``; row nb carries the
-totals.  ``lf_step`` / ``rank`` / ``access`` here take either layout and
-dispatch to ``ops/focc_bp.py`` for bit-plane rows, as the reference's
-``*_batch_f`` queries do.  These are the plain PyTorch versions the
-LF-walk kernels are held against.
+totals.  ``lf_step`` / ``rank`` / ``access`` here take any layout and
+dispatch to ``ops/focc_bp.py`` for bit-plane and sector rows, as the
+reference's ``*_batch_f`` queries do.  These are the plain PyTorch
+versions the walk kernels are held against: each computes on the very
+rows its kernel reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 
@@ -37,6 +39,40 @@ class FusedOcc:
     C: torch.Tensor           # int32 [sigma+1]
     n: int
     sigma: int
+
+    LAYOUT: ClassVar[str] = "bytes"
+    SHIFT: ClassVar[int] = 8          # log2 of the block's symbols
+    MAX_SIGMA: ClassVar[int] = 256
+
+    @classmethod
+    def num_rows(cls, n: int) -> int:
+        return max(1, (n + BLOCK - 1) // BLOCK) + 1
+
+
+def kernel_row_width(focc) -> int:
+    """The row width by which the walk kernels select the layout (32
+    sector, 128 bit-plane, >= 384 bytes), after checking that the rows
+    are what the kernels read: contiguous uint8 of the layout's width,
+    aligned to the loads (32 bytes for a sector row, 16 otherwise)."""
+    rows = focc.rows
+    if rows.dtype != torch.uint8 or rows.dim() != 2 \
+            or not rows.is_contiguous():
+        raise TypeError("rank rows must be a contiguous uint8 matrix")
+    roww = rows.shape[1]
+    if isinstance(focc, FusedOccBP):
+        ok = roww == focc.ROW_BYTES
+    else:
+        ok = roww >= 384 and roww % 128 == 0
+    if not ok or focc.sigma > focc.MAX_SIGMA \
+            or rows.shape[0] < focc.num_rows(focc.n):
+        raise ValueError("rank rows [%d, %d] do not match the %s layout "
+                         "(n=%d, sigma=%d)" % (*rows.shape, focc.LAYOUT,
+                                               focc.n, focc.sigma))
+    align = 32 if roww == 32 else 16
+    if rows.data_ptr() % align:
+        raise ValueError("%s rank rows must be %d-byte aligned"
+                         % (focc.LAYOUT, align))
+    return roww
 
 
 def _rows(focc: FusedOcc, i: torch.Tensor):

@@ -7,13 +7,23 @@ reference streams the BWT through fixed-shape chunk programs and pads the
 row count
 to a few compiled shapes; neither is needed here (PyTorch compiles no
 shape), so the rows are built in one pass per step and cover exactly
-blocks [0, nb].  Rows 0..nb and C are byte-identical to the reference's
-(pinned by tests/test_torch_focc.py): pad positions past n hold symbol 0
-in the rows and are never counted.
+blocks [0, nb].
 
-The build is per-block counting (one compare-and-sum per symbol), an
-exclusive cumsum over blocks, and shift-sum passes for the plane bytes
-and the little-endian count bytes.
+Every build function takes ``layout``: ``"sector"`` (32-byte rows of 64
+symbols, sigma <= 4, ``focc_bp.FusedOccSector``), ``"bitplane"``
+(128-byte rows of 256 symbols, sigma <= 8, ``focc_bp.FusedOccBP``),
+``"bytes"`` (byte rows, sigma <= 256, ``focc.FusedOcc``) or ``"auto"``,
+the default: the narrowest of the three that holds sigma.  With
+``"bitplane"`` / ``"bytes"`` rows 0..nb and C are byte-identical to the
+reference's (pinned by tests/test_torch_focc.py); sector rows hold the
+same planes and counts at a quarter of the block.  Pad positions past n
+hold symbol 0 in the rows and are never counted.
+
+The build is one running count per symbol (a cumsum of a compare) read
+at the block starts, a multiply that gathers the plane bits of 8 symbols
+into a byte, and a shift pass for the little-endian count bytes; none of
+them depends on the block size, so sector rows cost what bit-plane rows
+do.
 """
 
 from __future__ import annotations
@@ -21,10 +31,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .focc import FusedOcc, _row_width
-from .focc_bp import NPLANES, OCC_WORD, ROW_BYTES, FusedOccBP
+from .focc import BLOCK, FusedOcc, _row_width
+from .focc_bp import FusedOccBP, FusedOccSector
 
-BLOCK = 256
+LAYOUTS = {"sector": FusedOccSector, "bitplane": FusedOccBP,
+           "bytes": FusedOcc}
+
+
+def resolve_layout(layout: str, sigma: int) -> str:
+    """``"auto"`` -> the narrowest layout that holds ``sigma``; a named
+    layout is checked against its alphabet limit."""
+    if sigma > 256:
+        raise ValueError("fused rank rows store symbols as bytes "
+                         "(sigma <= 256)")
+    if layout == "auto":
+        return next(k for k, cls in LAYOUTS.items()
+                    if sigma <= cls.MAX_SIGMA)
+    if layout not in LAYOUTS:
+        raise ValueError("layout must be auto, sector, bitplane or bytes, "
+                         "not %r" % (layout,))
+    if sigma > LAYOUTS[layout].MAX_SIGMA:
+        raise ValueError("layout %s holds sigma <= %d, not %d"
+                         % (layout, LAYOUTS[layout].MAX_SIGMA, sigma))
+    return layout
 
 
 def _occ_bytes(occ: torch.Tensor) -> torch.Tensor:
@@ -34,78 +63,112 @@ def _occ_bytes(occ: torch.Tensor) -> torch.Tensor:
         occ.shape[0], -1)
 
 
-def build_focc_host(bwt: np.ndarray, sigma: int, device):
+def build_focc_host(bwt: np.ndarray, sigma: int, device,
+                    layout: str = "auto"):
     """Rank rows for a host uint8 BWT over symbols [0, sigma), built on
-    ``device``: bit-plane rows for sigma <= 8, byte rows up to 256."""
+    ``device`` in ``layout`` (module docstring)."""
     bwt = np.require(bwt, np.uint8, "CW")
-    return build_focc_device(torch.from_numpy(bwt).to(device), sigma)
+    return build_focc_device(torch.from_numpy(bwt).to(device), sigma, layout)
 
 
 def build_focc_from_packed(packed: torch.Tensor, n: int, sigma: int,
-                           bits: int):
+                           bits: int, layout: str = "auto"):
     """Rank rows of a merge region from its packed BWT bytes on the
     device (``ops/devzip.py`` layout: LSB-first nibbles for ``bits=4``,
-    raw bytes for 8).  Rows 0..nb and C equal ``build_focc_host`` on the
+    raw bytes for 8).  Rows and C equal ``build_focc_host`` on the
     unpacked symbols, as the reference's ``build_focc_from_rows`` equals
     its host builder."""
     from .pack import unpack_bits
-    return build_focc_device(unpack_bits(packed, bits, n), sigma)
+    return build_focc_device(unpack_bits(packed, bits, n), sigma, layout)
 
 
-def build_focc_device(bwt: torch.Tensor, sigma: int):
+# (x * _GATHER) >> 56 collects bit 0 of each of the 8 bytes of an int64
+# word x into one byte, byte k -> bit k (no two partial products meet, so
+# nothing carries); as a signed constant
+_GATHER = sum(1 << (56 - 7 * k) for k in range(8))
+_BIT0 = 0x0101010101010101
+
+
+def _occ_at_block_starts(bwt: torch.Tensor, sigma: int, block: int,
+                         nrows: int):
+    """(occ int64 [nrows, sigma], total int64 [sigma]): occurrences of
+    each symbol before every block start (a block that starts at or past
+    n gets the totals), read off one running count per symbol, so the
+    cost does not depend on the block size."""
+    n, device = bwt.shape[0], bwt.device
+    occ = torch.zeros((nrows, sigma), dtype=torch.int64, device=device)
+    total = torch.zeros(sigma, dtype=torch.int64, device=device)
+    if n:
+        at = (torch.arange(1, nrows, device=device) * block).clamp(max=n) - 1
+        for c in range(sigma):
+            run = torch.cumsum(bwt == c, 0, dtype=torch.int32)
+            occ[1:, c] = run[at]
+            total[c] = run[-1]
+    return occ, total
+
+
+def build_focc_device(bwt: torch.Tensor, sigma: int, layout: str = "auto"):
     """Rank rows of a uint8 BWT tensor, built on its device."""
-    if sigma > 256:
-        raise ValueError("fused rank rows store symbols as bytes "
-                         "(sigma <= 256)")
+    cls = LAYOUTS[resolve_layout(layout, sigma)]
     n = bwt.shape[0]
     if n >= 1 << 31:
         raise ValueError("rank rows hold uint32 counts read as int32 "
                          "here: n < 2^31")
     device = bwt.device
-    nb = max(1, (n + BLOCK - 1) // BLOCK)
-    nrows = nb + 1
-    sym = torch.full((nrows * BLOCK,), -1, dtype=torch.int16, device=device)
-    sym[:n] = bwt
-    blocks = sym.view(nrows, BLOCK)               # pad positions are -1
-    per_block = torch.stack([(blocks == c).sum(1) for c in range(sigma)],
-                            dim=1)                # int64 [nb+1, sigma]
-    occ = per_block.cumsum(0) - per_block         # exclusive; row nb = totals
-    total = per_block.sum(0)
+    block = 1 << cls.SHIFT
+    nrows = cls.num_rows(n)
+    occ, total = _occ_at_block_starts(bwt, sigma, block, nrows)
     C = torch.zeros(sigma + 1, dtype=torch.int64, device=device)
     C[1:] = total.cumsum(0)
-    syms8 = blocks.clamp(min=0).to(torch.uint8)   # pad positions store 0
+    sym = torch.zeros(nrows * block, dtype=torch.uint8, device=device)
+    sym[:n] = bwt                                 # pad positions store 0
 
-    if sigma <= 8:
-        # bit p of 8 consecutive symbols -> one byte, LSB first, so the
-        # 32 bytes of a plane read as the 8 little-endian plane words
-        s = syms8.view(nrows, BLOCK // 8, 8).to(torch.int32)
-        weights = 1 << torch.arange(8, device=device, dtype=torch.int32)
-        planes = torch.stack(
-            [(((s >> p) & 1) * weights).sum(-1) for p in range(NPLANES)],
-            dim=1)                                # [nb+1, 3, 32] in 0..255
-        rows = torch.zeros((nrows, ROW_BYTES), dtype=torch.uint8,
-                           device=device)
-        rows[:, :4 * OCC_WORD] = planes.to(torch.uint8).view(nrows, -1)
-        rows[:, 4 * OCC_WORD:4 * OCC_WORD + 4 * sigma] = _occ_bytes(occ)
-        return FusedOccBP(rows, C.to(torch.int32), n, sigma)
+    if cls is FusedOcc:
+        roww = _row_width(sigma, block)
+        rows = torch.zeros((nrows, roww), dtype=torch.uint8, device=device)
+        rows[:, :block] = sym.view(nrows, block)
+        rows[:, block:block + 4 * sigma] = _occ_bytes(occ)
+        return FusedOcc(rows, C.to(torch.int32), n, sigma)
 
-    roww = _row_width(sigma, BLOCK)
-    rows = torch.zeros((nrows, roww), dtype=torch.uint8, device=device)
-    rows[:, :BLOCK] = syms8
-    rows[:, BLOCK:BLOCK + 4 * sigma] = _occ_bytes(occ)
-    return FusedOcc(rows, C.to(torch.int32), n, sigma)
+    # bit p of 8 consecutive symbols -> one byte, LSB first, so the bytes
+    # of a plane read as its little-endian plane words
+    words = sym.view(torch.int64)                 # symbol k in byte k
+    planes = torch.stack(
+        [(((((words >> p) & _BIT0) * _GATHER) >> 56) & 0xFF).to(
+            torch.uint8).view(nrows, block // 8)
+         for p in range(cls.NPLANES)], dim=1)     # [nrows, planes, block/8]
+    rows = torch.zeros((nrows, cls.ROW_BYTES), dtype=torch.uint8,
+                       device=device)
+    occ0 = 4 * cls.occ_word()
+    rows[:, :occ0] = planes.view(nrows, -1)
+    rows[:, occ0:occ0 + 4 * sigma] = _occ_bytes(occ)
+    return cls(rows, C.to(torch.int32), n, sigma)
 
 
-def focc_from_jax(jax_focc, device="cpu"):
-    """Carry a reference ``FusedOccBP`` / ``FusedOcc`` over to the port:
-    rows viewed as uint8 and trimmed to blocks [0, nb], plus C.  Takes the
-    arrays through numpy, so this module needs no JAX import."""
+def focc_from_jax(jax_focc, device="cpu", layout: str = "auto"):
+    """Carry a reference ``FusedOccBP`` / ``FusedOcc`` over to the port.
+    Where ``layout`` resolves to the reference's own (``"bitplane"`` for
+    its bit-plane rows, ``"bytes"`` for its byte rows) the rows are viewed
+    as uint8 and trimmed to blocks [0, nb]; else (sector rows from the
+    reference's bit-plane rows) the symbols are read back out of the
+    planes and the rows rebuilt.  Takes the arrays through numpy, so this
+    module needs no JAX import."""
     n, sigma = int(jax_focc.n), int(jax_focc.sigma)
     nb = max(1, (n + BLOCK - 1) // BLOCK)
     rows = np.asarray(jax_focc.rows).view(np.uint8)[:nb + 1]
+    have = "bitplane" if rows.shape[1] == FusedOccBP.ROW_BYTES else "bytes"
+    if resolve_layout(layout, sigma) != have:
+        if have == "bitplane":
+            nbytes = 4 * FusedOccBP.occ_word()
+            bits = np.unpackbits(
+                rows[:, :nbytes].reshape(len(rows), FusedOccBP.NPLANES, -1),
+                axis=-1, bitorder="little")       # [rows, planes, 256]
+            syms = sum(bits[:, p] << p for p in range(FusedOccBP.NPLANES))
+        else:
+            syms = rows[:, :BLOCK]
+        bwt = np.ascontiguousarray(syms.reshape(-1)[:n], np.uint8)
+        return build_focc_host(bwt, sigma, device, layout)
     rows_t = torch.from_numpy(np.array(rows)).to(device)
     C = torch.from_numpy(
         np.asarray(jax_focc.C).astype(np.int64)).to(torch.int32).to(device)
-    if rows.shape[1] == ROW_BYTES:
-        return FusedOccBP(rows_t, C, n, sigma)
-    return FusedOcc(rows_t, C, n, sigma)
+    return LAYOUTS[have](rows_t, C, n, sigma)

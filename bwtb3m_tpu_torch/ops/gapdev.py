@@ -16,8 +16,8 @@ and from R = |M| that meets when the seed is determined), runs the chains
 from those seeds, and keeps the histogram on the device, one int32 cell
 per right rank (the reference's uint16 cells, wrap detection and int32
 rerun are gone).  The wrap-term bits rot(p+1) > rot(e) come from the
-shared native three-way rotation comparator on the host, as in the
-reference, for the positions whose symbol is text[e-1].
+native three-way rotation comparator on the host (``native.cmp_rot``),
+as in the reference, for the positions whose symbol is text[e-1].
 
 The walks are one CUDA kernel, ``csrc/gap_chain.cu::bwt_gap_chain``, in
 two forms: ``chain_walk`` records every R into the histogram and the R of
@@ -36,10 +36,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from bwtb3m_tpu import native
-
-from .focc import rank
-from .focc_bp import FusedOccBP
+from .. import native
+from .focc import kernel_row_width, rank
 
 TEXT_BLOCK = 256
 LAUNCHES = {"chain": 0, "anchor": 0}
@@ -54,9 +52,10 @@ def reset_launch_counts() -> None:
 
 def cmp_rot(text: np.ndarray, e: int, xs: np.ndarray,
             nthreads: int = 4) -> np.ndarray:
-    """sign(rot(x) - rot(e)) for each x in ``xs`` (int8), by the shared
-    native comparator; a chunked numpy compare where the native library
-    is not available, as the reference falls back to numpy."""
+    """sign(rot(x) - rot(e)) for each x in ``xs`` (int8), by the native
+    comparator; a chunked numpy compare where the native library is not
+    available (CPU runs only: a CUDA run requires the library,
+    ``util/devices.py``), as the reference falls back to numpy."""
     n = len(text)
     xs = np.asarray(xs, np.int64)
     out = native.cmp_rot(text, n, e % n, xs, nthreads)
@@ -142,8 +141,7 @@ def _check_args(focc, text, gt, lo0, c_first, starts, seeds, lens):
                         ("c_first", c_first, torch.int32),
                         ("starts", starts, torch.int64),
                         ("seeds", seeds, torch.int32),
-                        ("lens", lens, torch.int32),
-                        ("rank rows", focc.rows, torch.uint8)):
+                        ("lens", lens, torch.int32)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise TypeError("%s must be a contiguous %s tensor on %s"
                             % (name, dt, dev))
@@ -152,11 +150,10 @@ def _check_args(focc, text, gt, lo0, c_first, starts, seeds, lens):
     if text.shape[0] >= 1 << 32:
         raise ValueError("the gap-chain kernel keeps positions in uint32: "
                          "n < 2^32")
-    roww = focc.rows.shape[1]
-    if isinstance(focc, FusedOccBP) != (roww == 128) \
-            or focc.rows.data_ptr() % 16:
-        raise ValueError("rank rows of width %d do not match the layout"
-                         % roww)
+    if focc.rows.device != dev:
+        raise TypeError("rank rows on %s, lanes on %s"
+                        % (focc.rows.device, dev))
+    kernel_row_width(focc)
     if len(seeds):
         # walked positions must lie inside the text and the gt bits, and
         # seeds inside the rank space: the kernel does not check

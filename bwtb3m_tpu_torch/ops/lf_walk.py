@@ -10,11 +10,11 @@ it, each with what a step visits:
                   _harvest_chunk (+ its host loop _harvest_fused)
 
 Each thread owns one walk lane and runs all of its steps; a step loads
-one rank row (128 bytes on the bit-plane layout) and depends on the
-previous step's rank, so each lane is bound by load latency.  One lane
-per preisa seed (~10^5 at the default rate) hides it: at 100M symbols
-the walks ran at ~2.7 TB/s of rows, near HBM bandwidth (H100 80GB HBM3,
-700 W; PERF.md).
+one rank row and depends on the previous step's rank, so each lane is
+bound by load latency.  One lane per preisa seed (~10^5 at the default
+rate) hides it, and the walk is then bound by the 32-byte sectors its
+steps gather: one on sector rows (sigma <= 4), four on bit-plane rows
+(``csrc/lf_walk.cu`` has the measured rates; PERF.md).
 
 An entry point launches the kernel for CUDA tensors and uses its plain
 PyTorch version only for CPU tensors; any other device raises.  The one
@@ -30,8 +30,7 @@ import ctypes
 
 import torch
 
-from .focc import lf_step
-from .focc_bp import FusedOccBP
+from .focc import kernel_row_width, lf_step
 
 # ------------------------------------------------------------ plain versions
 
@@ -100,17 +99,9 @@ def _rows_args(focc, device):
     if rows.device != device or C.device != device:
         raise ValueError("rank rows on %s, lanes on %s"
                          % (rows.device, device))
-    if rows.dtype != torch.uint8 or C.dtype != torch.int32:
-        raise TypeError("rank rows must be uint8 and C int32")
-    if not (rows.is_contiguous() and C.is_contiguous()) \
-            or rows.data_ptr() % 16:
-        raise ValueError("rank rows must be contiguous and 16-byte aligned")
-    roww = rows.shape[1]
-    bitplane = isinstance(focc, FusedOccBP)
-    if bitplane != (roww == 128) or roww % 128 or (bitplane
-                                                   and focc.sigma > 8):
-        raise ValueError("row width %d does not match the layout" % roww)
-    return _ptr(rows), roww, _ptr(C), focc.sigma
+    if C.dtype != torch.int32 or not C.is_contiguous():
+        raise TypeError("C must be a contiguous int32 tensor")
+    return _ptr(rows), kernel_row_width(focc), _ptr(C), focc.sigma
 
 
 def _lanes_i32(*ts: torch.Tensor):

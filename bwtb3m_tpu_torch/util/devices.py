@@ -11,18 +11,22 @@ from __future__ import annotations
 
 import torch
 
+from .. import native
+
 
 def resolve_device(name) -> torch.device:
     """``"cuda"``, ``"cuda:N"`` or ``"cpu"`` -> ``torch.device``.
 
     Raises ``RuntimeError`` when a CUDA device is asked for and
-    ``torch.cuda.is_available()`` is False."""
+    ``torch.cuda.is_available()`` is False, or the native host library
+    (``native/``) cannot be built: its numpy stand-ins are for CPU runs."""
     dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "device=%s requested but torch.cuda.is_available() is "
                 "False; pass device=cpu to run on the CPU" % name)
+        native.require_lib()
         return dev
     if dev.type == "cpu":
         return dev

@@ -26,7 +26,8 @@ from bwtb3m_tpu.ops.focc_build import build_focc_from_rows
 from bwtb3m_tpu.ops.gapdev import _pad_pow2
 from bwtb3m_tpu.ops.pack import pack_bits_device, unpack_bits_device
 from bwtb3m_tpu_torch.ops import devzip as pz
-from bwtb3m_tpu_torch.ops.focc_build import build_focc_from_packed
+from bwtb3m_tpu_torch.ops.focc_build import (build_focc_from_packed,
+                                             build_focc_host)
 from bwtb3m_tpu_torch.ops.pack import pack_bits, unpack_bits
 
 
@@ -140,13 +141,21 @@ def test_region_bytes_and_rank_rows_match_reference(sigma, n):
         packed.numpy(), np.asarray(jrows).view(np.uint8).reshape(-1)[
             :len(packed)])
     np.testing.assert_array_equal(pz.rows_to_host_bwt(packed, n, bits), bwt)
-    got = build_focc_from_packed(packed, n, sigma, bits)
+    # the reference's own layout: byte for byte; the layout the engine
+    # takes ("auto": sector rows for sigma <= 4): equal to the host build
+    got = build_focc_from_packed(packed, n, sigma, bits,
+                                 "bitplane" if sigma <= 8 else "bytes")
     want = build_focc_from_rows(jrows, n, sigma)
     nb = (n + 255) // 256
     np.testing.assert_array_equal(
         got.rows.numpy(), np.asarray(want.rows).view(np.uint8)[:nb + 1])
     np.testing.assert_array_equal(got.C.numpy(),
                                   np.asarray(want.C).astype(np.int64))
+    auto = build_focc_from_packed(packed, n, sigma, bits)
+    host = build_focc_host(bwt, sigma, "cpu")
+    assert type(auto) is type(host)
+    assert auto.LAYOUT == ("sector" if sigma <= 4 else got.LAYOUT)
+    assert torch.equal(auto.rows, host.rows) and torch.equal(auto.C, host.C)
 
 
 @pytest.mark.parametrize("bits", [4, 8])

@@ -2,7 +2,8 @@
 
 For pairs (s, m, e) over random, repetitive and sigma-2 texts, both
 runners get the same right-region rank rows (the port's carried over
-from the reference's by ``focc_from_jax``) and the same lanes.  Equal,
+from the reference's by ``focc_from_jax``, as they are and, for
+sigma <= 4, repacked into sector rows) and the same lanes.  Equal,
 exactly: the runner inputs (``runner_inputs_from_jax``), both anchor
 bounds and the resolved mask, the chain's final ranks, the gap histogram
 (the reference's int32 histogram, cast to int64) and the harvested
@@ -46,12 +47,18 @@ def _text(kind):
     raise KeyError(kind)
 
 
-CASES = [("random4", 0, 2048, 4096), ("random4", 1000, 3000, 5200),
+PAIRS = [("random4", 0, 2048, 4096), ("random4", 1000, 3000, 5200),
          ("random200", 0, 2560, 5000), ("repetitive", 512, 3000, 6000),
          ("u16wrap", 0, 65792, 66042)]
+# every pair on the layout the engine takes for it, and the sigma-4
+# pairs on the reference's bit-plane rows too; a right region of 65
+# ranks ends one symbol into its second sector row
+CASES = ([(*p, "auto") for p in PAIRS]
+         + [(*p, "bitplane") for p in PAIRS[:2] + PAIRS[3:4]]
+         + [("random4", 4000, 5935, 6000, "sector")])
 
 
-def _runners(kind, s, m, e, lanes=64, rate=128):
+def _runners(kind, s, m, e, layout, lanes=64, rate=128):
     text, sigma = _text(kind)
     n = len(text)
     sa, isa, _bwt = jax_suffix_array(text.astype(np.int32), sigma)
@@ -64,16 +71,19 @@ def _runners(kind, s, m, e, lanes=64, rate=128):
     jr = DeviceGapRunner(jfocc, build_text_rows(text, sigma), text, s, m, e,
                          isa_m=r_start, first_hist=hist, lane_bucket=lanes,
                          sample_rate=rate)
-    pr = GapRunner(focc_from_jax(jfocc), torch.from_numpy(text), text, s, m,
-                   e, isa_m=r_start, first_hist=hist, sample_rate=rate)
+    pfocc = focc_from_jax(jfocc, layout=layout)
+    assert pfocc.LAYOUT == ("bytes" if sigma > 8 else
+                            "sector" if layout == "auto" else layout)
+    pr = GapRunner(pfocc, torch.from_numpy(text), text, s, m, e,
+                   isa_m=r_start, first_hist=hist, sample_rate=rate)
     T = max(1, min(lanes, (m - s) // 64 or 1))
     bounds = np.linspace(s, m, T + 1).astype(np.int64)
     return jr, pr, bounds[1:] - 1, np.diff(bounds), r_start
 
 
-@pytest.mark.parametrize("kind,s,m,e", CASES)
-def test_anchors_match_reference(kind, s, m, e):
-    jr, pr, starts, _lens, _r = _runners(kind, s, m, e)
+@pytest.mark.parametrize("kind,s,m,e,layout", CASES)
+def test_anchors_match_reference(kind, s, m, e, layout):
+    jr, pr, starts, _lens, _r = _runners(kind, s, m, e, layout)
     st = starts[:-1]
     for lb in (64, 1024):
         lbs = np.maximum(np.minimum(lb, (e - 2) - st), 1)
@@ -86,9 +96,9 @@ def test_anchors_match_reference(kind, s, m, e):
         np.testing.assert_array_equal(ok_p, ok_j)
 
 
-@pytest.mark.parametrize("kind,s,m,e", CASES)
-def test_chains_match_reference(kind, s, m, e):
-    jr, pr, starts, lens, r_start = _runners(kind, s, m, e)
+@pytest.mark.parametrize("kind,s,m,e,layout", CASES)
+def test_chains_match_reference(kind, s, m, e, layout):
+    jr, pr, starts, lens, r_start = _runners(kind, s, m, e, layout)
     all_seeds = []
     for runner in (pr, jr):          # the engine's anchoring, on both
         seeds = np.zeros(len(starts), np.int64)
@@ -122,7 +132,7 @@ def test_chains_match_reference(kind, s, m, e):
 
 
 def test_cmp_rot_numpy_fallback_matches_native(monkeypatch):
-    from bwtb3m_tpu import native
+    from bwtb3m_tpu_torch import native
     rng = np.random.default_rng(2)
     text = np.tile(rng.integers(0, 3, 40), 30).astype(np.uint8)
     text[500] = 2

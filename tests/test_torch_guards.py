@@ -1,7 +1,8 @@
 """Guards of the port: no JAX, no CPU fallback, explicit refusals.
 
-- the ported slice runs with every ``import jax`` / ``import jaxlib``
-  made to fail, and no file of the port imports JAX;
+- the ported slice runs with every import of ``jax``, ``jaxlib`` and the
+  JAX package ``bwtb3m_tpu`` made to fail, and no file of the port
+  imports any of them;
 - ``device=cuda`` without CUDA raises instead of running on the CPU;
 - paths that are not ported yet raise ``NotImplementedError`` (or, on
   the CLI, exit 2 naming their ROADMAP.md item);
@@ -33,7 +34,7 @@ import importlib.abc, sys
 
 class BlockJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "bwtb3m_tpu"):
             raise ImportError("blocked: " + name)
         return None
 
@@ -50,7 +51,8 @@ out = inp + ".m.bwt"
 assert dispatch(["bwtb3m", "device=cpu", "verbose=0", "engine=merge",
                  "mem=16384", "outputfilename=" + out, inp]) == 0
 assert dispatch(["checkbwt", "device=cpu", "verbose=0", inp, out]) == 0
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "bwtb3m_tpu"))
 assert not loaded, loaded
 print("OK")
 '''
@@ -67,7 +69,8 @@ def test_slice_runs_with_jax_blocked(tmp_path):
 
 
 def test_no_jax_import_in_port():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    pat = re.compile(r"^\s*(import jax|from jax|import bwtb3m_tpu(\.|\s|$)"
+                     r"|from bwtb3m_tpu[. ])", re.M)
     offenders = []
     for root, _dirs, files in os.walk(PKG):
         for f in files:
