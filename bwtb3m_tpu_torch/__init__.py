@@ -12,10 +12,13 @@ The tests hold the copies to the reference byte for byte.
 Layer map of the ported slice:
 
   engine/   BwtOptions -> compute_bwt() -> BwtResult, check_bwt (checkbwt),
-            compute_ssa (bwtcomputessa)
-  ops/      prefix-doubling suffix sort (torch.sort), rank-row builders,
-            plain rank / LF queries, the LF-walk and gap-chain kernels
-            (csrc/*.cu, built with nvcc at first use into build/)
+            compute_ssa (bwtcomputessa), compute_isa_from_preisa
+            (hwtPreIsaToIsa), select_ssa, compute_sa_device; the scaled
+            blockwise merge engine with batched levels and checkpoints
+  ops/      prefix-doubling suffix sorts (torch.sort), the rank-row build,
+            plain rank / LF queries, the device zip, the LF-walk and
+            gap-chain kernels (csrc/*.cu, built with nvcc at first use
+            into build/)
   index/    Huffman wavelet tree writer (.hwt), host numpy
   cli/      ``python -m bwtb3m_tpu_torch <tool>`` for the ported tools
 

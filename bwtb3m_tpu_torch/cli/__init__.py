@@ -3,9 +3,14 @@
 The ported tools keep the reference package's argument surface and add
 ``device=`` (default ``cuda``):
 
-    bwtb3m         build .bwt/.hist/.preisa/.meta (+ .sa/.isa/.hwt)
-    checkbwt       verify a build against its input, prints gok=0|1
-    bwtcomputessa  sampled .sa/.isa from .bwt + .preisa
+    bwtb3m          build .bwt/.hist/.preisa/.meta (+ .sa/.isa/.hwt)
+    checkbwt        verify a build against its input, prints gok=0|1
+    bwtcomputessa   sampled .sa/.isa from .bwt + .preisa
+    hwtPreIsaToIsa  .isa at a chosen rate from .bwt + .preisa
+    sortPreIsa      sort a .preisa by position (host only)
+    sasubsample     thin a sampled .sa by a power of two (host only)
+
+(the last four live in ``cli/ssa_tools.py``, as in the reference).
 
 Every other tool of the reference package exits 2 with the ROADMAP.md
 item that will port it.
@@ -18,13 +23,13 @@ from typing import List
 
 import numpy as np
 
+from . import ssa_tools
 from ..io.inputtypes import parse_input_type
 from ..util.args import ArgInfo
 from ..util.log import VerboseLog
 
 # reference tools not ported yet -> ROADMAP.md Queue 1 item
 NOT_PORTED = {
-    "hwtPreIsaToIsa": 3,
     "lcpbit": 7, "hwtToLCP": 7, "checkLCPBit": 7,
     **{name: 8 for name in (
         "probeScanDna", "allHamDna", "bwtb3mdecoderl", "bwtdecodeblock",
@@ -33,7 +38,7 @@ NOT_PORTED = {
         "fagzToCompact", "fagzToCompact4", "fagzToCompactUTerm",
         "fagzToCompact4BigBand", "fagzToCompact4BigBandBiDir",
         "digitsToCompact", "decodecompact", "bytestreamToLz4",
-        "bwttestdecodespeed", "sortPreIsa", "sasubsample")},
+        "bwttestdecodespeed")},
 }
 
 
@@ -58,38 +63,12 @@ def checkbwt(argv: List[str]) -> int:
     return 0 if ok else 1
 
 
-def bwtcomputessa(argv: List[str]) -> int:
-    """Sampled SA + ISA from .bwt + .preisa without re-sorting.  The
-    reference tool's tmpprefix=, copyinputtomemory=, threads=, maxsortmem=
-    and maxtmpfiles= are accepted and ignored: the walk keeps everything
-    in device memory."""
-    from ..engine.ssa import compute_ssa
-
-    ai = ArgInfo(argv, "bwtcomputessa")
-    if not ai.restargs:
-        sys.stderr.write(
-            "usage: bwtcomputessa [sasamplingrate=32] [isasamplingrate=32] "
-            "[ref_isa=..] [ref_sa=..] [device=cuda] <in.bwt>\n")
-        return 1
-    compute_ssa(
-        ai.restargs[0],
-        sa_sampling_rate=ai.get_int("sasamplingrate", 32),
-        isa_sampling_rate=ai.get_int("isasamplingrate", 32),
-        log=VerboseLog(ai.get_int("verbose", 1)),
-        ref_isa=ai.get("ref_isa") or None,
-        ref_sa=ai.get("ref_sa") or None,
-        device=ai.get("device", "cuda"),
-    )
-    return 0
-
-
 def bwtb3m(argv: List[str]) -> int:
     from ..engine.api import main_bwtb3m
     return main_bwtb3m(argv)
 
 
-TOOLS = {"bwtb3m": bwtb3m, "checkbwt": checkbwt,
-         "bwtcomputessa": bwtcomputessa}
+TOOLS = {"bwtb3m": bwtb3m, "checkbwt": checkbwt, **ssa_tools.TOOLS}
 
 
 def dispatch(argv: List[str]) -> int:

@@ -10,6 +10,13 @@
 //                    steps whose symbol differs from the text read
 //   Visit::kHarvest  bwtb3m_tpu/engine/ssa.py::_harvest_chunk with its host
 //                    loop _harvest_fused: write the SA / ISA samples
+//   Visit::kSelect   bwtb3m_tpu/engine/ssa.py::_select_chunk: walk until the
+//                    current rank's bit is set in a bitmap of the .preisa
+//                    ranks, report that rank and the steps taken.  The
+//                    reference runs every lane for the full masked step
+//                    count; here a lane tests the bit (one more random
+//                    4-byte read per step) and leaves its loop at the hit,
+//                    so a warp diverges: hits come after 0..prate steps.
 //
 // One thread owns one walk lane.  Every LF step reads the lane's rank row,
 // and the symbol, the occ checkpoint and the in-block count all come from
@@ -58,7 +65,7 @@ using bwt_rows::kSectorRowBytes;
 using bwt_rows::make_bp;
 using bwt_rows::make_sector;
 
-enum class Visit { kNone, kVerify, kHarvest };
+enum class Visit { kNone, kVerify, kHarvest, kSelect };
 
 // The lanes and what a step visits.  Lane i starts at rank r0[i] (and, for
 // a visit, at text position p0[i]) and takes seg_len[i] steps.
@@ -73,15 +80,24 @@ struct Walk {
   uint32_t sarate, isarate;
   int32_t* sa;           // kHarvest: SA[r / sarate] = p
   int32_t* isa;          // kHarvest: ISA[p / isarate] = r
+  const uint32_t* bitwords;  // kSelect: bit r set where rank r ends the walk
+  int32_t* steps;        // kSelect: steps taken to the hit, -1 without one
 };
 
 template <Visit V, class Rows>
 __device__ __forceinline__ void walk_lane(const Rows& rows, const Walk& w, int i) {
   uint32_t r = (uint32_t)w.r0[i];
-  uint32_t p = V == Visit::kNone ? 0u : (uint32_t)w.p0[i];
+  uint32_t p = V == Visit::kVerify || V == Visit::kHarvest ? (uint32_t)w.p0[i] : 0u;
   const int len = w.seg_len[i];
   int32_t bad = 0;
+  int32_t hit = -1;
   for (int k = 0; k < len; ++k) {
+    if (V == Visit::kSelect) {
+      if ((__ldg(w.bitwords + (r >> 5)) >> (r & 31u)) & 1u) {
+        hit = k;
+        break;
+      }
+    }
     if (V == Visit::kHarvest) {
       // every rank and every position is visited by exactly one (lane,
       // step), so the sample writes are direct and race-free
@@ -90,11 +106,12 @@ __device__ __forceinline__ void walk_lane(const Rows& rows, const Walk& w, int i
     }
     uint32_t sym;
     r = rows.step(r, &sym);  // sym = BWT[r] = text[p - 1]
-    if (V != Visit::kNone) p = p == 0 ? w.n - 1 : p - 1;
+    if (V == Visit::kVerify || V == Visit::kHarvest) p = p == 0 ? w.n - 1 : p - 1;
     if (V == Visit::kVerify) bad += sym != (uint32_t)__ldg(w.text + p);
   }
   w.r_out[i] = (int32_t)r;
   if (V == Visit::kVerify) w.bad[i] = bad;
+  if (V == Visit::kSelect) w.steps[i] = hit;
 }
 
 template <Visit V>
@@ -140,13 +157,15 @@ void launch(const void* rows, int roww, const void* C, int sigma, const Walk& w,
 // The row width selects the layout: 32 bytes sector rows, 128 bytes
 // bit-plane rows, anything else byte rows (at least 384 bytes wide).  A
 // non-null text selects the verify visit, a
-// non-null sa_out the harvest visit; p0 is read only by a visit.  Return
-// value: cudaGetLastError() after the launch.
+// non-null sa_out the harvest visit, a non-null bitwords the select visit
+// (seg_len is then each lane's cap of steps); p0 is read only by the verify
+// and harvest visits.  Return value: cudaGetLastError() after the launch.
 extern "C" int bwt_lf_walk(const void* rows, int roww, const void* C, int sigma,
                            long long n, const void* r0, const void* p0,
                            const void* seg_len, void* r_out, const void* text,
                            void* bad, int sarate, int isarate, void* sa_out,
-                           void* isa_out, int nlanes, void* stream) {
+                           void* isa_out, const void* bitwords, void* steps_out,
+                           int nlanes, void* stream) {
   Walk w;
   w.r0 = static_cast<const int32_t*>(r0);
   w.p0 = static_cast<const int32_t*>(p0);
@@ -159,11 +178,15 @@ extern "C" int bwt_lf_walk(const void* rows, int roww, const void* C, int sigma,
   w.isarate = (uint32_t)isarate;
   w.sa = static_cast<int32_t*>(sa_out);
   w.isa = static_cast<int32_t*>(isa_out);
+  w.bitwords = static_cast<const uint32_t*>(bitwords);
+  w.steps = static_cast<int32_t*>(steps_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (text) {
     launch<Visit::kVerify>(rows, roww, C, sigma, w, nlanes, s);
   } else if (sa_out) {
     launch<Visit::kHarvest>(rows, roww, C, sigma, w, nlanes, s);
+  } else if (bitwords) {
+    launch<Visit::kSelect>(rows, roww, C, sigma, w, nlanes, s);
   } else {
     launch<Visit::kNone>(rows, roww, C, sigma, w, nlanes, s);
   }

@@ -7,15 +7,23 @@ the BWT on the device, then write ``.bwt`` (RL codec), ``.hist``,
 prefix-doubling sort (``ops/doubling.py``); longer ones (``engine=auto``),
 and every text with ``engine=merge``, take the scaled blockwise merge
 engine (``engine/merge_scaled.py``), after the reference's alphabet
-compaction.  The writers are the port's copies of the reference
-package's host modules (``io/``), so every file is byte-identical to the
-reference's for the same input;
-``.meta`` keeps ``"format": "bwtb3m_tpu/v1"``, the name of the file
-format.
+compaction.  With ``hostmem=`` the text never fully materializes in host
+memory: it is a read-only memory map (the input file itself for a
+bytestream, else a chunk-decoded spill file under ``tmpprefix``) that the
+host reads page by page and that goes to the device in chunks.  After a
+merge-engine build the final region's device bytes are bound to the
+returned ``BwtResult`` (``engine/result.py::BwtResult.bind_device_rows``),
+so a ``check_bwt`` of that result, or the build's own SA/ISA walk, builds
+its rank rows from them instead of decoding the file.
+
+The writers are the port's copies of the reference package's host modules
+(``io/``), so every file is byte-identical to the reference's for the
+same input; ``.meta`` keeps ``"format": "bwtb3m_tpu/v1"``, the name of
+the file format.
 
 Not ported yet (they raise ``NotImplementedError`` naming their
 ROADMAP.md item): ``engine=merge-legacy``, the sharded engine, the wide
-merge path, ``bwtcodec=rlh`` and ``hostmem=``.
+merge path and ``bwtcodec=rlh``.
 """
 
 from __future__ import annotations
@@ -49,10 +57,30 @@ def _refuse_unported(options: BwtOptions) -> None:
     if options.bwt_codec == "rlh":
         raise NotImplementedError(
             "bwtcodec=rlh is not ported yet: ROADMAP.md Queue 1 item 8")
-    if options.host_mem:
-        raise NotImplementedError(
-            "hostmem= (bounded host memory) is not ported yet: ROADMAP.md "
-            "Queue 1 item 4")
+
+
+def _remove(path: Optional[str]) -> None:
+    if path:
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+
+
+def _spill_text(symbols: np.ndarray, options: BwtOptions, log: VerboseLog):
+    """Bounded host memory: when ``hostmem=`` is set and text + final BWT
+    would exceed it, an in-memory text moves to a read-only memmap under
+    tmp_prefix.  Returns (symbols, spill path or None)."""
+    n = len(symbols)
+    if isinstance(symbols, np.memmap):
+        return symbols, None          # already bounded (load_bounded)
+    if not options.host_mem or 2 * n <= options.host_mem:
+        return symbols, None
+    path = options.tmp_prefix + "_text.u8"
+    np.asarray(symbols, np.uint8).tofile(path)
+    log.v("hostmem=%d: text (%d bytes) spilled to memmap %s"
+          % (options.host_mem, n, path))
+    return np.memmap(path, np.uint8, "r"), path
 
 
 def compute_bwt(options: BwtOptions,
@@ -64,8 +92,13 @@ def compute_bwt(options: BwtOptions,
 
     # ---- phase 1: load input (host) -------------------------------------
     itype = parse_input_type(options.input_type)
+    bounded_spill = None
     with log.span("load input (%s)" % itype.name):
-        symbols, sigma = itype.load(options.input_path)
+        if options.host_mem:
+            symbols, sigma, bounded_spill = itype.load_bounded(
+                options.input_path, options.tmp_prefix + "_text.u8")
+        else:
+            symbols, sigma = itype.load(options.input_path)
     n = int(len(symbols))
     if n == 0:
         raise ValueError("empty input text: %s" % options.input_path)
@@ -82,10 +115,14 @@ def compute_bwt(options: BwtOptions,
     # ---- phase 2+3: suffix sort (device) -------------------------------
     phase = Phases(device)
     sa = isa = None
+    rows_out: list = []     # the merge engine's device-rows hand-off
+    symmap = None           # dense id -> file symbol (alphabet compaction)
     if options.engine == "merge" or (options.engine == "auto"
                                      and n > options.max_block_symbols):
-        bwt, spos, srank = _merge_engine(symbols, sigma, prate, options,
-                                         device, log, phase)
+        bwt, spos, srank, symmap = _merge_engine(
+            symbols, sigma, prate, options, device, log, phase, rows_out,
+            bounded_spill)
+        bounded_spill = None
     else:
         with log.span("suffix sort (single block, prefix doubling, %s) + "
                       "host inverse" % device):
@@ -103,6 +140,19 @@ def compute_bwt(options: BwtOptions,
 
     with log.span("output hist"):
         hist = np.bincount(bwt, minlength=sigma).astype(np.int64)
+
+    def result_of(meta) -> BwtResult:
+        """The result of ``meta``, with the final region's device bytes
+        bound to the .bwt just written (once: the first result made takes
+        them); a handle that does not describe this file is refused."""
+        res = BwtResult(meta)
+        if rows_out:
+            try:
+                res.bind_device_rows(rows_out.pop(), hist, symmap=symmap)
+            except ValueError as exc:   # it saves time, it gates nothing
+                log.v("[W] device-rows hand-off skipped: %s" % exc)
+        return res
+
     formats.write_hist(base + ".hist", formats.hist_from_array(hist))
     files["hist"] = base + ".hist"
     formats.write_preisa(base + ".preisa", srank, spos, prate)
@@ -135,11 +185,10 @@ def compute_bwt(options: BwtOptions,
             # the merge engine keeps no full SA/ISA: the bwtcomputessa
             # walk derives the samples from .bwt + .preisa (the
             # reference's bwtonly=1 follow-up)
-            write_meta()
             from .ssa import compute_ssa
             with log.span("sampled SA/ISA via LF walk (merge engine)"):
                 compute_ssa(options.output_filename, srate, irate, log=log,
-                            device=device)
+                            device=device, result=result_of(write_meta()))
         files["sa"] = base + ".sa"
         files["isa"] = base + ".isa"
         from ..index.wavelet import HuffmanWaveletTree
@@ -148,18 +197,24 @@ def compute_bwt(options: BwtOptions,
         files["hwt"] = base + ".hwt"
 
     meta = write_meta()
+    del symbols
+    _remove(bounded_spill)
     log.v("phases (wall s): %s" % json.dumps(phase.wall))
     log.v("%s runtime %.3fs" % (mem_usage_string(), rtc.elapsed()))
-    return BwtResult(meta)
+    return result_of(meta)
 
 
 def _merge_engine(symbols, sigma: int, prate: int, options: BwtOptions,
-                  device, log: VerboseLog, phase: Phases):
+                  device, log: VerboseLog, phase: Phases, rows_out: list,
+                  bounded_spill: Optional[str]):
     """The scaled engine after the reference's alphabet compaction: a
     sigma > 256 alphabet with <= 256 distinct symbols compacts to bytes,
     a byte alphabet with <= 16 distinct symbols to nibbles (a strictly
     monotonic remap keeps rotation order, so the BWT maps back through
-    the same table).  Returns (bwt, preisa positions, preisa ranks)."""
+    the same table).  A memory-mapped text (``hostmem=``) is compacted
+    chunk by chunk into a second map; ``bounded_spill`` and every spill
+    made here are removed when the engine returns.  Returns (bwt, preisa
+    positions, preisa ranks, symmap or None)."""
     from .merge_scaled import blockwise_bwt_scaled
 
     symmap = None
@@ -181,22 +236,42 @@ def _merge_engine(symbols, sigma: int, prate: int, options: BwtOptions,
                 table = np.zeros(sigma, np.uint8)
                 table[uniq] = np.arange(len(uniq), dtype=np.uint8)
                 symmap = uniq.astype(np.int64)
-                symbols = table[syms_np]
+                if isinstance(symbols, np.memmap):
+                    # a full fancy-index would stage the whole text
+                    cpath = options.tmp_prefix + "_text_c.u8"
+                    out = np.memmap(cpath, np.uint8, mode="w+",
+                                    shape=symbols.shape)
+                    for a in range(0, len(symbols), 1 << 26):
+                        out[a:a + (1 << 26)] = table[symbols[a:a + (1 << 26)]]
+                    out.flush()
+                    del out, syms_np
+                    _remove(bounded_spill)
+                    bounded_spill = cpath
+                    symbols = np.memmap(cpath, np.uint8, mode="r")
+                else:
+                    symbols = table[syms_np]
                 log.v("alphabet rank-compacted: %d distinct symbols"
                       % len(uniq))
     eff_sigma = sigma if symmap is None else len(symmap)
     lb = options.lane_bucket or (1 << 16)
-    with log.span("device suffix sort (scaled blockwise merge, %s)"
-                  % device):
-        bwt, spos, srank, _hist = blockwise_bwt_scaled(
-            symbols, eff_sigma, options, log, sample_rate=prate,
-            lane_bucket=lb, device=device, phase=phase)
+    symbols, spill_path = _spill_text(symbols, options, log)
+    try:
+        with log.span("device suffix sort (scaled blockwise merge, %s)"
+                      % device):
+            bwt, spos, srank, _hist = blockwise_bwt_scaled(
+                symbols, eff_sigma, options, log, sample_rate=prate,
+                lane_bucket=lb, device=device, phase=phase,
+                rows_out=rows_out)
+    finally:
+        del symbols
+        _remove(spill_path)
+        _remove(bounded_spill)
     if symmap is not None:
         with log.span("symmap restore"):
             tab = symmap.astype(
                 np.uint8 if int(symmap.max()) < 256 else np.int32)
             bwt = tab[bwt]
-    return bwt, spos, srank
+    return bwt, spos, srank, symmap
 
 
 def main_bwtb3m(argv) -> int:
@@ -208,8 +283,9 @@ def main_bwtb3m(argv) -> int:
         sys.stderr.write(
             "usage: bwtb3m inputtype=<bytestream|compactstream|pac|pacterm|"
             "lz4|utf-8> [outputfilename=..] [sasamplingrate=32] "
-            "[isasamplingrate=262144] [mem=2G] [numthreads=8] [bwtonly=0] "
-            "[tmpprefix=..] [verbose=1] [device=cuda] <input>\n"
+            "[isasamplingrate=262144] [mem=2G] [hostmem=0] [batchmerges=1] "
+            "[numthreads=8] [bwtonly=0] [tmpprefix=..] [verbose=1] "
+            "[device=cuda] <input>\n"
         )
         return 1
     compute_bwt(BwtOptions.from_arginfo(ai))

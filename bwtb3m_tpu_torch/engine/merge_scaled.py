@@ -1,32 +1,37 @@
 """Scaled blockwise BWT construction — the merge engine on the device.
 
-Port of ``bwtb3m_tpu/engine/merge_scaled.py`` (per-pair path, narrow
-merges).  The text is cut into fixed blocks of ``max_block_symbols``;
-each block's suffixes are sorted by the windowed doubling sort
-(``ops/windowsort.py``) and kept as a region: its BWT as packed bytes on
-the device, plus
+Port of ``bwtb3m_tpu/engine/merge_scaled.py`` (narrow merges, batched
+levels and the per-pair path).  The text is cut into fixed blocks of
+``max_block_symbols``; each block's suffixes are sorted by the windowed
+doubling sort (``ops/windowsort.py``) and kept as a region: its BWT as
+packed bytes on the device, plus
 
     samp_pos / samp_rank   local ranks at the multiples of the preisa rate
     r_start                local rank of the rotation at the region start
     hist                   symbol histogram of text[s:e]
 
 Regions merge pairwise up a balanced tree (reference: SURVEY.md section
-3.1, arXiv:1604.06687): the right region's rank rows are built on the
-device, anchored gap chains give the gap histogram (``ops/gapdev.py``,
-the CUDA kernel ``csrc/gap_chain.cu``), and the two BWTs are zipped on
-the device (``ops/devzip.py``).  Sample ranks update in O(#samples): a
-left position p gains R(p) from the chains, a right rank r gains
-cnt_le[r].  Completed regions are checkpointed (``engine/checkpoint.py``)
+3.1, arXiv:1604.06687): the right regions' rank rows are built on the
+device, anchored gap chains give the gap histogram (``ops/gapbatch.py``,
+the CUDA kernel ``csrc/gap_chain.cu::bwt_gap_chain_mk``), and the two
+BWTs are zipped on the device (``ops/devzip.py``).  A level with two or
+more pairs runs its anchors and chains as one lane population over
+concatenated rank rows when ``batch_merges`` is set, the build is not
+resuming and the level's state fits the device budget
+(``util/devices.py::device_budget``); otherwise pair by pair, each pair
+a batch of one through the same runner.  Both ways give the same regions.
+
+Sample ranks update in O(#samples): a left position p gains R(p) from
+the chains, a right rank r gains cnt_le[r].  Completed regions are checkpointed (``engine/checkpoint.py``)
 and a build stopped by ``<output>.stop`` or a crash resumes from them.
 The BWT crosses to the host once, at the end.
 
 Not ported (``NotImplementedError`` naming the ROADMAP.md item): the wide
 path (a merge whose right region reaches (2^24-1)*256 - 2 ranks or whose
 left block reaches 2^32 symbols, texts of 2^32 symbols or more, or
-``BWTB3M_FORCE_WIDE``; Queue 1 item 6).  Batched levels (item 5) give
-the same outputs as the per-pair path, which runs every level here.
-The reference's fused and pipelined block sorts, shape buckets and the
-uint16 histogram were relay and XLA:TPU workarounds.
+``BWTB3M_FORCE_WIDE``; Queue 1 item 6).  The reference's fused and
+pipelined block sorts, shape buckets and the uint16 histogram were relay
+and XLA:TPU workarounds.
 """
 
 from __future__ import annotations
@@ -42,9 +47,11 @@ import torch
 from ..ops.devzip import (bits_for, cnt_le_at_ranks, device_interleave,
                           gap_cum, rows_from_host_bwt, rows_to_host_bwt,
                           pack_region)
-from ..ops.focc_build import build_focc_from_packed
-from ..ops.gapdev import GapRunner, cmp_rot
+from ..ops.focc_build import concat_layout
+from ..ops.gapbatch import BatchedGapRunner
+from ..ops.gapdev import cmp_rot
 from ..ops.windowsort import block_suffix_order
+from ..util.devices import device_budget
 from ..util.log import VerboseLog
 from ..util.phases import Phases
 from .checkpoint import MergeCheckpointer, build_key, load_region_file, \
@@ -53,6 +60,15 @@ from .options import BwtOptions
 
 WIDE_ITEM = "ROADMAP.md Queue 1 item 6"
 ANCHOR_LOOKBACK = 64      # first anchor walk length, grown x4
+TEXT_CHUNK = 1 << 26      # bytes of a memory-mapped text uploaded at a time
+# peak device bytes of the windowed block sort per window symbol, whatever
+# the alphabet: every tensor of ops/windowsort.py is int64 over the window
+# (the shifted symbols, the ranks, the round's key, the order of the round
+# before, the sort's two outputs and its internal double buffers), twelve
+# of them at the peak.  chip_smoke.py holds the figure to the measured peak
+# of every block sort of its genome build (80-92 bytes per symbol on an
+# NVIDIA H100 80GB HBM3)
+SORT_BYTES_PER_SYMBOL = 96
 
 
 @dataclasses.dataclass
@@ -67,6 +83,24 @@ class Region:
     hist: np.ndarray                 # int64 [sigma] of text[s:e]
 
 
+@dataclasses.dataclass
+class DeviceRowsHandle:
+    """Hand-off of a build's final region on the device.
+
+    ``blockwise_bwt_scaled`` appends one to the caller's ``rows_out``
+    list instead of keeping module state: ``packed`` holds the final
+    BWT's packed symbols (``bits`` per symbol, the engine's dense
+    alphabet) and the handle names the build they came from (n, sigma,
+    symbol histogram), so ``engine/result.py::BwtResult.bind_device_rows``
+    can refuse to bind them to a ``.bwt`` they do not belong to."""
+
+    packed: torch.Tensor
+    bits: int
+    n: int
+    sigma: int
+    hist: np.ndarray          # int64 [sigma], the BWT's symbol histogram
+
+
 class _Hole:
     """Placeholder for a tree node covered by a saved ancestor at resume:
     it keeps the level lists aligned and is never computed."""
@@ -79,8 +113,12 @@ class _Ctx:
     def __init__(self, text: np.ndarray, sigma: int, rate: int,
                  options: BwtOptions, log: Optional[VerboseLog],
                  lane_bucket: int, device: torch.device, phase: Phases,
-                 nthreads: int = 4):
-        self.text = np.ascontiguousarray(text, dtype=np.uint8)
+                 nthreads: int = 4, budget: Optional[int] = None):
+        # a memory-mapped text (hostmem=) stays a memmap: the host reads
+        # it page by page
+        mapped = isinstance(text, np.memmap) and text.dtype == np.uint8
+        self.text = (text if mapped
+                     else np.ascontiguousarray(text, dtype=np.uint8))
         self.n = len(self.text)
         self.sigma = sigma
         self.rate = rate
@@ -92,8 +130,25 @@ class _Ctx:
         self.phase = phase
         self.bits = bits_for(sigma)
         self.ckpt_key = None
+        self._budget = budget
         with phase("text upload"):
-            self.text_dev = torch.from_numpy(self.text).to(device)
+            if mapped:
+                # in chunks: never one host copy of n bytes
+                self.text_dev = torch.empty(self.n, dtype=torch.uint8,
+                                            device=device)
+                for a in range(0, self.n, TEXT_CHUNK):
+                    b = min(self.n, a + TEXT_CHUNK)
+                    self.text_dev[a:b] = torch.from_numpy(
+                        np.array(self.text[a:b])).to(device)
+            else:
+                self.text_dev = torch.from_numpy(self.text).to(device)
+
+    def budget(self) -> int:
+        """Device bytes a step may plan with now: the caller's figure, or
+        what the device reports free."""
+        if self._budget is not None:
+            return self._budget
+        return device_budget(self.device)
 
 
 def _region_packed(ctx: _Ctx, reg: Region) -> torch.Tensor:
@@ -266,6 +321,13 @@ def _sort_block(ctx: _Ctx, s: int, e: int) -> Region:
     la = min(1024, la_cap)
     while True:
         W = min(block_len + la, block_len + n)
+        need = W * SORT_BYTES_PER_SYMBOL
+        if need > ctx.budget():
+            raise MemoryError(
+                "sorting block [%d,%d) with a window of %d symbols needs "
+                "about %d bytes on %s and %d are free: lower mem= (blocks "
+                "of mem/16 symbols)" % (s, e, W, need, ctx.device,
+                                        ctx.budget()))
         lo_order, hi_order, mism = block_suffix_order(
             _device_window(ctx, s, W), block_len, ctx.sigma)
         if mism == 0:
@@ -308,73 +370,24 @@ def _derive_region(ctx: _Ctx, s: int, e: int, sa_local: torch.Tensor
     return Region(s, e, packed, None, spos, sranks, r_start, hist)
 
 
-# --------------------------------------------------------------- pair merge
+# ------------------------------------------------------------------ merges
 
-def anchored_lanes(ctx: _Ctx, runner: GapRunner):
-    """The chain lanes of a merge: T segments over [s, m) as (starts,
-    seeds, lens); lane j walks starts[j] down for lens[j] steps from
-    seeds[j] = R(starts[j] + 1), anchored by interval contraction with
-    the lookback growing x4 until every interior seed is determined."""
-    s, m = runner.s, runner.m
-    block_len = m - s
-    T = max(1, min(ctx.lane_bucket, block_len // 64 or 1))
-    bounds = np.linspace(s, m, T + 1).astype(np.int64)
-    starts = bounds[1:] - 1
-    lens = np.diff(bounds)
-    seeds = np.zeros(T, dtype=np.int64)
-    seeds[T - 1] = runner.isa_m
-    lb = ANCHOR_LOOKBACK
-    todo = np.arange(T - 1)
-    while len(todo):
-        vals, ok = runner.anchor(starts[todo], min(lb, ctx.n))
-        seeds[todo[ok]] = vals[ok]
-        todo = todo[~ok]
-        if len(todo) and lb >= ctx.n:
-            raise AssertionError(
-                "anchor unresolved at full lookback — equal-rotation "
-                "boundary should be impossible for interior anchors")
-        lb = min(lb * 4, ctx.n)
-        if len(todo):
-            ctx.log.v("anchor lookback extended to %d for %d lanes"
-                      % (lb, len(todo)))
-    return starts, seeds, lens
-
-
-def _merge_pair(ctx: _Ctx, left: Region, right: Region) -> Region:
-    """Merge the adjacent regions [s, m) and [m, e)."""
-    s, m, e = left.s, left.e, right.e
-    assert right.s == m
-    block_len = m - s
-    if e - m + 2 > ((1 << 24) - 1) * 256 or m - s >= (1 << 32):
-        raise NotImplementedError(
-            "merge [%d,%d,%d) needs the wide path, which is not ported "
-            "yet: %s" % (s, m, e, WIDE_ITEM))
+def _finish_merge(ctx: _Ctx, left: Region, right: Region, runner,
+                  cnt_le: torch.Tensor) -> Region:
+    """Zip and sample update of one merge from its chains' results:
+    ``runner`` (a view of the level's ``BatchedGapRunner``) has ``gap``
+    (the merge's histogram, B + 1 cells), ``final_rs`` and
+    ``harvest_samples()``; ``cnt_le`` is the histogram's inclusive
+    cumsum."""
+    A, B = left.e - left.s, right.e - right.s
     phase = ctx.phase
-    with phase("rank rows"):
-        focc = build_focc_from_packed(_region_packed(ctx, right), e - m,
-                                      ctx.sigma, ctx.bits)
-    runner = GapRunner(focc, ctx.text_dev, ctx.text, s, m, e,
-                       isa_m=right.r_start, first_hist=right.hist,
-                       sample_rate=ctx.rate, nthreads=ctx.nthreads,
-                       phase=phase)
-
-    with phase("anchors"):
-        starts, seeds, lens = anchored_lanes(ctx, runner)
-    with phase("chains"):
-        runner.run_chains(starts, seeds, lens)
-    A, B = m - s, e - m
     with phase("zip"):
-        cnt_le = gap_cum(runner.gap)
         total = int(cnt_le[-1])
-        assert total == block_len, (total, block_len)
+        if total != A:
+            raise AssertionError("gap histogram of merge [%d,%d,%d) sums "
+                                 "to %d, not %d" % (left.s, left.e, right.e,
+                                                    total, A))
         cnt_right = cnt_le_at_ranks(runner.gap, right.samp_rank, cnt_le)
-        # chain self-check: every lane's final R(bounds[j]) must equal the
-        # anchored seed of the lane to its left
-        fin = runner.final_rs
-        if not np.array_equal(fin[1:], seeds[:-1]):
-            bad = int(np.flatnonzero(fin[1:] != seeds[:-1])[0])
-            raise AssertionError("anchor/chain mismatch at lane %d: %d != %d"
-                                 % (bad + 1, fin[bad + 1], seeds[bad]))
         merged = device_interleave(_region_packed(ctx, left), A,
                                    _region_packed(ctx, right), B,
                                    runner.gap, ctx.bits, cnt_le)
@@ -388,9 +401,102 @@ def _merge_pair(ctx: _Ctx, left: Region, right: Region) -> Region:
         pos = np.concatenate([left.samp_pos, right.samp_pos])
         rank = np.concatenate([left.samp_rank + hval,
                                right.samp_rank + cnt_right])
-    return Region(s, e, merged, None, pos, rank,
+    return Region(left.s, right.e, merged, None, pos, rank,
                   int(left.r_start + runner.final_rs[0]),
                   left.hist + right.hist)
+
+
+def _is_wide(l, r) -> bool:
+    return (r.e - r.s + 2 > ((1 << 24) - 1) * 256 or l.e - l.s >= (1 << 32))
+
+
+def level_bytes_estimate(pairs, sigma: int, bits: int) -> int:
+    """Device bytes a batch of merges allocates beyond the text and the
+    regions it starts from, counted from the tensors it makes: the
+    concatenated rank rows; the level's int32 histogram and its int64
+    cumsum (12 bytes per rank); the gt bits over every pair's span; the
+    merged regions as they accumulate; and the largest single transient:
+    a region's rank-row build (about 12 bytes per symbol: the unpacked
+    symbols, one int32 running count, the plane words), the int64 copy
+    of the histogram that ``torch.cumsum`` makes of its int32 input (8
+    bytes per rank), or a pair's zip
+    (``ops/devzip.py::device_interleave``: the int64 slots of the right
+    symbols, both unpacked inputs and the unpacked output, and per chunk
+    symbol a bool mask, its negation and the int64 indices of the mask's
+    set cells, 10 bytes, counted as 12; or, at its end, the unpacked
+    output, its padded and its masked copy and the packed bytes, 4 bytes
+    per symbol).
+    ``chip_smoke.py`` holds the
+    figure to the measured peak of every level of its genome build."""
+    from ..ops.devzip import ZIP_CHUNK
+    right_lens = [r.e - r.s for _l, r in pairs]
+    cls, roww, _first, total_rows = concat_layout(right_lens, sigma)
+    rank_space = total_rows << cls.SHIFT
+    spans = [r.e - l.s for l, r in pairs]
+    build = 12 * max(right_lens)
+    zips = max(max(8 * (r.e - r.s) + 2 * (r.e - l.s)
+                   + 12 * min(ZIP_CHUNK, r.e - l.s), 4 * (r.e - l.s))
+               for l, r in pairs)
+    return ((total_rows + 1) * roww + 12 * (rank_space + 1)
+            + sum(spans) // 8 + sum(spans) * bits // 8
+            + max(build, zips, 8 * (rank_space + 1)))
+
+
+def _level_fits_batched(ctx: _Ctx, pairs) -> bool:
+    """Gate of the batched-level path: no pair needs the wide path, the
+    level's rank space stays 256 short of 2^32, and its state fits the
+    device budget."""
+    if os.environ.get("BWTB3M_FORCE_WIDE") or any(_is_wide(l, r)
+                                                  for l, r in pairs):
+        return False
+    cls, _roww, _first, total_rows = concat_layout(
+        [r.e - r.s for _l, r in pairs], ctx.sigma)
+    if (total_rows << cls.SHIFT) + 256 >= 1 << 32:
+        return False
+    return level_bytes_estimate(pairs, ctx.sigma, ctx.bits) <= ctx.budget()
+
+
+def _merge_pairs(ctx: _Ctx, pairs) -> List[Region]:
+    """Merge the adjacent regions (left, right) of every pair: shared
+    rank rows, anchors, chains and histogram (``ops/gapbatch.py``), then
+    each pair's zip.  A single pair merge is a batch of one."""
+    for l, r in pairs:
+        assert r.s == l.e
+        if _is_wide(l, r):
+            raise NotImplementedError(
+                "merge [%d,%d,%d) needs the wide path, which is not ported "
+                "yet: %s" % (l.s, l.e, r.e, WIDE_ITEM))
+    phase = ctx.phase
+    runner = BatchedGapRunner(
+        ctx.text_dev, ctx.text, ctx.sigma,
+        [(l.s, l.e, r.e, r.r_start, r.hist) for l, r in pairs],
+        [_region_packed(ctx, r) for _l, r in pairs], ctx.bits,
+        lane_bucket=ctx.lane_bucket, sample_rate=ctx.rate,
+        nthreads=ctx.nthreads, log=ctx.log, phase=phase)
+    runner.compute(ANCHOR_LOOKBACK)
+    ctx.log.v("%s: %d lanes (%s), rank space %d, histogram %d bytes, chain "
+              "walk of %d steps %.3f ms (%.2f G steps/s, %s)"
+              % ("batched level: %d merges" % len(pairs) if len(pairs) > 1
+                 else "pair merge", sum(sp.T for sp in runner.specs),
+                 " ".join(str(sp.T) for sp in runner.specs), runner.focc.n,
+                 4 * runner.gap.shape[0], runner.chain_steps,
+                 runner.chain_ms,
+                 runner.chain_steps / max(runner.chain_ms, 1e-9) / 1e6,
+                 ctx.device))
+    with phase("zip"):
+        # one cumsum for the level; each merge's slice is rebased in place
+        # (the slices are disjoint) when its turn comes
+        cum = gap_cum(runner.gap)
+        rbases = torch.tensor([sp.rbase for sp in runner.specs],
+                              device=cum.device)
+        before = torch.where(rbases > 0, cum[(rbases - 1).clamp(min=0)], 0)
+    out: List[Region] = []
+    for k, (l, r) in enumerate(pairs):
+        sp = runner.specs[k]
+        cnt_le = cum[sp.rbase:sp.rbase + sp.gap_size + 1]
+        cnt_le -= before[k]
+        out.append(_finish_merge(ctx, l, r, runner.view(k), cnt_le))
+    return out
 
 
 # --------------------------------------------------------------- the tree
@@ -398,16 +504,22 @@ def _merge_pair(ctx: _Ctx, left: Region, right: Region) -> Region:
 def blockwise_bwt_scaled(
     symbols: np.ndarray, sigma: int, options: BwtOptions,
     log: Optional[VerboseLog] = None, sample_rate: int = 1024,
-    lane_bucket: int = 1 << 16, device="cpu", phase: Phases = None,
+    lane_bucket: int = 1 << 16, device="cuda", phase: Phases = None,
+    rows_out: Optional[list] = None, budget: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """(bwt uint8, preisa positions, preisa ranks, symbol hist) of the
     circular text ``symbols`` over [0, sigma), every device step on
     ``device``.  ``phase`` (a ``util.phases.Phases``) collects the wall
-    time per phase."""
+    time per phase.  ``rows_out``: an empty list that receives a
+    ``DeviceRowsHandle`` of the final region when it ends on the device
+    with every symbol present (no dense remap would apply), so the caller
+    can bind it to the ``.bwt`` it is about to write.  ``budget``: the
+    device bytes the gates plan with, instead of what the device reports
+    free (``util/devices.py::device_budget``)."""
     log = log or VerboseLog(1)
     device = torch.device(device)
     phase = phase or Phases(device)
-    text = np.asarray(symbols)
+    text = symbols if isinstance(symbols, np.memmap) else np.asarray(symbols)
     n = len(text)
     if sigma > 256:
         raise ValueError("scaled merge engine supports sigma <= 256 "
@@ -418,13 +530,10 @@ def blockwise_bwt_scaled(
             "the wide merge path (n >= 2^32 or BWTB3M_FORCE_WIDE) is not "
             "ported yet: " + WIDE_ITEM)
     ctx = _Ctx(text, sigma, sample_rate, options, log, lane_bucket, device,
-               phase)
+               phase, budget=budget)
     blocks = _plan_blocks_fixed(n, options.max_block_symbols)
     log.v("scaled blockwise engine: %d blocks, rate=%d, lanes<=%d, %s"
           % (len(blocks), sample_rate, lane_bucket, device))
-    if options.batch_merges and len(blocks) > 2:
-        log.v("batchmerges=1: levels run pair by pair (batched levels are "
-              "ROADMAP.md Queue 1 item 5; the outputs are the same)")
 
     # durable merge-tree checkpointing: resume from the deepest complete
     # saved tree nodes
@@ -462,40 +571,62 @@ def blockwise_bwt_scaled(
     done = 0
     level = regions
     ok = False
+    def merge_level_pairwise(level, done):
+        nxt: List[object] = []
+        i = 0
+        while i + 1 < len(level):
+            if os.path.exists(stop_file):
+                raise RuntimeError("stop requested via %s after %d/%d "
+                                   "merges" % (stop_file, done, total))
+            l, r = level[i], level[i + 1]
+            span = (l.s, r.e)
+            if span in avail:
+                merged = _load_saved(ctx, avail, *span)
+                log.v("resumed merge [%d,%d) from checkpoint" % span)
+            elif isinstance(l, _Hole) or isinstance(r, _Hole):
+                if not _covered(*span):
+                    raise RuntimeError(
+                        "inconsistent checkpoint state at [%d,%d): "
+                        "clear %s_BWTREG1_reg_*"
+                        % (span[0], span[1], options.tmp_prefix))
+                merged = _Hole(*span)
+            else:
+                merged, = _merge_pairs(ctx, [(l, r)])
+                if ckpt is not None:
+                    # per completed merge: a crash mid-level resumes
+                    # at the last finished pair
+                    ckpt.offer(merged, _packed_getter(ctx, merged))
+            done += 1
+            log.v("merged [%d,%d): %d/%d" % (merged.s, merged.e, done,
+                                             total))
+            nxt.append(merged)
+            i += 2
+        if i < len(level):
+            nxt.append(level[i])
+        return nxt, done
+
     try:
         while len(level) > 1:
-            nxt: List[object] = []
-            i = 0
-            while i + 1 < len(level):
+            pairs = [(level[i], level[i + 1])
+                     for i in range(0, len(level) - 1, 2)]
+            resuming = bool(avail) and (
+                any(isinstance(r, _Hole) for r in level)
+                or any((l.s, r.e) in avail for l, r in pairs))
+            if (len(pairs) >= 2 and options.batch_merges and not resuming
+                    and _level_fits_batched(ctx, pairs)):
+                # the level as one batch; an odd trailing region is
+                # carried unchanged
                 if os.path.exists(stop_file):
                     raise RuntimeError("stop requested via %s after %d/%d "
                                        "merges" % (stop_file, done, total))
-                l, r = level[i], level[i + 1]
-                span = (l.s, r.e)
-                if span in avail:
-                    merged = _load_saved(ctx, avail, *span)
-                    log.v("resumed merge [%d,%d) from checkpoint" % span)
-                elif isinstance(l, _Hole) or isinstance(r, _Hole):
-                    if not _covered(*span):
-                        raise RuntimeError(
-                            "inconsistent checkpoint state at [%d,%d): "
-                            "clear %s_BWTREG1_reg_*"
-                            % (span[0], span[1], options.tmp_prefix))
-                    merged = _Hole(*span)
-                else:
-                    merged = _merge_pair(ctx, l, r)
-                    if ckpt is not None:
-                        # per completed merge: a crash mid-level resumes
-                        # at the last finished pair
-                        ckpt.offer(merged, _packed_getter(ctx, merged))
-                done += 1
-                log.v("merged [%d,%d): %d/%d" % (merged.s, merged.e, done,
-                                                 total))
-                nxt.append(merged)
-                i += 2
-            if i < len(level):
-                nxt.append(level[i])
-            level = nxt
+                merged = _merge_pairs(ctx, pairs)
+                for reg in merged:
+                    done += 1
+                    log.v("merged [%d,%d): %d/%d" % (reg.s, reg.e, done,
+                                                     total))
+                level = merged + level[2 * len(pairs):]
+            else:
+                level, done = merge_level_pairwise(level, done)
             if ckpt is not None:
                 # force + drain ahead of the root merge: its children
                 # persist before the longest merge starts
@@ -511,6 +642,11 @@ def blockwise_bwt_scaled(
         assert not isinstance(final, _Hole)
         with phase("final download"):
             bwt = _region_bwt(ctx, final)  # one download per build
+        if (rows_out is not None and final.packed is not None
+                and bool((final.hist > 0).all())):
+            rows_out.append(DeviceRowsHandle(
+                final.packed, ctx.bits, n, sigma,
+                np.asarray(final.hist, np.int64).copy()))
         ok = True
     finally:
         if ckpt is not None:

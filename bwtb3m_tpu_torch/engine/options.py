@@ -2,10 +2,14 @@
 
 Same fields, defaults and ``key=value`` CLI surface as
 ``bwtb3m_tpu/engine/options.py`` (which cannot be imported without JAX:
-its package imports the device engine), plus ``device``.  The engine
-knobs of the scaled merge engine are kept so that one option set drives
-both packages; the paths that need them raise ``NotImplementedError`` in
-the port until that engine is ported (``engine/api.py``).
+its package imports the device engine), plus ``device``.  One option set
+drives both packages.  ``mem`` keeps its meaning: blocks of ``mem / 16``
+symbols, at most 2^27, so every output is byte-identical between the
+packages; what fits the device is decided where it is needed, from the
+device's own report (``util/devices.py::device_budget``), not from
+these options.  The options whose paths are not ported yet
+(``engine=sharded`` and ``merge-legacy``, ``bwtcodec=rlh``) raise
+``NotImplementedError`` in ``engine/api.py``.
 """
 
 from __future__ import annotations
@@ -33,13 +37,16 @@ class BwtOptions:
     verbose: int = 1
     bwt_codec: str = "rl"            # rl | rlh
     engine: str = "auto"             # auto | doubling | merge | merge-legacy | sharded
-    # single-block doubling budget; the sorter holds ~16 bytes/symbol of
-    # device state, so mem= bounds it as in the reference package
+    # symbols per block of the merge engine, and the largest text the
+    # single-block sort takes: mem / 16, as in the reference package
     max_block_symbols: Optional[int] = None
     preisa_sampling_rate: Optional[int] = None  # None = adaptive
+    # run a level's pair merges as one lane population when its state
+    # fits the device (batchmerges=0: always pair by pair; same outputs)
     batch_merges: bool = True
     checkpoint: bool = True
     checkpoint_min_symbols: int = 1 << 26
+    # bounded host memory: the text is a read-only memory map
     host_mem: Optional[int] = None
     lane_bucket: Optional[int] = None
     # the torch device every device step runs on ("cuda", "cuda:N", "cpu")

@@ -2,9 +2,15 @@
 
 Port of ``bwtb3m_tpu/engine/result.py``: ``BwtResult`` reads the JSON
 ``.meta`` manifest, and ``load_focc`` builds the fused rank rows of the
-``.bwt`` on a device for the checkbwt and bwtcomputessa walks.  The
-merge engine's device-rows hand-off and the legacy ``load_occ`` are not
-ported yet (ROADMAP.md Queue 1 items 4 and 8).
+``.bwt`` on a device for the checkbwt and bwtcomputessa walks: from the
+file, or, on the ``BwtResult`` that a merge-engine build returned, from
+the final region's packed symbols that are still on the device
+(``bind_device_rows``), which skips the host decode and densify.  That
+hand-off lives on the result object and nowhere else: it is taken by the
+first ``load_focc`` it can serve and goes with the object, so a caller
+that builds and never checks pins the symbols only while it keeps the
+result.  The legacy ``load_occ`` is not ported yet (ROADMAP.md Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -24,6 +30,16 @@ from ..io.rl import open_bwt, rl_encode
 _FOCC_CACHE: dict = {}
 
 
+def _file_key(bwt_path: str) -> tuple:
+    st = os.stat(bwt_path)
+    return (os.path.abspath(bwt_path), st.st_mtime_ns, st.st_size)
+
+
+def clear_caches() -> None:
+    """Drop the rank-row memo."""
+    _FOCC_CACHE.clear()
+
+
 def write_bwt(path: str, bwt: np.ndarray, sigma: int) -> None:
     """Write ``bwt`` as a run-length ``.bwt`` file, the format that
     ``BwtResult.load_bwt`` reads."""
@@ -33,6 +49,51 @@ def write_bwt(path: str, bwt: np.ndarray, sigma: int) -> None:
 class BwtResult:
     def __init__(self, meta: dict):
         self.meta = meta
+        # (file key, DeviceRowsHandle, symmap or None) of a pending
+        # device-rows hand-off, see bind_device_rows
+        self._device_rows = None
+
+    def bind_device_rows(self, handle, hist: np.ndarray,
+                         symmap=None) -> None:
+        """Bind a ``DeviceRowsHandle`` (``engine/merge_scaled.py``) to the
+        ``.bwt`` this result names, which the build has just written: the
+        file's path, mtime and size are kept, so only that very file can
+        take the symbols.  The handle names the build its symbols came
+        from (n, dense sigma, symbol histogram); binding raises
+        ``ValueError`` unless all three match this result's n, sigma and
+        ``hist`` (the file's symbol histogram), so the symbols of one
+        build never serve another build's file.  ``symmap`` maps the
+        handle's dense symbol ids to the file's symbols when the engine
+        ran rank-compacted; the hit then mirrors what the file build with
+        ``dense=True`` returns."""
+        n, sigma = self.n, self.sigma
+        h = np.asarray(handle.hist, np.int64)
+        b = np.asarray(hist, np.int64)
+        if symmap is None:
+            if handle.n != n or handle.sigma != sigma:
+                raise ValueError(
+                    "device-rows handle identity mismatch: handle (n=%d, "
+                    "sigma=%d) vs build (n=%d, sigma=%d)"
+                    % (handle.n, handle.sigma, n, sigma))
+            if len(h) != len(b) or not np.array_equal(h, b):
+                raise ValueError("device-rows handle histogram mismatch")
+        else:
+            sm = np.asarray(symmap, np.int64)
+            if handle.n != n or handle.sigma != len(sm):
+                raise ValueError(
+                    "device-rows handle identity mismatch under symmap: "
+                    "handle (n=%d, sigma=%d) vs build (n=%d, |symmap|=%d)"
+                    % (handle.n, handle.sigma, n, len(sm)))
+            # the file's histogram restricted to the mapped symbols must
+            # be the dense histogram, and carry all the mass
+            if (sm.max(initial=-1) >= len(b)
+                    or not np.array_equal(b[sm], h)
+                    or int(b.sum()) != int(h.sum())):
+                raise ValueError("device-rows handle histogram mismatch "
+                                 "under symmap")
+        self._device_rows = (
+            _file_key(self.bwt_path), handle,
+            None if symmap is None else np.asarray(symmap, np.int64).copy())
 
     @classmethod
     def load(cls, bwt_path: str) -> "BwtResult":
@@ -85,18 +146,58 @@ class BwtResult:
         alphabet of at most 4 symbols (DNA).
 
         Memoized on (path, mtime, size, dense, device, layout): one
-        process running checkbwt and bwtcomputessa builds the rows once."""
+        process running checkbwt and bwtcomputessa builds the rows once.
+        A device-rows hand-off bound to this result (``bind_device_rows``)
+        serves a ``dense`` request on the device that holds it while the
+        file is the one the build wrote (same path, mtime and size): the
+        rows are built from the build's packed symbols, with no host
+        decode or densify, and the hand-off is released."""
         device = torch.device(device)
-        st = os.stat(self.bwt_path)
-        key = (os.path.abspath(self.bwt_path), st.st_mtime_ns, st.st_size,
-               bool(dense), str(device), layout)
+        fkey = _file_key(self.bwt_path)
+        key = fkey + (bool(dense), str(device), layout)
         hit = _FOCC_CACHE.get(key)
         if hit is not None:
             return hit
-        out = self._build_focc(device, dense, log, layout)
+        out = self._focc_from_handoff(fkey, device, dense, log, layout)
+        if out is None:
+            out = self._build_focc(device, dense, log, layout)
         _FOCC_CACHE.clear()   # hold at most one (rows are 0.5-5 B/symbol)
         _FOCC_CACHE[key] = out
         return out
+
+    def _focc_from_handoff(self, fkey, device, dense: bool, log,
+                           layout: str):
+        """(focc, symmap) from a pending hand-off, or None.  Only a
+        handle whose symbols are the file's dense symbols is registered
+        (every symbol present), so no remap applies here; a rank-compacted
+        build's handle is the dense structure and serves only ``dense``
+        requests."""
+        if self._device_rows is None:
+            return None
+        key, handle, symmap = self._device_rows
+        if key != fkey:                  # rewritten since: never again
+            self._device_rows = None
+            return None
+        have = handle.packed.device
+        if (handle.n != self.n or have.type != device.type
+                or device.index not in (None, have.index)
+                or (symmap is None and handle.sigma != self.sigma)
+                or (symmap is not None and not dense)):
+            return None
+        from ..ops.focc_build import build_focc_from_packed
+
+        self._device_rows = None
+        t0 = time.monotonic()
+        focc = build_focc_from_packed(handle.packed, handle.n, handle.sigma,
+                                      handle.bits, layout)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if log is not None:
+            log.v("rank rows: from the build's device symbols (hand-off), "
+                  "build %.3fs (%s), sigma=%d, %s rows"
+                  % (time.monotonic() - t0, device, handle.sigma,
+                     focc.LAYOUT))
+        return focc, symmap
 
     def _build_focc(self, device, dense: bool, log, layout: str):
         from ..ops.focc_build import build_focc_host

@@ -1,6 +1,7 @@
-"""Sampled SA/ISA from .bwt + .preisa — the ``bwtcomputessa`` walk.
+"""Sampled SA/ISA from .bwt + .preisa — the ``bwtcomputessa`` walk and
+the tools around it.
 
-Port of ``bwtb3m_tpu/engine/ssa.py::compute_ssa`` (fused path): the
+Port of ``bwtb3m_tpu/engine/ssa.py`` (fused path).  ``compute_ssa``: the
 ``.preisa`` seeds become walk lanes of one launch of the LF-walk kernel
 with its harvest visit (``ops/lf_walk.py::harvest_walk``).  Lane i starts at (rank, position) =
 (ranks[i], positions[i]) and walks back to the previous seed; before
@@ -8,9 +9,16 @@ each step it writes SA[r / sarate] = p when r % sarate == 0 and
 ISA[p / isarate] = r when p % isarate == 0.  Every rank and position is
 visited exactly once, so the writes are direct.
 
-Not ported yet: the sigma > 256 legacy path, the wide lanes (n >= 2^31),
-``select_ssa``, ``compute_sa_device`` and ``compute_isa_from_preisa``
-(ROADMAP.md Queue 1 items 8, 6 and 3).
+``compute_sa_device`` (the full SA, kept on the device) and
+``compute_isa_from_preisa`` (the ``hwtPreIsaToIsa`` tool) are the same
+harvest walk at ``sarate=1`` and with only the ISA kept.  ``select_ssa``
+gives SA values for arbitrary ranks from ``.bwt`` + ``.preisa`` alone:
+each wanted rank is a lane of the kernel's select visit
+(``ops/lf_walk.py::select_walk``), which LF-steps until its rank is a
+``.preisa`` rank.
+
+Not ported yet: the sigma > 256 legacy path and the wide lanes
+(n >= 2^31) (ROADMAP.md Queue 1 items 8 and 6).
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import numpy as np
 import torch
 
 from ..io import formats
-from ..ops.lf_walk import harvest_walk
+from ..ops.lf_walk import harvest_walk, select_walk
 from ..util.devices import resolve_device
 from ..util.log import VerboseLog
 from .result import BwtResult
@@ -55,6 +63,33 @@ def seed_segments(ranks: np.ndarray, positions: np.ndarray, n: int):
     return ranks, positions, seg_len
 
 
+def _refuse_unported(result: BwtResult, what: str) -> None:
+    if result.sigma > 256:
+        raise NotImplementedError(
+            "%s for sigma > 256 (legacy rank path) is not ported yet: "
+            "ROADMAP.md Queue 1 item 8" % what)
+    if result.n >= 1 << 31:
+        raise NotImplementedError(
+            "%s for n >= 2^31 (wide lanes) is not ported yet: ROADMAP.md "
+            "Queue 1 item 6" % what)
+
+
+def _harvest(result: BwtResult, sarate: int, isarate: int, device, log):
+    """(SA samples, ISA samples, lanes) on ``device`` (int64, -1 where
+    unvisited): the harvest walk from every ``.preisa`` seed."""
+    n = result.n
+    ranks, positions, _rate = result.load_preisa()
+    ranks, positions, seg_len = seed_segments(ranks, positions, n)
+    focc, _symmap = result.load_focc(device, dense=True, log=log)
+
+    def lanes(a):
+        return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+    sa, isa = harvest_walk(focc, lanes(ranks), lanes(positions),
+                           lanes(seg_len), int(sarate), int(isarate))
+    return sa, isa, len(positions)
+
+
 def compute_ssa(
     bwt_path: str,
     sa_sampling_rate: int = 32,
@@ -63,39 +98,25 @@ def compute_ssa(
     ref_isa: Optional[str] = None,
     ref_sa: Optional[str] = None,
     device="cuda",
+    result: Optional[BwtResult] = None,
 ) -> Tuple[str, str]:
     """Write ``<base>.sa`` and ``<base>.isa`` from ``<base>.bwt`` +
     ``<base>.preisa``.  ``ref_sa`` / ``ref_isa`` files, when given, must
-    equal what was produced."""
+    equal what was produced.  ``result``: the build's own result for
+    ``bwt_path``, whose device-rows hand-off the walk may take."""
     log = log or VerboseLog(1)
     device = resolve_device(device)
     if sa_sampling_rate < 1 or isa_sampling_rate < 1:
         raise ValueError("sampling rates must be >= 1")
-    result = BwtResult.load(bwt_path)
-    n = result.n
-    if result.sigma > 256:
-        raise NotImplementedError(
-            "bwtcomputessa for sigma > 256 (legacy rank path) is not "
-            "ported yet: ROADMAP.md Queue 1 item 8")
-    if n >= 1 << 31:
-        raise NotImplementedError(
-            "bwtcomputessa for n >= 2^31 (wide lanes) is not ported yet: "
-            "ROADMAP.md Queue 1 item 6")
-    ranks, positions, _rate = result.load_preisa()
-    ranks, positions, seg_len = seed_segments(ranks, positions, n)
-    focc, _symmap = result.load_focc(device, dense=True, log=log)
+    result = result or BwtResult.load(bwt_path)
+    _refuse_unported(result, "bwtcomputessa")
     t0 = time.monotonic()
-
-    def lanes(a):
-        return torch.from_numpy(np.asarray(a, np.int64)).to(device)
-
-    sa_dev, isa_dev = harvest_walk(
-        focc, lanes(ranks), lanes(positions), lanes(seg_len),
-        int(sa_sampling_rate), int(isa_sampling_rate))
+    sa_dev, isa_dev, nlanes = _harvest(result, sa_sampling_rate,
+                                       isa_sampling_rate, device, log)
     sa_vals = sa_dev.cpu().numpy()
     isa_vals = isa_dev.cpu().numpy()
-    log.v("ssa: %d lanes, walk + harvest %.3fs (%s)"
-          % (len(positions), time.monotonic() - t0, device))
+    log.v("ssa: %d lanes, rank rows + walk + harvest %.3fs (%s)"
+          % (nlanes, time.monotonic() - t0, device))
     if (sa_vals < 0).any() or (isa_vals < 0).any():
         raise AssertionError(
             "LF walk failed to visit every sampled rank/position")
@@ -116,3 +137,91 @@ def compute_ssa(
                                      % (kind, ref_path))
             log.v("%s matches reference %s" % (kind, ref_path))
     return sa_path, isa_path
+
+
+def compute_sa_device(bwt_path: str, log: Optional[VerboseLog] = None,
+                      device="cuda"):
+    """The full suffix array by LF walk, kept on the device: (sa int64
+    tensor of n on ``device``, n).  The harvest walk at ``sarate=1``;
+    the device-resident PLCP path derives ISA and Phi from it."""
+    log = log or VerboseLog(0)
+    device = resolve_device(device)
+    result = BwtResult.load(bwt_path)
+    _refuse_unported(result, "compute_sa_device")
+    n = result.n
+    sa, _isa, _nlanes = _harvest(result, 1, n, device, log)
+    if bool((sa < 0).any()):
+        raise AssertionError("LF walk failed to visit every rank")
+    return sa, n
+
+
+def compute_isa_from_preisa(bwt_path: str, isa_sampling_rate: int = 64,
+                            log: Optional[VerboseLog] = None,
+                            device="cuda") -> str:
+    """The ``hwtPreIsaToIsa`` tool: ``.bwt`` + ``.preisa`` -> ``.isa`` at
+    the requested rate.  The harvest walk with ``sarate=n``, so only
+    rank 0 lands in its SA output, which is dropped."""
+    log = log or VerboseLog(1)
+    device = resolve_device(device)
+    if isa_sampling_rate < 1:
+        raise ValueError("sampling rates must be >= 1")
+    result = BwtResult.load(bwt_path)
+    _refuse_unported(result, "hwtPreIsaToIsa")
+    _sa, isa, _nlanes = _harvest(result, result.n, isa_sampling_rate,
+                                 device, log)
+    isa_vals = isa.cpu().numpy()
+    if (isa_vals < 0).any():
+        raise AssertionError("LF walk failed to reach every sampled "
+                             "position")
+    base = bwt_path[:-4] if bwt_path.endswith(".bwt") else bwt_path
+    isa_path = base + ".isa"
+    formats.write_sampled_array(isa_path, isa_sampling_rate, isa_vals)
+    log.v("wrote %s (%d values)" % (isa_path, len(isa_vals)))
+    return isa_path
+
+
+def select_ssa(bwt_path: str, ranks: np.ndarray,
+               log: Optional[VerboseLog] = None, device="cuda"
+               ) -> np.ndarray:
+    """SA values (int64) for an arbitrary set of ranks, from ``.bwt`` +
+    ``.preisa`` alone (no sampled ``.sa`` needed, so it serves a
+    ``bwtonly=1`` build).  The wanted ranks are walk lanes; a bitmap on
+    the device marks the ``.preisa`` ranks, and every lane LF-steps until
+    its rank's bit is set: the samples are equidistant in position, so a
+    backward walk meets one within one sampling interval.  Then
+    SA[wanted] = position of the hit rank + steps, resolved on the host
+    against the ``.preisa`` pairs.  A lane that walks 2 * (rate + 512)
+    steps without a hit is an error."""
+    log = log or VerboseLog(0)
+    device = resolve_device(device)
+    result = BwtResult.load(bwt_path)
+    n = result.n
+    ranks = np.asarray(ranks, dtype=np.int64)
+    if (ranks < 0).any() or (ranks >= n).any():
+        raise ValueError("ranks out of range")
+    if result.sigma > 256 or n >= 1 << 31:
+        raise NotImplementedError(
+            "select_ssa for sigma > 256 or n >= 2^31 goes through the "
+            "sampled-SA locate of the FM index, which is not ported yet: "
+            "ROADMAP.md Queue 1 item 8")
+    pr_ranks, pr_pos, prate = result.load_preisa()
+    focc, _symmap = result.load_focc(device, dense=True, log=log)
+    words = np.zeros(n // 32 + 1, np.uint32)
+    np.bitwise_or.at(words, pr_ranks >> 5,
+                     np.uint32(1) << (pr_ranks & 31).astype(np.uint32))
+    bitwords = torch.from_numpy(words.view(np.int32)).to(device)
+    t0 = time.monotonic()
+    cap = 2 * (int(prate) + 512)
+    r_hit, steps = select_walk(focc, bitwords,
+                               torch.from_numpy(ranks).to(device), cap)
+    r_hit, steps = r_hit.cpu().numpy(), steps.cpu().numpy()
+    log.v("select: %d lanes, walk %.3fs (%s), %d steps at most"
+          % (len(ranks), time.monotonic() - t0, device,
+             int(steps.max(initial=0))))
+    if (steps < 0).any():
+        raise AssertionError(
+            "select walk exceeded the preisa sampling interval")
+    order = np.argsort(pr_ranks)
+    slot = np.searchsorted(pr_ranks[order], r_hit)
+    assert (pr_ranks[order][slot] == r_hit).all()
+    return (pr_pos[order][slot] + steps) % n

@@ -29,6 +29,7 @@ from .bitvector import RankBitVector
 from .huffman import HuffmanTree
 
 MAGIC = b"HWT1"
+BUILD_CHUNK = 1 << 24     # symbols coded at a time by ``build``
 
 
 class HuffmanWaveletTree:
@@ -41,24 +42,42 @@ class HuffmanWaveletTree:
 
     @classmethod
     def build(cls, symbols: np.ndarray, hist: Optional[Dict[int, int]] = None):
-        symbols = np.asarray(symbols, dtype=np.int64)
+        symbols = np.asarray(symbols)
         if hist is None:
-            uniq, cnt = np.unique(symbols, return_counts=True)
+            if symbols.dtype == np.uint8:
+                cnt = sum(np.bincount(symbols[a:a + BUILD_CHUNK],
+                                      minlength=256)
+                          for a in range(0, len(symbols), BUILD_CHUNK))
+                uniq = np.flatnonzero(cnt)
+                cnt = cnt[uniq]
+            else:
+                uniq, cnt = np.unique(symbols, return_counts=True)
             hist = {int(s): int(c) for s, c in zip(uniq, cnt)}
         tree = HuffmanTree(hist)
         sigma = int(max(tree.symbols)) + 1
         codes, lengths = tree.code_arrays(sigma)
-        sym_code = codes[symbols]
-        sym_len = lengths[symbols]
         # node prefixes/depths from the trie
         prefixes, depths = _node_paths(tree)
-        nodes = []
+        # per node, which symbols pass through it and the bit each takes
+        # there: two small tables, so the text is only gathered through
+        # them, in chunks
+        in_sym, bit_sym = [], []
         for node_id in range(tree.num_inner):
             d = depths[node_id]
-            pref = prefixes[node_id]
-            in_node = (sym_len > d) & ((sym_code >> (sym_len - d)) == pref)
-            bits = (sym_code[in_node] >> (sym_len[in_node] - d - 1)) & 1
-            nodes.append(RankBitVector(bits.astype(np.uint8)))
+            below = lengths > d
+            shift = np.where(below, lengths - d, 0)
+            inside = below & ((codes >> shift) == prefixes[node_id])
+            in_sym.append(inside)
+            bit_sym.append(((codes >> np.maximum(shift - 1, 0)) & 1).astype(
+                np.uint8))
+        parts = [[] for _ in range(tree.num_inner)]
+        for a in range(0, len(symbols), BUILD_CHUNK):
+            chunk = symbols[a:a + BUILD_CHUNK]
+            for node_id in range(tree.num_inner):
+                parts[node_id].append(
+                    bit_sym[node_id][chunk[in_sym[node_id][chunk]]])
+        nodes = [RankBitVector(np.concatenate(p) if p
+                               else np.zeros(0, np.uint8)) for p in parts]
         return cls(tree, len(symbols), nodes)
 
     def write(self, path: str) -> None:

@@ -27,16 +27,14 @@ BUILD_DIR = os.path.join(_PKG, "build")
 LOG_PATH = os.path.join(BUILD_DIR, "nvcc.log")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-p_, i_, ll_, u_ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_uint)
+p_, i_, ll_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # entry points of each kernel library: name -> (argtypes, restype)
 ENTRY_POINTS = {
     "lf_walk": {"bwt_lf_walk": ([p_, i_, p_, i_, ll_, p_, p_, p_, p_, p_, p_,
-                                 i_, i_, p_, p_, i_, p_], i_),
+                                 i_, i_, p_, p_, p_, p_, i_, p_], i_),
                 "bwt_l2_fetch_granularity": ([i_], i_)},
-    "gap_chain": {"bwt_gap_chain": ([p_, i_, p_, p_, ll_, p_, u_, u_, u_, p_,
-                                     p_, p_, p_, p_, p_, ll_, i_, i_, p_],
-                                    i_)},
+    "gap_chain": {"bwt_gap_chain_mk": ([p_, i_] + [p_] * 11 + [i_, i_, p_],
+                                       i_)},
 }
 
 

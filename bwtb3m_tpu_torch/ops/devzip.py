@@ -98,7 +98,8 @@ def device_interleave(left: torch.Tensor, A: int, right: torch.Tensor,
     lsym = unpack_bits(left, bits, A)
     rsym = unpack_bits(right, bits, B)
     total = A + B
-    F = torch.arange(B, device=dev) + cnt_le[:B]
+    F = torch.arange(B, device=dev)
+    F += cnt_le[:B]           # in place: one int64 of B, not two
     ts = torch.arange(0, total + chunk, chunk, device=dev).clamp(max=total)
     r_b = torch.searchsorted(F, ts).cpu().tolist()
     ts = ts.cpu().tolist()
@@ -114,4 +115,7 @@ def device_interleave(left: torch.Tensor, A: int, right: torch.Tensor,
         is_right[loc] = True
         seg[loc] = rsym[r0:r1]
         seg[~is_right] = lsym[t0 - r0:t1 - r1]
+    # the inputs go before the packing allocates: a merge's peak is then
+    # a chunk's, not the packing's on top of everything
+    del lsym, rsym, F, seg, is_right, loc
     return pack_region(out, bits)

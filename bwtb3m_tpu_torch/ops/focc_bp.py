@@ -32,7 +32,7 @@ costs four; the walk kernels (``csrc/focc_rows.cuh``) are bound by that.
 Pad positions past n hold symbol 0 in the planes and are never counted.
 The queries below are the plain PyTorch versions, one code for both
 layouts: the tests hold them against the reference, and the walk kernels
-(``ops/lf_walk.py``, ``ops/gapdev.py``) against them.  Positions and
+(``ops/lf_walk.py``, ``ops/gapbatch.py``) against them.  Positions and
 ranks are int64 tensors.
 """
 

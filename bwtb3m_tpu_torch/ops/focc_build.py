@@ -33,6 +33,7 @@ import torch
 
 from .focc import BLOCK, FusedOcc, _row_width
 from .focc_bp import FusedOccBP, FusedOccSector
+from .pack import unpack_bits
 
 LAYOUTS = {"sector": FusedOccSector, "bitplane": FusedOccBP,
            "bytes": FusedOcc}
@@ -78,7 +79,6 @@ def build_focc_from_packed(packed: torch.Tensor, n: int, sigma: int,
     raw bytes for 8).  Rows and C equal ``build_focc_host`` on the
     unpacked symbols, as the reference's ``build_focc_from_rows`` equals
     its host builder."""
-    from .pack import unpack_bits
     return build_focc_device(unpack_bits(packed, bits, n), sigma, layout)
 
 
@@ -107,8 +107,10 @@ def _occ_at_block_starts(bwt: torch.Tensor, sigma: int, block: int,
     return occ, total
 
 
-def build_focc_device(bwt: torch.Tensor, sigma: int, layout: str = "auto"):
-    """Rank rows of a uint8 BWT tensor, built on its device."""
+def build_focc_device(bwt: torch.Tensor, sigma: int, layout: str = "auto",
+                      out: torch.Tensor = None):
+    """Rank rows of a uint8 BWT tensor, built on its device; into the
+    zeroed ``out`` rows where given (``build_focc_concat``)."""
     cls = LAYOUTS[resolve_layout(layout, sigma)]
     n = bwt.shape[0]
     if n >= 1 << 31:
@@ -125,7 +127,7 @@ def build_focc_device(bwt: torch.Tensor, sigma: int, layout: str = "auto"):
 
     if cls is FusedOcc:
         roww = _row_width(sigma, block)
-        rows = torch.zeros((nrows, roww), dtype=torch.uint8, device=device)
+        rows = _rows_out(out, nrows, roww, device)
         rows[:, :block] = sym.view(nrows, block)
         rows[:, block:block + 4 * sigma] = _occ_bytes(occ)
         return FusedOcc(rows, C.to(torch.int32), n, sigma)
@@ -137,12 +139,55 @@ def build_focc_device(bwt: torch.Tensor, sigma: int, layout: str = "auto"):
         [(((((words >> p) & _BIT0) * _GATHER) >> 56) & 0xFF).to(
             torch.uint8).view(nrows, block // 8)
          for p in range(cls.NPLANES)], dim=1)     # [nrows, planes, block/8]
-    rows = torch.zeros((nrows, cls.ROW_BYTES), dtype=torch.uint8,
-                       device=device)
+    rows = _rows_out(out, nrows, cls.ROW_BYTES, device)
     occ0 = 4 * cls.occ_word()
     rows[:, :occ0] = planes.view(nrows, -1)
     rows[:, occ0:occ0 + 4 * sigma] = _occ_bytes(occ)
     return cls(rows, C.to(torch.int32), n, sigma)
+
+
+def _rows_out(out, nrows: int, roww: int, device) -> torch.Tensor:
+    if out is None:
+        return torch.zeros((nrows, roww), dtype=torch.uint8, device=device)
+    if out.shape != (nrows, roww) or out.dtype != torch.uint8:
+        raise ValueError("rows for %d x %d bytes, got %s"
+                         % (nrows, roww, tuple(out.shape)))
+    return out
+
+
+def concat_layout(lens, sigma: int, layout: str = "auto"):
+    """(layout class, row width, first row of each region, total rows) of
+    ``build_focc_concat`` for regions of ``lens`` symbols."""
+    cls = LAYOUTS[resolve_layout(layout, sigma)]
+    roww = (_row_width(sigma, BLOCK) if cls is FusedOcc else cls.ROW_BYTES)
+    nrows = [cls.num_rows(int(ln)) for ln in lens]
+    first = np.concatenate([[0], np.cumsum(nrows)[:-1]]).astype(np.int64)
+    return cls, roww, first, int(sum(nrows))
+
+
+def build_focc_concat(packed, lens, sigma: int, bits: int,
+                      layout: str = "auto"):
+    """One rank structure over K regions, from their packed BWT bytes on
+    the device: (focc, rbase int64 [K]).  Port of
+    ``bwtb3m_tpu/ops/gapbatch.py::build_focc_concat_dev``.  Region k's
+    rows, its trailing checkpoint row included, start at row
+    rbase[k] / block and equal its own ``build_focc_from_packed`` rows:
+    its running counts start at its first row, so the occ words are
+    region-local, and a local rank r is queried at the global rank
+    rbase[k] + r (block = 64 symbols on sector rows, 256 on the others).
+    The kept checkpoint row is the gutter that keeps the regions' ranks,
+    and so their cells of a level-wide histogram, apart.  ``focc.n`` is
+    the rank space (total rows x block; one spare zero row follows) and
+    ``focc.C`` is zero: the chains add their own ``c_first``."""
+    cls, roww, first, total = concat_layout(lens, sigma, layout)
+    device = packed[0].device
+    rows = torch.zeros((total + 1, roww), dtype=torch.uint8, device=device)
+    for k, (src, ln) in enumerate(zip(packed, lens)):
+        a = int(first[k])
+        build_focc_device(unpack_bits(src, bits, int(ln)), sigma, layout,
+                          out=rows[a:a + cls.num_rows(int(ln))])
+    C = torch.zeros(sigma + 1, dtype=torch.int32, device=device)
+    return cls(rows, C, total << cls.SHIFT, sigma), first << cls.SHIFT
 
 
 def focc_from_jax(jax_focc, device="cpu", layout: str = "auto"):

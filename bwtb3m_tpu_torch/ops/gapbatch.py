@@ -1,0 +1,545 @@
+"""The anchored gap computation of the merge engine: every pair merge of
+one level of the merge tree as one lane population.
+
+Port of ``bwtb3m_tpu/ops/gapbatch.py`` and, as the level of one merge,
+of ``bwtb3m_tpu/ops/gapdev.py::DeviceGapRunner``: there is one runner and
+one kernel entry, and a single pair merge (a level with one pair, a
+resumed build, ``batchmerges=0``, a level past the device budget) is a
+batch of one.  A level of a genome-sized build has many pair merges (12
+on the first level of a 3.2 Gbp text at 2^27 symbols per block), and each
+would pay its own anchor rounds, chain launch, rank-row build and
+histogram when run alone.  Here the K merges of a level share them:
+
+- the K right regions' rank rows are concatenated
+  (``ops/focc_build.py::build_focc_concat``): every region starts on a
+  row boundary and keeps its trailing checkpoint row, and its occ counts
+  are region-local, so a lane of merge k queries its region with the
+  global rank ``rbase_k + local`` through the unchanged row code;
+- the per-merge constants (``c_first`` and ``isa_m`` already offset by
+  ``rbase_k``, the two boundary symbols, the merge's gt bit base and its
+  sample base) are one table of K rows that a lane of the kernel reads
+  once; ranks stay global across steps;
+- one int32 histogram spans the level's rank space (the kept checkpoint
+  rows keep the regions' cells apart), the wrap-term bits of all merges
+  are one byte array, and the sampled ranks of all merges one tensor.
+
+``BatchedGapRunner`` splits each left block into lanes, anchors each
+lane's seed by the two-bound interval contraction (a short walk from the
+region's rank 0 and from its top that meets when the seed is determined;
+the lane boundaries of all merges contract in one population, and the
+lookback grows jointly), runs the chains from those seeds and checks
+every lane's final rank against the seed of the lane to its left.
+
+The walks are the CUDA entry ``csrc/gap_chain.cu::bwt_gap_chain_mk`` in
+the recording and the anchor form; ``chain_walk_mk`` / ``anchor_walk_mk``
+launch it for CUDA tensors and use ``gap_chain_mk_plain`` only for CPU
+tensors; any other device raises.  ``_launch`` counts every launch in
+``LAUNCHES`` per form.  What the reference needed for the TPU is gone:
+the ``[rows, 256]`` uint16 histogram with its wrap rerun, the compressed
+fetch, the 256-column phase alignment of all lanes, the ``[lanes,
+sigma]`` constant tables and the lane padding.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .focc import kernel_row_width, rank
+from .focc_build import build_focc_concat
+from .gapdev import TEXT_BLOCK, wrap_bits
+
+_U32 = 0xFFFFFFFF
+# uint32 words of one merge's row of the constant table, in the order of
+# ``csrc/gap_chain.cu``'s ``Merge``
+MERGE_WORDS = 8
+(M_CFIRST, M_K0, M_K1, M_K2, M_LO0, M_GTBASE, M_SAMPBASE,
+ M_SAMPP0) = range(MERGE_WORDS)
+LAUNCHES = {"chain": 0, "anchor": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def u32_bits(a) -> np.ndarray:
+    """Values in [0, 2^32) (taken modulo 2^32) as the int32 of the same
+    bits: torch has no uint32 arithmetic, so uint32 words travel so."""
+    return (np.asarray(a, np.int64) & _U32).astype(np.uint32).view(np.int32)
+
+
+def from_u32_bits(t: torch.Tensor) -> torch.Tensor:
+    """int32 tensor of uint32 bits -> int64 values in [0, 2^32)."""
+    return t.long() & _U32
+
+
+# ------------------------------------------------------------ plain version
+
+def gap_chain_mk_plain(focc, text: torch.Tensor, gt: torch.Tensor,
+                       c_first: torch.Tensor, table: torch.Tensor,
+                       kid: torch.Tensor, starts: torch.Tensor,
+                       seeds: torch.Tensor, lens: torch.Tensor,
+                       gap: Optional[torch.Tensor] = None,
+                       samp: Optional[torch.Tensor] = None,
+                       rate: int = 1) -> torch.Tensor:
+    """Final global rank (int64) of every lane; with ``gap`` also records
+    every R into it and R(p) into the lane's merge's samples where p is a
+    multiple of ``rate``.  Arithmetic is modulo 2^32, as in the kernel.
+    A Python loop over steps, vectorized over lanes."""
+    m = from_u32_bits(table)[kid.long()]               # [T, MERGE_WORDS]
+    cf = from_u32_bits(c_first)
+    r, st, ln = from_u32_bits(seeds), starts.long(), lens.long()
+    last = (ln - 1).clamp(min=0)
+    steps = int(ln.max()) if len(ln) else 0
+    for k in range(steps):
+        act = k < ln
+        p = st - torch.clamp(last, max=k)   # finished lanes stay in range
+        c = text[p].long()
+        off = p - m[:, M_LO0]
+        g = (gt[m[:, M_GTBASE] + (off >> 3)].long() >> (off & 7)) & 1
+        r_new = (cf[m[:, M_CFIRST] + c] + rank(focc, c, r)
+                 - ((m[:, M_K0] < r) & (c == m[:, M_K1])).long()
+                 + ((c == m[:, M_K2]) & (g == 1)).long()) & _U32
+        r = torch.where(act, r_new, r)
+        if gap is not None:
+            ra = r[act]
+            gap.index_add_(0, ra, torch.ones_like(ra, dtype=gap.dtype))
+            hit = act & (p % rate == 0)
+            slot = m[:, M_SAMPBASE] + (p - m[:, M_SAMPP0]) // rate
+            bits = torch.where(r >= 1 << 31, r - (1 << 32), r)
+            samp[slot[hit]] = bits[hit].to(samp.dtype)
+    return r
+
+
+# ------------------------------------------------------------ CUDA wrapper
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError("no gap-chain kernel for device %s" % t.device)
+
+
+def _check_args(focc, text, gt, c_first, table, kid, starts, seeds, lens):
+    dev = seeds.device
+    for name, t, dt in (("text", text, torch.uint8), ("gt", gt, torch.uint8),
+                        ("c_first", c_first, torch.int32),
+                        ("table", table, torch.int32),
+                        ("kid", kid, torch.int32),
+                        ("starts", starts, torch.int64),
+                        ("seeds", seeds, torch.int32),
+                        ("lens", lens, torch.int32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise TypeError("%s must be a contiguous %s tensor on %s"
+                            % (name, dt, dev))
+    if not (len(kid) == len(starts) == len(seeds) == len(lens)):
+        raise ValueError("lane arrays are of one length")
+    if table.dim() != 2 or table.shape[1] != MERGE_WORDS:
+        raise ValueError("the merge table has %d words per merge"
+                         % MERGE_WORDS)
+    if text.shape[0] >= 1 << 32 or focc.n >= 1 << 32:
+        raise ValueError("the gap-chain kernel keeps positions and ranks "
+                         "in uint32: n and the level's rank space < 2^32")
+    if focc.rows.device != dev:
+        raise TypeError("rank rows on %s, lanes on %s"
+                        % (focc.rows.device, dev))
+    kernel_row_width(focc)
+    if len(seeds):
+        # walked positions must lie inside the text and the merge's gt
+        # bits, c_first words inside their table, seeds inside the rank
+        # space: the kernel does not check
+        if int(kid.min()) < 0 or int(kid.max()) >= table.shape[0]:
+            raise ValueError("lane merge ids outside the table")
+        m = from_u32_bits(table)[kid.long()]
+        lo = starts - lens + 1
+        if bool((lo < m[:, M_LO0]).any()) \
+                or int(starts.max()) >= text.shape[0] \
+                or int((m[:, M_GTBASE]
+                        + ((starts - m[:, M_LO0]) >> 3)).max()) \
+                >= gt.shape[0]:
+            raise ValueError("walk positions outside the text or the gt "
+                             "bits")
+        if int(from_u32_bits(table[:, M_CFIRST]).max()) + focc.sigma \
+                > c_first.shape[0]:
+            raise ValueError("c_first holds sigma words per merge")
+        if int(from_u32_bits(seeds).max()) > focc.n:
+            raise ValueError("seeds outside [0, %d]" % focc.n)
+
+
+def _launch(focc, text, gt, c_first, table, kid, starts, seeds, lens,
+            gap=None, samp=None, rate=1) -> torch.Tensor:
+    """The wrapper of ``bwt_gap_chain_mk``: the recording form with
+    ``gap`` (and ``samp``), the anchor form without.  Returns the final
+    ranks (int32 holding uint32 bits) and counts the launch in
+    ``LAUNCHES``."""
+    _check_args(focc, text, gt, c_first, table, kid, starts, seeds, lens)
+    if gap is not None and (gap.dtype != torch.int32
+                            or gap.shape[0] < focc.n + 1
+                            or samp is None or samp.dtype != torch.int32
+                            or rate < 1):
+        raise TypeError("the recording form needs an int32 histogram of "
+                        "one cell per rank, int32 samples and a rate >= 1")
+    r_out = torch.empty_like(seeds)
+    if len(seeds) == 0:
+        return r_out
+    from ._build import load
+    lib = load("gap_chain")
+    rc = lib.bwt_gap_chain_mk(
+        _ptr(focc.rows), focc.rows.shape[1], _ptr(text), _ptr(gt),
+        _ptr(c_first), _ptr(table), _ptr(kid), _ptr(starts), _ptr(seeds),
+        _ptr(lens), _ptr(r_out), _ptr(gap), _ptr(samp), int(rate),
+        len(seeds), ctypes.c_void_p(
+            torch.cuda.current_stream(seeds.device).cuda_stream))
+    LAUNCHES["chain" if gap is not None else "anchor"] += 1
+    if rc != 0:
+        raise RuntimeError("CUDA kernel launch failed: %s (%d)"
+                           % (lib.bwt_error_string(rc).decode(), rc))
+    return r_out
+
+
+def chain_walk_mk(focc, text, gt, c_first, table, kid, starts, seeds, lens,
+                  gap, samp, rate: int) -> torch.Tensor:
+    """The recording walk of a level: final global ranks (int64);
+    ``gap`` and ``samp`` are updated in place."""
+    if not _on_cuda(seeds):
+        return gap_chain_mk_plain(focc, text, gt, c_first, table, kid,
+                                  starts, seeds, lens, gap, samp, rate)
+    return from_u32_bits(_launch(focc, text, gt, c_first, table, kid,
+                                 starts, seeds, lens, gap, samp, rate))
+
+
+def anchor_walk_mk(focc, text, gt, c_first, table, kid, starts, seeds,
+                   lens) -> torch.Tensor:
+    """The anchor walk of a level: final global ranks (int64) only."""
+    if not _on_cuda(seeds):
+        return gap_chain_mk_plain(focc, text, gt, c_first, table, kid,
+                                  starts, seeds, lens)
+    return from_u32_bits(_launch(focc, text, gt, c_first, table, kid,
+                                 starts, seeds, lens))
+
+
+# ------------------------------------------------------------ the runner
+
+class _MergeSpec:
+    """Host bookkeeping of one pair merge inside the batch."""
+
+    def __init__(self, k, s, m, e, isa_m, rbase, rate):
+        self.k = k
+        self.s, self.m, self.e = int(s), int(m), int(e)
+        self.isa_m = int(isa_m)
+        self.rbase = int(rbase)          # global rank of the local rank 0
+        self.gap_size = self.e - self.m
+        self.lo0 = (self.s // TEXT_BLOCK) * TEXT_BLOCK
+        # gt bits span the whole pair [lo0, e-1), so a longer lookback
+        # never moves the layout: only the coverage grows
+        self.gt_bytes = max(1, (self.e - 1 - self.lo0 + 7) // 8)
+        self.gt_base = 0                 # byte base in the level's array
+        self.gt_cap = 0                  # positions < gt_cap have bits
+        self.samp_p0 = self.s + (-self.s) % rate
+        self.nsamp = len(range(self.samp_p0, self.m, rate))
+        self.samp_base = 0
+        self.T = 0
+        self.starts = self.lens = self.seeds = self.final_rs = None
+
+
+class BatchedGapRunner:
+    """Gap histograms of K same-level pair merges in shared launches.
+
+    ``merges`` is a list of (s, m, e, isa_m, first_hist) and
+    ``right_packed`` the right regions' packed BWT bytes on the device
+    (``bits`` per symbol); ``text_dev`` / ``text_host`` are the engine's
+    dense text.  After ``compute()``, ``view(k)`` gives merge k's results
+    (``final_rs``, ``gap``, ``harvest_samples``); ``gap`` is the level's
+    histogram, int32 on the device, one cell per global rank, and
+    ``chain_ms`` the recording walk's time (CUDA events on the card)."""
+
+    def __init__(self, text_dev: torch.Tensor, text_host: np.ndarray,
+                 sigma: int, merges, right_packed, bits: int,
+                 lane_bucket: int = 1 << 16, sample_rate: int = 1,
+                 nthreads: int = 4, log=None, phase=None,
+                 layout: str = "auto"):
+        if sample_rate < 1:
+            raise ValueError("sample_rate must be >= 1")
+        self.text_dev = text_dev
+        self.text = text_host
+        self.n = len(text_host)
+        self.sigma = int(sigma)
+        self.lane_bucket = lane_bucket
+        self.sample_rate = int(sample_rate)
+        self.nthreads = nthreads
+        self.log = log
+        self.phase = phase or (lambda name: contextlib.nullcontext())
+        dev = text_dev.device
+        with self.phase("rank rows"):
+            self.focc, rbases = build_focc_concat(
+                right_packed, [m[2] - m[1] for m in merges], self.sigma,
+                bits, layout)
+        if self.focc.n + 256 >= 1 << 32:
+            raise ValueError("level rank space must stay 256 short of 2^32")
+        K = len(merges)
+        self.specs: List[_MergeSpec] = []
+        c_first = np.zeros((K, self.sigma), np.int64)
+        table = np.zeros((K, MERGE_WORDS), np.int64)
+        gt_off = samp_off = 0
+        for k, (s, m, e, isa_m, first_hist) in enumerate(merges):
+            sp = _MergeSpec(k, s, m, e, isa_m, rbases[k], self.sample_rate)
+            sp.gt_base, sp.samp_base = gt_off, samp_off
+            gt_off += sp.gt_bytes
+            samp_off += sp.nsamp
+            sp.sym_last = int(text_host[(sp.e - 1) % self.n])
+            # c_first[c] = rbase + number of right rotations starting
+            # with a symbol < c: pre-offset, so ranks stay global
+            c_first[k] = sp.rbase + np.concatenate(
+                [[0], np.cumsum(first_hist)[:-1]])
+            table[k] = (k * self.sigma, sp.rbase + sp.isa_m,
+                        int(text_host[(sp.m - 1) % self.n]), sp.sym_last,
+                        sp.lo0, sp.gt_base, sp.samp_base, sp.samp_p0)
+            self.specs.append(sp)
+        self.c_first = torch.from_numpy(u32_bits(c_first.reshape(-1))).to(dev)
+        self.table = torch.from_numpy(u32_bits(table)).to(dev)
+        self._gt = np.zeros(gt_off, np.uint8)
+        self.gt_dev = torch.zeros(gt_off, dtype=torch.uint8, device=dev)
+        self._nsamp = samp_off
+        self.gap = None
+        self._samp = None
+        self.chain_ms = self.chain_steps = 0
+
+    # ---------------------------------------------------------------- gt
+
+    def _ensure_gt(self, caps: List[int]) -> None:
+        """Extend each merge's wrap-term bits to cover walk positions
+        [s_k, caps[k]); only the new bits are computed, and only the
+        bytes they touch go to the device."""
+        for sp, cap in zip(self.specs, caps):
+            cap = min(cap, sp.e - 1)
+            if cap <= sp.gt_cap:
+                continue
+            with self.phase("gt bits (host)"):
+                lo = max(sp.s, sp.gt_cap)
+                ps, gt = wrap_bits(self.text, lo, cap, sp.e, sp.sym_last,
+                                   self.nthreads)
+                first = lo - ((lo - sp.lo0) & 7)   # byte-aligned start
+                bits = np.zeros(cap - first, np.uint8)
+                bits[ps - first] = gt
+                a = sp.gt_base + ((first - sp.lo0) >> 3)
+                b = sp.gt_base + ((cap - sp.lo0 + 7) >> 3)
+                self._gt[a:b] |= np.packbits(bits, bitorder="little")
+                del bits
+                self.gt_dev[a:b] = torch.from_numpy(self._gt[a:b]).to(
+                    self.gt_dev.device)
+                sp.gt_cap = cap
+
+    # ------------------------------------------------------------- lanes
+
+    def _lanes(self, kid, starts, seeds, lens):
+        dev = self.text_dev.device
+        return (torch.from_numpy(np.asarray(kid, np.int32)).to(dev),
+                torch.from_numpy(np.asarray(starts, np.int64)).to(dev),
+                torch.from_numpy(u32_bits(seeds)).to(dev),
+                torch.from_numpy(np.asarray(lens, np.int32)).to(dev))
+
+    def _caps(self, kid, walk_start) -> List[int]:
+        caps = np.zeros(len(self.specs), np.int64)
+        np.maximum.at(caps, kid, walk_start + 1)
+        return caps.tolist()
+
+    def _anchor_pass(self, kid, starts, lbs, r0_global) -> np.ndarray:
+        """Lane j walks positions starts[j] + lbs[j] down to starts[j] + 1
+        from the global seed r0_global[j]; returns the final ranks."""
+        walk_start = starts + lbs
+        self._ensure_gt(self._caps(kid, walk_start))
+        kd, st, sd, ln = self._lanes(kid, walk_start, r0_global, lbs)
+        return anchor_walk_mk(self.focc, self.text_dev, self.gt_dev,
+                              self.c_first, self.table, kd, st, sd,
+                              ln).cpu().numpy()
+
+    def _lane_budget(self, spec: _MergeSpec) -> int:
+        """Lanes of one merge: its left block's share of the level."""
+        total = sum(sp.m - sp.s for sp in self.specs)
+        return max(1, (spec.m - spec.s) * self.lane_bucket // max(1, total))
+
+    def anchor_all(self, anchor_lookback: int = 64) -> None:
+        """Seed ranks of every merge's interior lane boundaries, all
+        merges contracted jointly: two launches per lookback round, the
+        lookback growing x4 until every seed is determined."""
+        kid_l, starts_l = [], []
+        for sp in self.specs:
+            block_len = sp.m - sp.s
+            T = max(1, min(self._lane_budget(sp), block_len // 64 or 1))
+            bounds = np.linspace(sp.s, sp.m, T + 1).astype(np.int64)
+            sp.starts = bounds[1:] - 1
+            sp.lens = np.diff(bounds)
+            sp.T = T
+            sp.seeds = np.zeros(T, np.int64)
+            sp.seeds[T - 1] = sp.rbase + sp.isa_m
+            if T > 1:
+                kid_l.append(np.full(T - 1, sp.k, np.int64))
+                starts_l.append(sp.starts[:T - 1])
+        if not kid_l:
+            return
+        kid = np.concatenate(kid_l)
+        starts = np.concatenate(starts_l)
+        gapsz = np.array([self.specs[k].gap_size for k in kid], np.int64)
+        rbase = np.array([self.specs[k].rbase for k in kid], np.int64)
+        e_arr = np.array([self.specs[k].e for k in kid], np.int64)
+        seeds = np.zeros(len(kid), np.int64)
+        todo = np.arange(len(kid))
+        lb = anchor_lookback
+        while len(todo):
+            lbs = np.minimum(min(lb, self.n), (e_arr[todo] - 2)
+                             - starts[todo])
+            lbs = np.maximum(lbs, 1)
+            lo = self._anchor_pass(kid[todo], starts[todo], lbs,
+                                   rbase[todo])
+            hi = self._anchor_pass(kid[todo], starts[todo], lbs,
+                                   rbase[todo] + gapsz[todo])
+            ok = lo == hi
+            seeds[todo[ok]] = lo[ok]
+            todo = todo[~ok]
+            if len(todo) and lb >= self.n:
+                raise AssertionError(
+                    "anchor unresolved at full lookback — equal-rotation "
+                    "boundary should be impossible for interior anchors")
+            lb = min(lb * 4, self.n)
+            if len(todo) and self.log:
+                self.log.v("batched anchors: lookback extended to %d for "
+                           "%d lanes" % (lb, len(todo)))
+        off = 0
+        for sp in self.specs:
+            if sp.T > 1:
+                sp.seeds[:sp.T - 1] = seeds[off:off + sp.T - 1]
+                off += sp.T - 1
+
+    # ------------------------------------------------------------- chains
+
+    def compute(self, anchor_lookback: int = 64) -> None:
+        """Anchors and chains of all merges: leaves the level histogram
+        in ``gap``, each merge's local final ranks in its spec, and
+        checks every lane's final rank against the anchored seed of the
+        lane to its left."""
+        with self.phase("anchors"):
+            self.anchor_all(anchor_lookback)
+        kid = np.concatenate(
+            [np.full(sp.T, sp.k, np.int64) for sp in self.specs])
+        starts = np.concatenate([sp.starts for sp in self.specs])
+        lens = np.concatenate([sp.lens for sp in self.specs])
+        seeds = np.concatenate([sp.seeds for sp in self.specs])
+        self._ensure_gt(self._caps(kid, starts))
+        dev = self.text_dev.device
+        with self.phase("chains"):
+            self.gap = torch.zeros(self.focc.n + 1, dtype=torch.int32,
+                                   device=dev)
+            self._samp = torch.full((self._nsamp,), -1, dtype=torch.int32,
+                                    device=dev)
+            kd, st, sd, ln = self._lanes(kid, starts, seeds, lens)
+            # the walk alone: device time between two events on the card,
+            # the host clock around the plain version on the CPU
+            on_card = dev.type == "cuda"
+            if on_card:
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+            else:
+                t0 = time.monotonic()
+            final = chain_walk_mk(self.focc, self.text_dev, self.gt_dev,
+                                  self.c_first, self.table, kd, st, sd, ln,
+                                  self.gap, self._samp, self.sample_rate)
+            if on_card:
+                t1.record()
+            final = final.cpu().numpy()      # on the card: ends the walk
+            self.chain_ms = (t0.elapsed_time(t1) if on_card
+                             else (time.monotonic() - t0) * 1e3)
+            self.chain_steps = int(lens.sum())
+        lane0 = 0
+        for sp in self.specs:
+            sp.final_rs = final[lane0:lane0 + sp.T] - sp.rbase
+            lane0 += sp.T
+            seeds_loc = sp.seeds - sp.rbase
+            if not np.array_equal(sp.final_rs[1:], seeds_loc[:-1]):
+                bad = int(np.flatnonzero(
+                    sp.final_rs[1:] != seeds_loc[:-1])[0])
+                raise AssertionError(
+                    "anchor/chain mismatch (merge %d lane %d): %d != %d"
+                    % (sp.k, bad + 1, sp.final_rs[bad + 1], seeds_loc[bad]))
+
+    # ------------------------------------------------------------ results
+
+    def view(self, k: int) -> "_MergeView":
+        return _MergeView(self, self.specs[k])
+
+
+class _MergeView:
+    """The results of one merge of the batch."""
+
+    def __init__(self, runner: BatchedGapRunner, spec: _MergeSpec):
+        self._r = runner
+        self._sp = spec
+        self.final_rs = spec.final_rs
+
+    @property
+    def gap(self) -> torch.Tensor:
+        """The merge's histogram: its gap_size + 1 cells of the level's."""
+        sp = self._sp
+        return self._r.gap[sp.rbase:sp.rbase + sp.gap_size + 1]
+
+    def gap_checksum(self) -> int:
+        return int(self.gap.sum())
+
+    def harvest_samples(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(positions, local R values) at the sample_rate-aligned
+        positions of the merge's left block, ascending."""
+        sp, rate = self._sp, self._r.sample_rate
+        raw = self._r._samp[sp.samp_base:sp.samp_base + sp.nsamp]
+        seen = (raw != -1).cpu().numpy()
+        vals = from_u32_bits(raw).cpu().numpy() - sp.rbase
+        pos = sp.samp_p0 + rate * np.arange(sp.nsamp, dtype=np.int64)
+        return pos[seen], vals[seen]
+
+
+def batched_inputs_from_jax(jax_runner, sample_rate: int) -> dict:
+    """The level inputs a reference ``BatchedGapRunner`` computed, after
+    its ``compute()``, as the numpy arguments of ``gap_chain_mk_plain``
+    (``c_first``, ``table``, ``gt``, ``kid``, ``starts``, ``seeds``,
+    ``lens``) plus per merge ``rbase``, ``samp_base`` and ``nsamp``.  The
+    reference's gt rows are 32 bytes per 256 positions from each merge's
+    ``lo0``, so its row base times 32 is the merge's byte base here."""
+    specs = jax_runner.specs
+    K = len(specs)
+    table = np.zeros((K, MERGE_WORDS), np.int64)
+    sigma = int(jax_runner.sigma)
+    samp_off = 0
+    info = []
+    for k, sp in enumerate(specs):
+        s, m = int(sp.s), int(sp.m)
+        p0 = s + (-s) % sample_rate
+        nsamp = len(range(p0, m, sample_rate))
+        table[k] = (k * sigma, int(jax_runner._isa_g[k]),
+                    int(jax_runner._symb[k]), int(jax_runner._syml[k]),
+                    int(sp.lo0), int(sp.gt_base) * (TEXT_BLOCK // 8),
+                    samp_off, p0)
+        info.append({"rbase": int(sp.rbase), "samp_base": samp_off,
+                     "nsamp": nsamp, "samp_p0": p0})
+        samp_off += nsamp
+    kid, starts, lens = jax_runner._lane_maps[:3]
+    return {
+        "c_first": u32_bits(np.asarray(jax_runner._cbase_rows).reshape(-1)),
+        "table": u32_bits(table),
+        "gt": np.asarray(jax_runner._gt_packed, np.uint8).reshape(-1),
+        "kid": np.asarray(kid, np.int32),
+        "starts": np.asarray(starts, np.int64),
+        "seeds": u32_bits(np.concatenate([sp.seeds for sp in specs])),
+        "lens": np.asarray(lens, np.int32),
+        "merges": info,
+        "nsamp": samp_off,
+    }

@@ -1,13 +1,15 @@
 """Batched LF walks: the CUDA kernel, its wrapper and plain versions.
 
 One kernel, ``bwt_lf_walk`` in ``csrc/lf_walk.cu``, ports
-``bwtb3m_tpu/ops/lf_pallas.py::lf_walk_pallas``.  Three entry points run
+``bwtb3m_tpu/ops/lf_pallas.py::lf_walk_pallas``.  Four entry points run
 it, each with what a step visits:
 
     lf_walk       the final rank only, as lf_walk_pallas
     verify_walk   checkbwt's walk, <- bwtb3m_tpu/engine/verify.py::_verify_chunk
     harvest_walk  bwtcomputessa's walk, <- bwtb3m_tpu/engine/ssa.py::
                   _harvest_chunk (+ its host loop _harvest_fused)
+    select_walk   select_ssa's walk, <- bwtb3m_tpu/engine/ssa.py::
+                  _select_chunk: to the first rank whose bit is set
 
 Each thread owns one walk lane and runs all of its steps; a step loads
 one rank row and depends on the previous step's rank, so each lane is
@@ -18,7 +20,8 @@ steps gather: one on sector rows (sigma <= 4), four on bit-plane rows
 
 An entry point launches the kernel for CUDA tensors and uses its plain
 PyTorch version only for CPU tensors; any other device raises.  The one
-wrapper, ``_launch``, counts every launch in ``lf_walk.launches``.  Ranks
+wrapper, ``_launch``, counts every launch in ``lf_walk.launches`` (and per
+visit in ``LAUNCHES``).  Ranks
 and positions are int64 tensors at the interface and int32 (uint32
 inside the kernel) at the launch: n < 2^31 on every path that calls
 these.
@@ -81,6 +84,25 @@ def harvest_walk_plain(focc, r0: torch.Tensor, p0: torch.Tensor,
     return sa, isa
 
 
+def select_walk_plain(focc, bitwords: torch.Tensor, r0: torch.Tensor,
+                      cap: int):
+    """(hit rank, steps) per lane: the lane LF-steps from r0 until bit r
+    of ``bitwords`` (uint32 words held as int32) is set, tested before
+    each of at most ``cap`` steps; steps is -1 for a lane without a hit
+    (its rank is then where the walk stopped)."""
+    r = r0.long()
+    steps = torch.full_like(r, -1)
+    for k in range(cap):
+        live = steps < 0
+        if not bool(live.any()):
+            break
+        bit = (bitwords[r >> 5].long() >> (r & 31)) & 1
+        steps = torch.where(live & (bit == 1), k, steps)
+        _sym, r2 = lf_step(focc, r)
+        r = torch.where(steps < 0, r2, r)
+    return r, steps
+
+
 # ------------------------------------------------------------ CUDA wrappers
 
 def _lib():
@@ -138,12 +160,15 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def _launch(focc, r32: torch.Tensor, l32: torch.Tensor, p32=None, text=None,
-            bad=None, sarate=1, isarate=1, sa=None, isa=None) -> torch.Tensor:
+            bad=None, sarate=1, isarate=1, sa=None, isa=None, bitwords=None,
+            steps=None) -> torch.Tensor:
     """The wrapper of the LF-walk kernel ``bwt_lf_walk``: lane i takes
     ``l32[i]`` LF steps from rank ``r32[i]``; returns the final ranks
     (int32).  With ``text`` it also counts each lane's mismatches into
     ``bad`` (verify visit); with ``sa`` / ``isa`` it writes the samples
-    (harvest visit).  Counts its launches in ``lf_walk.launches``."""
+    (harvest visit); with ``bitwords`` a lane stops at the first rank
+    whose bit is set and ``steps`` takes its step count (select visit).
+    Counts its launches in ``lf_walk.launches``."""
     rows, roww, C, sigma = _rows_args(focc, r32.device)
     r_out = torch.empty_like(r32)
     if len(r32) == 0:
@@ -151,8 +176,11 @@ def _launch(focc, r32: torch.Tensor, l32: torch.Tensor, p32=None, text=None,
     rc = _lib().bwt_lf_walk(rows, roww, C, sigma, focc.n, _ptr(r32),
                             _ptr(p32), _ptr(l32), _ptr(r_out), _ptr(text),
                             _ptr(bad), int(sarate), int(isarate), _ptr(sa),
-                            _ptr(isa), len(r32), _stream(r32.device))
+                            _ptr(isa), _ptr(bitwords), _ptr(steps), len(r32),
+                            _stream(r32.device))
     lf_walk.launches += 1
+    LAUNCHES["verify" if text is not None else "harvest" if sa is not None
+             else "select" if bitwords is not None else "none"] += 1
     _check(rc)
     return r_out
 
@@ -167,6 +195,8 @@ def lf_walk(focc, r0: torch.Tensor, steps: int) -> torch.Tensor:
 
 
 lf_walk.launches = 0
+# the same launches by what a step visits
+LAUNCHES = {"none": 0, "verify": 0, "harvest": 0, "select": 0}
 
 
 def verify_walk(focc, text: torch.Tensor, r0: torch.Tensor, p0: torch.Tensor,
@@ -205,5 +235,27 @@ def harvest_walk(focc, r0: torch.Tensor, p0: torch.Tensor,
     return sa.long(), isa.long()
 
 
+def select_walk(focc, bitwords: torch.Tensor, r0: torch.Tensor, cap: int):
+    """(hit rank, steps) as int64 tensors, steps -1 where no rank with a
+    set bit came within ``cap`` steps; ``bitwords`` holds one bit per
+    rank as uint32 words in an int32 tensor of at least n / 32 + 1
+    words."""
+    if not _on_cuda(r0):
+        return select_walk_plain(focc, bitwords, r0, cap)
+    if bitwords.dtype != torch.int32 or bitwords.device != r0.device \
+            or not bitwords.is_contiguous() \
+            or bitwords.shape[0] * 32 <= focc.n:
+        raise TypeError("bitwords must be a contiguous int32 tensor of "
+                        "more than n=%d bits on %s" % (focc.n, r0.device))
+    _check_range("ranks", r0, focc.n)
+    (r32,) = _lanes_i32(r0)
+    steps = torch.empty_like(r32)
+    r_hit = _launch(focc, r32, torch.full_like(r32, int(cap)),
+                    bitwords=bitwords, steps=steps)
+    return r_hit.long(), steps.long()
+
+
 def reset_launch_counts() -> None:
     lf_walk.launches = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

@@ -5,6 +5,10 @@ compile time (``bwtb3m_tpu/util/devices.py``).  The port has no compile
 step per shape, so it keeps no size threshold and no fallback: the device
 a user names is the device that runs, and asking for CUDA on a machine
 without it is an error.
+
+``device_budget`` is the one place that says how many bytes of device
+memory a step may plan with; the merge engine's gates read it
+(``engine/merge_scaled.py``).
 """
 
 from __future__ import annotations
@@ -31,3 +35,20 @@ def resolve_device(name) -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError("unsupported device %r (use cuda or cpu)" % name)
+
+
+CPU_BUDGET = 16 << 30     # what a CPU run plans with; callers may pass theirs
+
+
+def device_budget(device, cpu_budget: int = CPU_BUDGET) -> int:
+    """Bytes of memory on ``device`` that new tensors can take now.  On a
+    card: what ``torch.cuda.mem_get_info`` reports free, plus what
+    PyTorch's allocator holds reserved but unallocated (it reuses that
+    before it asks CUDA for more).  On the CPU: ``cpu_budget``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return int(cpu_budget)
+    free, _total = torch.cuda.mem_get_info(device)
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return int(free + cached)

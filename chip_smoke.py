@@ -2,16 +2,19 @@
 """Smoke run of the PyTorch / CUDA port (``bwtb3m_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--n 100000003] [--merge-n 400000009]
+                          [--genome-n 1200000011] [--genome-hostmem 0]
 
 Phases, in order; any failure exits non-zero and no result line is
 printed:
 
 1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
    and the port's native host library (g++), which must have built;
-2. build both kernels from ``bwtb3m_tpu_torch/csrc`` (one nvcc each, in
-   parallel): the LF walk and the gap chain;
+2. build both kernel libraries from ``bwtb3m_tpu_torch/csrc`` (one nvcc
+   each, in parallel): the LF walk (``bwt_lf_walk``) and the gap chain
+   (``bwt_gap_chain_mk``: a single pair merge is a level of one);
 3. the LF-walk kernel through each of its entry points (final rank,
-   verify visit, harvest visit) against its plain PyTorch version on the
+   verify visit, harvest visit, select visit) against its plain PyTorch
+   version on the
    card, bit-exact, at n = 2^22 with 131,072 lanes, on every rank-row
    layout: sector and bit-plane rows (sigma 4), bit-plane rows (sigma 7)
    and byte rows (sigma 200); then, kernel only, the walk's step rate
@@ -19,7 +22,8 @@ printed:
    to 2^18 lanes (rank rows inside and far past the L2);
 4. the gap-chain kernel (recording form and both anchor bounds) against
    its plain version, bit-exact: a right region of 2^22 ranks, a left
-   block of 2^22 symbols, 65,536 lanes, on the same four layouts;
+   block of 2^22 symbols, 65,536 lanes, on the same four layouts; the
+   runner's own anchors and chains must then give the ranks of the sort;
 5. the single-block path through the CLI dispatch with ``device=cuda``
    on a chromosome-sized text (n = 100,000,003 ACGT symbols from
    ``--seed``, random except for 1,000 copies of 1,000-10,000-symbol
@@ -49,14 +53,42 @@ printed:
     (the recording walk without the histogram atomic and the sample
     write), the recording form at 2^15 to 2^18 lanes, and both with
     ``cudaLimitMaxL2FetchGranularity`` at its default and at 32;
-11. launch counts per path (> 0), kernel times against plain versions
+11. the genome path at n = 1,200,000,011 (a vertebrate genome of the
+    1.0-1.2 Gbp class; nine blocks at the default mem=2G: levels of 4
+    pairs + a carried block, 2 pairs + carry, 1 + carry, root): ``bwtb3m
+    bwtonly=0 sasamplingrate=32 isasamplingrate=262144`` (a level of two
+    or more pairs is one launch of the chain, the SA/ISA walk takes its
+    rank rows from the build's device symbols); ``checkbwt`` in the
+    same process and once more in a fresh process from ``.bwt`` (gok=1);
+    ``hwtPreIsaToIsa`` (its .isa equals the build's); ``select_ssa`` of
+    2^20 ranks held against the .sa samples they name.  Then every
+    kernel of that path against its plain version at the shapes the path
+    gave it: the select visit on all 2^20 lanes; the verify and harvest
+    walks on checkbwt's and the SA/ISA walk's lanes over the 1.2G rows;
+    and ``bwt_gap_chain_mk`` (recording form and both anchor bounds) on
+    every level of the build (4, 2, 1 and 1 merges), for which the build
+    runs once more through the engine with each level's lanes replayed
+    through the kernel and the plain version.  That replay also holds
+    the peak device memory of every block sort and level to the figures
+    the engine's gates plan with.  Between the two: the same build with
+    ``batchmerges=0`` through ``compute_bwt`` (byte-identical files,
+    phases and chain times side by side) and ``check_bwt`` of the result
+    it returned, which must take the build's device symbols (the
+    hand-off) and not decode the file.  ``--genome-n`` of 2^31 or more
+    builds with ``bwtonly=1`` and stops after the build: checkbwt and
+    the SA tools need the wide lanes there, which are not ported;
+12. launch counts per path (> 0), kernel times against plain versions
     and bounds, per-phase wall and device time, peak device memory.
 
 The last three lines are the nvidia-smi line, a JSON object of the
 kernels, and ``{"ok": true, "device": {...}}``.  A kernel's ``ms``,
 ``plain_ms`` and ``bound_ms`` there are from the merge path's shapes
-(the 400M build's walks; the root merge's chains and anchors) on the
-layout that path runs; ``layouts`` has the same numbers per layout.
+(the 400M build's walks; the root merge's chains and anchors, one merge
+per launch) or, for ``gap_chain_mk`` (the same entry at the genome
+build's first level of four merges; ``levels`` has every level) and the
+select visit, the genome path's, on the layout that path runs;
+``launches`` is that path's count and ``layouts`` has the same numbers
+per layout.
 ``bound_ms`` is the larger of the bytes the call must move once (rank
 rows, the text and gt bytes walked, lane arrays, outputs) over 3.35 TB/s
 and its integer operations (steps taken times the operations of one
@@ -86,9 +118,22 @@ WORK = os.path.join(REPO, "smoke_out")
 KERNELS = {
     "lf_walk": ("bwtb3m_tpu_torch/csrc/lf_walk.cu",
                 "bwtb3m_tpu/ops/lf_pallas.py:97"),
+    # one entry, bwt_gap_chain_mk, ports both chain programs: the single
+    # pair merge is a level of one.  The first row is that entry as the
+    # merge path drives it (one merge per launch), the second as the
+    # genome path does (its levels of four, two, one and one merges)
     "gap_chain": ("bwtb3m_tpu_torch/csrc/gap_chain.cu",
                   "bwtb3m_tpu/ops/gapdev.py:141"),
+    "gap_chain_mk": ("bwtb3m_tpu_torch/csrc/gap_chain.cu",
+                     "bwtb3m_tpu/ops/gapbatch.py:214"),
+    # the select visit of the LF-walk kernel, counted on its own
+    "lf_walk_select": ("bwtb3m_tpu_torch/csrc/lf_walk.cu",
+                       "bwtb3m_tpu/engine/ssa.py:468"),
 }
+LIBRARIES = ("lf_walk", "gap_chain")
+# the path whose launches and shapes a row of the kernels line reports
+ROW_PATH = {"lf_walk": "merge path", "gap_chain": "merge path",
+            "gap_chain_mk": "genome path", "lf_walk_select": "genome path"}
 PHASE_PREFIX = "bwtb3m::"
 BLOCKED = ("jax", "jaxlib", "bwtb3m_tpu")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
@@ -169,6 +214,12 @@ def main() -> int:
     ap.add_argument("--merge-mem", type=int, default=2 * 1024 ** 3,
                     help="mem= of the merge path (the default gives three "
                     "blocks at the default --merge-n)")
+    ap.add_argument("--genome-n", type=int, default=1_200_000_011,
+                    help="genome path text length (nine blocks at mem=2G)")
+    ap.add_argument("--genome-mem", type=int, default=2 * 1024 ** 3,
+                    help="mem= of the genome path (blocks of mem/16 symbols)")
+    ap.add_argument("--genome-hostmem", type=int, default=0,
+                    help="hostmem= of the genome path's builds (0: unset)")
     args = ap.parse_args()
     sys.meta_path.insert(0, _BlockJax())
 
@@ -186,19 +237,24 @@ def main() -> int:
 
     from bwtb3m_tpu_torch import native
     from bwtb3m_tpu_torch.cli import dispatch
-    from bwtb3m_tpu_torch.engine.merge_scaled import (
-        _Ctx, _plan_blocks_fixed, _sort_block, anchored_lanes)
+    from bwtb3m_tpu_torch.engine import merge_scaled
+    from bwtb3m_tpu_torch.engine.api import compute_bwt
     from bwtb3m_tpu_torch.engine.options import BwtOptions
     from bwtb3m_tpu_torch.engine.result import BwtResult, write_bwt
-    from bwtb3m_tpu_torch.engine.ssa import load_sampled_array, seed_segments
+    from bwtb3m_tpu_torch.engine.ssa import (load_sampled_array,
+                                             seed_segments, select_ssa)
+    from bwtb3m_tpu_torch.engine.verify import check_bwt
     from bwtb3m_tpu_torch.ops import _build
-    from bwtb3m_tpu_torch.ops import gapdev as gd
+    from bwtb3m_tpu_torch.ops import gapbatch as gb
     from bwtb3m_tpu_torch.ops import lf_walk as lw
+    from bwtb3m_tpu_torch.ops.devzip import bits_for, rows_from_host_bwt
     from bwtb3m_tpu_torch.ops.doubling import suffix_array
     from bwtb3m_tpu_torch.ops.focc import access
-    from bwtb3m_tpu_torch.ops.focc_build import (build_focc_device,
-                                                 build_focc_from_packed,
+    from bwtb3m_tpu_torch.ops.focc_build import (build_focc_concat,
+                                                 build_focc_device,
                                                  build_focc_host)
+    from bwtb3m_tpu_torch.util.args import ArgInfo
+    from bwtb3m_tpu_torch.util.log import VerboseLog
     from bwtb3m_tpu_torch.util.phases import Phases
 
     nvcc = _build.find_nvcc()
@@ -226,18 +282,20 @@ def main() -> int:
             if ("registers" in line or "spill" in line or "Compiling" in line
                     or "build time" in line):
                 say("  ptxas: " + line.strip())
-    for name in KERNELS:
+    for name in LIBRARIES:
         _build.load(name)
 
     def reset_counts():
         lw.reset_launch_counts()
-        gd.reset_launch_counts()
+        gb.reset_launch_counts()
 
     def counts():
-        return {"lf_walk": lw.lf_walk.launches,
-                "gap_chain": gd.LAUNCHES["chain"] + gd.LAUNCHES["anchor"],
-                "gap_chain (chain form)": gd.LAUNCHES["chain"],
-                "gap_chain (anchor form)": gd.LAUNCHES["anchor"]}
+        chain = gb.LAUNCHES["chain"] + gb.LAUNCHES["anchor"]
+        return {"lf_walk": lw.lf_walk.launches - lw.LAUNCHES["select"],
+                "lf_walk_select": lw.LAUNCHES["select"],
+                "gap_chain": chain, "gap_chain_mk": chain,
+                "gap_chain_mk (chain form)": gb.LAUNCHES["chain"],
+                "gap_chain_mk (anchor form)": gb.LAUNCHES["anchor"]}
 
     def timed(fn, reps=1, warm=True, setup=None):
         """(result, ms per call) over ``reps`` calls, after one warm call
@@ -313,6 +371,23 @@ def main() -> int:
                 raise AssertionError("harvest_walk disagrees with the sort")
             checks["harvest_walk"] = (max(max_err(ks, ps), max_err(ki, pi)),
                                       k_ms, p_ms)
+            # the select visit: every lane walks to the next of the marked
+            # ranks (every 97th position's), SA[start] = SA[hit] + steps
+            marks = isa[::97]
+            words = np.zeros(n_small // 32 + 1, np.uint32)
+            np.bitwise_or.at(words, marks >> 5,
+                             np.uint32(1) << (marks & 31).astype(np.uint32))
+            bitw = torch.from_numpy(words.view(np.int32)).to(dev)
+            (kr, kst), k_ms = timed(lambda: lw.select_walk(focc, bitw, r0,
+                                                           300), reps=5)
+            (pr_, pst), p_ms = timed(lambda: lw.select_walk_plain(
+                focc, bitw, r0, 300))
+            if not np.array_equal(
+                    (sa[kr.cpu().numpy()] + kst.cpu().numpy()) % n_small,
+                    sa[r0.cpu().numpy()]) or int(kst.min()) < 0:
+                raise AssertionError("select_walk disagrees with the sort")
+            checks["select_walk"] = (max(max_err(kr, pr_), max_err(kst, pst)),
+                                     k_ms, p_ms)
             for name, (err, k_ms, p_ms) in checks.items():
                 say("kernel %-12s sigma=%-3d %-8s rows n=2^22 lanes=%d: "
                     "max_abs_err %d, kernel %.3f ms, plain %.3f ms"
@@ -351,91 +426,123 @@ def main() -> int:
         del foccs
 
     # ---- 4. gap-chain kernel against its plain version at 2^22 ---------
-    def chain_inputs(runner, starts, seeds, lens):
-        runner.ensure_gt(int((starts + 64).max()) + 1)
-        st, sd, ln = runner._lanes(starts, seeds, lens)
-        rate = runner.sample_rate
-        p0 = runner.s + (-runner.s) % rate
-        gap = torch.empty(runner.gap_size + 1, dtype=torch.int32, device=dev)
-        samp = torch.empty(len(range(p0, runner.m, rate)), dtype=torch.int32,
-                           device=dev)
+    def level_lanes(level):
+        """(kid, starts, seeds, lens) of an anchored level, as numpy."""
+        return (np.concatenate([np.full(sp.T, sp.k) for sp in level.specs]),
+                np.concatenate([sp.starts for sp in level.specs]),
+                np.concatenate([sp.seeds for sp in level.specs]),
+                np.concatenate([sp.lens for sp in level.specs]))
+
+    def mk_args(level, focc, kd, st):
+        return (focc, level.text_dev, level.gt_dev, level.c_first,
+                level.table, kd, st)
+
+    def level_buffers(level, focc):
+        gap = torch.empty(focc.n + 1, dtype=torch.int32, device=dev)
+        samp = torch.empty(level._nsamp, dtype=torch.int32, device=dev)
 
         def clear():
             gap.zero_()
             samp.fill_(-1)
 
-        def args_of(focc, st_=st):
-            return (focc, runner.text_dev, runner.gt_dev, runner.lo0,
-                    runner.c_first, runner.consts, st_)
+        return gap, samp, clear
 
-        return st, sd, ln, gap, samp, p0, rate, clear, args_of
-
-    def chain_bound(runner, focc, st, ln, recording):
-        """Bound of one launch: rows, the text and gt bytes walked, lane
-        arrays in and out, and for the recording form the histogram and
-        the samples written."""
-        steps = int(ln.sum())
-        nb = (nbytes(focc.rows) + steps + steps // 8
-              + len(st) * (8 + 4 + 4 + 4))
-        if recording:
-            nb += 4 * (runner.gap_size + 1) + 4 * (steps // runner.sample_rate)
-        return bound(nb, steps * CHAIN_STEP_OPS[focc.LAYOUT])
-
-    def chain_compare(runner, foccs, starts, seeds, lens, reps, warm_plain,
-                      label):
-        """Recording form and both anchor bounds (lookback 64), per rank-
-        row layout in ``foccs``: kernel against plain version on the same
-        inputs.  Returns {layout: {max_abs_err, ms, plain_ms, bound_ms,
-        bound_by, forms}}, the times summed over the three launches."""
-        st, sd, ln, gap, samp, p0, rate, clear, args_of = chain_inputs(
-            runner, starts, seeds, lens)
-        a_st = torch.from_numpy(starts + 64).to(dev)
-        a_ln = torch.full_like(ln, 64)
+    def level_compare(level, foccs, lanes, reps, warm_plain, label, lb=64):
+        """``bwt_gap_chain_mk`` against its plain version on the lanes
+        (kid, starts, seeds, lens) of ``level`` (a ``BatchedGapRunner``):
+        the recording form, then the anchor form over ``lb`` steps from
+        each merge's rank 0 and from its top, per rank-row layout in
+        ``foccs`` (more than one only for a level of one merge, whose
+        rank base is 0 on every layout).  Where ``level`` has computed its
+        own histogram and samples on that layout, both are held to them
+        too.  Returns {layout: {max_abs_err, ms, plain_ms, bound_ms,
+        bound_by, forms, steps, lanes}}, the times summed over the three
+        launches."""
+        kid, starts, seeds, lens = lanes
+        level._ensure_gt(level._caps(kid, starts + lb))
+        kd, st, sd, ln = level._lanes(kid, starts, seeds, lens)
+        rate = level.sample_rate
+        steps = int(lens.sum())
+        left = sum(sp.m - sp.s for sp in level.specs)
+        a_st = st + lb
+        a_ln = torch.full_like(ln, lb)
+        bases = np.array([level.specs[k].rbase for k in kid])
+        tops = bases + np.array([level.specs[k].gap_size for k in kid])
         out = {}
         for layout, focc in foccs.items():
             say_l = "%s %s rows," % (label, layout)
-            res = []
-            for fn, reps_, warm in ((gd.chain_walk, reps, True),
-                                    (gd.gap_chain_plain, 1, warm_plain)):
-                final, ms = timed(lambda: fn(*args_of(focc), sd, ln, gap,
-                                             samp, p0, rate),
-                                  reps=reps_, warm=warm, setup=clear)
-                res.append((final.clone(), gap.clone(), samp.clone(), ms))
-            (fk, gk, sk, k_ms), (fp, gpl, sp, p_ms) = res
-            if int(gk.sum()) != runner.m - runner.s:
-                raise AssertionError("gap total %d != left block %d"
-                                     % (int(gk.sum()), runner.m - runner.s))
-            errs = [max(max_err(fk, fp), max_err(gk, gpl), max_err(sk, sp))]
-            b_ms, b_by = chain_bound(runner, focc, st, ln, True)
+            args = mk_args(level, focc, kd, st)
+            gap, samp, clear = level_buffers(level, focc)
+            fk, k_ms = timed(lambda: gb.chain_walk_mk(*args, sd, ln, gap,
+                                                      samp, rate),
+                             reps=reps, setup=clear)
+            if int(gap.sum()) != left:
+                raise AssertionError("gap total %d != left blocks %d"
+                                     % (int(gap.sum()), left))
+            if focc is level.focc and level.gap is not None:
+                ref_gap, ref_samp = level.gap, level._samp
+            else:
+                ref_gap, ref_samp = gap.clone(), samp.clone()
+            errs = [max(max_err(gap, ref_gap), max_err(samp, ref_samp))]
+            fp, p_ms = timed(lambda: gb.gap_chain_mk_plain(
+                *args, sd, ln, gap, samp, rate), warm=warm_plain,
+                setup=clear)
+            errs.append(max(max_err(fk, fp), max_err(gap, ref_gap),
+                            max_err(samp, ref_samp)))
+            # each input read once, each output written once
+            nb = (nbytes(focc.rows, level.table, level.c_first) + steps
+                  + steps // 8 + len(st) * (4 + 8 + 4 + 4 + 4)
+                  + 4 * gap.numel() + 4 * samp.numel())
+            b_ms, b_by = bound(nb, steps * CHAIN_STEP_OPS[layout])
             forms = {"recording": k_ms}
             kt, pt = k_ms, p_ms
-            say("kernel gap_chain   %s chain form: max_abs_err %d, kernel "
-                "%.3f ms, plain %.3f ms, bound %.3f ms (%s)"
-                % (say_l, errs[-1], k_ms, p_ms, b_ms, b_by))
-            del res, fk, gk, sk, fp, gpl, sp
-            for r0 in (0, runner.gap_size):
-                a_sd = torch.full_like(sd, r0)
-                a_args = args_of(focc, a_st)
-                k, k_ms = timed(lambda: gd.anchor_walk(*a_args, a_sd, a_ln),
+            say("kernel gap_chain_mk %s chain form (%d steps): max_abs_err "
+                "%d, kernel %.3f ms (%.2f G steps/s), plain %.3f ms, bound "
+                "%.3f ms (%s)" % (say_l, steps, max(errs), k_ms,
+                                  steps / k_ms / 1e6, p_ms, b_ms, b_by))
+            del ref_gap, ref_samp, gap, samp, fk, fp
+            for which, r0s in (("from rank 0", bases),
+                               ("from the top", tops)):
+                a_sd = torch.from_numpy(gb.u32_bits(r0s)).to(dev)
+                a_args = (*mk_args(level, focc, kd, a_st), a_sd, a_ln)
+                k, k_ms = timed(lambda: gb.anchor_walk_mk(*a_args),
                                 reps=reps)
-                p, p_ms = timed(lambda: gd.gap_chain_plain(*a_args, a_sd,
-                                                           a_ln),
-                                warm=warm_plain)
-                errs.append(max_err(k, p))
-                kt, pt = kt + k_ms, pt + p_ms
-                ab_ms, ab_by = chain_bound(runner, focc, a_st, a_ln, False)
+                p_, p_ms = timed(lambda: gb.gap_chain_mk_plain(*a_args),
+                                 warm=warm_plain)
+                errs.append(max_err(k, p_))
+                ab_ms, _by = bound(
+                    nbytes(focc.rows, level.table, level.c_first)
+                    + lb * len(st) * 9 // 8 + len(st) * 24,
+                    lb * len(st) * CHAIN_STEP_OPS[layout])
                 b_ms += ab_ms
-                forms["anchor from %d" % r0] = k_ms
-                say("kernel gap_chain   %s anchor form from %d: max_abs_err "
-                    "%d, kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
-                    % (say_l, r0, errs[-1], k_ms, p_ms, ab_ms, ab_by))
+                kt, pt = kt + k_ms, pt + p_ms
+                forms["anchor " + which] = k_ms
+                say("kernel gap_chain_mk %s anchor form %s, %d steps: "
+                    "max_abs_err %d, kernel %.3f ms, plain %.3f ms, bound "
+                    "%.3f ms" % (say_l, which, lb, errs[-1], k_ms, p_ms,
+                                 ab_ms))
             if max(errs):
-                raise AssertionError("gap_chain disagrees with its plain "
+                raise AssertionError("gap_chain_mk disagrees with its plain "
                                      "version on %s rows" % layout)
             out[layout] = {"max_abs_err": max(errs), "ms": kt,
                            "plain_ms": pt, "bound_ms": b_ms,
-                           "bound_by": b_by, "forms": forms}
+                           "bound_by": b_by, "forms": forms, "steps": steps,
+                           "lanes": len(st), "merges": len(level.specs)}
         return out
+
+    def one_merge(text_dev, text_host, sigma, s, m, e, r_start, hist, packed,
+                  rate, layouts, lane_bucket=1 << 16):
+        """A pair merge as a level of one, and its rank rows per layout."""
+        bits = bits_for(sigma)
+        level = gb.BatchedGapRunner(
+            text_dev, text_host, sigma, [(s, m, e, r_start, hist)], [packed],
+            bits, lane_bucket=lane_bucket, sample_rate=rate,
+            layout=layouts[0])
+        foccs = {layouts[0]: level.focc}
+        for lay in layouts[1:]:
+            foccs[lay] = build_focc_concat([packed], [e - m], sigma, bits,
+                                           lay)[0]
+        return level, foccs
 
     for sigma, layouts in LAYOUTS_OF.items():
         rng = np.random.default_rng(args.seed + 40 + sigma)
@@ -444,28 +551,31 @@ def main() -> int:
         sa, isa, _bwt = suffix_array(text, sigma, dev)
         right = sa[sa >= m_g]                       # rotation order of M
         rbwt = text[(right - 1) % n_g]
-        foccs = {lay: build_focc_host(rbwt, sigma, dev, lay)
-                 for lay in layouts}
         R = np.searchsorted(np.sort(isa[m_g:]), isa)     # R(p) for every p
-        runner = gd.GapRunner(
-            foccs[layouts[0]], torch.from_numpy(text).to(dev), text, 0, m_g,
-            n_g, int(R[m_g]), np.bincount(text[m_g:], minlength=sigma),
-            sample_rate=64)
+        level, foccs = one_merge(
+            torch.from_numpy(text).to(dev), text, sigma, 0, m_g, n_g,
+            int(R[m_g]), np.bincount(text[m_g:], minlength=sigma),
+            rows_from_host_bwt(rbwt, sigma, dev), 64, layouts)
         bounds = np.linspace(0, m_g, (1 << 16) + 1).astype(np.int64)
         starts, lens = bounds[1:] - 1, np.diff(bounds)
-        chain_compare(runner, foccs, starts, R[starts + 1], lens, 5, True,
+        level_compare(level, foccs, (np.zeros(len(starts), np.int64), starts,
+                                     R[starts + 1], lens), 5, True,
                       "sigma=%-3d right 2^22 ranks, left 2^22, 65536 lanes:"
                       % sigma)
-        # and the harvested samples are R itself, on every layout
+        # and the runner's own anchors and chains give R itself, on every
+        # layout
         for focc in foccs.values():
-            runner.focc = focc
-            runner.run_chains(starts, R[starts + 1], lens)
-            if not (np.array_equal(runner.harvest_samples()[1], R[0:m_g:64])
+            level.focc = focc
+            level.compute()
+            view = level.view(0)
+            if not (np.array_equal(view.harvest_samples()[1], R[0:m_g:64])
                     and np.array_equal(
-                        runner.gap.cpu().numpy(),
-                        np.bincount(R[:m_g], minlength=runner.gap_size + 1))):
+                        view.gap.cpu().numpy(),
+                        np.bincount(R[:m_g], minlength=n_g - m_g + 1))
+                    and np.array_equal(level.specs[0].seeds,
+                                       R[level.specs[0].starts + 1])):
                 raise AssertionError("gap chain disagrees with the sort")
-        del runner, foccs, sa, isa, R
+        del level, foccs, sa, isa, R
 
     # ---- 5. single-block path -------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
@@ -479,10 +589,11 @@ def main() -> int:
     bwt_path = inp + ".bwt"
     tools = []
 
-    def run_tool(name, argv):
-        """One CLI call: (exit code, stdout, {phase: (wall s, device s)}),
-        with its wall time and the card's busy time (kernel time sum from
-        the profiler); the tool's stderr log is echoed."""
+    def run_tool(name, argv, fn=None):
+        """One CLI call (or ``fn()``, a library call that returns an exit
+        code): (exit code, stdout, {phase: (wall s, device s)}), with its
+        wall time and the card's busy time (kernel time sum from the
+        profiler); the tool's stderr log is echoed."""
         torch.cuda.synchronize()
         buf, ebuf = io.StringIO(), io.StringIO()
         with torch.profiler.profile(
@@ -492,7 +603,7 @@ def main() -> int:
             try:                        # teardown stay out
                 with contextlib.redirect_stdout(buf), \
                         contextlib.redirect_stderr(ebuf):
-                    rc = dispatch(argv)
+                    rc = fn() if fn else dispatch(argv)
                 torch.cuda.synchronize()
             finally:
                 sys.stderr.write(ebuf.getvalue())
@@ -521,6 +632,7 @@ def main() -> int:
         say("%s: exit %d, wall %.3f s, device busy %s | %s"
             % (name, rc, wall, "%.3f s" % (busy_us / 1e6) if busy_us
                else "not measured", out.strip().replace("\n", " ")))
+        run_tool.log = ebuf.getvalue()
         return rc, out, phases
 
     path_counts = {}
@@ -586,12 +698,15 @@ def main() -> int:
         "lexsort doubling %.2f s on the host): ok" % t_np)
 
     # ---- 7. LF-walk kernel at the single-block path's shapes -------------
-    def lf_compare(bwt_file, raw_text, label):
+    def lf_compare(bwt_file, raw_text, label,
+                   layouts=("sector", "bitplane"),
+                   forms=("lf_walk", "verify_walk", "harvest_walk")):
         """Every LF-walk form against its plain version on the seeds and
         segments that checkbwt and bwtcomputessa give it for ``bwt_file``:
         on the rank rows the tools built (sector rows for DNA) and on
         bit-plane rows of the same BWT, the kernel timed in turns (sector,
-        bit-plane, bit-plane, sector).  Returns {layout: {max_abs_err, ms,
+        bit-plane, bit-plane, sector), for the ``layouts`` and ``forms``
+        asked.  Returns {layout: {max_abs_err, ms,
         plain_ms, bound_ms, bound_by, forms}}; ms, plain_ms and bound_ms
         are summed over the forms the tools launch (verify + harvest)."""
         res = BwtResult.load(bwt_file)
@@ -600,13 +715,14 @@ def main() -> int:
             raise AssertionError("the tools' rank rows for DNA are %s rows, "
                                  "not sector rows" % focc.LAYOUT)
         n = focc.n
-        bwt_dev = torch.cat([access(focc, torch.arange(
-            a, min(n, a + (1 << 24)), device=dev)).to(torch.uint8)
-            for a in range(0, n, 1 << 24)])
-        foccs = {"sector": focc,
-                 "bitplane": build_focc_device(bwt_dev, focc.sigma,
-                                               "bitplane")}
-        del bwt_dev
+        foccs = {"sector": focc}
+        if "bitplane" in layouts:
+            bwt_dev = torch.cat([access(focc, torch.arange(
+                a, min(n, a + (1 << 24)), device=dev)).to(torch.uint8)
+                for a in range(0, n, 1 << 24)])
+            foccs["bitplane"] = build_focc_device(bwt_dev, focc.sigma,
+                                                  "bitplane")
+            del bwt_dev
         ranks, positions, _rate = res.load_preisa()
         ranks, positions, seg = seed_segments(ranks, positions,
                                               len(raw_text))
@@ -640,9 +756,11 @@ def main() -> int:
         out = {lay: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
                      "bound_ms": 0.0, "bound_by": "bytes", "forms": {}}
                for lay in foccs}
-        for name in ("lf_walk", "verify_walk", "harvest_walk"):
+        for name in forms:
             k_ms = {lay: 0.0 for lay in foccs}
             for lay in ("sector", "bitplane", "bitplane", "sector"):
+                if lay not in foccs:
+                    continue
                 k, ms = timed(runs(foccs[lay])[name][0], reps=3)
                 k_ms[lay] += ms / 2
             for lay, f in foccs.items():
@@ -734,7 +852,7 @@ def main() -> int:
     path_counts["merge path"] = counts()
     peak_merge = torch.cuda.max_memory_allocated()
     say("merge path launches: %s" % path_counts["merge path"])
-    if min(path_counts["merge path"][k] for k in KERNELS) < 1:
+    if min(path_counts["merge path"][k] for k in LIBRARIES) < 1:
         raise AssertionError("the merge path did not launch every kernel")
     resm = BwtResult.load(bwtm)
     pr, pp, prate = resm.load_preisa()
@@ -758,7 +876,7 @@ def main() -> int:
     # with three blocks the root merges [0, m) with the carried last
     # block [m, n): sort that block again, as the engine did
     opts = BwtOptions(input_path=inpm, mem=args.merge_mem, device="cuda")
-    blocks = _plan_blocks_fixed(nm, opts.max_block_symbols)
+    blocks = merge_scaled._plan_blocks_fixed(nm, opts.max_block_symbols)
     if len(blocks) != 3:
         raise AssertionError("expected 3 blocks, planned %d" % len(blocks))
     s_r, (m_r, e_r) = 0, blocks[-1]
@@ -766,40 +884,43 @@ def main() -> int:
     table[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
     dense = table[text]           # the engine's alphabet compaction
     del text
-    ctx = _Ctx(dense, 4, prate, opts, None, 1 << 16, dev, Phases(dev))
-    right = _sort_block(ctx, m_r, e_r)
-    foccs = {lay: build_focc_from_packed(right.packed, e_r - m_r, 4,
-                                         ctx.bits, lay)
-             for lay in ("sector", "bitplane")}
-    runner = gd.GapRunner(foccs["sector"], ctx.text_dev, ctx.text, s_r, m_r,
-                          e_r, right.r_start, right.hist, sample_rate=prate)
-    starts, seeds, lens = anchored_lanes(ctx, runner)
+    ctx = merge_scaled._Ctx(dense, 4, prate, opts, None, 1 << 16, dev,
+                            Phases(dev))
+    right = merge_scaled._sort_block(ctx, m_r, e_r)
+    level, foccs = one_merge(ctx.text_dev, ctx.text, 4, s_r, m_r, e_r,
+                             right.r_start, right.hist, right.packed, prate,
+                             ("sector", "bitplane"))
+    level.anchor_all()
+    lanes = level_lanes(level)
+    kid, starts, seeds, lens = lanes
     root = "root merge (left %d, right %d ranks" % (m_r - s_r, e_r - m_r)
-    gc = chain_compare(runner, foccs, starts, seeds, lens, 3, False,
+    gc = level_compare(level, foccs, lanes, 3, False,
                        "%s, %d lanes):" % (root, len(starts)))
 
     # the chain's own two questions, kernel only.  (a) the anchor form
     # over the root's lanes at their full length: the recording walk
     # without the histogram atomic and the sample write
-    st, sd, ln, gap, samp, p0, rate, clear, args_of = chain_inputs(
-        runner, starts, seeds, lens)
+    kd, st, sd, ln = level._lanes(*lanes)
+    # one histogram for both layouts: the bit-plane rows' rank space (a
+    # grid of 256) covers the sector rows' (a grid of 64)
+    gap, samp, clear = level_buffers(level, foccs["bitplane"])
     turns = ("sector", "bitplane", "bitplane", "sector")
     full = {"recording": dict.fromkeys(foccs, 0.0),
             "anchor": dict.fromkeys(foccs, 0.0)}
     for lay in turns:
-        fin_r, ms = timed(lambda: gd.chain_walk(
-            *args_of(foccs[lay]), sd, ln, gap, samp, p0, rate), reps=3,
-            setup=clear)
-        full["recording"][lay] += ms / 2
-        fin_a, ms = timed(lambda: gd.anchor_walk(*args_of(foccs[lay]), sd,
-                                                 ln), reps=3)
-        full["anchor"][lay] += ms / 2
+        a_ = mk_args(level, foccs[lay], kd, st)
+        fin_r, t_ms = timed(lambda: gb.chain_walk_mk(*a_, sd, ln, gap, samp,
+                                                     prate), reps=3,
+                            setup=clear)
+        full["recording"][lay] += t_ms / 2
+        fin_a, t_ms = timed(lambda: gb.anchor_walk_mk(*a_, sd, ln), reps=3)
+        full["anchor"][lay] += t_ms / 2
         if not torch.equal(fin_r, fin_a):
             raise AssertionError("the anchor form's final ranks differ from "
                                  "the recording form's")
     gap_ref = gap.clone()
     for lay in foccs:
-        say("gap_chain %s, %d lanes x %d steps), %s rows: recording form "
+        say("gap_chain_mk %s, %d lanes x %d steps), %s rows: recording form "
             "%.3f ms, anchor form at full length %.3f ms, so histogram "
             "atomic + sample write %.3f ms [%s]"
             % (root, len(starts), int(lens.max()), lay,
@@ -810,19 +931,21 @@ def main() -> int:
     # depend on the lane split
     by_lanes = {}
     for lg in (15, 16, 17, 18):
-        ctx.lane_bucket = 1 << lg
-        runner.focc = foccs["sector"]
-        st_l, sd_l, ln_l = runner._lanes(*anchored_lanes(ctx, runner))
+        level.lane_bucket = 1 << lg
+        level.focc = foccs["sector"]
+        level.anchor_all()
+        kd_l, st_l, sd_l, ln_l = level._lanes(*level_lanes(level))
+        level._ensure_gt([int(st_l.max()) + 1])
         by_lanes[lg] = dict.fromkeys(foccs, 0.0)
         for lay in turns:
-            _f, ms = timed(lambda: gd.chain_walk(
-                *args_of(foccs[lay], st_l), sd_l, ln_l, gap, samp, p0, rate),
-                reps=3, setup=clear)
-            by_lanes[lg][lay] += ms / 2
+            a_ = mk_args(level, foccs[lay], kd_l, st_l)
+            _f, t_ms = timed(lambda: gb.chain_walk_mk(
+                *a_, sd_l, ln_l, gap, samp, prate), reps=3, setup=clear)
+            by_lanes[lg][lay] += t_ms / 2
             if not torch.equal(gap, gap_ref):
                 raise AssertionError("the histogram depends on the lane "
                                      "split (%d lanes)" % len(st_l))
-        say("gap_chain %s), recording form at %d lanes x %d steps: sector "
+        say("gap_chain_mk %s), recording form at %d lanes x %d steps: sector "
             "rows %.3f ms, bit-plane rows %.3f ms [%s]"
             % (root, len(st_l), int(ln_l.max()), by_lanes[lg]["sector"],
                by_lanes[lg]["bitplane"], smi))
@@ -834,22 +957,297 @@ def main() -> int:
     try:
         for g in (g0, 32, g0):
             got = l2(g)
-            _f, r_ms = timed(lambda: gd.chain_walk(
-                *args_of(foccs["sector"]), sd, ln, gap, samp, p0, rate),
-                reps=3, setup=clear)
-            _f, a_ms = timed(lambda: gd.anchor_walk(
-                *args_of(foccs["sector"]), sd, ln), reps=3)
-            _f, b_ms = timed(lambda: gd.anchor_walk(
-                *args_of(foccs["bitplane"]), sd, ln), reps=3)
+            a_s = mk_args(level, foccs["sector"], kd, st)
+            a_b = mk_args(level, foccs["bitplane"], kd, st)
+            _f, r_ms = timed(lambda: gb.chain_walk_mk(
+                *a_s, sd, ln, gap, samp, prate), reps=3, setup=clear)
+            _f, a_ms = timed(lambda: gb.anchor_walk_mk(*a_s, sd, ln), reps=3)
+            _f, b_ms = timed(lambda: gb.anchor_walk_mk(*a_b, sd, ln), reps=3)
             say("L2 fetch granularity asked %d, reads back %d: root chain "
                 "recording form %.3f ms and anchor form at full length "
                 "%.3f ms on sector rows, anchor form %.3f ms on bit-plane "
                 "rows [%s]" % (g, got, r_ms, a_ms, b_ms, smi))
     finally:
         l2(g0)
-    del ctx, runner, foccs, right, dense, gap, samp, gap_ref
+    del ctx, level, foccs, right, dense, gap, samp, gap_ref
 
-    # ---- 11. report -----------------------------------------------------
+    # ---- 11. the genome path ---------------------------------------------
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    ng = args.genome_n
+    wide = ng >= 1 << 31      # checkbwt and the SA tools need wide lanes
+    inpg = os.path.join(WORK, "genome.bin")
+    t0 = time.monotonic()
+    text = make_text(ng, args.seed + 11)
+    text.tofile(inpg)
+    say("input: n=%d ACGT with 1000 mutated repeats, made in %.2f s (host)"
+        % (ng, time.monotonic() - t0))
+    bwtg = inpg + ".bwt"
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rc, _, genome_phases = run_tool("bwtb3m (genome path)", [
+        "bwtb3m", "inputtype=bytestream", "bwtonly=%d" % wide,
+        "sasamplingrate=32", "isasamplingrate=262144", "device=cuda",
+        "mem=%d" % args.genome_mem, "hostmem=%d" % args.genome_hostmem,
+        inpg])
+    if rc != 0:
+        raise AssertionError("bwtb3m failed on the genome path")
+    build_log = run_tool.log
+    levels = [ln for ln in build_log.splitlines() if "batched level: " in ln]
+    for ln in build_log.splitlines():
+        if "batched level: " in ln or "pair merge: " in ln:
+            say("genome build, %s [%s]" % (ln.split("] ", 1)[-1], smi))
+    optsg = BwtOptions(input_path=inpg, mem=args.genome_mem, device="cuda")
+    blocks = merge_scaled._plan_blocks_fixed(ng, optsg.max_block_symbols)
+    nblocks = len(blocks)
+    want_levels, depth, k = 0, 0, nblocks
+    while k > 1:
+        want_levels += k // 2 >= 2
+        depth += 1               # one chain launch per level of the tree
+        k -= k // 2
+    if len(levels) != want_levels or gb.LAUNCHES["chain"] != depth:
+        raise AssertionError("%d blocks: expected %d batched levels of %d, "
+                             "the build ran %d (%d launches of the chain "
+                             "form)" % (nblocks, want_levels, depth,
+                                        len(levels), gb.LAUNCHES["chain"]))
+    if not wide:
+        if "hand-off" not in build_log:
+            raise AssertionError("the build's SA/ISA walk did not take its "
+                                 "rank rows from the hand-off")
+        rc, out, _ = run_tool("checkbwt (genome path, in the build's "
+                              "process)", ["checkbwt", "inputtype=bytestream",
+                                           "device=cuda", inpg, bwtg])
+        if rc != 0 or "gok=1" not in out or "decode" in run_tool.log:
+            raise AssertionError("checkbwt through the hand-off did not "
+                                 "print gok=1, or decoded the file")
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bwtb3m_tpu_torch", "checkbwt",
+             "inputtype=bytestream", "device=cuda", inpg, bwtg], cwd=REPO,
+            capture_output=True, text=True, timeout=900)
+        sys.stderr.write(proc.stderr)
+        say("checkbwt (genome path, fresh process, from .bwt): exit %d, "
+            "wall %.3f s with the interpreter's start | %s [%s]"
+            % (proc.returncode, time.monotonic() - t0, proc.stdout.strip(),
+               smi))
+        if proc.returncode != 0 or "gok=1" not in proc.stdout \
+                or "decode" not in proc.stderr:
+            raise AssertionError("checkbwt in a fresh process did not print "
+                                 "gok=1 from the file")
+        isa_build = open(inpg + ".isa", "rb").read()
+        rc, _, _ = run_tool("hwtPreIsaToIsa (genome path)", [
+            "hwtPreIsaToIsa", "isasamplingrate=262144", "device=cuda", bwtg])
+        if rc != 0 or open(inpg + ".isa", "rb").read() != isa_build:
+            raise AssertionError("hwtPreIsaToIsa's .isa differs from the "
+                                 "build's")
+        # select_ssa of 2^20 ranks that the .sa samples name
+        _r, sa_s = load_sampled_array(inpg + ".sa")
+        rng = np.random.default_rng(args.seed + 12)
+        want_ranks = 32 * rng.integers(0, len(sa_s), 1 << 20)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = select_ssa(bwtg, want_ranks, device=dev)
+        t_sel = time.monotonic() - t0
+        if not np.array_equal(got, sa_s[want_ranks // 32]):
+            raise AssertionError("select_ssa disagrees with the .sa samples")
+        say("select_ssa: 2^20 ranks agree with the .sa samples they name, "
+            "%.3f s wall [%s]" % (t_sel, smi))
+    peak_genome = torch.cuda.max_memory_allocated()
+    path_counts["genome path"] = counts()
+    say("genome path launches: %s" % path_counts["genome path"])
+    need = ("gap_chain", "gap_chain_mk") if wide else tuple(KERNELS)
+    if min(path_counts["genome path"][k] for k in need) < 1:
+        raise AssertionError("the genome path did not launch every kernel")
+
+    # the kernels the tools ran on the genome build, against their plain
+    # versions at the shapes the tools gave them (the rank rows come from
+    # the memo the hand-off filled): the select visit on all of
+    # select_ssa's lanes, the verify and harvest walks on checkbwt's and
+    # the SA/ISA walk's lanes
+    gsel = lf_genome = None
+    if not wide:
+        focc, _symmap = BwtResult.load(bwtg).load_focc(dev)
+        pr_ranks, _pp, prate_g = BwtResult.load(bwtg).load_preisa()
+        words = np.zeros(ng // 32 + 1, np.uint32)
+        np.bitwise_or.at(words, pr_ranks >> 5,
+                         np.uint32(1) << (pr_ranks & 31).astype(np.uint32))
+        bitw = torch.from_numpy(words.view(np.int32)).to(dev)
+        r_all = torch.from_numpy(want_ranks).to(dev)
+        cap = 2 * (int(prate_g) + 512)
+        (kr, ks_), sel_ms = timed(lambda: lw.select_walk(focc, bitw, r_all,
+                                                         cap), reps=3)
+        sel_steps = int(ks_.sum())
+        (pr_, ps_), sel_plain_ms = timed(lambda: lw.select_walk_plain(
+            focc, bitw, r_all, cap), warm=False)
+        sel_err = max(max_err(kr, pr_), max_err(ks_, ps_))
+        # each step reads its row's sector and a bitmap word; the data
+        # decide the steps
+        sel_bound, sel_by = bound(
+            nbytes(focc.rows, bitw) + len(r_all) * 16,
+            (sel_steps + len(r_all)) * (LF_STEP_OPS["sector"] + 5))
+        say("kernel lf_walk select visit, genome path (n=%d, %d lanes, %d "
+            "steps, %d at most): max_abs_err %d, kernel %.3f ms (%.2f G "
+            "steps/s), plain %.3f ms, bound %.3f ms (%s) [%s]"
+            % (ng, len(r_all), sel_steps, int(ks_.max()), sel_err, sel_ms,
+               sel_steps / sel_ms / 1e6, sel_plain_ms, sel_bound, sel_by,
+               smi))
+        if sel_err or int(ks_.min()) < 0:
+            raise AssertionError("the select visit disagrees with its plain "
+                                 "version")
+        gsel = {"sector": {"max_abs_err": sel_err, "ms": sel_ms,
+                           "plain_ms": sel_plain_ms, "lanes": len(r_all),
+                           "steps": sel_steps, "bound_ms": sel_bound,
+                           "bound_by": sel_by, "forms": {"select": sel_ms}}}
+        del focc, bitw, kr, ks_, pr_, ps_, r_all
+        lf_genome = lf_compare(bwtg, text, "genome path", ("sector",),
+                               ("verify_walk", "harvest_walk"))
+
+    pair_phases = {}
+    if not wide:
+        # the same build pair by pair, through the library's entry point:
+        # the same files, and check_bwt of the result it returns takes
+        # the build's device symbols (the hand-off, no decode)
+        outp = os.path.join(WORK, "pairs.bwt")
+        argv = ["bwtb3m", "inputtype=bytestream", "bwtonly=1",
+                "batchmerges=0", "device=cuda", "mem=%d" % args.genome_mem,
+                "hostmem=%d" % args.genome_hostmem,
+                "outputfilename=" + outp, inpg]
+        built = []
+
+        def build_pairs():
+            built.append(compute_bwt(BwtOptions.from_arginfo(
+                ArgInfo(argv[1:], progname="bwtb3m"))))
+            return 0
+
+        rc, _, pair_phases = run_tool("bwtb3m batchmerges=0 (genome path, "
+                                      "compute_bwt)", argv, fn=build_pairs)
+        if rc != 0 or "batched level" in run_tool.log:
+            raise AssertionError("bwtb3m batchmerges=0 failed or batched")
+        for ln in run_tool.log.splitlines():
+            if "pair merge: " in ln:
+                say("genome build batchmerges=0, %s [%s]"
+                    % (ln.split("] ", 1)[-1], smi))
+        for ext in ("bwt", "hist", "preisa"):
+            if open(inpg + "." + ext, "rb").read() != \
+                    open(outp[:-4] + "." + ext, "rb").read():
+                raise AssertionError(".%s of batchmerges=0 differs from "
+                                     "batchmerges=1" % ext)
+        say("batchmerges=1 == batchmerges=0 at n=%d: .bwt .hist .preisa "
+            "byte-identical" % ng)
+        rc, _, _ = run_tool(
+            "check_bwt of that build's result (hand-off)", [],
+            fn=lambda: 0 if check_bwt(built[0], text, device="cuda",
+                                      log=VerboseLog(1)) else 1)
+        if rc != 0 or "hand-off" not in run_tool.log \
+                or "decode" in run_tool.log:
+            raise AssertionError("check_bwt of the build's own result "
+                                 "failed, or did not take the hand-off")
+        del built[:]
+
+    gmk = None
+    if not wide:
+        # bwt_gap_chain_mk against its plain version at every shape the
+        # genome build gives it: the build once more through the engine,
+        # where every level's runner, right after its own anchors and
+        # chains, has its lanes replayed through the kernel and the plain
+        # version; the peak device memory of every block sort and level
+        # is held to the figures the engine's gates plan with
+        optsg = BwtOptions(input_path=inpg, mem=args.genome_mem,
+                           device="cuda", checkpoint=False,
+                           output_filename=os.path.join(WORK, "replay.bwt"))
+        table = np.zeros(256, np.uint8)
+        table[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+        dense = table[text]
+        del text
+        prate_g = BwtResult.load(bwtg).load_preisa()[2]
+        replay, mem = [], {"peak": 0, "sorts": [], "levels": []}
+        orig_compute = gb.BatchedGapRunner.compute
+        orig_pairs = merge_scaled._merge_pairs
+        orig_sort = merge_scaled._sort_block
+
+        def used(base):
+            return max(mem["peak"],
+                       torch.cuda.max_memory_allocated()) - base
+
+        def fresh_peak():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem["peak"] = 0
+            return torch.cuda.memory_allocated()
+
+        def spy_compute(self, *a, **k):
+            orig_compute(self, *a, **k)
+            mem["peak"] = used(0)
+            rec = level_compare(
+                self, {"sector": self.focc}, level_lanes(self), 3, False,
+                "genome build, level of %d merge(s), %d ranks:"
+                % (len(self.specs), self.focc.n))["sector"]
+            rec["in_build_recording_ms"] = self.chain_ms
+            replay.append(rec)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()   # the replay's buffers
+
+        def spy_pairs(ctx, pairs):
+            base = fresh_peak()
+            out = orig_pairs(ctx, pairs)
+            mem["levels"].append((len(pairs), used(base),
+                                  merge_scaled.level_bytes_estimate(
+                                      pairs, ctx.sigma, ctx.bits)))
+            return out
+
+        def spy_sort(ctx, s, e):
+            base = fresh_peak()
+            reg = orig_sort(ctx, s, e)
+            mem["sorts"].append((e - s, used(base)))
+            return reg
+
+        gb.BatchedGapRunner.compute = spy_compute
+        merge_scaled._merge_pairs = spy_pairs
+        merge_scaled._sort_block = spy_sort
+        t0 = time.monotonic()
+        try:
+            _bwt, spos, srank, _hist = merge_scaled.blockwise_bwt_scaled(
+                dense, 4, optsg, VerboseLog(0), sample_rate=prate_g,
+                device=dev)
+        finally:
+            gb.BatchedGapRunner.compute = orig_compute
+            merge_scaled._merge_pairs = orig_pairs
+            merge_scaled._sort_block = orig_sort
+        del _bwt, dense
+        pr_ranks, pr_pos, _rate = BwtResult.load(bwtg).load_preisa()
+        if not (np.array_equal(spos, pr_pos)
+                and np.array_equal(srank, pr_ranks)):
+            raise AssertionError("the replayed build's samples differ from "
+                                 "the genome build's .preisa")
+        say("genome build replayed with every level against the plain "
+            "version: %d levels (%s merges), %.2f s, samples equal the "
+            "build's .preisa"
+            % (len(replay), " ".join(str(r["merges"]) for r in replay),
+               time.monotonic() - t0))
+        if [r["merges"] for r in replay][:want_levels] != [
+                int(ln.split("batched level: ")[1].split()[0])
+                for ln in levels]:
+            raise AssertionError("the replay's levels are not the build's")
+        la_cap = max(1024, optsg.large_lcp_thres)
+        for blen, peak in mem["sorts"]:
+            lo = merge_scaled.SORT_BYTES_PER_SYMBOL * (blen + 1024)
+            hi = merge_scaled.SORT_BYTES_PER_SYMBOL * (blen + la_cap)
+            say("block sort of %d symbols: peak %d bytes (%.2f per window "
+                "symbol at the first lookahead), the gate plans %d [%s]"
+                % (blen, peak, peak / (blen + 1024), lo, smi))
+            if peak > hi or lo > 1.3 * peak:
+                raise AssertionError("SORT_BYTES_PER_SYMBOL is off the "
+                                     "measured peak of a block sort")
+        for npairs, peak, est in mem["levels"]:
+            say("level of %d merge(s): peak %d bytes beyond the text and its "
+                "regions, level_bytes_estimate %d (%.2f x) [%s]"
+                % (npairs, peak, est, est / peak, smi))
+            if peak > est or est > 1.5 * peak:
+                raise AssertionError("level_bytes_estimate is off the "
+                                     "measured peak of a level")
+        gmk = {"sector": dict(replay[0], levels=replay)}
+
+    # ---- 12. report -----------------------------------------------------
     for name, wall, busy in tools:
         say("tool %-36s wall %.3f s, device busy %.3f s [%s]"
             % (name, wall, busy, smi))
@@ -859,28 +1257,50 @@ def main() -> int:
             "span %s [%s]" % (name, wall, "%.3f s" % dev_s if dev_s
                               else "not measured", "%.3f s" % span_s
                               if span_s else "not measured", smi))
+    for name in sorted(set(genome_phases) | set(pair_phases),
+                       key=lambda k: -genome_phases.get(k, (0,))[0]):
+        say("genome build phase %-18s batchmerges=1: wall %s, device busy "
+            "%s | batchmerges=0 (bwtonly=1): wall %s, device busy %s [%s]"
+            % ((name,) + tuple(
+                "%.3f s" % ph[name][i] if name in ph and ph[name][i]
+                else "not measured"
+                for ph in (genome_phases, pair_phases) for i in (0, 1))
+               + (smi,)))
     say("peak device memory: single-block path %.3f GiB, merge path %.3f "
-        "GiB [%s]" % (peak_single / 2 ** 30, peak_merge / 2 ** 30, smi))
+        "GiB, genome path (build, checkbwt and the SA tools) %.3f GiB [%s]"
+        % (peak_single / 2 ** 30, peak_merge / 2 ** 30,
+           peak_genome / 2 ** 30, smi))
     shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     if loaded:
         raise AssertionError("JAX or the JAX package was imported: %s"
                              % loaded)
-    launches = {k: sum(c[k] for c in path_counts.values()) for k in KERNELS}
     kernels = []
     for name, per_layout, extra in (
             ("lf_walk", lf_merge,
-             {"layouts_single_block_path": lf_single}),
+             {"layouts_single_block_path": lf_single,
+              "layouts_genome_path": lf_genome}),
             ("gap_chain", gc,
-             {"root_full_length_ms": full,
-              "root_recording_ms_by_log2_lanes": by_lanes})):
-        main = per_layout["sector"]       # the layout the merge path ran
+             {"entry": "bwt_gap_chain_mk, one merge per launch",
+              "root_full_length_ms": full,
+              "root_recording_ms_by_log2_lanes": by_lanes}),
+            ("gap_chain_mk", gmk,
+             {"entry": "bwt_gap_chain_mk, the genome build's levels"}),
+            ("lf_walk_select", gsel, {})):
+        if per_layout is None:            # a text of 2^31 symbols or more
+            continue
+        main = per_layout["sector"]       # the layout the path ran
         kernels.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
-            "replaces": KERNELS[name][1], "launches": launches[name],
+            "replaces": KERNELS[name][1],
+            "launches": path_counts[ROW_PATH[name]][name],
+            "shapes_of": ROW_PATH[name],
+            "launches_by_path": {p: c[name]
+                                 for p, c in path_counts.items()},
             "max_abs_err": max(
-                [v["max_abs_err"] for v in per_layout.values()]
-                + [v["max_abs_err"] for v in lf_single.values()]),
+                v["max_abs_err"]
+                for group in (per_layout, lf_single, lf_genome or {})
+                for v in group.values()),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "layout": "sector", "layouts": per_layout,

@@ -3,9 +3,10 @@
 Region files round-trip between the packages: a file the port writes
 loads with the reference's ``load_region_file`` and the reverse, for
 nibble (bits 4) and byte (bits 8) regions.  A build stopped by the
-``<output>.stop`` kill file after k merges resumes from the saved
-regions to outputs byte-identical to an uninterrupted build, and saved
-regions of another text (a stale key) are ignored.
+``<output>.stop`` kill file after k merges (pair by pair), or after a
+batched level, resumes from the saved regions to outputs byte-identical
+to an uninterrupted build, and saved regions of another text (a stale
+key) are ignored.
 """
 
 import glob
@@ -67,6 +68,9 @@ def test_region_file_reference_to_port(tmp_path, bits, n):
 
 def _opts(tmp_path, tag, **kw):
     kw.setdefault("checkpoint", True)
+    # the stop tests count pair merges: pair by pair, as the reference's
+    # tests/test_checkpoint.py builds (batched levels have their own test)
+    kw.setdefault("batch_merges", False)
     return BwtOptions(input_path="x", device="cpu",
                       output_filename=str(tmp_path / (tag + ".bwt")),
                       max_block_symbols=1024, checkpoint_min_symbols=1, **kw)
@@ -89,18 +93,18 @@ def test_stop_file_and_resume_bit_identical(tmp_path, monkeypatch, k):
     want = _build(text, _opts(tmp_path, "ref", checkpoint=False))
     opts = _opts(tmp_path, "run")
     stop = opts.output_filename + ".stop"
-    real = ms._merge_pair
+    real = ms._merge_pairs
     calls = {"n": 0, "stop_at": k}
 
-    def merge_then_stop(ctx, l, r):
-        out = real(ctx, l, r)
-        calls["n"] += 1
+    def merge_then_stop(ctx, pairs):
+        out = real(ctx, pairs)
+        calls["n"] += len(pairs)
         if calls["n"] == calls["stop_at"]:
             open(stop, "w").close()
         return out
 
     monkeypatch.setenv("BWTB3M_CKPT_SYNC", "1")
-    monkeypatch.setattr(ms, "_merge_pair", merge_then_stop)
+    monkeypatch.setattr(ms, "_merge_pairs", merge_then_stop)
     with pytest.raises(RuntimeError, match="stop requested"):
         _build(text, opts)
     assert _regfiles(opts)
@@ -119,20 +123,57 @@ def test_stale_key_ignored(tmp_path, monkeypatch):
     text1 = rng.integers(0, 4, 4000).astype(np.uint8)
     text2 = rng.integers(0, 4, 4000).astype(np.uint8)
     opts = _opts(tmp_path, "stale")
-    real = ms._merge_pair
+    real = ms._merge_pairs
 
-    def one_then_stop(ctx, l, r):
-        out = real(ctx, l, r)
+    def one_then_stop(ctx, pairs):
+        out = real(ctx, pairs)
         open(opts.output_filename + ".stop", "w").close()
         return out
 
-    monkeypatch.setattr(ms, "_merge_pair", one_then_stop)
+    monkeypatch.setattr(ms, "_merge_pairs", one_then_stop)
     with pytest.raises(RuntimeError, match="stop requested"):
         _build(text1, opts)
     assert _regfiles(opts)
     os.remove(opts.output_filename + ".stop")
-    monkeypatch.setattr(ms, "_merge_pair", real)
+    monkeypatch.setattr(ms, "_merge_pairs", real)
     got = _build(text2, opts)        # same tmp prefix, another text
     want = _build(text2, _opts(tmp_path, "stale_ref", checkpoint=False))
     for w, g in zip(want, got):
         np.testing.assert_array_equal(w, g)
+
+
+def test_stop_after_a_batched_level_and_resume(tmp_path, monkeypatch):
+    """With batched levels the kill file is seen between levels; the
+    level's regions are saved at its end, and the resumed build loads
+    them and ends byte-identical."""
+    rng = np.random.default_rng(33)
+    text = rng.integers(0, 4, 9000).astype(np.uint8)  # 9 blocks, 8 merges
+    want = _build(text, _opts(tmp_path, "ref", checkpoint=False))
+    opts = _opts(tmp_path, "run", batch_merges=True)
+    stop = opts.output_filename + ".stop"
+    real = ms._merge_pairs
+    calls = {"levels": 0, "pairs": 0}
+
+    def merges_then_stop(ctx, pairs):
+        """A batch of two or more pairs is a level, a batch of one a
+        single merge; the kill file appears after the first level."""
+        out = real(ctx, pairs)
+        calls["levels" if len(pairs) > 1 else "pairs"] += 1
+        if calls["levels"] == 1 and len(pairs) > 1:
+            open(stop, "w").close()
+        return out
+
+    monkeypatch.setenv("BWTB3M_CKPT_SYNC", "1")
+    monkeypatch.setattr(ms, "_merge_pairs", merges_then_stop)
+    with pytest.raises(RuntimeError, match="stop requested via .* after "
+                                           "4/8 merges"):
+        _build(text, opts)
+    assert calls == {"levels": 1, "pairs": 0} and _regfiles(opts)
+    os.remove(stop)
+    got = _build(text, opts)
+    # the first level comes back from its files; the second runs batched
+    # again (nothing of it was saved), the last two merges are single
+    assert calls == {"levels": 2, "pairs": 2}
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+    assert _regfiles(opts) == []

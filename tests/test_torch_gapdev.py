@@ -1,13 +1,14 @@
-"""The port's gap runner against the reference's ``DeviceGapRunner``.
+"""The port's gap runner, as a level of one merge, against the
+reference's ``DeviceGapRunner``.
 
 For pairs (s, m, e) over random, repetitive and sigma-2 texts, both
-runners get the same right-region rank rows (the port's carried over
-from the reference's by ``focc_from_jax``, as they are and, for
-sigma <= 4, repacked into sector rows) and the same lanes.  Equal,
-exactly: the runner inputs (``runner_inputs_from_jax``), both anchor
-bounds and the resolved mask, the chain's final ranks, the gap histogram
-(the reference's int32 histogram, cast to int64) and the harvested
-samples.  The sigma-2 corpus is ``tests/test_merge_scaled.py::
+runners get the same right region (the port builds its rank rows from
+the region's packed symbols; they equal the reference's rows carried
+over by ``focc_from_jax``, as they are and, for sigma <= 4, repacked
+into sector rows) and the same lanes.  Equal, exactly: the runner inputs
+(``runner_inputs_from_jax``), both anchor bounds and the resolved mask,
+the anchored seeds, the chain's final ranks, the gap histogram (the
+reference's int32 histogram, cast to int64) and the harvested samples.  The sigma-2 corpus is ``tests/test_merge_scaled.py::
 test_gap_u16_wrap_fallback``'s, where one cell passes 2^16.  On the CPU
 the port runs the walks' plain version.
 """
@@ -24,9 +25,10 @@ torch.set_num_threads(1)
 from bwtb3m_tpu.ops.doubling import suffix_array as jax_suffix_array
 from bwtb3m_tpu.ops.focc_build import build_focc_host as jax_build_focc
 from bwtb3m_tpu.ops.gapdev import DeviceGapRunner, build_text_rows
+from bwtb3m_tpu_torch.ops.devzip import bits_for, rows_from_host_bwt
 from bwtb3m_tpu_torch.ops.focc_build import focc_from_jax
-from bwtb3m_tpu_torch.ops.gapdev import (GapRunner, cmp_rot,
-                                         runner_inputs_from_jax)
+from bwtb3m_tpu_torch.ops.gapbatch import BatchedGapRunner, from_u32_bits
+from bwtb3m_tpu_torch.ops.gapdev import cmp_rot, runner_inputs_from_jax
 
 
 def _text(kind):
@@ -71,11 +73,18 @@ def _runners(kind, s, m, e, layout, lanes=64, rate=128):
     jr = DeviceGapRunner(jfocc, build_text_rows(text, sigma), text, s, m, e,
                          isa_m=r_start, first_hist=hist, lane_bucket=lanes,
                          sample_rate=rate)
+    pr = BatchedGapRunner(torch.from_numpy(text), text, sigma,
+                          [(s, m, e, r_start, hist)],
+                          [rows_from_host_bwt(rbwt, sigma, "cpu")],
+                          bits_for(sigma), lane_bucket=lanes,
+                          sample_rate=rate, layout=layout)
     pfocc = focc_from_jax(jfocc, layout=layout)
-    assert pfocc.LAYOUT == ("bytes" if sigma > 8 else
-                            "sector" if layout == "auto" else layout)
-    pr = GapRunner(pfocc, torch.from_numpy(text), text, s, m, e,
-                   isa_m=r_start, first_hist=hist, sample_rate=rate)
+    assert pr.focc.LAYOUT == pfocc.LAYOUT == (
+        "bytes" if sigma > 8 else "sector" if layout == "auto" else layout)
+    nrows = pfocc.rows.shape[0]        # one spare zero row follows
+    np.testing.assert_array_equal(pr.focc.rows.numpy()[:nrows],
+                                  pfocc.rows.numpy())
+    assert not pr.focc.rows.numpy()[nrows:].any()
     T = max(1, min(lanes, (m - s) // 64 or 1))
     bounds = np.linspace(s, m, T + 1).astype(np.int64)
     return jr, pr, bounds[1:] - 1, np.diff(bounds), r_start
@@ -85,50 +94,61 @@ def _runners(kind, s, m, e, layout, lanes=64, rate=128):
 def test_anchors_match_reference(kind, s, m, e, layout):
     jr, pr, starts, _lens, _r = _runners(kind, s, m, e, layout)
     st = starts[:-1]
+    kid = np.zeros(len(st), np.int64)
     for lb in (64, 1024):
         lbs = np.maximum(np.minimum(lb, (e - 2) - st), 1)
-        for r0 in (0, pr.gap_size):
-            np.testing.assert_array_equal(pr.anchor_bound(st, lbs, r0),
+        bounds = []
+        for r0 in (0, e - m):
+            bounds.append(pr._anchor_pass(kid, st, lbs,
+                                          np.full(len(st), r0)))
+            np.testing.assert_array_equal(bounds[-1],
                                           jr._run_anchor(st, lbs, r0))
-        lo_p, ok_p = pr.anchor(st, lb)
         lo_j, ok_j = jr.anchor(st, lb)
-        np.testing.assert_array_equal(lo_p, lo_j)
-        np.testing.assert_array_equal(ok_p, ok_j)
+        np.testing.assert_array_equal(bounds[0], lo_j)
+        np.testing.assert_array_equal(bounds[0] == bounds[1], ok_j)
 
 
 @pytest.mark.parametrize("kind,s,m,e,layout", CASES)
 def test_chains_match_reference(kind, s, m, e, layout):
     jr, pr, starts, lens, r_start = _runners(kind, s, m, e, layout)
-    all_seeds = []
-    for runner in (pr, jr):          # the engine's anchoring, on both
-        seeds = np.zeros(len(starts), np.int64)
-        seeds[-1] = r_start
-        todo, lb = np.arange(len(starts) - 1), 64
-        while len(todo):
-            vals, ok = runner.anchor(starts[todo], lb)
-            seeds[todo[ok]] = vals[ok]
-            todo, lb = todo[~ok], lb * 4
-        all_seeds.append(seeds)
-    np.testing.assert_array_equal(*all_seeds)
+    seeds = np.zeros(len(starts), np.int64)   # the engine's anchoring
+    seeds[-1] = r_start
+    todo, lb = np.arange(len(starts) - 1), 64
+    while len(todo):
+        vals, ok = jr.anchor(starts[todo], lb)
+        seeds[todo[ok]] = vals[ok]
+        todo, lb = todo[~ok], lb * 4
     jr.run_chains(starts, seeds, lens, force_int32=True)
-    pr.run_chains(starts, seeds, lens)
-    np.testing.assert_array_equal(pr.final_rs, jr.final_rs)
-    np.testing.assert_array_equal(pr.final_rs[1:], seeds[:-1])
+    pr.compute()
+    sp, pv = pr.specs[0], pr.view(0)
+    assert sp.rbase == 0
+    np.testing.assert_array_equal(sp.starts, starts)
+    np.testing.assert_array_equal(sp.lens, lens)
+    np.testing.assert_array_equal(sp.seeds, seeds)
+    np.testing.assert_array_equal(pv.final_rs, jr.final_rs)
+    np.testing.assert_array_equal(pv.final_rs[1:], seeds[:-1])
     gj = np.asarray(jr.gap).astype(np.int64).reshape(-1)
-    gp = pr.gap.numpy().astype(np.int64)
+    gp = pv.gap.numpy().astype(np.int64)
+    assert len(gp) == e - m + 1
     np.testing.assert_array_equal(gp, gj[:len(gp)])
     assert not gj[len(gp):].any()
-    assert pr.gap_checksum() == m - s == jr.gap_checksum()
-    for a, b in zip(pr.harvest_samples(), jr.harvest_samples()):
+    assert not pr.gap.numpy()[len(gp):].any()      # the gutter row's cells
+    assert pv.gap_checksum() == m - s == jr.gap_checksum()
+    for a, b in zip(pv.harvest_samples(), jr.harvest_samples()):
         np.testing.assert_array_equal(a, b)
     if kind == "u16wrap":
         assert gp.max() >= 1 << 16
     ins = runner_inputs_from_jax(jr)
-    np.testing.assert_array_equal(ins["c_first"], pr.c_first.numpy())
-    np.testing.assert_array_equal(ins["consts"], np.array(pr.consts))
-    assert ins["lo0"] == pr.lo0
-    np.testing.assert_array_equal(ins["gt"][:len(pr._gt)], pr._gt)
-    assert not ins["gt"][len(pr._gt):].any()
+    table = from_u32_bits(pr.table).numpy()[0]
+    np.testing.assert_array_equal(ins["c_first"],
+                                  from_u32_bits(pr.c_first).numpy())
+    np.testing.assert_array_equal(ins["consts"], table[1:4])
+    assert ins["lo0"] == table[4] == sp.lo0
+    # the port lays the gt bits out for the whole pair; the reference's
+    # cover what its walks reached
+    both = min(len(ins["gt"]), len(pr._gt))
+    np.testing.assert_array_equal(ins["gt"][:both], pr._gt[:both])
+    assert not ins["gt"][both:].any() and not pr._gt[both:].any()
 
 
 def test_cmp_rot_numpy_fallback_matches_native(monkeypatch):

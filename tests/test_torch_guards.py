@@ -47,6 +47,7 @@ open(inp, "wb").write(rng.choice(np.frombuffer(b"ACGT", np.uint8), 5000).tobytes
 assert dispatch(["bwtb3m", "device=cpu", "verbose=0", inp]) == 0
 assert dispatch(["checkbwt", "device=cpu", "verbose=0", inp, inp + ".bwt"]) == 0
 assert dispatch(["bwtcomputessa", "device=cpu", "verbose=0", inp + ".bwt"]) == 0
+assert dispatch(["hwtPreIsaToIsa", "device=cpu", "verbose=0", inp + ".bwt"]) == 0
 out = inp + ".m.bwt"
 assert dispatch(["bwtb3m", "device=cpu", "verbose=0", "engine=merge",
                  "mem=16384", "outputfilename=" + out, inp]) == 0
@@ -109,7 +110,7 @@ def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
     ({"engine": "merge-legacy"}, "item 10"),
     ({"engine": "sharded"}, "item 9"),
     ({"bwt_codec": "rlh"}, "item 8"),
-    ({"host_mem": 1 << 20}, "item 4"),
+    ({"engine": "merge", "bwt_codec": "rlh"}, "item 8"),
     ({"engine": "merge", "env": "BWTB3M_FORCE_WIDE"}, "item 6"),
     ({"max_block_symbols": 256, "env": "BWTB3M_FORCE_WIDE"}, "item 6"),
 ])
@@ -141,7 +142,7 @@ def test_merge_engine_refuses_wide_merges(tmp_path):
     right = ms.Region(1 << 32, (1 << 32) + 256, None, None, None, None, 0,
                       None)
     with pytest.raises(NotImplementedError, match="item 6"):
-        ms._merge_pair(None, reg, right)
+        ms._merge_pairs(None, [(reg, right)])
 
 
 def test_sigma_above_256_checks_raise(tmp_path):
@@ -161,7 +162,7 @@ def test_sigma_above_256_checks_raise(tmp_path):
 def test_cli_refuses_unported_tools(capsys):
     assert dispatch(["lcpbit", "x"]) == 2
     assert "ROADMAP.md Queue 1 item 7" in capsys.readouterr().err
-    assert dispatch(["hwtPreIsaToIsa", "x"]) == 2
+    assert dispatch(["hwtToLCP", "x"]) == 2
     assert dispatch(["bwttohwt", "x"]) == 2
     assert dispatch(["no-such-tool"]) == 1
 
@@ -186,3 +187,26 @@ def test_check_bwt_text_of_other_length_fails(tmp_path):
     text = np.fromfile(inp, np.uint8)
     assert check_bwt(res, text, device="cpu")
     assert not check_bwt(res, text[:-1], device="cpu")
+
+
+def test_public_entry_points_default_to_the_card():
+    """Every entry point runs on the card unless the caller asks for the
+    CPU: none has a ``device`` default of ``"cpu"`` (the option set's
+    default is ``"cuda"`` too)."""
+    import inspect
+
+    from bwtb3m_tpu_torch import engine
+    from bwtb3m_tpu_torch.engine.merge_scaled import blockwise_bwt_scaled
+    entry_points = [engine.compute_bwt, engine.check_bwt, engine.compute_ssa,
+                    blockwise_bwt_scaled, engine.select_ssa,
+                    engine.compute_sa_device, engine.compute_isa_from_preisa]
+    with_device = 0
+    for fn in entry_points:
+        param = inspect.signature(fn).parameters.get("device")
+        if param is None:
+            continue            # compute_bwt: the device is in its options
+        with_device += 1
+        assert param.default is inspect.Parameter.empty \
+            or torch.device(param.default).type == "cuda", fn.__name__
+    assert with_device == len(entry_points) - 1
+    assert BwtOptions(input_path="x").device == "cuda"

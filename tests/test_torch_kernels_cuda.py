@@ -1,5 +1,7 @@
 """The LF-walk and gap-chain CUDA kernels, through each of their entry
-points and on each rank-row layout (sector, bit-plane, bytes), against the
+points (``bwt_lf_walk``: final rank, verify, harvest, select;
+``bwt_gap_chain_mk``: recording and anchor forms, one merge and several)
+and on each rank-row layout (sector, bit-plane, bytes), against the
 plain PyTorch versions, on the card.  Skipped without a CUDA device; on
 one, run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
@@ -90,10 +92,12 @@ def test_kernels_refuse_out_of_range_lanes(cuda):
 
 
 def _gap_case(sigma, n, cuda, layout, lanes=512):
-    """A merge of [0, m) into [m, n): the right region's rank rows from
-    the sorted rotations of [m, n), lanes over the left block seeded
-    from the sort (so every chain is exact), the runner's own inputs."""
-    from bwtb3m_tpu_torch.ops.gapdev import GapRunner
+    """A merge of [0, m) into [m, n) as a level of one: the right
+    region's rank rows from the sorted rotations of [m, n), lanes over
+    the left block seeded from the sort (so every chain is exact), the
+    runner's own inputs."""
+    from bwtb3m_tpu_torch.ops.devzip import bits_for, rows_from_host_bwt
+    from bwtb3m_tpu_torch.ops.gapbatch import BatchedGapRunner
     rng = np.random.default_rng(sigma * 31 + n)
     text = rng.integers(0, sigma, n).astype(np.uint8)
     m = n // 2
@@ -101,10 +105,12 @@ def _gap_case(sigma, n, cuda, layout, lanes=512):
     right = sa[sa >= m]                          # rotation order of M
     rbwt = text[(right - 1) % n]
     rank_in_m = np.searchsorted(np.sort(isa[m:]), isa)   # R(p)
-    focc = build_focc_host(rbwt, sigma, cuda, layout)
     hist = np.bincount(text[m:], minlength=sigma)
-    runner = GapRunner(focc, torch.from_numpy(text).to(cuda), text, 0, m,
-                       n, int(rank_in_m[m]), hist, sample_rate=64)
+    runner = BatchedGapRunner(
+        torch.from_numpy(text).to(cuda), text, sigma,
+        [(0, m, n, int(rank_in_m[m]), hist)],
+        [rows_from_host_bwt(rbwt, sigma, cuda)], bits_for(sigma),
+        lane_bucket=lanes, sample_rate=64, layout=layout)
     bounds = np.linspace(0, m, lanes + 1).astype(np.int64)
     starts, lens = bounds[1:] - 1, np.diff(bounds)
     seeds = rank_in_m[(starts + 1) % n]
@@ -113,36 +119,140 @@ def _gap_case(sigma, n, cuda, layout, lanes=512):
 
 @pytest.mark.parametrize("sigma,layout", ROWS)
 def test_gap_chain_kernel_matches_plain(cuda, sigma, layout):
-    from bwtb3m_tpu_torch.ops import gapdev as gd
+    from bwtb3m_tpu_torch.ops import gapbatch as gb
     runner, starts, seeds, lens, R = _gap_case(sigma, (1 << 16) + 37, cuda,
                                               layout)
-    runner.ensure_gt(int(starts.max()) + 1)
-    st, sd, ln = runner._lanes(starts, seeds, lens)
-    args = (runner.focc, runner.text_dev, runner.gt_dev, runner.lo0,
-            runner.c_first, runner.consts, st, sd, ln)
-    m = runner.m
+    assert layout in ("auto", runner.focc.LAYOUT)
+    runner._ensure_gt([int(starts.max()) + 1])
+    kd, st, sd, ln = runner._lanes(np.zeros(len(starts)), starts, seeds,
+                                   lens)
+    args = (runner.focc, runner.text_dev, runner.gt_dev, runner.c_first,
+            runner.table, kd, st, sd, ln)
+    sp = runner.specs[0]
+    m = sp.m
     outs = []
-    for fn in (gd.chain_walk, gd.gap_chain_plain):
-        gap = torch.zeros(runner.gap_size + 1, dtype=torch.int32,
-                          device=cuda)
-        samp = torch.full((len(range(0, m, 64)),), -1, dtype=torch.int32,
-                          device=cuda)
-        before = dict(gd.LAUNCHES)
-        final = fn(*args, gap, samp, 0, 64)
-        if fn is gd.chain_walk:
-            assert gd.LAUNCHES["chain"] == before["chain"] + 1
+    for fn in (gb.chain_walk_mk, gb.gap_chain_mk_plain):
+        gap = torch.zeros(runner.focc.n + 1, dtype=torch.int32, device=cuda)
+        samp = torch.full((sp.nsamp,), -1, dtype=torch.int32, device=cuda)
+        before = dict(gb.LAUNCHES)
+        final = fn(*args, gap, samp, 64)
+        if fn is gb.chain_walk_mk:
+            assert gb.LAUNCHES["chain"] == before["chain"] + 1
         outs.append((final, gap, samp))
-    (fk, gk, sk), (fp, gp, sp) = outs
-    assert torch.equal(fk, fp) and torch.equal(gk, gp) and torch.equal(sk, sp)
+    (fk, gk, sk), (fp, gp, sp_) = outs
+    assert torch.equal(fk, fp) and torch.equal(gk, gp) \
+        and torch.equal(sk, sp_)
     np.testing.assert_array_equal(sk.cpu().numpy(), R[0:m:64])
     np.testing.assert_array_equal(
-        gk.cpu().numpy(), np.bincount(R[:m], minlength=runner.gap_size + 1))
+        gk.cpu().numpy(), np.bincount(R[:m], minlength=runner.focc.n + 1))
     # the anchor form from both bounds
-    for r0 in (0, runner.gap_size):      # a seed r = n reads the last row
+    for r0 in (0, sp.gap_size):          # the top seed reads the last row
         sd0 = torch.full_like(sd, r0)
-        a = gd.anchor_walk(*args[:7], sd0, ln)
-        b = gd.gap_chain_plain(*args[:7], sd0, ln)
-        assert torch.equal(a, b)
+        before = gb.LAUNCHES["anchor"]
+        a = gb.anchor_walk_mk(*args[:7], sd0, ln)
+        assert gb.LAUNCHES["anchor"] == before + 1
+        assert torch.equal(a, gb.gap_chain_mk_plain(*args[:7], sd0, ln))
+
+
+def _level_case(sigma, K, cuda, layout, lanes):
+    """A level of K merges over consecutive spans of one text, through
+    ``BatchedGapRunner`` on the card (anchors and chains by the kernel)."""
+    from bwtb3m_tpu_torch.ops.devzip import bits_for, rows_from_host_bwt
+    from bwtb3m_tpu_torch.ops.gapbatch import BatchedGapRunner
+    rng = np.random.default_rng(sigma * 7 + K)
+    span = 9001
+    n = K * span + 123
+    text = rng.integers(0, sigma, n).astype(np.uint8)
+    sa, isa, _bwt = suffix_array(text, sigma, "cpu")
+    merges, packed, Rs = [], [], []
+    for k in range(K):
+        s, e = k * span, (k + 1) * span
+        m = s + span // 3 + 17 * k          # left blocks of several sizes
+        right = sa[(sa >= m) & (sa < e)]
+        rank_in_m = np.searchsorted(np.sort(isa[m:e]), isa)
+        merges.append((s, m, e, int(np.flatnonzero(right == m)[0]),
+                       np.bincount(text[m:e], minlength=sigma)))
+        packed.append(rows_from_host_bwt(text[(right - 1) % n], sigma, cuda))
+        Rs.append(rank_in_m)
+    runner = BatchedGapRunner(torch.from_numpy(text).to(cuda), text, sigma,
+                              merges, packed, bits_for(sigma),
+                              lane_bucket=lanes, sample_rate=64,
+                              layout=layout)
+    return runner, merges, Rs
+
+
+@pytest.mark.parametrize("sigma,layout", ROWS)
+@pytest.mark.parametrize("K,lanes", [(1, 64), (2, 256), (5, 1024), (5, 40)])
+def test_gap_chain_mk_kernel_matches_plain(cuda, sigma, layout, K, lanes):
+    """Both forms of ``bwt_gap_chain_mk`` against the plain version and
+    against the sort: the engine's own level (anchors by the anchor form,
+    chains by the recording form), then the same lanes replayed through
+    the plain version."""
+    from bwtb3m_tpu_torch.ops import gapbatch as gb
+    runner, merges, Rs = _level_case(sigma, K, cuda, layout, lanes)
+    before = dict(gb.LAUNCHES)
+    runner.compute()
+    assert gb.LAUNCHES["chain"] == before["chain"] + 1
+    assert gb.LAUNCHES["anchor"] >= before["anchor"] + (2 if lanes > K else 0)
+    kid = np.concatenate([np.full(sp.T, sp.k) for sp in runner.specs])
+    starts = np.concatenate([sp.starts for sp in runner.specs])
+    lens = np.concatenate([sp.lens for sp in runner.specs])
+    seeds = np.concatenate([sp.seeds for sp in runner.specs])
+    kd, st, sd, ln = runner._lanes(kid, starts, seeds, lens)
+    gap = torch.zeros_like(runner.gap)
+    samp = torch.full_like(runner._samp, -1)
+    final = gb.gap_chain_mk_plain(runner.focc, runner.text_dev, runner.gt_dev,
+                                  runner.c_first, runner.table, kd, st, sd,
+                                  ln, gap, samp, 64)
+    assert torch.equal(gap, runner.gap) and torch.equal(samp, runner._samp)
+    lane0 = 0
+    for k, sp in enumerate(runner.specs):
+        s, m, e = merges[k][:3]
+        view = runner.view(k)
+        np.testing.assert_array_equal(
+            final.cpu().numpy()[lane0:lane0 + sp.T] - sp.rbase, sp.final_rs)
+        lane0 += sp.T
+        np.testing.assert_array_equal(
+            view.gap.cpu().numpy(),
+            np.bincount(Rs[k][s:m], minlength=sp.gap_size + 1))
+        pos, val = view.harvest_samples()
+        np.testing.assert_array_equal(val, Rs[k][pos])
+    # the anchor form on the chain's lanes, from each merge's top rank
+    top = np.array([runner.specs[k].rbase + runner.specs[k].gap_size
+                    for k in kid])
+    kd, st, sd, ln = runner._lanes(kid, starts, top, np.minimum(lens, 50))
+    args = (runner.focc, runner.text_dev, runner.gt_dev, runner.c_first,
+            runner.table, kd, st, sd, ln)
+    assert torch.equal(gb.anchor_walk_mk(*args), gb.gap_chain_mk_plain(*args))
+
+
+@pytest.mark.parametrize("sigma,layout", ROWS)
+def test_select_kernel_matches_plain(cuda, sigma, layout):
+    n = (1 << 16) + 37
+    _t, sa, isa, focc, _lanes = _build(sigma, n, 64, cuda, layout)
+    marks = isa[::97]
+    words = np.zeros(n // 32 + 1, np.uint32)
+    np.bitwise_or.at(words, marks >> 5,
+                     np.uint32(1) << (marks & 31).astype(np.uint32))
+    bitwords = torch.from_numpy(words.view(np.int32)).to(cuda)
+    rng = np.random.default_rng(sigma)
+    r0 = torch.from_numpy(np.r_[rng.integers(0, n, 5000), marks[:50], 0,
+                                n - 1]).to(cuda)
+    before = lw.lf_walk.launches
+    r_hit, steps = lw.select_walk(focc, bitwords, r0, 300)
+    assert lw.lf_walk.launches == before + 1
+    r_p, s_p = lw.select_walk_plain(focc, bitwords, r0, 300)
+    assert torch.equal(r_hit, r_p) and torch.equal(steps, s_p)
+    assert int(steps.min()) == 0 and 0 < int(steps.max()) <= 97
+    # SA[wanted] = SA[hit] + steps
+    np.testing.assert_array_equal(
+        (sa[r_hit.cpu().numpy()] + steps.cpu().numpy()) % n,
+        sa[r0.cpu().numpy()])
+    # a cap below the longest walk leaves -1 in both
+    r_c, s_c = lw.select_walk(focc, bitwords, r0, 10)
+    r_cp, s_cp = lw.select_walk_plain(focc, bitwords, r0, 10)
+    assert torch.equal(r_c, r_cp) and torch.equal(s_c, s_cp)
+    assert int((s_c < 0).sum()) > 0
 
 
 def test_kernels_refuse_rows_of_another_layout(cuda):

@@ -3,10 +3,10 @@
 The reference's ``_sort_block_scaled`` and ``_merge_pair_scaled`` run on
 a text, and ``region_from_jax`` carries their regions over.  The port's
 ``_sort_block`` on the same text gives the same region (BWT, samples,
-r_start, hist), and its ``_merge_pair`` fed the reference's own block
-regions gives the reference's merged region, so each half of the engine
-is held alone.  Exact equality; on the CPU the chains run their plain
-version.
+r_start, hist), and its ``_merge_pairs`` fed the reference's own block
+regions (one pair: a batch of one) gives the reference's merged region,
+so each half of the engine is held alone.  Exact equality; on the CPU
+the chains run their plain version.
 """
 
 import numpy as np
@@ -78,6 +78,6 @@ def test_pair_merge_of_reference_regions(kind, block, rate):
     jr = jms._sort_block_scaled(jctx, m, e)
     want = ms.region_from_jax(jms._merge_pair_scaled(jctx, jl, jr),
                               pctx.sigma)
-    got = ms._merge_pair(pctx, ms.region_from_jax(jl, pctx.sigma),
-                         ms.region_from_jax(jr, pctx.sigma))
+    got, = ms._merge_pairs(pctx, [(ms.region_from_jax(jl, pctx.sigma),
+                                   ms.region_from_jax(jr, pctx.sigma))])
     _assert_same(pctx, got, want)
