@@ -2,10 +2,15 @@
 //
 // One definition of the row layouts, shared by lf_walk.cu (the LF walk)
 // and gap_chain.cu (the merge engine's gap chains and anchors):
-//   step(r, &sym)  the LF step: sym = BWT[r], returns C[sym] + rank(sym, r)
-//   rank(c, r)     occurrences of symbol c in BWT[0, r), without C (what
-//                  the reference's rank_batch_f returns)
-// Both read the one row of r's block and nothing else.
+//   step(r, &sym)     the LF step: sym = BWT[r], returns C[sym] + rank(sym, r)
+//   symrank<R>(r, &sym)  sym = BWT[r] and rank(sym, r), without C
+//   rank<R>(c, r)     occurrences of symbol c in BWT[0, r), without C (what
+//                     the reference's rank_batch_f returns)
+// All read the one row of r's block and nothing else.  R is the rank
+// type: uint32_t in the narrow forms (n < 2^32; the sums wrap as the
+// uint32 words do), unsigned long long in the 64-bit forms, where the
+// stored occ word is the count's lo word and WideTerms adds the hi word
+// and the 64-bit C.
 //
 // Row layouts (bwtb3m_tpu_torch/ops/focc_bp.py, ops/focc.py):
 //   sector (sigma <= 4), 32 bytes per 64-symbol block, 32-byte aligned:
@@ -35,10 +40,13 @@ constexpr int kBpRowBytes = 128;
 // The in-block count is one 64-bit popcount under a prefix mask:
 // off < 64, so the shift is always defined, and off == 0 gives mask 0.
 struct SectorRows {
+  static constexpr int kShift = 6;
+  static constexpr int kMaxSigma = 4;
   const uint8_t* rows;
   uint32_t c[4];
 
-  __device__ __forceinline__ void load(uint32_t r, uint4* planes, uint4* occ) const {
+  template <class R>
+  __device__ __forceinline__ void load(R r, uint4* planes, uint4* occ) const {
     const uint4* row =
         reinterpret_cast<const uint4*>(rows + (size_t)(r >> 6) * kSectorRowBytes);
     *planes = __ldg(row);
@@ -48,34 +56,45 @@ struct SectorRows {
   // planes = (plane 0 word 0, plane 0 word 1, plane 1 word 0, plane 1
   // word 1).  Positions before off whose 2 plane bits equal sym's, plus
   // the occ checkpoint of sym: rank(sym, r) for r = block * 64 + off.
-  __device__ __forceinline__ static uint32_t count(const uint4& planes, const uint4& occ,
-                                                   uint32_t sym, uint32_t off) {
+  template <class R>
+  __device__ __forceinline__ static R count(const uint4& planes, const uint4& occ,
+                                            uint32_t sym, uint32_t off) {
     const uint32_t e0 = (sym & 1u) - 1u, e1 = ((sym >> 1) & 1u) - 1u;
     const uint32_t lo = (planes.x ^ e0) & (planes.z ^ e1);
     const uint32_t hi = (planes.y ^ e0) & (planes.w ^ e1);
     const unsigned long long match = ((unsigned long long)hi << 32) | lo;
     const unsigned long long mask = (1ull << off) - 1ull;
     const uint32_t o = sym == 0u ? occ.x : (sym == 1u ? occ.y : (sym == 2u ? occ.z : occ.w));
-    return o + (uint32_t)__popcll(match & mask);
+    return (R)o + (R)__popcll(match & mask);
   }
 
-  __device__ __forceinline__ uint32_t step(uint32_t r, uint32_t* sym_out) const {
+  __device__ __forceinline__ uint32_t c_of(uint32_t sym) const {
+    return sym == 0u ? c[0] : (sym == 1u ? c[1] : (sym == 2u ? c[2] : c[3]));
+  }
+
+  template <class R>
+  __device__ __forceinline__ R symrank(R r, uint32_t* sym_out) const {
     uint4 planes, occ;
     load(r, &planes, &occ);
-    const uint32_t off = r & 63u;
+    const uint32_t off = (uint32_t)r & 63u;
     const uint32_t bit = off & 31u;
     const uint32_t p0 = off < 32u ? planes.x : planes.y;
     const uint32_t p1 = off < 32u ? planes.z : planes.w;
     const uint32_t sym = ((p0 >> bit) & 1u) | (((p1 >> bit) & 1u) << 1);
-    const uint32_t base = sym == 0u ? c[0] : (sym == 1u ? c[1] : (sym == 2u ? c[2] : c[3]));
     *sym_out = sym;
-    return base + count(planes, occ, sym, off);
+    return count<R>(planes, occ, sym, off);
   }
 
-  __device__ __forceinline__ uint32_t rank(uint32_t sym, uint32_t r) const {
+  __device__ __forceinline__ uint32_t step(uint32_t r, uint32_t* sym_out) const {
+    const uint32_t k = symrank<uint32_t>(r, sym_out);
+    return c_of(*sym_out) + k;
+  }
+
+  template <class R>
+  __device__ __forceinline__ R rank(uint32_t sym, R r) const {
     uint4 planes, occ;
     load(r, &planes, &occ);
-    return count(planes, occ, sym, r & 63u);
+    return count<R>(planes, occ, sym, (uint32_t)r & 63u);
   }
 };
 
@@ -83,10 +102,13 @@ struct SectorRows {
 // registers, and word / occ selection is an unrolled select (no local
 // memory, no dependent load).
 struct BitPlaneRows {
+  static constexpr int kShift = 8;
+  static constexpr int kMaxSigma = 8;
   const uint8_t* rows;
   uint32_t c[8];
 
-  __device__ __forceinline__ void load(uint32_t r, uint32_t w[32]) const {
+  template <class R>
+  __device__ __forceinline__ void load(R r, uint32_t w[32]) const {
     const uint4* row =
         reinterpret_cast<const uint4*>(rows + (size_t)(r >> 8) * kBpRowBytes);
 #pragma unroll
@@ -101,8 +123,9 @@ struct BitPlaneRows {
 
   // Positions before off in the row whose 3 plane bits equal sym's, plus
   // the occ checkpoint of sym: rank(sym, r) for r = block * 256 + off.
-  __device__ __forceinline__ static uint32_t count(const uint32_t w[32], uint32_t sym,
-                                                   uint32_t off) {
+  template <class R>
+  __device__ __forceinline__ static R count(const uint32_t w[32], uint32_t sym,
+                                            uint32_t off) {
     // e_j = ~0 where bit j of sym is 0: (plane ^ e_j) marks positions whose
     // bit j equals sym's bit j
     const uint32_t e0 = (sym & 1u) - 1u, e1 = ((sym >> 1) & 1u) - 1u,
@@ -122,13 +145,23 @@ struct BitPlaneRows {
     for (int j = 0; j < 8; ++j) {
       if ((uint32_t)j == sym) occ = w[24 + j];
     }
-    return occ + cnt;
+    return (R)occ + (R)cnt;
   }
 
-  __device__ __forceinline__ uint32_t step(uint32_t r, uint32_t* sym_out) const {
+  __device__ __forceinline__ uint32_t c_of(uint32_t sym) const {
+    uint32_t base = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if ((uint32_t)j == sym) base = c[j];
+    }
+    return base;
+  }
+
+  template <class R>
+  __device__ __forceinline__ R symrank(R r, uint32_t* sym_out) const {
     uint32_t w[32];
     load(r, w);
-    const uint32_t off = r & 255u;
+    const uint32_t off = (uint32_t)r & 255u;
     const uint32_t wi = off >> 5;
     const uint32_t bit = off & 31u;
     uint32_t p0 = 0, p1 = 0, p2 = 0;
@@ -142,31 +175,35 @@ struct BitPlaneRows {
     }
     const uint32_t sym =
         ((p0 >> bit) & 1u) | (((p1 >> bit) & 1u) << 1) | (((p2 >> bit) & 1u) << 2);
-    uint32_t base = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if ((uint32_t)j == sym) base = c[j];
-    }
     *sym_out = sym;
-    return base + count(w, sym, off);
+    return count<R>(w, sym, off);
   }
 
-  __device__ __forceinline__ uint32_t rank(uint32_t sym, uint32_t r) const {
+  __device__ __forceinline__ uint32_t step(uint32_t r, uint32_t* sym_out) const {
+    const uint32_t k = symrank<uint32_t>(r, sym_out);
+    return c_of(*sym_out) + k;
+  }
+
+  template <class R>
+  __device__ __forceinline__ R rank(uint32_t sym, R r) const {
     uint32_t w[32];
     load(r, w);
-    return count(w, sym, r & 255u);
+    return count<R>(w, sym, (uint32_t)r & 255u);
   }
 };
 
 // Byte rows: a SIMD byte compare over the words before the offset, then
 // the occ word of the symbol.
 struct ByteRows {
+  static constexpr int kShift = 8;
+  static constexpr int kMaxSigma = 256;
   const uint8_t* rows;
   const uint32_t* C;
   int roww;
 
-  __device__ __forceinline__ uint32_t count(const uint8_t* row, uint32_t sym,
-                                            uint32_t off) const {
+  template <class R>
+  __device__ __forceinline__ R count(const uint8_t* row, uint32_t sym,
+                                     uint32_t off) const {
     const uint32_t* rw = reinterpret_cast<const uint32_t*>(row);
     const uint32_t pat = sym * 0x01010101u;
     const uint32_t nfull = off >> 2;
@@ -176,21 +213,66 @@ struct ByteRows {
     if (rem) {
       bits += __popc(__vcmpeq4(__ldg(rw + nfull), pat) & ((1u << (8u * rem)) - 1u));
     }
-    return __ldg(rw + 64 + sym) + (bits >> 3);
+    return (R)__ldg(rw + 64 + sym) + (R)(bits >> 3);
+  }
+
+  __device__ __forceinline__ uint32_t c_of(uint32_t sym) const { return __ldg(C + sym); }
+
+  template <class R>
+  __device__ __forceinline__ R symrank(R r, uint32_t* sym_out) const {
+    const uint8_t* row = rows + (size_t)(r >> 8) * (size_t)roww;
+    const uint32_t off = (uint32_t)r & 255u;
+    const uint32_t sym = __ldg(row + off);
+    *sym_out = sym;
+    return count<R>(row, sym, off);
   }
 
   __device__ __forceinline__ uint32_t step(uint32_t r, uint32_t* sym_out) const {
-    const uint8_t* row = rows + (size_t)(r >> 8) * (size_t)roww;
-    const uint32_t off = r & 255u;
-    const uint32_t sym = __ldg(row + off);
-    *sym_out = sym;
-    return __ldg(C + sym) + count(row, sym, off);
+    const uint32_t k = symrank<uint32_t>(r, sym_out);
+    return c_of(*sym_out) + k;
   }
 
-  __device__ __forceinline__ uint32_t rank(uint32_t sym, uint32_t r) const {
-    return count(rows + (size_t)(r >> 8) * (size_t)roww, sym, r & 255u);
+  template <class R>
+  __device__ __forceinline__ R rank(uint32_t sym, R r) const {
+    return count<R>(rows + (size_t)(r >> 8) * (size_t)roww, sym, (uint32_t)r & 255u);
   }
 };
+
+// The 64-bit forms' additions to a row's rank: the hi word of the occ
+// checkpoint, #{k : thr[sym][k] <= row} << 32 (ops/wideocc.py), and the
+// 64-bit C.  Both tables sit in shared memory (at most 256 x 8 x 4 +
+// 256 x 8 bytes), staged by stage_wide at the start of a block: a rank's
+// hi word is kThrK compares against the lane's symbol's row of thr, with
+// no load from device memory.
+constexpr int kThrK = 8;
+
+struct WideTerms {
+  const uint32_t* thr;               // [sigma * kThrK], 0xFFFFFFFF unused
+  const unsigned long long* C;       // [sigma]
+
+  __device__ __forceinline__ unsigned long long hi(uint32_t sym,
+                                                   unsigned long long row) const {
+    const uint32_t* t = thr + sym * kThrK;
+    uint32_t h = 0;
+#pragma unroll
+    for (int k = 0; k < kThrK; ++k) h += (unsigned long long)t[k] <= row;
+    return (unsigned long long)h << 32;
+  }
+};
+
+// Copies thr [sigma * kThrK] and, where given, C [sigma] into the block's
+// shared arrays; every thread of the block must call it.
+__device__ __forceinline__ WideTerms stage_wide(const uint32_t* thr,
+                                                const unsigned long long* C, int sigma,
+                                                uint32_t* s_thr,
+                                                unsigned long long* s_c) {
+  for (int k = threadIdx.x; k < sigma * kThrK; k += blockDim.x) s_thr[k] = __ldg(thr + k);
+  if (C) {
+    for (int k = threadIdx.x; k < sigma; k += blockDim.x) s_c[k] = __ldg(C + k);
+  }
+  __syncthreads();
+  return WideTerms{s_thr, s_c};
+}
 
 __device__ __forceinline__ BitPlaneRows make_bp(const uint8_t* rows, const uint32_t* C,
                                                 int sigma) {

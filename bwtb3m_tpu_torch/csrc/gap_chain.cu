@@ -55,9 +55,23 @@
 // 2^18 lanes are slower (40-44 ms; more text and gt lines compete for the
 // L1) and 2^15 a little faster (28 ms); the callers keep 65,536 (PERF.md).
 //
-// Ranks and positions are uint32 (the caller asserts n < 2^32, refuses
-// wide merges and keeps a level's rank space below 2^32).  The entry point
-// launches on the caller's stream, does not synchronise and returns
+// Ranks and positions are uint32 in the narrow form, bwt_gap_chain_mk (the
+// caller keeps positions below 2^32, refuses wide merges and keeps a
+// level's rank space below 2^32).  The 64-bit form, bwt_gap_chain_mk_w, is
+// a second instantiation of the same templates for one merge whose rank
+// space or left block reaches 2^32 or whose positions pass it (port of
+// bwtb3m_tpu/ops/gapwide.py::_chain_chunk_w_impl / ::_anchor_chunk_w_impl):
+// 64-bit ranks, positions, constants and samples, the rank's hi word from
+// the wrap rows in shared memory (focc_rows.cuh::WideTerms), and 64-bit
+// histogram cells.  A cell counts the left suffixes between two adjacent
+// right ones and the cells sum to the left block's length, and one cell
+// can hold all of it (a poly-A left block against a right block without
+// A).  The narrow form's left block stays below 2^32, so its cells are
+// uint32, atomicAdd'ed as such and read as such by the zip's cumsum
+// (ops/devzip.py::gap_cum); the wide form's left block may be 2^32 or
+// more, so its cells are 64-bit, 8 bytes per rank, and the zip's int64
+// cumsum is then taken in place (engine/merge_scaled.py).  The entry points
+// launch on the caller's stream, do not synchronise and return
 // cudaGetLastError() right after the launch.
 
 #include <cstdint>
@@ -69,133 +83,176 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// The constants of one pair merge.  The layout is the wrapper's
-// (ops/gapbatch.py::MERGE_WORDS uint32 words per merge).
+using bwt_rows::kThrK;
+using bwt_rows::WideTerms;
+
+// The constants of one pair merge, in words of the rank type I.  The
+// layout is the wrapper's (ops/gapbatch.py::MERGE_WORDS words per merge).
+template <class I>
 struct Merge {
-  uint32_t c_first;  // index of the merge's first c_first word
-  uint32_t k0;       // rbase + isa_m
-  uint32_t k1, k2;   // sym_before_m, sym_last
-  uint32_t lo0;      // text position of the merge's gt bit 0
-  uint32_t gt_base;  // byte of the merge's gt bit 0 in gt
-  uint32_t samp_base;  // index of the merge's first sample in samp
-  uint32_t samp_p0;  // first sampled position (a multiple of rate)
+  I c_first;    // index of the merge's first c_first word
+  I k0;         // rbase + isa_m
+  I k1, k2;     // sym_before_m, sym_last
+  I lo0;        // text position of the merge's gt bit 0
+  I gt_base;    // byte of the merge's gt bit 0 in gt
+  I samp_base;  // index of the merge's first sample in samp
+  I samp_p0;    // first sampled position (a multiple of rate)
 };
 
+// I: ranks, positions and samples (uint32_t narrow, unsigned long long in
+// the 64-bit form); Cell: the histogram's cells (uint32_t, unsigned long long).
+template <class I, class Cell>
 struct Chain {
   const uint8_t* text;      // dense text, n symbols
   const uint8_t* gt;        // wrap-term bits, LSB first
-  const uint32_t* c_first;  // c_first[m.c_first + c]: rbase + right rotations below c
-  const Merge* table;       // K merges
+  const I* c_first;         // c_first[m.c_first + c]: rbase + right rotations below c
+  const Merge<I>* table;    // K merges
   const int32_t* kid;       // merge of each lane
   const int64_t* starts;    // first walk position of each lane
-  const int32_t* seeds;     // R(starts + 1), uint32 bits
+  const I* seeds;           // R(starts + 1)
   const int32_t* lens;      // steps of each lane
-  int32_t* r_out;           // final rank of each lane, uint32 bits
-  int32_t* gap;             // recording form: histogram of every R
-  int32_t* samp;            // recording form: R at the sampled positions
-  uint32_t rate;
+  I* r_out;                 // final rank of each lane
+  Cell* gap;                // recording form: histogram of every R
+  I* samp;                  // recording form: R at the sampled positions
+  I rate;
 };
 
-template <bool kRecord, class Rows>
-__device__ __forceinline__ void chain_lane(const Rows& rows, const Chain& ch, int j) {
-  const Merge m = ch.table[ch.kid[j]];
-  const uint32_t* c_first = ch.c_first + m.c_first;
+template <bool kRecord, class I, class Cell, class Rows>
+__device__ __forceinline__ void chain_lane(const Rows& rows, const WideTerms& wt,
+                                           const Chain<I, Cell>& ch, int j) {
+  const Merge<I> m = ch.table[ch.kid[j]];
+  const I* c_first = ch.c_first + m.c_first;
   const uint8_t* gt = ch.gt + m.gt_base;
-  int32_t* samp = ch.samp + m.samp_base;
-  uint32_t r = (uint32_t)ch.seeds[j];
-  uint32_t p = (uint32_t)ch.starts[j];
+  I* samp = ch.samp + m.samp_base;
+  I r = ch.seeds[j];
+  I p = (I)ch.starts[j];
   const int len = ch.lens[j];
-  uint32_t phase = kRecord ? p % ch.rate : 0u;  // p mod rate, counted down
+  I phase = kRecord ? p % ch.rate : 0u;  // p mod rate, counted down
   for (int k = 0; k < len; ++k) {
     const uint32_t c = __ldg(ch.text + p);
-    const uint32_t off = p - m.lo0;
-    const uint32_t g = (__ldg(gt + (off >> 3)) >> (off & 7u)) & 1u;
-    const uint32_t rk = rows.rank(c, r);
-    r = __ldg(c_first + c) + rk - (uint32_t)(m.k0 < r && c == m.k1) +
-        (uint32_t)(c == m.k2 && g);
-    if (kRecord) {
-      atomicAdd(ch.gap + r, 1);
+    const I off = p - m.lo0;
+    const uint32_t g = (__ldg(gt + (off >> 3)) >> ((uint32_t)off & 7u)) & 1u;
+    I rk;
+    if constexpr (sizeof(I) == 4) {
+      rk = rows.rank(c, r);
+    } else {
+      rk = rows.template rank<I>(c, r) + wt.hi(c, r >> Rows::kShift);
+    }
+    r = __ldg(c_first + c) + rk - (I)(m.k0 < r && c == m.k1) + (I)(c == m.k2 && g);
+    if constexpr (kRecord) {
+      atomicAdd(ch.gap + r, (Cell)1);
       if (phase == 0) {
-        samp[(p - m.samp_p0) / ch.rate] = (int32_t)r;
+        samp[(p - m.samp_p0) / ch.rate] = r;
         phase = ch.rate;
       }
       --phase;
     }
     --p;
   }
-  ch.r_out[j] = (int32_t)r;
+  ch.r_out[j] = r;
 }
 
-template <bool kRecord>
-__global__ void chain_bp_kernel(const uint8_t* rows, Chain ch, int nlanes) {
+template <bool kRecord, class Rows, class I, class Cell>
+__global__ void chain_kernel(Rows rows, Chain<I, Cell> ch, int nlanes, const uint32_t* thr,
+                             int sigma) {
+  WideTerms wt{};
+  if constexpr (sizeof(I) == 8) {
+    __shared__ uint32_t s_thr[Rows::kMaxSigma * kThrK];
+    wt = bwt_rows::stage_wide(thr, nullptr, sigma, s_thr, nullptr);
+  }
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= nlanes) return;
-  const bwt_rows::BitPlaneRows b{rows, {}};
-  chain_lane<kRecord>(b, ch, j);
+  chain_lane<kRecord>(rows, wt, ch, j);
 }
 
-template <bool kRecord>
-__global__ void chain_sector_kernel(const uint8_t* rows, Chain ch, int nlanes) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= nlanes) return;
-  const bwt_rows::SectorRows b{rows, {}};
-  chain_lane<kRecord>(b, ch, j);
-}
-
-template <bool kRecord>
-__global__ void chain_byte_kernel(bwt_rows::ByteRows rows, Chain ch, int nlanes) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= nlanes) return;
-  chain_lane<kRecord>(rows, ch, j);
+template <bool kRecord, class I, class Cell>
+void launch_form(const uint8_t* rows, int roww, const Chain<I, Cell>& ch, int nlanes,
+                 const uint32_t* thr, int sigma, cudaStream_t s) {
+  const int grid = (nlanes + kThreads - 1) / kThreads;
+  if (roww == bwt_rows::kSectorRowBytes) {
+    chain_kernel<kRecord><<<grid, kThreads, 0, s>>>(bwt_rows::SectorRows{rows, {}}, ch,
+                                                    nlanes, thr, sigma);
+  } else if (roww == bwt_rows::kBpRowBytes) {
+    chain_kernel<kRecord><<<grid, kThreads, 0, s>>>(bwt_rows::BitPlaneRows{rows, {}}, ch,
+                                                    nlanes, thr, sigma);
+  } else {
+    chain_kernel<kRecord><<<grid, kThreads, 0, s>>>(
+        bwt_rows::ByteRows{rows, nullptr, roww}, ch, nlanes, thr, sigma);
+  }
 }
 
 // The row width selects the layout: 32 bytes sector rows, 128 bytes
 // bit-plane rows, anything else byte rows.  A non-null gap selects the
 // recording form (then samp must be non-null too); a null gap the anchor
 // form.  Returns cudaGetLastError() after the launch.
-int launch(const void* rows_v, int roww, const Chain& ch, int nlanes, void* stream) {
+template <class I, class Cell>
+int launch(const void* rows_v, int roww, const Chain<I, Cell>& ch, int nlanes,
+           const void* thr, int sigma, void* stream) {
   const auto* rows = static_cast<const uint8_t*>(rows_v);
+  const auto* tp = static_cast<const uint32_t*>(thr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (nlanes + kThreads - 1) / kThreads;
-  const bool rec = ch.gap != nullptr;
-  if (roww == bwt_rows::kSectorRowBytes) {
-    if (rec) chain_sector_kernel<true><<<grid, kThreads, 0, s>>>(rows, ch, nlanes);
-    else chain_sector_kernel<false><<<grid, kThreads, 0, s>>>(rows, ch, nlanes);
-  } else if (roww == bwt_rows::kBpRowBytes) {
-    if (rec) chain_bp_kernel<true><<<grid, kThreads, 0, s>>>(rows, ch, nlanes);
-    else chain_bp_kernel<false><<<grid, kThreads, 0, s>>>(rows, ch, nlanes);
+  if (ch.gap != nullptr) {
+    launch_form<true>(rows, roww, ch, nlanes, tp, sigma, s);
   } else {
-    const bwt_rows::ByteRows b{rows, nullptr, roww};
-    if (rec) chain_byte_kernel<true><<<grid, kThreads, 0, s>>>(b, ch, nlanes);
-    else chain_byte_kernel<false><<<grid, kThreads, 0, s>>>(b, ch, nlanes);
+    launch_form<false>(rows, roww, ch, nlanes, tp, sigma, s);
   }
   return (int)cudaGetLastError();
+}
+
+template <class I, class Cell>
+Chain<I, Cell> make_chain(const void* text, const void* gt, const void* c_first,
+                          const void* table, const void* kid, const void* starts,
+                          const void* seeds, const void* lens, void* r_out, void* gap,
+                          void* samp, long long rate) {
+  Chain<I, Cell> ch{};
+  ch.text = static_cast<const uint8_t*>(text);
+  ch.gt = static_cast<const uint8_t*>(gt);
+  ch.c_first = static_cast<const I*>(c_first);
+  ch.table = static_cast<const Merge<I>*>(table);
+  ch.kid = static_cast<const int32_t*>(kid);
+  ch.starts = static_cast<const int64_t*>(starts);
+  ch.seeds = static_cast<const I*>(seeds);
+  ch.lens = static_cast<const int32_t*>(lens);
+  ch.r_out = static_cast<I*>(r_out);
+  ch.gap = static_cast<Cell*>(gap);
+  ch.samp = static_cast<I*>(samp);
+  ch.rate = (I)rate;
+  return ch;
 }
 
 }  // namespace
 
 // The K pair merges of one level (K = 1: one pair merge): lane j belongs to
 // merge kid[j], whose constants are table[kid[j]]; rows are the concatenated
-// rank rows, seeds and final ranks global.
+// rank rows, seeds, final ranks and histogram cells global, uint32 (int32
+// tensors holding uint32 bits).
 extern "C" int bwt_gap_chain_mk(const void* rows, int roww, const void* text, const void* gt,
                                 const void* c_first, const void* table, const void* kid,
                                 const void* starts, const void* seeds, const void* lens,
                                 void* r_out, void* gap, void* samp, int rate, int nlanes,
                                 void* stream) {
-  Chain ch{};
-  ch.text = static_cast<const uint8_t*>(text);
-  ch.gt = static_cast<const uint8_t*>(gt);
-  ch.c_first = static_cast<const uint32_t*>(c_first);
-  ch.table = static_cast<const Merge*>(table);
-  ch.kid = static_cast<const int32_t*>(kid);
-  ch.starts = static_cast<const int64_t*>(starts);
-  ch.seeds = static_cast<const int32_t*>(seeds);
-  ch.lens = static_cast<const int32_t*>(lens);
-  ch.r_out = static_cast<int32_t*>(r_out);
-  ch.gap = static_cast<int32_t*>(gap);
-  ch.samp = static_cast<int32_t*>(samp);
-  ch.rate = (uint32_t)rate;
-  return launch(rows, roww, ch, nlanes, stream);
+  return launch(rows, roww,
+                make_chain<uint32_t, uint32_t>(text, gt, c_first, table, kid, starts,
+                                               seeds, lens, r_out, gap, samp, rate),
+                nlanes, nullptr, 0, stream);
+}
+
+// The 64-bit form (a merge whose rank space or left block reaches 2^32,
+// whose positions pass 2^32, or BWTB3M_FORCE_WIDE): one merge's rank rows
+// with their wrap rows thr (uint32 [sigma * 8], ops/wideocc.py); c_first,
+// the merge table, seeds, final ranks and samples are 64-bit, and so are
+// the histogram's cells.
+extern "C" int bwt_gap_chain_mk_w(const void* rows, int roww, const void* thr, int sigma,
+                                  const void* text, const void* gt, const void* c_first,
+                                  const void* table, const void* kid, const void* starts,
+                                  const void* seeds, const void* lens, void* r_out,
+                                  void* gap, void* samp, long long rate, int nlanes,
+                                  void* stream) {
+  using U = unsigned long long;
+  return launch(rows, roww,
+                make_chain<U, U>(text, gt, c_first, table, kid, starts, seeds, lens,
+                                 r_out, gap, samp, rate),
+                nlanes, thr, sigma, stream);
 }
 
 extern "C" const char* bwt_error_string(int code) {

@@ -22,8 +22,8 @@ same input; ``.meta`` keeps ``"format": "bwtb3m_tpu/v1"``, the name of
 the file format.
 
 Not ported yet (they raise ``NotImplementedError`` naming their
-ROADMAP.md item): ``engine=merge-legacy``, the sharded engine, the wide
-merge path and ``bwtcodec=rlh``.
+ROADMAP.md item): ``engine=merge-legacy``, the sharded engine and
+``bwtcodec=rlh``.
 """
 
 from __future__ import annotations

@@ -26,10 +26,16 @@ the chains, a right rank r gains cnt_le[r].  Completed regions are checkpointed 
 and a build stopped by ``<output>.stop`` or a crash resumes from them.
 The BWT crosses to the host once, at the end.
 
-Not ported (``NotImplementedError`` naming the ROADMAP.md item): the wide
-path (a merge whose right region reaches (2^24-1)*256 - 2 ranks or whose
-left block reaches 2^32 symbols, texts of 2^32 symbols or more, or
-``BWTB3M_FORCE_WIDE``; Queue 1 item 6).  The reference's fused and
+The wide path (the reference's ``_merge_pair_scaled`` wide branch): a
+merge whose right region reaches (2^24-1)*256 - 2 ranks, whose left
+block reaches 2^32 symbols or whose positions pass 2^32 (the narrow
+kernel keeps them in uint32), and every merge under
+``BWTB3M_FORCE_WIDE``, runs pair by pair through the runner's wide mode
+(wide rank rows, int64 ranks and cells, the kernel's 64-bit form).  Its
+zip and sample updates are the narrow merge's: they are int64 in torch
+throughout, so the reference's (hi, lo) zip twins
+(``_finish_merge_dev_wide``) have no counterpart.  Texts of 2^35 symbols
+or more are refused (``_validate_scale``).  The reference's fused and
 pipelined block sorts, shape buckets and the uint16 histogram were relay
 and XLA:TPU workarounds.
 """
@@ -58,7 +64,6 @@ from .checkpoint import MergeCheckpointer, build_key, load_region_file, \
     pack_host
 from .options import BwtOptions
 
-WIDE_ITEM = "ROADMAP.md Queue 1 item 6"
 ANCHOR_LOOKBACK = 64      # first anchor walk length, grown x4
 TEXT_CHUNK = 1 << 26      # bytes of a memory-mapped text uploaded at a time
 # peak device bytes of the windowed block sort per window symbol, whatever
@@ -407,19 +412,37 @@ def _finish_merge(ctx: _Ctx, left: Region, right: Region, runner,
 
 
 def _is_wide(l, r) -> bool:
-    return (r.e - r.s + 2 > ((1 << 24) - 1) * 256 or l.e - l.s >= (1 << 32))
+    """Whether the merge of ``l`` and ``r`` needs the wide path: the
+    reference's bounds (right region, left block), the port's narrow
+    kernel's uint32 positions (its lanes walk the left block, so it ends
+    at 2^32 at most), or ``BWTB3M_FORCE_WIDE``."""
+    return (r.e - r.s + 2 > ((1 << 24) - 1) * 256 or l.e - l.s >= (1 << 32)
+            or l.e > 1 << 32 or bool(os.environ.get("BWTB3M_FORCE_WIDE")))
 
 
-def level_bytes_estimate(pairs, sigma: int, bits: int) -> int:
+def _validate_scale(n: int) -> None:
+    """Texts of 2^35 symbols or more: the wide rank rows track THR_K = 8
+    wraps of a symbol's occ word (``ops/wideocc.py``)."""
+    if n >= 1 << 35:
+        raise ValueError("texts >= 2^35 symbols exceed the wide rank rows' "
+                         "THR_K wrap tracking (ops/wideocc.py)")
+
+
+def level_bytes_estimate(pairs, sigma: int, bits: int,
+                         wide: bool = False) -> int:
     """Device bytes a batch of merges allocates beyond the text and the
     regions it starts from, counted from the tensors it makes: the
     concatenated rank rows; the level's int32 histogram and its int64
-    cumsum (12 bytes per rank); the gt bits over every pair's span; the
+    cumsum (12 bytes per rank; a wide merge's histogram is int64 and its
+    cumsum is taken in place: 8 bytes per rank); the gt bits over every
+    pair's span; the
     merged regions as they accumulate; and the largest single transient:
     a region's rank-row build (about 12 bytes per symbol: the unpacked
-    symbols, one int32 running count, the plane words), the int64 copy
-    of the histogram that ``torch.cumsum`` makes of its int32 input (8
-    bytes per rank), or a pair's zip
+    symbols, one int32 running count, the plane words), the scratch of
+    the histogram's int64 cumsum (8 bytes per rank: what ``torch.cumsum``
+    of the int32 cells took; kept for ``ops/devzip.py::gap_cum``'s
+    in-place cumsum of its own int64 copy, whose scratch torch does not
+    document), or a pair's zip
     (``ops/devzip.py::device_interleave``: the int64 slots of the right
     symbols, both unpacked inputs and the unpacked output, and per chunk
     symbol a bool mask, its negation and the int64 indices of the mask's
@@ -437,17 +460,17 @@ def level_bytes_estimate(pairs, sigma: int, bits: int) -> int:
     zips = max(max(8 * (r.e - r.s) + 2 * (r.e - l.s)
                    + 12 * min(ZIP_CHUNK, r.e - l.s), 4 * (r.e - l.s))
                for l, r in pairs)
-    return ((total_rows + 1) * roww + 12 * (rank_space + 1)
+    cells = 8 if wide else 12
+    return ((total_rows + 1) * roww + cells * (rank_space + 1)
             + sum(spans) // 8 + sum(spans) * bits // 8
-            + max(build, zips, 8 * (rank_space + 1)))
+            + max(build, zips, 0 if wide else 8 * (rank_space + 1)))
 
 
 def _level_fits_batched(ctx: _Ctx, pairs) -> bool:
-    """Gate of the batched-level path: no pair needs the wide path, the
-    level's rank space stays 256 short of 2^32, and its state fits the
-    device budget."""
-    if os.environ.get("BWTB3M_FORCE_WIDE") or any(_is_wide(l, r)
-                                                  for l, r in pairs):
+    """Gate of the batched-level path: no pair needs the wide path (the
+    reference never batches a wide level), the level's rank space stays
+    256 short of 2^32, and its state fits the device budget."""
+    if any(_is_wide(l, r) for l, r in pairs):
         return False
     cls, _roww, _first, total_rows = concat_layout(
         [r.e - r.s for _l, r in pairs], ctx.sigma)
@@ -459,34 +482,40 @@ def _level_fits_batched(ctx: _Ctx, pairs) -> bool:
 def _merge_pairs(ctx: _Ctx, pairs) -> List[Region]:
     """Merge the adjacent regions (left, right) of every pair: shared
     rank rows, anchors, chains and histogram (``ops/gapbatch.py``), then
-    each pair's zip.  A single pair merge is a batch of one."""
+    each pair's zip.  A single pair merge is a batch of one; a merge that
+    needs the wide path (``_is_wide``) is always alone, through the
+    runner's wide mode."""
+    wide = any(_is_wide(l, r) for l, r in pairs)
     for l, r in pairs:
         assert r.s == l.e
-        if _is_wide(l, r):
-            raise NotImplementedError(
-                "merge [%d,%d,%d) needs the wide path, which is not ported "
-                "yet: %s" % (l.s, l.e, r.e, WIDE_ITEM))
+    if wide and len(pairs) > 1:
+        raise ValueError("a wide merge is not batched")
     phase = ctx.phase
     runner = BatchedGapRunner(
         ctx.text_dev, ctx.text, ctx.sigma,
         [(l.s, l.e, r.e, r.r_start, r.hist) for l, r in pairs],
         [_region_packed(ctx, r) for _l, r in pairs], ctx.bits,
         lane_bucket=ctx.lane_bucket, sample_rate=ctx.rate,
-        nthreads=ctx.nthreads, log=ctx.log, phase=phase)
+        nthreads=ctx.nthreads, log=ctx.log, phase=phase, wide=wide)
     runner.compute(ANCHOR_LOOKBACK)
     ctx.log.v("%s: %d lanes (%s), rank space %d, histogram %d bytes, chain "
               "walk of %d steps %.3f ms (%.2f G steps/s, %s)"
               % ("batched level: %d merges" % len(pairs) if len(pairs) > 1
-                 else "pair merge", sum(sp.T for sp in runner.specs),
+                 else "wide pair merge" if wide else "pair merge",
+                 sum(sp.T for sp in runner.specs),
                  " ".join(str(sp.T) for sp in runner.specs), runner.focc.n,
-                 4 * runner.gap.shape[0], runner.chain_steps,
+                 runner.gap.element_size() * runner.gap.shape[0],
+                 runner.chain_steps,
                  runner.chain_ms,
                  runner.chain_steps / max(runner.chain_ms, 1e-9) / 1e6,
                  ctx.device))
     with phase("zip"):
         # one cumsum for the level; each merge's slice is rebased in place
-        # (the slices are disjoint) when its turn comes
-        cum = gap_cum(runner.gap)
+        # (the slices are disjoint) when its turn comes.  A wide merge's
+        # histogram is int64 already: its cumsum is taken in place (the
+        # zip reads only the cumsum), 8 bytes per rank where a narrow
+        # level's int64 copy of its int32 cells makes 12
+        cum = runner.gap.cumsum_(0) if wide else gap_cum(runner.gap)
         rbases = torch.tensor([sp.rbase for sp in runner.specs],
                               device=cum.device)
         before = torch.where(rbases > 0, cum[(rbases - 1).clamp(min=0)], 0)
@@ -525,10 +554,7 @@ def blockwise_bwt_scaled(
         raise ValueError("scaled merge engine supports sigma <= 256 "
                          "(byte device text); rank-compact the alphabet "
                          "first (engine/api.py does)")
-    if n >= 1 << 32 or os.environ.get("BWTB3M_FORCE_WIDE"):
-        raise NotImplementedError(
-            "the wide merge path (n >= 2^32 or BWTB3M_FORCE_WIDE) is not "
-            "ported yet: " + WIDE_ITEM)
+    _validate_scale(n)
     ctx = _Ctx(text, sigma, sample_rate, options, log, lane_bucket, device,
                phase, budget=budget)
     blocks = _plan_blocks_fixed(n, options.max_block_symbols)

@@ -9,8 +9,11 @@ the final region's packed symbols that are still on the device
 hand-off lives on the result object and nowhere else: it is taken by the
 first ``load_focc`` it can serve and goes with the object, so a caller
 that builds and never checks pins the symbols only while it keeps the
-result.  The legacy ``load_occ`` is not ported yet (ROADMAP.md Queue 1
-item 8).
+result.  Texts of 2^32 symbols or more, or any text under
+``BWTB3M_FORCE_WIDE``, get the wide rank rows (``ops/wideocc.py``); the
+memo key carries the variant, so narrow rows never serve a wide request
+nor the other way round.  The legacy ``load_occ`` is not ported yet
+(ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -33,6 +36,13 @@ _FOCC_CACHE: dict = {}
 def _file_key(bwt_path: str) -> tuple:
     st = os.stat(bwt_path)
     return (os.path.abspath(bwt_path), st.st_mtime_ns, st.st_size)
+
+
+def wide_rows(n: int) -> bool:
+    """Whether the walks of a text of ``n`` symbols take the wide rank
+    rows: n >= 2^32, or ``BWTB3M_FORCE_WIDE`` set (the wide path on a
+    small text, as the reference's tests drive it)."""
+    return n >= 1 << 32 or bool(os.environ.get("BWTB3M_FORCE_WIDE"))
 
 
 def clear_caches() -> None:
@@ -138,14 +148,17 @@ class BwtResult:
         return formats.read_preisa(self.preisa_path)
 
     def load_focc(self, device, dense: bool = True, log=None,
-                  layout: str = "auto"):
+                  layout: str = "auto", wide: Optional[bool] = None):
         """Fused rank rows of the ``.bwt`` on ``device``: (focc, symbol_map
         or None).  With ``dense``, a sparse alphabet is densified and
         ``symbol_map[dense_id]`` is the file's symbol.  ``layout`` is
         ``ops/focc_build.py``'s: ``"auto"`` gives sector rows for a dense
-        alphabet of at most 4 symbols (DNA).
+        alphabet of at most 4 symbols (DNA).  ``wide``: the
+        ``ops/wideocc.py::WideOcc`` over the rows; by default where
+        ``wide_rows(n)`` says so (a caller that runs only narrow kernels
+        asks for ``False``, below 2^32 symbols).
 
-        Memoized on (path, mtime, size, dense, device, layout): one
+        Memoized on (path, mtime, size, dense, device, layout, wide): one
         process running checkbwt and bwtcomputessa builds the rows once.
         A device-rows hand-off bound to this result (``bind_device_rows``)
         serves a ``dense`` request on the device that holds it while the
@@ -153,20 +166,24 @@ class BwtResult:
         rows are built from the build's packed symbols, with no host
         decode or densify, and the hand-off is released."""
         device = torch.device(device)
+        wide = wide_rows(self.n) if wide is None else bool(wide)
+        if not wide and self.n >= 1 << 32:
+            raise ValueError("a text of 2^32 symbols or more takes the wide "
+                             "rank rows")
         fkey = _file_key(self.bwt_path)
-        key = fkey + (bool(dense), str(device), layout)
+        key = fkey + (bool(dense), str(device), layout, wide)
         hit = _FOCC_CACHE.get(key)
         if hit is not None:
             return hit
-        out = self._focc_from_handoff(fkey, device, dense, log, layout)
+        out = self._focc_from_handoff(fkey, device, dense, log, layout, wide)
         if out is None:
-            out = self._build_focc(device, dense, log, layout)
+            out = self._build_focc(device, dense, log, layout, wide)
         _FOCC_CACHE.clear()   # hold at most one (rows are 0.5-5 B/symbol)
         _FOCC_CACHE[key] = out
         return out
 
     def _focc_from_handoff(self, fkey, device, dense: bool, log,
-                           layout: str):
+                           layout: str, wide: bool):
         """(focc, symmap) from a pending hand-off, or None.  Only a
         handle whose symbols are the file's dense symbols is registered
         (every symbol present), so no remap applies here; a rank-compacted
@@ -189,17 +206,18 @@ class BwtResult:
         self._device_rows = None
         t0 = time.monotonic()
         focc = build_focc_from_packed(handle.packed, handle.n, handle.sigma,
-                                      handle.bits, layout)
+                                      handle.bits, layout, wide=wide)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         if log is not None:
             log.v("rank rows: from the build's device symbols (hand-off), "
-                  "build %.3fs (%s), sigma=%d, %s rows"
+                  "build %.3fs (%s), sigma=%d, %s%s rows"
                   % (time.monotonic() - t0, device, handle.sigma,
-                     focc.LAYOUT))
+                     "wide " if wide else "", focc.LAYOUT))
         return focc, symmap
 
-    def _build_focc(self, device, dense: bool, log, layout: str):
+    def _build_focc(self, device, dense: bool, log, layout: str,
+                    wide: bool):
         from ..ops.focc_build import build_focc_host
 
         t0 = time.monotonic()
@@ -222,12 +240,12 @@ class BwtResult:
                 symmap = present.astype(np.int64)
         t_dense = time.monotonic() - t0
         t0 = time.monotonic()
-        focc = build_focc_host(bwt, sigma, device, layout)
+        focc = build_focc_host(bwt, sigma, device, layout, wide=wide)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         if log is not None:
             log.v("rank rows: decode %.3fs (host), densify %.3fs (host), "
-                  "build %.3fs (%s), sigma=%d, %s rows"
+                  "build %.3fs (%s), sigma=%d, %s%s rows"
                   % (t_decode, t_dense, time.monotonic() - t0, device,
-                     sigma, focc.LAYOUT))
+                     sigma, "wide " if wide else "", focc.LAYOUT))
         return focc, symmap

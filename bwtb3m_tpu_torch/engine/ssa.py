@@ -17,8 +17,16 @@ each wanted rank is a lane of the kernel's select visit
 (``ops/lf_walk.py::select_walk``), which LF-steps until its rank is a
 ``.preisa`` rank.
 
-Not ported yet: the sigma > 256 legacy path and the wide lanes
-(n >= 2^31) (ROADMAP.md Queue 1 items 8 and 6).
+Ranks and positions are uint32 in the kernel's narrow form up to 2^32
+symbols.  From 2^32 (and under ``BWTB3M_FORCE_WIDE``) the walks of
+``compute_ssa`` and ``compute_isa_from_preisa`` take the wide rank rows
+and the kernel's 64-bit form (the reference's ``_harvest_fused_w``), with
+its rules: a power-of-two SA sampling rate of at least 4 (or one of n or
+more, an ISA-only walk), and fewer than 2^31 SA samples.  ``select_ssa``
+and ``compute_sa_device`` stay narrow, below 2^32 and 2^31 symbols, as
+in the reference; past 2^32 the reference's ``select_ssa`` goes through
+the FM index's locate, which is not ported (ROADMAP.md Queue 1 item 8),
+nor is the sigma > 256 legacy path.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 
 from ..io import formats
 from ..ops.lf_walk import harvest_walk, select_walk
+from ..ops.wideocc import WideOcc
 from ..util.devices import resolve_device
 from ..util.log import VerboseLog
 from .result import BwtResult
@@ -68,25 +77,44 @@ def _refuse_unported(result: BwtResult, what: str) -> None:
         raise NotImplementedError(
             "%s for sigma > 256 (legacy rank path) is not ported yet: "
             "ROADMAP.md Queue 1 item 8" % what)
-    if result.n >= 1 << 31:
-        raise NotImplementedError(
-            "%s for n >= 2^31 (wide lanes) is not ported yet: ROADMAP.md "
-            "Queue 1 item 6" % what)
 
 
-def _harvest(result: BwtResult, sarate: int, isarate: int, device, log):
+def _wide_sa_rate(sarate: int, n: int) -> int:
+    """The SA rate the 64-bit harvest walks with: the reference's rules
+    for wide lanes (``_harvest_fused_w``).  An ISA-only walk (a rate of
+    n or more) walks with the power of two at or above n, so that only
+    rank 0 lands in its one SA entry, as in the narrow walk."""
+    if sarate >= n:
+        return 1 << max(0, (n - 1).bit_length())
+    if sarate < 4 or sarate & (sarate - 1):
+        raise ValueError("texts past 2^32 need a power-of-two sa sampling "
+                         "rate >= 4")
+    if (n + sarate - 1) // sarate >= 1 << 31:
+        raise ValueError("sampled SA exceeds 2^31 entries; raise "
+                         "sasamplingrate")
+    return sarate
+
+
+def _harvest(result: BwtResult, sarate: int, isarate: int, device, log,
+             wide=None):
     """(SA samples, ISA samples, lanes) on ``device`` (int64, -1 where
-    unvisited): the harvest walk from every ``.preisa`` seed."""
+    unvisited): the harvest walk from every ``.preisa`` seed, on the wide
+    rank rows where ``wide`` (default: ``wide_rows(n)``) says so."""
     n = result.n
     ranks, positions, _rate = result.load_preisa()
     ranks, positions, seg_len = seed_segments(ranks, positions, n)
-    focc, _symmap = result.load_focc(device, dense=True, log=log)
+    focc, _symmap = result.load_focc(device, dense=True, log=log, wide=wide)
+    walk_rate = sarate
+    if isinstance(focc, WideOcc):
+        walk_rate = _wide_sa_rate(sarate, n)
 
     def lanes(a):
         return torch.from_numpy(np.asarray(a, np.int64)).to(device)
 
     sa, isa = harvest_walk(focc, lanes(ranks), lanes(positions),
-                           lanes(seg_len), int(sarate), int(isarate))
+                           lanes(seg_len), int(walk_rate), int(isarate))
+    if walk_rate != sarate:         # an ISA-only walk: SA[0] only
+        sa = sa[:(n + sarate - 1) // sarate]
     return sa, isa, len(positions)
 
 
@@ -149,7 +177,9 @@ def compute_sa_device(bwt_path: str, log: Optional[VerboseLog] = None,
     result = BwtResult.load(bwt_path)
     _refuse_unported(result, "compute_sa_device")
     n = result.n
-    sa, _isa, _nlanes = _harvest(result, 1, n, device, log)
+    if n >= 1 << 31:
+        raise ValueError("compute_sa_device needs n < 2^31")
+    sa, _isa, _nlanes = _harvest(result, 1, n, device, log, wide=False)
     if bool((sa < 0).any()):
         raise AssertionError("LF walk failed to visit every rank")
     return sa, n
@@ -199,13 +229,13 @@ def select_ssa(bwt_path: str, ranks: np.ndarray,
     ranks = np.asarray(ranks, dtype=np.int64)
     if (ranks < 0).any() or (ranks >= n).any():
         raise ValueError("ranks out of range")
-    if result.sigma > 256 or n >= 1 << 31:
+    if result.sigma > 256 or n >= 1 << 32:
         raise NotImplementedError(
-            "select_ssa for sigma > 256 or n >= 2^31 goes through the "
+            "select_ssa for sigma > 256 or n >= 2^32 goes through the "
             "sampled-SA locate of the FM index, which is not ported yet: "
             "ROADMAP.md Queue 1 item 8")
     pr_ranks, pr_pos, prate = result.load_preisa()
-    focc, _symmap = result.load_focc(device, dense=True, log=log)
+    focc, _symmap = result.load_focc(device, dense=True, log=log, wide=False)
     words = np.zeros(n // 32 + 1, np.uint32)
     np.bitwise_or.at(words, pr_ranks >> 5,
                      np.uint32(1) << (pr_ranks & 31).astype(np.uint32))

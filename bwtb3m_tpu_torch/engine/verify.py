@@ -7,8 +7,13 @@ read.  The walk is one launch of the LF-walk kernel with its verify
 visit (``ops/lf_walk.py::verify_walk``); the text is a flat uint8 array on the device (the
 reference's phase-aligned text rows were a TPU gather workaround).
 
-Not ported yet: the sigma > 256 legacy rank path and the wide (n >= 2^31)
-lanes (ROADMAP.md Queue 1 items 8 and 6).
+Ranks and positions are uint32 in the kernel's narrow form up to 2^32
+symbols; from 2^32 (and under ``BWTB3M_FORCE_WIDE``) the rank rows are
+the wide rows of ``ops/wideocc.py`` and the walk is the kernel's 64-bit
+form (the reference's ``_verify_chunk_w``), exact to 2^35 symbols.
+
+Not ported yet: the sigma > 256 legacy rank path (ROADMAP.md Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.lf_walk import verify_walk
+from ..ops.wideocc import WideOcc
 from ..util.devices import resolve_device
 from ..util.log import VerboseLog
 from .result import BwtResult
@@ -40,10 +46,6 @@ def check_bwt(result: BwtResult, text: np.ndarray, device="cuda",
         raise NotImplementedError(
             "checkbwt for sigma > 256 (legacy rank path) is not ported "
             "yet: ROADMAP.md Queue 1 item 8")
-    if n >= 1 << 31:
-        raise NotImplementedError(
-            "checkbwt for n >= 2^31 (wide lanes) is not ported yet: "
-            "ROADMAP.md Queue 1 item 6")
     if n != result.n:
         log.v("checkbwt: text has %d symbols, the BWT %d" % (n, result.n))
         return False
@@ -69,8 +71,10 @@ def check_bwt(result: BwtResult, text: np.ndarray, device="cuda",
                       lanes(seg_len))
     total_bad = int(bad.sum())
     log.v("checkbwt: %d lanes, %d mismatches over n=%d, text + walk %.3fs "
-          "(%s)" % (len(positions), total_bad, n, time.monotonic() - t0,
-                    device))
+          "(%s, %s rows)" % (len(positions), total_bad, n,
+                             time.monotonic() - t0, device,
+                             "wide" if isinstance(focc, WideOcc)
+                             else "narrow"))
     return total_bad == 0
 
 

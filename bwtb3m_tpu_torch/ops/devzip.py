@@ -57,8 +57,17 @@ def rows_to_host_bwt(packed: torch.Tensor, n: int, bits: int) -> np.ndarray:
 
 def gap_cum(gap: torch.Tensor) -> torch.Tensor:
     """cnt_le[r] = number of left suffixes with R <= r (int64, inclusive
-    cumsum of the histogram)."""
-    return torch.cumsum(gap, 0, dtype=torch.int64)
+    cumsum of the histogram).  An int32 histogram is the narrow chain's,
+    whose cells are uint32: a cell counts left suffixes, up to the whole
+    left block (a poly-A block against a right block without A puts all
+    of it into one cell), which the narrow chain keeps below 2^32
+    (``engine/merge_scaled.py::_is_wide``).  Its cells are read so in the
+    int64 copy, whose cumsum is then taken in place."""
+    if gap.dtype != torch.int32:
+        return torch.cumsum(gap, 0, dtype=torch.int64)
+    cum = gap.long()
+    cum &= 0xFFFFFFFF
+    return cum.cumsum_(0)
 
 
 def zip_plan(gap: torch.Tensor, B: int, ts: np.ndarray, ranks: np.ndarray,

@@ -24,6 +24,7 @@ from . import focc_bp
 from .focc_bp import FusedOccBP
 
 BLOCK = 256
+_U32 = 0xFFFFFFFF
 
 
 def _row_width(sigma: int, block: int) -> int:
@@ -47,6 +48,19 @@ class FusedOcc:
     @classmethod
     def num_rows(cls, n: int) -> int:
         return max(1, (n + BLOCK - 1) // BLOCK) + 1
+
+
+def as_u32_bits(t: torch.Tensor) -> torch.Tensor:
+    """int64 values, taken modulo 2^32, as the int32 of the same bits:
+    uint32 words (the rows' occ words, C, narrow ranks) travel so, as
+    torch has no uint32 arithmetic."""
+    t = t & _U32
+    return torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
+
+
+def from_u32_bits(t: torch.Tensor) -> torch.Tensor:
+    """int32 tensor of uint32 bits -> int64 values in [0, 2^32)."""
+    return t.long() & _U32
 
 
 def kernel_row_width(focc) -> int:
@@ -119,4 +133,5 @@ def lf_step(focc, r: torch.Tensor):
         return focc_bp.lf_step(focc, r)
     rows, off = _rows(focc, r)
     sym = _symbol(rows, off)
-    return sym, focc.C.long()[sym] + _occ(rows, sym) + _inblock(rows, sym, off)
+    return sym, (from_u32_bits(focc.C)[sym] + _occ(rows, sym)
+                 + _inblock(rows, sym, off))

@@ -162,6 +162,6 @@ def lf_step(focc: FusedOccBP, r: torch.Tensor):
     all from one row per lane."""
     words, off = _words(focc, r)
     sym = _symbol(focc, words, off)
-    r2 = (focc.C.long()[sym] + _occ(focc, words, sym)
+    r2 = ((focc.C.long() & _U32)[sym] + _occ(focc, words, sym)
           + _inblock(focc, words, sym, off))
     return sym, r2

@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .focc import BLOCK, FusedOcc, _row_width
+from .focc import BLOCK, FusedOcc, _row_width, as_u32_bits
 from .focc_bp import FusedOccBP, FusedOccSector
 from .pack import unpack_bits
 
@@ -65,21 +65,25 @@ def _occ_bytes(occ: torch.Tensor) -> torch.Tensor:
 
 
 def build_focc_host(bwt: np.ndarray, sigma: int, device,
-                    layout: str = "auto"):
+                    layout: str = "auto", wide: bool = False):
     """Rank rows for a host uint8 BWT over symbols [0, sigma), built on
-    ``device`` in ``layout`` (module docstring)."""
+    ``device`` in ``layout`` (module docstring); with ``wide`` the
+    ``ops/wideocc.py::WideOcc`` over them."""
     bwt = np.require(bwt, np.uint8, "CW")
-    return build_focc_device(torch.from_numpy(bwt).to(device), sigma, layout)
+    return build_focc_device(torch.from_numpy(bwt).to(device), sigma, layout,
+                             wide=wide)
 
 
 def build_focc_from_packed(packed: torch.Tensor, n: int, sigma: int,
-                           bits: int, layout: str = "auto"):
+                           bits: int, layout: str = "auto",
+                           wide: bool = False):
     """Rank rows of a merge region from its packed BWT bytes on the
     device (``ops/devzip.py`` layout: LSB-first nibbles for ``bits=4``,
     raw bytes for 8).  Rows and C equal ``build_focc_host`` on the
     unpacked symbols, as the reference's ``build_focc_from_rows`` equals
     its host builder."""
-    return build_focc_device(unpack_bits(packed, bits, n), sigma, layout)
+    return build_focc_device(unpack_bits(packed, bits, n), sigma, layout,
+                             wide=wide)
 
 
 # (x * _GATHER) >> 56 collects bit 0 of each of the 8 bytes of an int64
@@ -87,63 +91,95 @@ def build_focc_from_packed(packed: torch.Tensor, n: int, sigma: int,
 # nothing carries); as a signed constant
 _GATHER = sum(1 << (56 - 7 * k) for k in range(8))
 _BIT0 = 0x0101010101010101
+# symbols counted per pass of the running counts: the int32 cumsum of a
+# pass stays exact and its transients stay at 5 bytes per pass symbol
+OCC_CHUNK = 1 << 28
 
 
-def _occ_at_block_starts(bwt: torch.Tensor, sigma: int, block: int,
-                         nrows: int):
-    """(occ int64 [nrows, sigma], total int64 [sigma]): occurrences of
-    each symbol before every block start (a block that starts at or past
-    n gets the totals), read off one running count per symbol, so the
-    cost does not depend on the block size."""
+def _occ_chunks(bwt: torch.Tensor, sigma: int, block: int, nrows: int,
+                running: torch.Tensor):
+    """Yield (first row, occ int64 [rows, sigma]) for the rows of every
+    chunk of ``OCC_CHUNK`` symbols: exact occurrences of each symbol
+    before every block start (a block that starts at or past n gets the
+    totals), counted on from ``running`` (int64 [sigma], the counts
+    before position 0), which ends as the totals.  One running count per
+    symbol, read at the block starts, so the cost does not depend on the
+    block size."""
     n, device = bwt.shape[0], bwt.device
-    occ = torch.zeros((nrows, sigma), dtype=torch.int64, device=device)
-    total = torch.zeros(sigma, dtype=torch.int64, device=device)
-    if n:
-        at = (torch.arange(1, nrows, device=device) * block).clamp(max=n) - 1
-        for c in range(sigma):
-            run = torch.cumsum(bwt == c, 0, dtype=torch.int32)
-            occ[1:, c] = run[at]
-            total[c] = run[-1]
-    return occ, total
+    g = OCC_CHUNK // block
+    for r0 in range(0, nrows, g):
+        r1 = min(nrows, r0 + g)
+        seg = bwt[min(n, r0 * block):min(n, r1 * block)]
+        occ = running.repeat(r1 - r0, 1)
+        if len(seg):
+            at = (torch.arange(1, r1 - r0, device=device) * block).clamp(
+                max=len(seg)) - 1
+            for c in range(sigma):
+                run = torch.cumsum(seg == c, 0, dtype=torch.int32)
+                occ[1:, c] += run[at]
+                running[c] += run[-1]
+        yield r0, occ
 
 
 def build_focc_device(bwt: torch.Tensor, sigma: int, layout: str = "auto",
-                      out: torch.Tensor = None):
+                      out: torch.Tensor = None, wide: bool = False,
+                      base: torch.Tensor = None):
     """Rank rows of a uint8 BWT tensor, built on its device; into the
-    zeroed ``out`` rows where given (``build_focc_concat``)."""
+    zeroed ``out`` rows where given (``build_focc_concat``).  The occ
+    words and C are the counts modulo 2^32 (exact for n < 2^32, the
+    narrow kernels read them as uint32).  With ``wide``, the
+    ``ops/wideocc.py::WideOcc`` over the same rows: the wrap rows of
+    every symbol and the int64 C.  ``base`` (int64 [sigma]) counts
+    occurrences before position 0, as if the BWT were the tail of a
+    longer one: the tests' and ``chip_smoke.py``'s rows that straddle
+    2^32 without 2^32 symbols."""
+    from .wideocc import find_wrap_rows, widen_focc
+
     cls = LAYOUTS[resolve_layout(layout, sigma)]
     n = bwt.shape[0]
-    if n >= 1 << 31:
-        raise ValueError("rank rows hold uint32 counts read as int32 "
-                         "here: n < 2^31")
     device = bwt.device
     block = 1 << cls.SHIFT
     nrows = cls.num_rows(n)
-    occ, total = _occ_at_block_starts(bwt, sigma, block, nrows)
+    total = torch.zeros(sigma, dtype=torch.int64, device=device)
+    if base is not None:
+        total += base.to(device)
+    if cls is FusedOcc:
+        rows = _rows_out(out, nrows, _row_width(sigma, block), device)
+        occ0 = block
+    else:
+        rows = _rows_out(out, nrows, cls.ROW_BYTES, device)
+        occ0 = 4 * cls.occ_word()
+    wraps = [[] for _ in range(sigma)]
+    prev_hi = torch.zeros(sigma, dtype=torch.int64, device=device)
+    for r0, occ in _occ_chunks(bwt, sigma, block, nrows, total):
+        rows[r0:r0 + len(occ), occ0:occ0 + 4 * sigma] = _occ_bytes(occ)
+        if wide:
+            for c, at in enumerate(find_wrap_rows(occ, r0, prev_hi)):
+                wraps[c].append(at)
+            prev_hi = occ[-1] >> 32
     C = torch.zeros(sigma + 1, dtype=torch.int64, device=device)
     C[1:] = total.cumsum(0)
+
     sym = torch.zeros(nrows * block, dtype=torch.uint8, device=device)
     sym[:n] = bwt                                 # pad positions store 0
-
     if cls is FusedOcc:
-        roww = _row_width(sigma, block)
-        rows = _rows_out(out, nrows, roww, device)
         rows[:, :block] = sym.view(nrows, block)
-        rows[:, block:block + 4 * sigma] = _occ_bytes(occ)
-        return FusedOcc(rows, C.to(torch.int32), n, sigma)
-
-    # bit p of 8 consecutive symbols -> one byte, LSB first, so the bytes
-    # of a plane read as its little-endian plane words
-    words = sym.view(torch.int64)                 # symbol k in byte k
-    planes = torch.stack(
-        [(((((words >> p) & _BIT0) * _GATHER) >> 56) & 0xFF).to(
-            torch.uint8).view(nrows, block // 8)
-         for p in range(cls.NPLANES)], dim=1)     # [nrows, planes, block/8]
-    rows = _rows_out(out, nrows, cls.ROW_BYTES, device)
-    occ0 = 4 * cls.occ_word()
-    rows[:, :occ0] = planes.view(nrows, -1)
-    rows[:, occ0:occ0 + 4 * sigma] = _occ_bytes(occ)
-    return cls(rows, C.to(torch.int32), n, sigma)
+    else:
+        # bit p of 8 consecutive symbols -> one byte, LSB first, so the
+        # bytes of a plane read as its little-endian plane words
+        words = sym.view(torch.int64)             # symbol k in byte k
+        planes = torch.stack(
+            [(((((words >> p) & _BIT0) * _GATHER) >> 56) & 0xFF).to(
+                torch.uint8).view(nrows, block // 8)
+             for p in range(cls.NPLANES)], dim=1)  # [nrows, planes, block/8]
+        rows[:, :occ0] = planes.view(nrows, -1)
+        del words, planes
+    del sym
+    focc = cls(rows, as_u32_bits(C), n, sigma)
+    if not wide:
+        return focc
+    return widen_focc(focc, [np.concatenate(w) if w else np.zeros(0, np.int64)
+                             for w in wraps], total, n)
 
 
 def _rows_out(out, nrows: int, roww: int, device) -> torch.Tensor:

@@ -19,9 +19,10 @@ histogram when run alone.  Here the K merges of a level share them:
   ``rbase_k``, the two boundary symbols, the merge's gt bit base and its
   sample base) are one table of K rows that a lane of the kernel reads
   once; ranks stay global across steps;
-- one int32 histogram spans the level's rank space (the kept checkpoint
-  rows keep the regions' cells apart), the wrap-term bits of all merges
-  are one byte array, and the sampled ranks of all merges one tensor.
+- one histogram of uint32 cells (held as int32) spans the level's rank
+  space (the kept checkpoint rows keep the regions' cells apart), the
+  wrap-term bits of all merges are one byte array, and the sampled ranks
+  of all merges one tensor.
 
 ``BatchedGapRunner`` splits each left block into lanes, anchors each
 lane's seed by the two-bound interval contraction (a short walk from the
@@ -38,6 +39,14 @@ tensors; any other device raises.  ``_launch`` counts every launch in
 the ``[rows, 256]`` uint16 histogram with its wrap rerun, the compressed
 fetch, the 256-column phase alignment of all lanes, the ``[lanes,
 sigma]`` constant tables and the lane padding.
+
+A wide merge (its rank space or left block reaches 2^32, its positions
+pass 2^32, or ``BWTB3M_FORCE_WIDE``) is a runner of one merge with
+``wide=True``, the port of ``bwtb3m_tpu/ops/gapwide.py::
+WideDeviceGapRunner``: its rank rows are ``ops/wideocc.py``'s wide rows,
+its ranks, constants, samples and histogram cells are int64, and the
+walks take the kernel's 64-bit form, ``bwt_gap_chain_mk_w``.  The
+reference never batches a wide level, and neither does the engine.
 """
 
 from __future__ import annotations
@@ -50,9 +59,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .focc import kernel_row_width, rank
-from .focc_build import build_focc_concat
+from .focc import from_u32_bits, kernel_row_width, rank
+from .focc_build import build_focc_concat, build_focc_from_packed
 from .gapdev import TEXT_BLOCK, wrap_bits
+from .wideocc import WideOcc, kernel_tables, rank_w
 
 _U32 = 0xFFFFFFFF
 # uint32 words of one merge's row of the constant table, in the order of
@@ -60,7 +70,8 @@ _U32 = 0xFFFFFFFF
 MERGE_WORDS = 8
 (M_CFIRST, M_K0, M_K1, M_K2, M_LO0, M_GTBASE, M_SAMPBASE,
  M_SAMPP0) = range(MERGE_WORDS)
-LAUNCHES = {"chain": 0, "anchor": 0}
+# launches per form ("64": the 64-bit form, bwt_gap_chain_mk_w)
+LAUNCHES = {"chain": 0, "anchor": 0, "chain64": 0, "anchor64": 0}
 
 
 def reset_launch_counts() -> None:
@@ -74,9 +85,10 @@ def u32_bits(a) -> np.ndarray:
     return (np.asarray(a, np.int64) & _U32).astype(np.uint32).view(np.int32)
 
 
-def from_u32_bits(t: torch.Tensor) -> torch.Tensor:
-    """int32 tensor of uint32 bits -> int64 values in [0, 2^32)."""
-    return t.long() & _U32
+def word_values(focc, t: torch.Tensor) -> torch.Tensor:
+    """The int64 values of a tensor of the chain's words: int32 of uint32
+    bits on narrow rows, int64 already on wide rows."""
+    return t.long() if isinstance(focc, WideOcc) else from_u32_bits(t)
 
 
 # ------------------------------------------------------------ plain version
@@ -90,11 +102,16 @@ def gap_chain_mk_plain(focc, text: torch.Tensor, gt: torch.Tensor,
                        rate: int = 1) -> torch.Tensor:
     """Final global rank (int64) of every lane; with ``gap`` also records
     every R into it and R(p) into the lane's merge's samples where p is a
-    multiple of ``rate``.  Arithmetic is modulo 2^32, as in the kernel.
-    A Python loop over steps, vectorized over lanes."""
-    m = from_u32_bits(table)[kid.long()]               # [T, MERGE_WORDS]
-    cf = from_u32_bits(c_first)
-    r, st, ln = from_u32_bits(seeds), starts.long(), lens.long()
+    multiple of ``rate``.  Arithmetic is modulo 2^32 on narrow rows (the
+    uint32 words travel as int32 bits), as in the kernel; on wide rows
+    (``ops/wideocc.py``) every word is int64.  A Python loop over steps,
+    vectorized over lanes."""
+    wide = isinstance(focc, WideOcc)
+    mask = -1 if wide else _U32                   # x & -1 == x
+    rank_of = rank_w if wide else rank
+    m = word_values(focc, table)[kid.long()]      # [T, MERGE_WORDS]
+    cf = word_values(focc, c_first)
+    r, st, ln = word_values(focc, seeds), starts.long(), lens.long()
     last = (ln - 1).clamp(min=0)
     steps = int(ln.max()) if len(ln) else 0
     for k in range(steps):
@@ -103,16 +120,16 @@ def gap_chain_mk_plain(focc, text: torch.Tensor, gt: torch.Tensor,
         c = text[p].long()
         off = p - m[:, M_LO0]
         g = (gt[m[:, M_GTBASE] + (off >> 3)].long() >> (off & 7)) & 1
-        r_new = (cf[m[:, M_CFIRST] + c] + rank(focc, c, r)
+        r_new = (cf[m[:, M_CFIRST] + c] + rank_of(focc, c, r)
                  - ((m[:, M_K0] < r) & (c == m[:, M_K1])).long()
-                 + ((c == m[:, M_K2]) & (g == 1)).long()) & _U32
+                 + ((c == m[:, M_K2]) & (g == 1)).long()) & mask
         r = torch.where(act, r_new, r)
         if gap is not None:
             ra = r[act]
             gap.index_add_(0, ra, torch.ones_like(ra, dtype=gap.dtype))
             hit = act & (p % rate == 0)
             slot = m[:, M_SAMPBASE] + (p - m[:, M_SAMPP0]) // rate
-            bits = torch.where(r >= 1 << 31, r - (1 << 32), r)
+            bits = r if wide else torch.where(r >= 1 << 31, r - (1 << 32), r)
             samp[slot[hit]] = bits[hit].to(samp.dtype)
     return r
 
@@ -133,12 +150,13 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 def _check_args(focc, text, gt, c_first, table, kid, starts, seeds, lens):
     dev = seeds.device
+    wide = isinstance(focc, WideOcc)
+    word = torch.int64 if wide else torch.int32
     for name, t, dt in (("text", text, torch.uint8), ("gt", gt, torch.uint8),
-                        ("c_first", c_first, torch.int32),
-                        ("table", table, torch.int32),
+                        ("c_first", c_first, word), ("table", table, word),
                         ("kid", kid, torch.int32),
                         ("starts", starts, torch.int64),
-                        ("seeds", seeds, torch.int32),
+                        ("seeds", seeds, word),
                         ("lens", lens, torch.int32)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise TypeError("%s must be a contiguous %s tensor on %s"
@@ -148,20 +166,20 @@ def _check_args(focc, text, gt, c_first, table, kid, starts, seeds, lens):
     if table.dim() != 2 or table.shape[1] != MERGE_WORDS:
         raise ValueError("the merge table has %d words per merge"
                          % MERGE_WORDS)
-    if text.shape[0] >= 1 << 32 or focc.n >= 1 << 32:
-        raise ValueError("the gap-chain kernel keeps positions and ranks "
-                         "in uint32: n and the level's rank space < 2^32")
+    if not wide and focc.n >= 1 << 32:
+        raise ValueError("the narrow gap chain keeps ranks in uint32: the "
+                         "level's rank space < 2^32")
     if focc.rows.device != dev:
         raise TypeError("rank rows on %s, lanes on %s"
                         % (focc.rows.device, dev))
-    kernel_row_width(focc)
+    kernel_row_width(focc.focc if wide else focc)
     if len(seeds):
         # walked positions must lie inside the text and the merge's gt
         # bits, c_first words inside their table, seeds inside the rank
         # space: the kernel does not check
         if int(kid.min()) < 0 or int(kid.max()) >= table.shape[0]:
             raise ValueError("lane merge ids outside the table")
-        m = from_u32_bits(table)[kid.long()]
+        m = word_values(focc, table)[kid.long()]
         lo = starts - lens + 1
         if bool((lo < m[:, M_LO0]).any()) \
                 or int(starts.max()) >= text.shape[0] \
@@ -170,38 +188,52 @@ def _check_args(focc, text, gt, c_first, table, kid, starts, seeds, lens):
                 >= gt.shape[0]:
             raise ValueError("walk positions outside the text or the gt "
                              "bits")
-        if int(from_u32_bits(table[:, M_CFIRST]).max()) + focc.sigma \
-                > c_first.shape[0]:
+        if not wide and int(starts.max()) >= 1 << 32:
+            raise ValueError("the narrow gap chain keeps positions in "
+                             "uint32: below 2^32")
+        if int(m[:, M_CFIRST].max()) + focc.sigma > c_first.shape[0]:
             raise ValueError("c_first holds sigma words per merge")
-        if int(from_u32_bits(seeds).max()) > focc.n:
+        sd = word_values(focc, seeds)
+        if int(sd.min()) < 0 or int(sd.max()) > focc.n:
             raise ValueError("seeds outside [0, %d]" % focc.n)
 
 
 def _launch(focc, text, gt, c_first, table, kid, starts, seeds, lens,
             gap=None, samp=None, rate=1) -> torch.Tensor:
-    """The wrapper of ``bwt_gap_chain_mk``: the recording form with
-    ``gap`` (and ``samp``), the anchor form without.  Returns the final
-    ranks (int32 holding uint32 bits) and counts the launch in
-    ``LAUNCHES``."""
+    """The wrapper of ``bwt_gap_chain_mk`` and, on wide rows, of its
+    64-bit form ``bwt_gap_chain_mk_w``: the recording form with ``gap``
+    (and ``samp``), the anchor form without.  Returns the final ranks
+    (int32 holding uint32 bits; int64 on wide rows) and counts the
+    launch in ``LAUNCHES``."""
     _check_args(focc, text, gt, c_first, table, kid, starts, seeds, lens)
-    if gap is not None and (gap.dtype != torch.int32
-                            or gap.shape[0] < focc.n + 1
-                            or samp is None or samp.dtype != torch.int32
+    wide = isinstance(focc, WideOcc)
+    word = torch.int64 if wide else torch.int32
+    if gap is not None and (gap.dtype != word or gap.shape[0] < focc.n + 1
+                            or samp is None or samp.dtype != word
                             or rate < 1):
-        raise TypeError("the recording form needs an int32 histogram of "
-                        "one cell per rank, int32 samples and a rate >= 1")
+        raise TypeError("the recording form needs a %s histogram of one "
+                        "cell per rank, %s samples and a rate >= 1"
+                        % (word, word))
     r_out = torch.empty_like(seeds)
     if len(seeds) == 0:
         return r_out
     from ._build import load
     lib = load("gap_chain")
-    rc = lib.bwt_gap_chain_mk(
-        _ptr(focc.rows), focc.rows.shape[1], _ptr(text), _ptr(gt),
-        _ptr(c_first), _ptr(table), _ptr(kid), _ptr(starts), _ptr(seeds),
-        _ptr(lens), _ptr(r_out), _ptr(gap), _ptr(samp), int(rate),
-        len(seeds), ctypes.c_void_p(
-            torch.cuda.current_stream(seeds.device).cuda_stream))
-    LAUNCHES["chain" if gap is not None else "anchor"] += 1
+    stream = ctypes.c_void_p(
+        torch.cuda.current_stream(seeds.device).cuda_stream)
+    lanes = (_ptr(text), _ptr(gt), _ptr(c_first), _ptr(table), _ptr(kid),
+             _ptr(starts), _ptr(seeds), _ptr(lens), _ptr(r_out), _ptr(gap),
+             _ptr(samp))
+    if wide:
+        thr, _C = kernel_tables(focc)
+        rc = lib.bwt_gap_chain_mk_w(
+            _ptr(focc.rows), focc.rows.shape[1], _ptr(thr), focc.sigma,
+            *lanes, int(rate), len(seeds), stream)
+    else:
+        rc = lib.bwt_gap_chain_mk(_ptr(focc.rows), focc.rows.shape[1],
+                                  *lanes, int(rate), len(seeds), stream)
+    LAUNCHES[("chain" if gap is not None else "anchor")
+             + ("64" if wide else "")] += 1
     if rc != 0:
         raise RuntimeError("CUDA kernel launch failed: %s (%d)"
                            % (lib.bwt_error_string(rc).decode(), rc))
@@ -215,8 +247,8 @@ def chain_walk_mk(focc, text, gt, c_first, table, kid, starts, seeds, lens,
     if not _on_cuda(seeds):
         return gap_chain_mk_plain(focc, text, gt, c_first, table, kid,
                                   starts, seeds, lens, gap, samp, rate)
-    return from_u32_bits(_launch(focc, text, gt, c_first, table, kid,
-                                 starts, seeds, lens, gap, samp, rate))
+    return word_values(focc, _launch(focc, text, gt, c_first, table, kid,
+                                     starts, seeds, lens, gap, samp, rate))
 
 
 def anchor_walk_mk(focc, text, gt, c_first, table, kid, starts, seeds,
@@ -225,8 +257,8 @@ def anchor_walk_mk(focc, text, gt, c_first, table, kid, starts, seeds,
     if not _on_cuda(seeds):
         return gap_chain_mk_plain(focc, text, gt, c_first, table, kid,
                                   starts, seeds, lens)
-    return from_u32_bits(_launch(focc, text, gt, c_first, table, kid,
-                                 starts, seeds, lens))
+    return word_values(focc, _launch(focc, text, gt, c_first, table, kid,
+                                     starts, seeds, lens))
 
 
 # ------------------------------------------------------------ the runner
@@ -261,14 +293,18 @@ class BatchedGapRunner:
     (``bits`` per symbol); ``text_dev`` / ``text_host`` are the engine's
     dense text.  After ``compute()``, ``view(k)`` gives merge k's results
     (``final_rs``, ``gap``, ``harvest_samples``); ``gap`` is the level's
-    histogram, int32 on the device, one cell per global rank, and
-    ``chain_ms`` the recording walk's time (CUDA events on the card)."""
+    histogram on the device, one uint32 cell per global rank held as
+    int32 (``ops/devzip.py::gap_cum`` reads it so), and
+    ``chain_ms`` the recording walk's time (CUDA events on the card).
+    With ``wide`` (one merge only) the rank rows are wide rows and every
+    rank, constant, sample and histogram cell is int64 (module
+    docstring)."""
 
     def __init__(self, text_dev: torch.Tensor, text_host: np.ndarray,
                  sigma: int, merges, right_packed, bits: int,
                  lane_bucket: int = 1 << 16, sample_rate: int = 1,
                  nthreads: int = 4, log=None, phase=None,
-                 layout: str = "auto"):
+                 layout: str = "auto", wide: bool = False):
         if sample_rate < 1:
             raise ValueError("sample_rate must be >= 1")
         self.text_dev = text_dev
@@ -281,11 +317,21 @@ class BatchedGapRunner:
         self.log = log
         self.phase = phase or (lambda name: contextlib.nullcontext())
         dev = text_dev.device
+        self.wide = wide
         with self.phase("rank rows"):
-            self.focc, rbases = build_focc_concat(
-                right_packed, [m[2] - m[1] for m in merges], self.sigma,
-                bits, layout)
-        if self.focc.n + 256 >= 1 << 32:
+            if wide:
+                if len(merges) != 1:
+                    raise ValueError("a wide runner holds one merge")
+                (_s, m, e, _i, _h), = merges
+                self.focc = build_focc_from_packed(
+                    right_packed[0], e - m, self.sigma, bits, layout,
+                    wide=True)
+                rbases = np.zeros(1, np.int64)
+            else:
+                self.focc, rbases = build_focc_concat(
+                    right_packed, [m[2] - m[1] for m in merges], self.sigma,
+                    bits, layout)
+        if not wide and self.focc.n + 256 >= 1 << 32:
             raise ValueError("level rank space must stay 256 short of 2^32")
         K = len(merges)
         self.specs: List[_MergeSpec] = []
@@ -306,14 +352,20 @@ class BatchedGapRunner:
                         int(text_host[(sp.m - 1) % self.n]), sp.sym_last,
                         sp.lo0, sp.gt_base, sp.samp_base, sp.samp_p0)
             self.specs.append(sp)
-        self.c_first = torch.from_numpy(u32_bits(c_first.reshape(-1))).to(dev)
-        self.table = torch.from_numpy(u32_bits(table)).to(dev)
+        self.c_first = torch.from_numpy(self._words(c_first.reshape(-1))).to(
+            dev)
+        self.table = torch.from_numpy(self._words(table)).to(dev)
         self._gt = np.zeros(gt_off, np.uint8)
         self.gt_dev = torch.zeros(gt_off, dtype=torch.uint8, device=dev)
         self._nsamp = samp_off
         self.gap = None
         self._samp = None
         self.chain_ms = self.chain_steps = 0
+
+    def _words(self, a) -> np.ndarray:
+        """Host values as the kernel's words: uint32 bits in int32, or
+        int64 on wide rows."""
+        return np.asarray(a, np.int64) if self.wide else u32_bits(a)
 
     # ---------------------------------------------------------------- gt
 
@@ -346,7 +398,7 @@ class BatchedGapRunner:
         dev = self.text_dev.device
         return (torch.from_numpy(np.asarray(kid, np.int32)).to(dev),
                 torch.from_numpy(np.asarray(starts, np.int64)).to(dev),
-                torch.from_numpy(u32_bits(seeds)).to(dev),
+                torch.from_numpy(self._words(seeds)).to(dev),
                 torch.from_numpy(np.asarray(lens, np.int32)).to(dev))
 
     def _caps(self, kid, walk_start) -> List[int]:
@@ -438,9 +490,9 @@ class BatchedGapRunner:
         self._ensure_gt(self._caps(kid, starts))
         dev = self.text_dev.device
         with self.phase("chains"):
-            self.gap = torch.zeros(self.focc.n + 1, dtype=torch.int32,
-                                   device=dev)
-            self._samp = torch.full((self._nsamp,), -1, dtype=torch.int32,
+            word = torch.int64 if self.wide else torch.int32
+            self.gap = torch.zeros(self.focc.n + 1, dtype=word, device=dev)
+            self._samp = torch.full((self._nsamp,), -1, dtype=word,
                                     device=dev)
             kd, st, sd, ln = self._lanes(kid, starts, seeds, lens)
             # the walk alone: device time between two events on the card,
@@ -494,7 +546,7 @@ class _MergeView:
         return self._r.gap[sp.rbase:sp.rbase + sp.gap_size + 1]
 
     def gap_checksum(self) -> int:
-        return int(self.gap.sum())
+        return int(word_values(self._r.focc, self.gap).sum())
 
     def harvest_samples(self) -> Tuple[np.ndarray, np.ndarray]:
         """(positions, local R values) at the sample_rate-aligned
@@ -502,7 +554,7 @@ class _MergeView:
         sp, rate = self._sp, self._r.sample_rate
         raw = self._r._samp[sp.samp_base:sp.samp_base + sp.nsamp]
         seen = (raw != -1).cpu().numpy()
-        vals = from_u32_bits(raw).cpu().numpy() - sp.rbase
+        vals = word_values(self._r.focc, raw).cpu().numpy() - sp.rbase
         pos = sp.samp_p0 + rate * np.arange(sp.nsamp, dtype=np.int64)
         return pos[seen], vals[seen]
 

@@ -19,12 +19,15 @@ steps gather: one on sector rows (sigma <= 4), four on bit-plane rows
 (``csrc/lf_walk.cu`` has the measured rates; PERF.md).
 
 An entry point launches the kernel for CUDA tensors and uses its plain
-PyTorch version only for CPU tensors; any other device raises.  The one
-wrapper, ``_launch``, counts every launch in ``lf_walk.launches`` (and per
-visit in ``LAUNCHES``).  Ranks
-and positions are int64 tensors at the interface and int32 (uint32
-inside the kernel) at the launch: n < 2^31 on every path that calls
-these.
+PyTorch version only for CPU tensors; any other device raises.  Ranks
+and positions are int64 tensors at the interface.  On narrow rank rows
+(n < 2^32) they travel as int32 tensors of uint32 bits: 0xFFFFFFFF, no
+rank or position there, marks an unvisited sample.  On the wide rows of
+``ops/wideocc.py`` (n >= 2^32, or ``BWTB3M_FORCE_WIDE``) the entry
+points take the kernel's 64-bit form, ``bwt_lf_walk_w``, with int64
+lanes; the select visit stays narrow, as in the reference.  The two
+wrappers, ``_launch`` and ``_launch_w``, count every launch in
+``lf_walk.launches`` and per visit and form in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -33,15 +36,21 @@ import ctypes
 
 import torch
 
-from .focc import kernel_row_width, lf_step
+from .focc import as_u32_bits, from_u32_bits, kernel_row_width, lf_step
+from .wideocc import WideOcc, kernel_tables, lf_step_w
+
+
+def _step_of(focc):
+    """The plain LF step of narrow or wide rank rows."""
+    return lf_step_w if isinstance(focc, WideOcc) else lf_step
 
 # ------------------------------------------------------------ plain versions
 
 def lf_walk_plain(focc, r0: torch.Tensor, steps: int) -> torch.Tensor:
     """Final rank of every lane after ``steps`` LF steps."""
-    r = r0.long()
+    r, step = r0.long(), _step_of(focc)
     for _ in range(steps):
-        _sym, r = lf_step(focc, r)
+        _sym, r = step(focc, r)
     return r
 
 
@@ -52,9 +61,10 @@ def verify_walk_plain(focc, text: torch.Tensor, r0: torch.Tensor,
     n = text.shape[0]
     r, p, lens = r0.long(), p0.long(), seg_len.long()
     bad = torch.zeros_like(r)
+    step = _step_of(focc)
     steps = int(lens.max()) if len(lens) else 0
     for k in range(steps):
-        sym, r2 = lf_step(focc, r)
+        sym, r2 = step(focc, r)
         p = torch.where(p == 0, n - 1, p - 1)
         bad += (k < lens) & (sym != text[p].long())
         r = r2
@@ -72,6 +82,7 @@ def harvest_walk_plain(focc, r0: torch.Tensor, p0: torch.Tensor,
                     device=r.device)
     isa = torch.full(((n + isarate - 1) // isarate,), -1,
                      dtype=torch.int64, device=r.device)
+    step = _step_of(focc)
     steps = int(lens.max()) if len(lens) else 0
     for k in range(steps):
         act = k < lens
@@ -79,7 +90,7 @@ def harvest_walk_plain(focc, r0: torch.Tensor, p0: torch.Tensor,
         sa[r[hit] // sarate] = p[hit]
         hit = act & (p % isarate == 0)
         isa[p[hit] // isarate] = r[hit]
-        _sym, r = lf_step(focc, r)
+        _sym, r = step(focc, r)
         p = torch.where(p == 0, n - 1, p - 1)
     return sa, isa
 
@@ -123,16 +134,35 @@ def _rows_args(focc, device):
                          % (rows.device, device))
     if C.dtype != torch.int32 or not C.is_contiguous():
         raise TypeError("C must be a contiguous int32 tensor")
+    if focc.n >= 1 << 32:
+        raise ValueError("narrow rank rows hold n < 2^32 symbols: n=%d "
+                         "takes the wide rows (ops/wideocc.py)" % focc.n)
     return _ptr(rows), kernel_row_width(focc), _ptr(C), focc.sigma
 
 
-def _lanes_i32(*ts: torch.Tensor):
+def _lanes(ts, wide: bool):
+    """Ranks / positions as the launch takes them: int32 tensors of
+    uint32 bits, or int64 for the 64-bit form."""
     out = []
     for t in ts:
         if t.dim() != 1 or len(t) != len(ts[0]):
             raise ValueError("lane arrays are 1-D and of one length")
-        out.append(t.to(torch.int32).contiguous())
+        out.append(t.long().contiguous() if wide
+                   else as_u32_bits(t.long()).contiguous())
     return out
+
+
+def _steps_i32(t: torch.Tensor) -> torch.Tensor:
+    if len(t) and int(t.max()) >= 1 << 31:
+        raise ValueError("a lane takes fewer than 2^31 steps")
+    return t.to(torch.int32).contiguous()
+
+
+def _samples(t: torch.Tensor) -> torch.Tensor:
+    """Samples written by the narrow form (uint32 bits, 0xFFFFFFFF where
+    unvisited) -> int64, -1 where unvisited."""
+    v = from_u32_bits(t)
+    return torch.where(v == 0xFFFFFFFF, -1, v)
 
 
 def _check_range(name: str, t: torch.Tensor, hi: int) -> None:
@@ -140,6 +170,16 @@ def _check_range(name: str, t: torch.Tensor, hi: int) -> None:
     [0, hi) would make the kernel read outside its arrays."""
     if len(t) and (int(t.min()) < 0 or int(t.max()) >= hi):
         raise ValueError("%s outside [0, %d)" % (name, hi))
+
+
+def _u32_arg(v: int) -> int:
+    """A uint32 for a C ``int`` parameter that the kernel reads as uint32
+    (the narrow form's rates: an ISA-only walk passes sarate = n, which
+    may pass 2^31): its int32 bits."""
+    v = int(v)
+    if not 0 <= v < 1 << 32:
+        raise ValueError("a rate of the narrow walk lies in [0, 2^32)")
+    return v - (1 << 32) if v >= 1 << 31 else v
 
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -164,25 +204,68 @@ def _launch(focc, r32: torch.Tensor, l32: torch.Tensor, p32=None, text=None,
             steps=None) -> torch.Tensor:
     """The wrapper of the LF-walk kernel ``bwt_lf_walk``: lane i takes
     ``l32[i]`` LF steps from rank ``r32[i]``; returns the final ranks
-    (int32).  With ``text`` it also counts each lane's mismatches into
-    ``bad`` (verify visit); with ``sa`` / ``isa`` it writes the samples
-    (harvest visit); with ``bitwords`` a lane stops at the first rank
-    whose bit is set and ``steps`` takes its step count (select visit).
-    Counts its launches in ``lf_walk.launches``."""
+    (int32 of uint32 bits).  With ``text`` it also counts each lane's
+    mismatches into ``bad`` (verify visit); with ``sa`` / ``isa`` it
+    writes the samples (harvest visit); with ``bitwords`` a lane stops at
+    the first rank whose bit is set and ``steps`` takes its step count
+    (select visit).  Counts its launches in ``lf_walk.launches``."""
     rows, roww, C, sigma = _rows_args(focc, r32.device)
     r_out = torch.empty_like(r32)
     if len(r32) == 0:
         return r_out
     rc = _lib().bwt_lf_walk(rows, roww, C, sigma, focc.n, _ptr(r32),
                             _ptr(p32), _ptr(l32), _ptr(r_out), _ptr(text),
-                            _ptr(bad), int(sarate), int(isarate), _ptr(sa),
+                            _ptr(bad), _u32_arg(sarate), _u32_arg(isarate),
+                            _ptr(sa),
                             _ptr(isa), _ptr(bitwords), _ptr(steps), len(r32),
                             _stream(r32.device))
     lf_walk.launches += 1
-    LAUNCHES["verify" if text is not None else "harvest" if sa is not None
-             else "select" if bitwords is not None else "none"] += 1
+    LAUNCHES[_visit(text, sa, bitwords)] += 1
     _check(rc)
     return r_out
+
+
+def _visit(text, sa, bitwords) -> str:
+    return ("verify" if text is not None else "harvest" if sa is not None
+            else "select" if bitwords is not None else "none")
+
+
+def _launch_w(w: WideOcc, r64: torch.Tensor, l32: torch.Tensor, p64=None,
+              text=None, bad=None, sarate=1, isarate=1, sa=None,
+              isa=None) -> torch.Tensor:
+    """The wrapper of the kernel's 64-bit form ``bwt_lf_walk_w`` on wide
+    rank rows: as ``_launch`` with int64 ranks, positions and samples
+    (``sarate`` a power of two), no select visit.  Counts its launches in
+    ``lf_walk.launches`` and ``LAUNCHES["<visit>64"]``."""
+    focc = w.focc
+    if focc.rows.device != r64.device:
+        raise ValueError("rank rows on %s, lanes on %s"
+                         % (focc.rows.device, r64.device))
+    if sarate & (sarate - 1):
+        raise ValueError("the 64-bit form takes a power-of-two sarate")
+    thr, C64 = kernel_tables(w)
+    r_out = torch.empty_like(r64)
+    if len(r64) == 0:
+        return r_out
+    rc = _lib().bwt_lf_walk_w(
+        _ptr(focc.rows), kernel_row_width(focc), _ptr(C64), _ptr(thr),
+        w.sigma, focc.n, _ptr(r64), _ptr(p64), _ptr(l32), _ptr(r_out),
+        _ptr(text), _ptr(bad), int(sarate), int(isarate), _ptr(sa),
+        _ptr(isa), len(r64), _stream(r64.device))
+    lf_walk.launches += 1
+    LAUNCHES[_visit(text, sa, None) + "64"] += 1
+    _check(rc)
+    return r_out
+
+
+def _go(focc, r, l32, p=None, **kw):
+    """Launch the kernel's form for the rows (narrow, or 64-bit on wide
+    rows) on ranks ``r`` and positions ``p``; the final ranks, int64."""
+    wide = isinstance(focc, WideOcc)
+    lanes = _lanes([r] + ([p] if p is not None else []), wide)
+    if wide:
+        return _launch_w(focc, lanes[0], l32, *lanes[1:], **kw)
+    return from_u32_bits(_launch(focc, lanes[0], l32, *lanes[1:], **kw))
 
 
 def lf_walk(focc, r0: torch.Tensor, steps: int) -> torch.Tensor:
@@ -190,13 +273,13 @@ def lf_walk(focc, r0: torch.Tensor, steps: int) -> torch.Tensor:
     if not _on_cuda(r0):
         return lf_walk_plain(focc, r0, steps)
     _check_range("ranks", r0, focc.n)
-    (r32,) = _lanes_i32(r0)
-    return _launch(focc, r32, torch.full_like(r32, int(steps))).long()
+    return _go(focc, r0, _steps_i32(torch.full_like(r0, int(steps))))
 
 
 lf_walk.launches = 0
-# the same launches by what a step visits
-LAUNCHES = {"none": 0, "verify": 0, "harvest": 0, "select": 0}
+# the same launches by what a step visits, and by form ("64": bwt_lf_walk_w)
+LAUNCHES = {"none": 0, "verify": 0, "harvest": 0, "select": 0,
+            "none64": 0, "verify64": 0, "harvest64": 0}
 
 
 def verify_walk(focc, text: torch.Tensor, r0: torch.Tensor, p0: torch.Tensor,
@@ -211,48 +294,51 @@ def verify_walk(focc, text: torch.Tensor, r0: torch.Tensor, p0: torch.Tensor,
                         "symbols on %s" % (focc.n, r0.device))
     _check_range("ranks", r0, focc.n)
     _check_range("positions", p0, focc.n)
-    r32, p32, l32 = _lanes_i32(r0, p0, seg_len)
-    bad = torch.zeros_like(r32)
-    _launch(focc, r32, l32, p32, text=text, bad=bad)
+    bad = torch.zeros(len(r0), dtype=torch.int32, device=r0.device)
+    _go(focc, r0, _steps_i32(seg_len), p0, text=text, bad=bad)
     return bad.long()
 
 
 def harvest_walk(focc, r0: torch.Tensor, p0: torch.Tensor,
                  seg_len: torch.Tensor, sarate: int, isarate: int):
-    """(SA samples, ISA samples) as int64 tensors, -1 where unvisited."""
+    """(SA samples, ISA samples) as int64 tensors, -1 where unvisited.
+    On wide rows ``sarate`` is a power of two."""
     if not _on_cuda(r0):
         return harvest_walk_plain(focc, r0, p0, seg_len, sarate, isarate)
     n = focc.n
     _check_range("ranks", r0, n)
     _check_range("positions", p0, n)
-    r32, p32, l32 = _lanes_i32(r0, p0, seg_len)
-    sa = torch.full(((n + sarate - 1) // sarate,), -1, dtype=torch.int32,
+    dt = torch.int64 if isinstance(focc, WideOcc) else torch.int32
+    sa = torch.full(((n + sarate - 1) // sarate,), -1, dtype=dt,
                     device=r0.device)
-    isa = torch.full(((n + isarate - 1) // isarate,), -1, dtype=torch.int32,
+    isa = torch.full(((n + isarate - 1) // isarate,), -1, dtype=dt,
                      device=r0.device)
-    _launch(focc, r32, l32, p32, sarate=sarate, isarate=isarate, sa=sa,
-            isa=isa)
-    return sa.long(), isa.long()
+    _go(focc, r0, _steps_i32(seg_len), p0, sarate=sarate, isarate=isarate,
+        sa=sa, isa=isa)
+    if dt == torch.int64:
+        return sa, isa
+    return _samples(sa), _samples(isa)
 
 
 def select_walk(focc, bitwords: torch.Tensor, r0: torch.Tensor, cap: int):
     """(hit rank, steps) as int64 tensors, steps -1 where no rank with a
     set bit came within ``cap`` steps; ``bitwords`` holds one bit per
     rank as uint32 words in an int32 tensor of at least n / 32 + 1
-    words."""
+    words.  Narrow rank rows only (n < 2^32)."""
     if not _on_cuda(r0):
         return select_walk_plain(focc, bitwords, r0, cap)
+    if isinstance(focc, WideOcc):
+        raise ValueError("the select walk runs on narrow rank rows")
     if bitwords.dtype != torch.int32 or bitwords.device != r0.device \
             or not bitwords.is_contiguous() \
             or bitwords.shape[0] * 32 <= focc.n:
         raise TypeError("bitwords must be a contiguous int32 tensor of "
                         "more than n=%d bits on %s" % (focc.n, r0.device))
     _check_range("ranks", r0, focc.n)
-    (r32,) = _lanes_i32(r0)
-    steps = torch.empty_like(r32)
-    r_hit = _launch(focc, r32, torch.full_like(r32, int(cap)),
-                    bitwords=bitwords, steps=steps)
-    return r_hit.long(), steps.long()
+    steps = torch.empty(len(r0), dtype=torch.int32, device=r0.device)
+    r_hit = _go(focc, r0, _steps_i32(torch.full_like(r0, int(cap))),
+                bitwords=bitwords, steps=steps)
+    return r_hit, steps.long()
 
 
 def reset_launch_counts() -> None:

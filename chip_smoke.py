@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed 0] [--n 100000003] [--merge-n 400000009]
                           [--genome-n 1200000011] [--genome-hostmem 0]
+                          [--human-n 3200000021] [--human-hostmem 4294967296]
+                          [--human-bwtonly 1] [--human-checks full]
+                          [--only all|human]
 
 Phases, in order; any failure exits non-zero and no result line is
 printed:
@@ -10,20 +13,30 @@ printed:
 1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
    and the port's native host library (g++), which must have built;
 2. build both kernel libraries from ``bwtb3m_tpu_torch/csrc`` (one nvcc
-   each, in parallel): the LF walk (``bwt_lf_walk``) and the gap chain
-   (``bwt_gap_chain_mk``: a single pair merge is a level of one);
+   each, in parallel): the LF walk (``bwt_lf_walk`` and its 64-bit form
+   ``bwt_lf_walk_w``) and the gap chain (``bwt_gap_chain_mk``: a single
+   pair merge is a level of one; its 64-bit form ``bwt_gap_chain_mk_w``);
 3. the LF-walk kernel through each of its entry points (final rank,
    verify visit, harvest visit, select visit) against its plain PyTorch
-   version on the
-   card, bit-exact, at n = 2^22 with 131,072 lanes, on every rank-row
-   layout: sector and bit-plane rows (sigma 4), bit-plane rows (sigma 7)
-   and byte rows (sigma 200); then, kernel only, the walk's step rate
-   on sector and bit-plane rows of 2^24 and 2^28 random symbols at 2^15
-   to 2^18 lanes (rank rows inside and far past the L2);
+   version on the card, bit-exact, at n = 2^22 with 131,072 lanes, on
+   every rank-row layout: sector and bit-plane rows (sigma 4), bit-plane
+   rows (sigma 7) and byte rows (sigma 200); its 64-bit form (final rank,
+   verify, harvest) the same way on wide rows doctored so that every
+   symbol's occ count crosses 2^32 (the BWT taken as the tail of a text
+   with 2^32 - count/2 earlier occurrences of each symbol), and on
+   undoctored wide rows, where it must give the narrow form's ranks;
+   then, kernel only, the walk's step rate on sector and bit-plane rows
+   of 2^24 and 2^28 random symbols at 2^15 to 2^18 lanes (rank rows
+   inside and far past the L2);
 4. the gap-chain kernel (recording form and both anchor bounds) against
    its plain version, bit-exact: a right region of 2^22 ranks, a left
    block of 2^22 symbols, 65,536 lanes, on the same four layouts; the
    runner's own anchors and chains must then give the ranks of the sort;
+   then its 64-bit form through the runner's wide mode on the same
+   merge: on wide rows, on doctored rows (the runner's own chains must
+   still give the sort's ranks) and with the merge's rank base moved to
+   2^32 + 2^20 (the kernel handed the rows' and histogram's pointers
+   lowered by as many rows and cells);
 5. the single-block path through the CLI dispatch with ``device=cuda``
    on a chromosome-sized text (n = 100,000,003 ACGT symbols from
    ``--seed``, random except for 1,000 copies of 1,000-10,000-symbol
@@ -48,11 +61,18 @@ printed:
    on sector and on bit-plane rows;
 10. the gap-chain kernel against its plain version at the root merge's
     shapes (268,435,456-symbol left block, 131,564,553-rank right
-    region, 65,536 lanes), on sector and on bit-plane rows; then, kernel
-    only: the anchor form over the root's lanes at their full length
-    (the recording walk without the histogram atomic and the sample
-    write), the recording form at 2^15 to 2^18 lanes, and both with
-    ``cudaLimitMaxL2FetchGranularity`` at its default and at 32;
+    region, 65,536 lanes), on sector and on bit-plane rows, and its
+    64-bit form on the same lanes (the wide runner's own anchors must
+    give them); then, kernel only: the anchor form over the root's lanes
+    at their full length (the recording walk without the histogram
+    atomic and the sample write), the recording form at 2^15 to 2^18
+    lanes, and both with ``cudaLimitMaxL2FetchGranularity`` at its
+    default and at 32; then the forced-wide merge path: the 400M build
+    once more under ``BWTB3M_FORCE_WIDE=1`` (every merge wide, through
+    the 64-bit chain), whose .bwt/.hist/.preisa must equal the narrow
+    build's, ``checkbwt`` (gok=1) and ``bwtcomputessa`` (the same
+    .sa/.isa bytes) on its wide rows, and the 64-bit LF walk against its
+    plain version at those tools' shapes;
 11. the genome path at n = 1,200,000,011 (a vertebrate genome of the
     1.0-1.2 Gbp class; nine blocks at the default mem=2G: levels of 4
     pairs + a carried block, 2 pairs + carry, 1 + carry, root): ``bwtb3m
@@ -63,32 +83,46 @@ printed:
     ``hwtPreIsaToIsa`` (its .isa equals the build's); ``select_ssa`` of
     2^20 ranks held against the .sa samples they name.  Then every
     kernel of that path against its plain version at the shapes the path
-    gave it: the select visit on all 2^20 lanes; the verify and harvest
-    walks on checkbwt's and the SA/ISA walk's lanes over the 1.2G rows;
-    and ``bwt_gap_chain_mk`` (recording form and both anchor bounds) on
-    every level of the build (4, 2, 1 and 1 merges), for which the build
-    runs once more through the engine with each level's lanes replayed
-    through the kernel and the plain version.  That replay also holds
-    the peak device memory of every block sort and level to the figures
-    the engine's gates plan with.  Between the two: the same build with
-    ``batchmerges=0`` through ``compute_bwt`` (byte-identical files,
-    phases and chain times side by side) and ``check_bwt`` of the result
-    it returned, which must take the build's device symbols (the
-    hand-off) and not decode the file.  ``--genome-n`` of 2^31 or more
-    builds with ``bwtonly=1`` and stops after the build: checkbwt and
-    the SA tools need the wide lanes there, which are not ported;
-12. launch counts per path (> 0), kernel times against plain versions
+    gave it (the plain version on a sample of lanes, ``PLAIN_SAMPLE`` and
+    ``SELECT_CUT``): the select visit; the verify and harvest walks on
+    checkbwt's and the SA/ISA walk's lanes over the 1.2G rows, and their
+    64-bit form on the same rows widened; and ``bwt_gap_chain_mk``
+    (recording form and both anchor bounds) on every level of the build
+    (4, 2, 1 and 1 merges), and its 64-bit form on the levels of one
+    merge, for which the build runs once more through the engine with
+    each level's lanes replayed through the kernel and the plain version
+    (``replay_level``).  That replay also holds the peak device memory of
+    every block sort and level to the figures the engine's gates plan
+    with.  ``--genome-n`` of 2^32 or more runs the tools' walks through
+    the 64-bit form, and ``select_ssa`` only below;
+12. the human-genome path at n = 3,200,000,021 (24 blocks at mem=2G,
+    levels of 12, 6 and 3 merges, a pair and the root; ``hostmem=4G``):
+    ``compute_bwt`` (``bwtonly=1``), each of whose levels is replayed
+    right after its own chains as in step 11 (the replay's time, device
+    time, memory and launches are not the build's), and ``check_bwt`` of
+    the result it returns in the same process (the hand-off);
+    ``bwtcomputessa`` at rate 32 / 262144 held to the ``.preisa``;
+    ``select_ssa`` of 2^20 ranks held to the ``.sa``; ``checkbwt`` in a
+    fresh process from ``.bwt``; the verify, harvest and select walks
+    against their plain versions (sampled), the first two also through
+    the 64-bit form on the same rows widened.
+    ``--human-n`` of 2^32 or more runs the wide path (64-bit forms);
+    ``--human-checks build`` stops after ``check_bwt``; ``--only human``
+    runs phases 1, 2 and this one alone (the runs made by hand);
+13. launch counts per path (> 0), kernel times against plain versions
     and bounds, per-phase wall and device time, peak device memory.
 
 The last three lines are the nvidia-smi line, a JSON object of the
 kernels, and ``{"ok": true, "device": {...}}``.  A kernel's ``ms``,
 ``plain_ms`` and ``bound_ms`` there are from the merge path's shapes
 (the 400M build's walks; the root merge's chains and anchors, one merge
-per launch) or, for ``gap_chain_mk`` (the same entry at the genome
-build's first level of four merges; ``levels`` has every level) and the
-select visit, the genome path's, on the layout that path runs;
-``launches`` is that path's count and ``layouts`` has the same numbers
-per layout.
+per launch; for the 64-bit forms the forced-wide 400M path's) or, for
+``gap_chain_mk`` (the same entry at the genome build's first level of
+four merges; ``levels`` has every level) and the select visit, the
+genome path's, on the layout that path runs; ``launches`` is that
+path's count and ``layouts`` has the same numbers per layout.  Where
+the plain version ran on a sample of lanes, ``plain_on`` says so and
+``plain_ms`` is that sample's.
 ``bound_ms`` is the larger of the bytes the call must move once (rank
 rows, the text and gt bytes walked, lane arrays, outputs) over 3.35 TB/s
 and its integer operations (steps taken times the operations of one
@@ -100,10 +134,13 @@ JAX package, and refuses both.
 
 import argparse
 import contextlib
+import copy
+import ctypes
 import importlib.abc
 import io
 import json
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -129,11 +166,23 @@ KERNELS = {
     # the select visit of the LF-walk kernel, counted on its own
     "lf_walk_select": ("bwtb3m_tpu_torch/csrc/lf_walk.cu",
                        "bwtb3m_tpu/engine/ssa.py:468"),
+    # the 64-bit forms (wide rank rows, n >= 2^32 or BWTB3M_FORCE_WIDE):
+    # second instantiations of the same templates, entries bwt_lf_walk_w
+    # (the reference's wide walks _verify_chunk_w / _harvest_chunk_w) and
+    # bwt_gap_chain_mk_w (ops/gapwide.py's chain and anchor programs)
+    "lf_walk_w": ("bwtb3m_tpu_torch/csrc/lf_walk.cu",
+                  "bwtb3m_tpu/engine/verify.py:201"),
+    "gap_chain_mk_w": ("bwtb3m_tpu_torch/csrc/gap_chain.cu",
+                       "bwtb3m_tpu/ops/gapwide.py:76"),
 }
 LIBRARIES = ("lf_walk", "gap_chain")
 # the path whose launches and shapes a row of the kernels line reports
 ROW_PATH = {"lf_walk": "merge path", "gap_chain": "merge path",
-            "gap_chain_mk": "genome path", "lf_walk_select": "genome path"}
+            "gap_chain_mk": "genome path", "lf_walk_select": "genome path",
+            "lf_walk_w": "forced-wide merge path",
+            "gap_chain_mk_w": "forced-wide merge path"}
+# the kernels each path must launch
+NARROW = ("lf_walk", "gap_chain", "gap_chain_mk", "lf_walk_select")
 PHASE_PREFIX = "bwtb3m::"
 BLOCKED = ("jax", "jaxlib", "bwtb3m_tpu")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
@@ -143,6 +192,17 @@ OPS_PER_S = 67e12               # float32 outside the tensor cores
 # own bookkeeping
 LF_STEP_OPS = {"sector": 45, "bitplane": 165, "bytes": 150}
 CHAIN_STEP_OPS = {"sector": 50, "bitplane": 150, "bytes": 160}
+# what a step of a 64-bit form adds: eight compares and adds of the hi
+# word against the wrap rows, the 64-bit C or c_first, 64-bit adds
+WIDE_STEP_OPS = 24
+# the plain versions' share of the genome-scale paths: the recording
+# chain and the verify / harvest walks run plain on PLAIN_SAMPLE[0] lanes
+# spread over the path's lanes, each cut to PLAIN_SAMPLE[1] steps, and the
+# select visit on every 64th lane with its cap cut to SELECT_CUT steps;
+# the kernel runs on the same cut lanes for the comparison, and on every
+# lane at full length for its time
+PLAIN_SAMPLE = (8192, 1024)
+SELECT_CUT = 2048
 
 
 class _BlockJax(importlib.abc.MetaPathFinder):
@@ -220,7 +280,26 @@ def main() -> int:
                     help="mem= of the genome path (blocks of mem/16 symbols)")
     ap.add_argument("--genome-hostmem", type=int, default=0,
                     help="hostmem= of the genome path's builds (0: unset)")
+    ap.add_argument("--human-n", type=int, default=3_200_000_021,
+                    help="human-genome path text length (24 blocks at "
+                    "mem=2G; 0 skips the path)")
+    ap.add_argument("--human-mem", type=int, default=2 * 1024 ** 3,
+                    help="mem= of the human-genome path")
+    ap.add_argument("--human-hostmem", type=int, default=4 * 1024 ** 3,
+                    help="hostmem= of the human-genome path's build")
+    ap.add_argument("--human-bwtonly", type=int, default=1, choices=(0, 1),
+                    help="bwtonly= of the human-genome build (0: the SA/ISA "
+                    "walk and the .hwt as well)")
+    ap.add_argument("--human-checks", default="full",
+                    choices=("full", "build"),
+                    help="build: only the build and check_bwt of its "
+                    "result; full: also the SA tools, checkbwt in a fresh "
+                    "process and the kernels against their plain versions")
+    ap.add_argument("--only", default="all", choices=("all", "human"),
+                    help="human: the environment, the kernel build and the "
+                    "human-genome path alone")
     args = ap.parse_args()
+    t_start = time.monotonic()
     sys.meta_path.insert(0, _BlockJax())
 
     import numpy as np
@@ -247,11 +326,13 @@ def main() -> int:
     from bwtb3m_tpu_torch.ops import _build
     from bwtb3m_tpu_torch.ops import gapbatch as gb
     from bwtb3m_tpu_torch.ops import lf_walk as lw
+    from bwtb3m_tpu_torch.ops import wideocc as pw
     from bwtb3m_tpu_torch.ops.devzip import bits_for, rows_from_host_bwt
     from bwtb3m_tpu_torch.ops.doubling import suffix_array
     from bwtb3m_tpu_torch.ops.focc import access
     from bwtb3m_tpu_torch.ops.focc_build import (build_focc_concat,
                                                  build_focc_device,
+                                                 build_focc_from_packed,
                                                  build_focc_host)
     from bwtb3m_tpu_torch.util.args import ArgInfo
     from bwtb3m_tpu_torch.util.log import VerboseLog
@@ -291,11 +372,16 @@ def main() -> int:
 
     def counts():
         chain = gb.LAUNCHES["chain"] + gb.LAUNCHES["anchor"]
-        return {"lf_walk": lw.lf_walk.launches - lw.LAUNCHES["select"],
-                "lf_walk_select": lw.LAUNCHES["select"],
+        L = lw.LAUNCHES
+        return {"lf_walk": L["none"] + L["verify"] + L["harvest"],
+                "lf_walk_select": L["select"],
+                "lf_walk_w": L["none64"] + L["verify64"] + L["harvest64"],
                 "gap_chain": chain, "gap_chain_mk": chain,
+                "gap_chain_mk_w": gb.LAUNCHES["chain64"]
+                + gb.LAUNCHES["anchor64"],
                 "gap_chain_mk (chain form)": gb.LAUNCHES["chain"],
-                "gap_chain_mk (anchor form)": gb.LAUNCHES["anchor"]}
+                "gap_chain_mk (anchor form)": gb.LAUNCHES["anchor"],
+                "lf_walk (by visit)": dict(L)}
 
     def timed(fn, reps=1, warm=True, setup=None):
         """(result, ms per call) over ``reps`` calls, after one warm call
@@ -316,8 +402,48 @@ def main() -> int:
         return out, total / reps
 
     def max_err(a, b):
+        """Largest |a - b| as int64, over chunks of 2^26 elements: the
+        histograms of a genome's levels hold 10^9 cells."""
         assert a.shape == b.shape, (a.shape, b.shape)
-        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        if a.dtype == b.dtype and torch.equal(a, b):
+            return 0
+        a, b = a.reshape(-1), b.reshape(-1)
+        return max(int((a[i:i + (1 << 26)].long()
+                        - b[i:i + (1 << 26)].long()).abs().max())
+                   for i in range(0, a.numel(), 1 << 26))
+
+    def cells_total(gap):
+        """The sum of a histogram's cells; the narrow chain's int32 cells
+        are uint32 (``ops/devzip.py::gap_cum``)."""
+        total = int(gap.sum())
+        if gap.dtype == torch.int32:
+            total += int((gap < 0).sum()) << 32
+        return total
+
+    @contextlib.contextmanager
+    def uncounted():
+        """Launches made to hold a kernel to its plain version inside a
+        path's run are not the path's: the counts are put back."""
+        saved = dict(gb.LAUNCHES), dict(lw.LAUNCHES), lw.lf_walk.launches
+        try:
+            yield
+        finally:
+            gb.LAUNCHES.update(saved[0])
+            lw.LAUNCHES.update(saved[1])
+            lw.lf_walk.launches = saved[2]
+
+    def errors_in(tree):
+        """Every ``max_abs_err`` (and ``..._max_abs_err``) in a nest of
+        dicts and lists."""
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                if str(k).endswith("max_abs_err"):
+                    yield v
+                else:
+                    yield from errors_in(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                yield from errors_in(v)
 
     def bound(nbytes, nops):
         """(ms, which): the least time the card could take for a call
@@ -329,6 +455,649 @@ def main() -> int:
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
+    def is_wide(focc):
+        return isinstance(focc, pw.WideOcc)
+
+    def widened(focc):
+        """Narrow rank rows of fewer than 2^32 symbols as wide rows: no occ
+        word wraps there, so every wrap row is padding and C is the same
+        in int64; what the 64-bit forms take at a path's own shapes without
+        a second build of the rows."""
+        C = gb.word_values(focc, focc.C)
+        return pw.widen_focc(focc, [np.zeros(0, np.int64)] * focc.sigma,
+                             C[1:] - C[:-1], focc.n)
+
+    def chain_words(focc, a):
+        """Host ranks as the chain's words on the card: uint32 bits in
+        int32, int64 on wide rows."""
+        if is_wide(focc):
+            return torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+        return torch.from_numpy(gb.u32_bits(a)).to(dev)
+
+    tools = []
+
+    def run_tool(name, argv, fn=None, profile=True):
+        """One CLI call (or ``fn()``, a library call that returns an exit
+        code): (exit code, stdout, {phase: (wall s, device s)}), with its
+        wall time (less ``run_tool.replay_s``, what a replay inside the
+        call adds) and the card's busy time (kernel time sum from the
+        profiler; with ``profile=False`` not measured: a replay's plain
+        versions launch 10^5-10^6 small kernels, whose profiler events
+        would take minutes to sum); the tool's stderr log is echoed."""
+        torch.cuda.synchronize()
+        buf, ebuf = io.StringIO(), io.StringIO()
+        run_tool.replay_s = 0.0
+        with (torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA])
+              if profile else contextlib.nullcontext()) as prof:
+            t0 = time.monotonic()       # the profiler's set-up and
+            try:                        # teardown stay out
+                with contextlib.redirect_stdout(buf), \
+                        contextlib.redirect_stderr(ebuf):
+                    rc = fn() if fn else dispatch(argv)
+                torch.cuda.synchronize()
+            finally:
+                sys.stderr.write(ebuf.getvalue())
+            wall = time.monotonic() - t0 - run_tool.replay_s
+        evs = prof.key_averages() if profile else []
+        cuda = torch.autograd.DeviceType.CUDA
+        busy_us = sum(e.self_device_time_total for e in evs
+                      if e.device_type == cuda and not e.is_user_annotation)
+        # per engine phase: the device time of the kernels launched inside
+        # its span (host-side range) and the span on the card's timeline
+        dev_us, span_us = {}, {}
+        for e in evs:
+            if e.key.startswith(PHASE_PREFIX):
+                k = e.key[len(PHASE_PREFIX):]
+                d = span_us if e.device_type == cuda else dev_us
+                d[k] = d.get(k, 0) + e.device_time_total
+        walls = {}
+        for line in ebuf.getvalue().splitlines():
+            if "phases (wall s): " in line:
+                walls = json.loads(line.split("phases (wall s): ", 1)[1])
+        phases = {k: (walls.get(k, 0.0), dev_us.get(k, 0) / 1e6,
+                      span_us.get(k, 0) / 1e6)
+                  for k in sorted(set(walls) | set(dev_us))}
+        tools.append((name, wall, busy_us / 1e6 if profile else None))
+        out = buf.getvalue()
+        say("%s: exit %d, wall %.3f s, device busy %s%s | %s"
+            % (name, rc, wall, "%.3f s" % (busy_us / 1e6) if busy_us
+               else "not measured", " (less a replay of %.3f s inside the "
+               "call)" % run_tool.replay_s if run_tool.replay_s else "",
+               out.strip().replace("\n", " ")))
+        run_tool.log = ebuf.getvalue()
+        return rc, out, phases
+
+    def lf_compare(bwt_file, raw_text, label,
+                   layouts=("sector", "bitplane"),
+                   forms=("lf_walk", "verify_walk", "harvest_walk"),
+                   wide=False, sample=None):
+        """Every LF-walk form against its plain version on the seeds and
+        segments that checkbwt and bwtcomputessa give it for ``bwt_file``:
+        on the rank rows the tools built (sector rows for DNA), on
+        bit-plane rows of the same BWT and (``sector_w``) on the tools'
+        rows widened, through the 64-bit form, the kernel timed in turns
+        (for example sector, bit-plane, bit-plane, sector), for the
+        ``layouts`` and ``forms`` asked; ``wide``: the tools' rows are the
+        wide rows, the kernel's 64-bit form.
+        ``sample`` = (lanes, steps): the plain version runs on that many
+        lanes spread over the seeds, each cut to that many steps, and the
+        kernel on the same cut lanes (its time on every lane is ``ms``).
+        Returns {layout: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+        forms}}; ms, plain_ms and bound_ms are summed over the forms the
+        tools launch (verify + harvest)."""
+        res = BwtResult.load(bwt_file)
+        focc, symmap = res.load_focc(dev, wide=wide)
+        if focc.LAYOUT != "sector" or is_wide(focc) != wide:
+            raise AssertionError("the tools' rank rows for DNA are %s%s "
+                                 "rows" % ("wide " if is_wide(focc) else "",
+                                           focc.LAYOUT))
+        n = focc.n
+        foccs = {"sector": focc}
+        if "sector_w" in layouts:
+            foccs["sector_w"] = widened(focc)
+        if "bitplane" in layouts:
+            narrow = focc.focc if wide else focc
+            bwt_dev = torch.cat([access(narrow, torch.arange(
+                a, min(n, a + (1 << 24)), device=dev)).to(torch.uint8)
+                for a in range(0, n, 1 << 24)])
+            foccs["bitplane"] = build_focc_device(bwt_dev, focc.sigma,
+                                                  "bitplane", wide=wide)
+            del bwt_dev
+        ranks, positions, _rate = res.load_preisa()
+        ranks, positions, seg = seed_segments(ranks, positions,
+                                              len(raw_text))
+        table = np.zeros(256, np.uint8)
+        table[symmap] = np.arange(len(symmap))
+        t_dev = torch.from_numpy(table[raw_text]).to(dev)
+        steps, total = int(seg.max()), int(seg.sum())
+        step_ops = {lay: LF_STEP_OPS[f.LAYOUT]
+                    + (WIDE_STEP_OPS if is_wide(f) else 0)
+                    for lay, f in foccs.items()}
+
+        def lanes_of(rk, ps, sl):
+            return [torch.from_numpy(a).to(dev) for a in (rk, ps, sl)]
+
+        full = lanes_of(ranks, positions, seg)
+        if sample:
+            pick = np.linspace(0, len(ranks) - 1, sample[0]).astype(np.int64)
+            cut = lanes_of(ranks[pick], positions[pick],
+                           np.minimum(seg[pick], sample[1]))
+
+        def runs(f, lanes):
+            r0, p0, sl = lanes
+            st = int(sl.max())
+            return {
+                "lf_walk": (lambda: lw.lf_walk(f, r0, st),
+                            lambda: lw.lf_walk_plain(f, r0, st)),
+                "verify_walk": (
+                    lambda: lw.verify_walk(f, t_dev, r0, p0, sl),
+                    lambda: lw.verify_walk_plain(f, t_dev, r0, p0, sl)),
+                "harvest_walk": (
+                    lambda: torch.cat(lw.harvest_walk(f, r0, p0, sl, 32,
+                                                      262144)),
+                    lambda: torch.cat(lw.harvest_walk_plain(
+                        f, r0, p0, sl, 32, 262144))),
+            }
+
+        def work(f):
+            """(bytes moved once, steps) of each form on every lane."""
+            wb = 8 if is_wide(f) else 4
+            lane_io = len(ranks) * wb
+            return {"lf_walk": (nbytes(f.rows) + 2 * lane_io
+                                + 4 * len(ranks), len(ranks) * steps),
+                    "verify_walk": (nbytes(f.rows, t_dev) + 3 * lane_io
+                                    + 8 * len(ranks), total),
+                    "harvest_walk": (nbytes(f.rows) + 3 * lane_io
+                                     + 4 * len(ranks)
+                                     + wb * (-(-n // 32) - (-n // 262144)),
+                                     total)}
+
+        out = {lay: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
+                     "bound_ms": 0.0, "bound_by": "bytes", "forms": {}}
+               for lay in foccs}
+        if sample:
+            for o in out.values():
+                o["plain_on"] = {"lanes": sample[0],
+                                 "steps_at_most": sample[1]}
+        order = list(foccs)
+        for name in forms:
+            k_ms = {lay: 0.0 for lay in foccs}
+            for lay in order + order[::-1]:
+                k, ms = timed(runs(foccs[lay], full)[name][0], reps=3)
+                k_ms[lay] += ms / 2
+            for lay, f in foccs.items():
+                kern, plain = runs(f, cut if sample else full)[name]
+                k = kern()
+                p, p_ms = timed(plain, warm=False)
+                err = max_err(k, p)
+                nb, nsteps = work(f)[name]
+                b_ms, b_by = bound(nb, nsteps * step_ops[lay])
+                say("kernel %-12s %s, %s%s rows (n=%d, %d lanes, %d steps "
+                    "max): max_abs_err %d, kernel %.3f ms, plain %.3f ms%s, "
+                    "bound %.3f ms (%s)"
+                    % (name, label, "wide " if is_wide(f) else "",
+                       f.LAYOUT, n,
+                       len(ranks), steps, err, k_ms[lay], p_ms,
+                       " on %d lanes of %d steps at most" % tuple(sample)
+                       if sample else "", b_ms, b_by))
+                if err:
+                    raise AssertionError("%s disagrees with its plain "
+                                         "version on the %s, %s rows"
+                                         % (name, label, lay))
+                o = out[lay]
+                o["forms"][name] = k_ms[lay]
+                if name != "lf_walk":       # the forms the tools launch
+                    o["ms"] += k_ms[lay]
+                    o["plain_ms"] += p_ms
+                    o["bound_ms"] += b_ms
+                    o["bound_by"] = b_by
+        for lay, o in out.items():
+            say("kernel lf_walk%s, the tools' forms (verify_walk + "
+                "harvest_walk) on the %s, %s rows: kernel %.3f ms, plain "
+                "%.3f ms, bound %.3f ms"
+                % (" (64-bit form)" if is_wide(foccs[lay]) else "", label,
+                   foccs[lay].LAYOUT, o["ms"], o["plain_ms"], o["bound_ms"]))
+        if "sector_w" in out:
+            say("kernel lf_walk verify + harvest, %s, sector rows: 64-bit "
+                "form %.3f ms, narrow form %.3f ms: %.3f x [%s]"
+                % (label, out["sector_w"]["ms"], out["sector"]["ms"],
+                   out["sector_w"]["ms"] / out["sector"]["ms"], smi))
+        return out
+
+    path_counts = {}
+
+    def ssa_agrees_with_preisa(bwt_file, label):
+        """The .sa (rate 32) and .isa (rate 262144) beside ``bwt_file``
+        agree with its .preisa (pos, rank) pairs; returns the preisa
+        rate."""
+        prefix = bwt_file[:-4]
+        pr, pp, prate = BwtResult.load(bwt_file).load_preisa()
+        _r, sa_s = load_sampled_array(prefix + ".sa")
+        _r, isa_s = load_sampled_array(prefix + ".isa")
+        on_isa = pp % 262144 == 0
+        on_sa = pr % 32 == 0
+        if not (np.array_equal(isa_s[pp[on_isa] // 262144], pr[on_isa])
+                and np.array_equal(sa_s[pr[on_sa] // 32], pp[on_sa])
+                and on_isa.sum() == len(isa_s)):
+            raise AssertionError("bwtcomputessa's .sa/.isa disagree with the "
+                                 "%s's .preisa" % label)
+        say("bwtcomputessa .sa/.isa agree with the %s's .preisa: %d ISA "
+            "samples, %d SA samples at preisa pairs"
+            % (label, int(on_isa.sum()), int(on_sa.sum())))
+        return prate
+
+    def select_agrees_with_sa(bwt_file, seed):
+        """``select_ssa`` of 2^20 ranks that the .sa samples (rate 32)
+        beside ``bwt_file`` name, held to those samples; returns the
+        ranks."""
+        _r, sa_s = load_sampled_array(bwt_file[:-4] + ".sa")
+        rng = np.random.default_rng(seed)
+        want = 32 * rng.integers(0, len(sa_s), 1 << 20)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = select_ssa(bwt_file, want, device=dev)
+        t_sel = time.monotonic() - t0
+        if not np.array_equal(got, sa_s[want // 32]):
+            raise AssertionError("select_ssa disagrees with the .sa samples")
+        say("select_ssa: 2^20 ranks agree with the .sa samples they name, "
+            "%.3f s wall [%s]" % (t_sel, smi))
+        return want
+
+    def select_compare(bwt_file, want_ranks, label):
+        """The select visit on every lane ``select_ssa`` gave it (timed),
+        and against its plain version on every 64th lane with the cap cut
+        to ``SELECT_CUT`` steps, the kernel on the same (a lane without a
+        hit within the cap ends with -1 in both)."""
+        res = BwtResult.load(bwt_file)
+        focc, _symmap = res.load_focc(dev, wide=False)
+        pr_ranks, _pp, prate = res.load_preisa()
+        words = np.zeros(res.n // 32 + 1, np.uint32)
+        np.bitwise_or.at(words, pr_ranks >> 5,
+                         np.uint32(1) << (pr_ranks & 31).astype(np.uint32))
+        bitw = torch.from_numpy(words.view(np.int32)).to(dev)
+        del words
+        r_all = torch.from_numpy(want_ranks).to(dev)
+        cap = 2 * (int(prate) + 512)
+        (kr, ks_), sel_ms = timed(lambda: lw.select_walk(focc, bitw, r_all,
+                                                         cap), reps=3)
+        sel_steps = int(ks_.sum())
+        r_cut = r_all[::64].contiguous()
+        kr_c, ks_c = lw.select_walk(focc, bitw, r_cut, SELECT_CUT)
+        (pr_, ps_), sel_plain_ms = timed(lambda: lw.select_walk_plain(
+            focc, bitw, r_cut, SELECT_CUT), warm=False)
+        sel_err = max(max_err(kr_c, pr_), max_err(ks_c, ps_))
+        # each step reads its row's sector and a bitmap word; the data
+        # decide the steps
+        sel_bound, sel_by = bound(
+            nbytes(focc.rows, bitw) + len(r_all) * 16,
+            (sel_steps + len(r_all)) * (LF_STEP_OPS["sector"] + 5))
+        say("kernel lf_walk select visit, %s (n=%d, %d lanes, %d steps, %d "
+            "at most): max_abs_err %d, kernel %.3f ms (%.2f G steps/s), "
+            "plain %.3f ms on %d lanes of %d steps at most, bound %.3f ms "
+            "(%s) [%s]"
+            % (label, res.n, len(r_all), sel_steps, int(ks_.max()), sel_err,
+               sel_ms, sel_steps / sel_ms / 1e6, sel_plain_ms, len(r_cut),
+               SELECT_CUT, sel_bound, sel_by, smi))
+        if sel_err or int(ks_.min()) < 0:
+            raise AssertionError("the select visit disagrees with its plain "
+                                 "version")
+        return {"sector": {"max_abs_err": sel_err, "ms": sel_ms,
+                           "plain_ms": sel_plain_ms, "lanes": len(r_all),
+                           "steps": sel_steps, "bound_ms": sel_bound,
+                           "bound_by": sel_by, "forms": {"select": sel_ms},
+                           "plain_on": {"lanes": len(r_cut),
+                                        "steps_at_most": SELECT_CUT}}}
+
+    def host_memory(label):
+        """This process's peak RSS so far and ``free -g``, printed."""
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+        free = subprocess.run(["free", "-g"], capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+        say("host memory after %s: peak RSS of this process so far %.3f GiB; "
+            "free -g:\n%s" % (label, rss, free))
+        return rss
+
+    # the gap chain against its plain version on a level's lanes
+    def level_lanes(level):
+        """(kid, starts, seeds, lens) of an anchored level, as numpy."""
+        return (np.concatenate([np.full(sp.T, sp.k) for sp in level.specs]),
+                np.concatenate([sp.starts for sp in level.specs]),
+                np.concatenate([sp.seeds for sp in level.specs]),
+                np.concatenate([sp.lens for sp in level.specs]))
+
+    def mk_args(level, focc, kd, st):
+        return (focc, level.text_dev, level.gt_dev, level.c_first,
+                level.table, kd, st)
+
+    def level_buffers(level, focc):
+        word = torch.int64 if is_wide(focc) else torch.int32
+        gap = torch.empty(focc.n + 1, dtype=word, device=dev)
+        samp = torch.empty(level._nsamp, dtype=word, device=dev)
+
+        def clear():
+            gap.zero_()
+            samp.fill_(-1)
+
+        return gap, samp, clear
+
+    def level_compare(level, foccs, lanes, reps, warm_plain, label, lb=64,
+                      sample=None):
+        """``bwt_gap_chain_mk`` (or, on wide rows, its 64-bit form) against
+        its plain version on the lanes (kid, starts, seeds, lens) of
+        ``level`` (a ``BatchedGapRunner``): the recording form, then the
+        anchor form over ``lb`` steps from each merge's rank 0 and from
+        its top, per rank-row layout in ``foccs`` (more than one only for
+        a level of one merge, whose rank base is 0 on every layout).
+        Where ``level`` has computed its own histogram and samples on that
+        layout, the kernel's are held to them too.  ``sample`` = (lanes,
+        steps): the recording form's plain version runs on that many
+        lanes spread over the level, each cut to that many steps, and the
+        kernel on the same cut lanes (its time on every lane is ``ms``).
+        Returns {layout: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+        forms, steps, lanes}}, the times summed over the three launches."""
+        kid, starts, seeds, lens = lanes
+        level._ensure_gt(level._caps(kid, starts + lb))
+        kd, st, sd, ln = level._lanes(kid, starts, seeds, lens)
+        rate = level.sample_rate
+        steps = int(lens.sum())
+        left = sum(sp.m - sp.s for sp in level.specs)
+        a_st = st + lb
+        a_ln = torch.full_like(ln, lb)
+        bases = np.array([level.specs[k].rbase for k in kid])
+        tops = bases + np.array([level.specs[k].gap_size for k in kid])
+        if sample:
+            pick = np.linspace(0, len(kid) - 1, sample[0]).astype(np.int64)
+            s_lanes = level._lanes(kid[pick], starts[pick], seeds[pick],
+                                   np.minimum(lens[pick], sample[1]))
+        out = {}
+        for layout, focc in foccs.items():
+            say_l = "%s %s rows%s," % (label, layout,
+                                       " (64-bit form)" if is_wide(focc)
+                                       else "")
+            step_ops = CHAIN_STEP_OPS[layout] + (WIDE_STEP_OPS
+                                                 if is_wide(focc) else 0)
+            args = mk_args(level, focc, kd, st)
+            gap, samp, clear = level_buffers(level, focc)
+            fk, k_ms = timed(lambda: gb.chain_walk_mk(*args, sd, ln, gap,
+                                                      samp, rate),
+                             reps=reps, setup=clear)
+            if cells_total(gap) != left:
+                raise AssertionError("gap total %d != left blocks %d"
+                                     % (cells_total(gap), left))
+            errs = []
+            if focc is level.focc and level.gap is not None:
+                errs.append(max(max_err(gap, level.gap),
+                                max_err(samp, level._samp)))
+            if sample:
+                # the plain version on the cut lanes, the kernel on the same
+                s_args = mk_args(level, focc, s_lanes[0], s_lanes[1])
+                fk, _ms = timed(lambda: gb.chain_walk_mk(
+                    *s_args, s_lanes[2], s_lanes[3], gap, samp, rate),
+                    setup=clear)
+                ref_gap, ref_samp = gap.clone(), samp.clone()
+                fp, p_ms = timed(lambda: gb.gap_chain_mk_plain(
+                    *s_args, s_lanes[2], s_lanes[3], gap, samp, rate),
+                    warm=False, setup=clear)
+            else:
+                ref_gap, ref_samp = gap.clone(), samp.clone()
+                fp, p_ms = timed(lambda: gb.gap_chain_mk_plain(
+                    *args, sd, ln, gap, samp, rate), warm=warm_plain,
+                    setup=clear)
+            errs.append(max(max_err(fk, fp), max_err(gap, ref_gap),
+                            max_err(samp, ref_samp)))
+            # each input read once, each output written once
+            wb = 8 if is_wide(focc) else 4
+            nb = (nbytes(focc.rows, level.table, level.c_first) + steps
+                  + steps // 8 + len(st) * (4 + 8 + 2 * wb + 4)
+                  + gap.element_size() * gap.numel()
+                  + samp.element_size() * samp.numel())
+            b_ms, b_by = bound(nb, steps * step_ops)
+            forms = {"recording": k_ms}
+            kt, pt = k_ms, p_ms
+            say("kernel gap_chain_mk %s chain form (%d steps): max_abs_err "
+                "%d, kernel %.3f ms (%.2f G steps/s), plain %.3f ms%s, bound "
+                "%.3f ms (%s)" % (say_l, steps, max(errs), k_ms,
+                                  steps / k_ms / 1e6, p_ms,
+                                  " on %d lanes of %d steps at most"
+                                  % tuple(sample) if sample else "",
+                                  b_ms, b_by))
+            del ref_gap, ref_samp, gap, samp, fk, fp
+            for which, r0s in (("from rank 0", bases),
+                               ("from the top", tops)):
+                a_sd = chain_words(focc, r0s)
+                a_args = (*mk_args(level, focc, kd, a_st), a_sd, a_ln)
+                k, k_ms = timed(lambda: gb.anchor_walk_mk(*a_args),
+                                reps=reps)
+                p_, p_ms = timed(lambda: gb.gap_chain_mk_plain(*a_args),
+                                 warm=warm_plain)
+                errs.append(max_err(k, p_))
+                ab_ms, _by = bound(
+                    nbytes(focc.rows, level.table, level.c_first)
+                    + lb * len(st) * 9 // 8 + len(st) * (16 + 2 * wb),
+                    lb * len(st) * step_ops)
+                b_ms += ab_ms
+                kt, pt = kt + k_ms, pt + p_ms
+                forms["anchor " + which] = k_ms
+                say("kernel gap_chain_mk %s anchor form %s, %d steps: "
+                    "max_abs_err %d, kernel %.3f ms, plain %.3f ms, bound "
+                    "%.3f ms" % (say_l, which, lb, errs[-1], k_ms, p_ms,
+                                 ab_ms))
+            if max(errs):
+                raise AssertionError("gap_chain_mk disagrees with its plain "
+                                     "version on %s rows" % layout)
+            out[layout] = {"max_abs_err": max(errs), "ms": kt,
+                           "plain_ms": pt, "bound_ms": b_ms,
+                           "bound_by": b_by, "forms": forms, "steps": steps,
+                           "lanes": len(st), "merges": len(level.specs)}
+            if sample:
+                out[layout]["plain_on"] = {"lanes": sample[0],
+                                           "steps_at_most": sample[1]}
+        return out
+
+    def widened_level(level):
+        """A level of one merge as the runner's wide mode takes it: the
+        same lanes and gt bits, its rows widened, c_first and the merge
+        table as int64."""
+        w = copy.copy(level)
+        w.wide, w.focc = True, widened(level.focc)
+        w.c_first = gb.word_values(level.focc, level.c_first)
+        w.table = gb.word_values(level.focc, level.table)
+        return w
+
+    def replay_level(level, label):
+        """``bwt_gap_chain_mk`` against its plain version on the lanes of
+        ``level``, a runner right after its own ``compute()`` inside a
+        build (the plain version on a sample of lanes), and, for a narrow
+        level of one merge, the 64-bit form on the same lanes over the
+        same rows widened, whose histogram and samples must equal the
+        level's own.  Launches not counted.  Returns (record, record of
+        the 64-bit form or None)."""
+        name = ("%s, level of %d merge(s), %d ranks:"
+                % (label, len(level.specs), level.focc.n))
+        lanes = level_lanes(level)
+        with uncounted():
+            rec = level_compare(level, {level.focc.LAYOUT: level.focc}, lanes,
+                                3, False, name, sample=PLAIN_SAMPLE)
+            rec = next(iter(rec.values()))
+            rec["in_build_recording_ms"] = level.chain_ms
+            if len(level.specs) > 1 or level.wide:
+                return rec, None
+            wl = widened_level(level)
+            rec_w = next(iter(level_compare(
+                wl, {wl.focc.LAYOUT: wl.focc}, lanes, 3, False, name,
+                sample=PLAIN_SAMPLE).values()))
+        rec_w["narrow_form_ms"] = rec["ms"]
+        say("gap_chain_mk %s 64-bit form %.3f ms (recording %.3f), narrow "
+            "form %.3f ms (recording %.3f): %.3f x [%s]"
+            % (name, rec_w["ms"], rec_w["forms"]["recording"], rec["ms"],
+               rec["forms"]["recording"], rec_w["ms"] / rec["ms"], smi))
+        return rec, rec_w
+
+    def human_path(n, mem, hostmem, bwtonly, checks):
+        """The flagship: a text of a human genome's length, from
+        ``--seed``, built by ``compute_bwt`` (24 blocks of 2^27 at mem=2G:
+        levels of 12, 6 and 3 merges); ``check_bwt`` of the result it
+        returns, in the same process (the hand-off: no decode).  With
+        ``checks == "full"``: every level of the build held to the plain
+        version right after its own chains (``replay_level``; its time,
+        device time and memory are left out of the build's), bwtcomputessa
+        at rate 32 / 262144 held to the .preisa, ``select_ssa`` of 2^20
+        ranks held to the .sa (below 2^32 symbols), checkbwt in a fresh
+        process from .bwt, then the verify, harvest and select walks
+        against their plain versions on a sample of lanes (the first two
+        also through the 64-bit form on the same rows widened).  Returns
+        what the report needs."""
+        shutil.rmtree(WORK, ignore_errors=True)
+        os.makedirs(WORK)
+        inph = os.path.join(WORK, "human.bin")
+        t0 = time.monotonic()
+        text = make_text(n, args.seed + 13)
+        text.tofile(inph)
+        say("input: n=%d ACGT with 1000 mutated repeats, made in %.2f s (host)"
+            % (n, time.monotonic() - t0))
+        bwth = inph + ".bwt"
+        label = "human-genome path"
+        reset_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        argv = ["bwtb3m", "inputtype=bytestream", "bwtonly=%d" % bwtonly,
+                "sasamplingrate=32", "isasamplingrate=262144", "device=cuda",
+                "mem=%d" % mem, "hostmem=%d" % hostmem, inph]
+        built, levels, levels_w, peaks = [], [], [], []
+        orig_compute = gb.BatchedGapRunner.compute
+
+        def spy_compute(self, *a, **k):
+            orig_compute(self, *a, **k)
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            t0 = time.monotonic()
+            # run_tool holds the build's stdout; the replay's lines are ours
+            with contextlib.redirect_stdout(sys.__stdout__):
+                rec, rec_w = replay_level(self, "human-genome build")
+            levels.append(rec)
+            if rec_w:
+                levels_w.append(rec_w)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()    # the replay's buffers
+            run_tool.replay_s += time.monotonic() - t0
+
+        def build():
+            if checks == "full":
+                gb.BatchedGapRunner.compute = spy_compute
+            try:
+                built.append(compute_bwt(BwtOptions.from_arginfo(
+                    ArgInfo(argv[1:], progname="bwtb3m"))))
+            finally:
+                gb.BatchedGapRunner.compute = orig_compute
+            return 0
+
+        rc, _, phases = run_tool("bwtb3m bwtonly=%d (%s, compute_bwt)"
+                                 % (bwtonly, label), argv, fn=build,
+                                 profile=checks != "full")
+        if rc != 0:
+            raise AssertionError("bwtb3m failed on the " + label)
+        nlevels = 0
+        for ln in run_tool.log.splitlines():
+            if "batched level: " in ln or "pair merge: " in ln:
+                nlevels += 1
+                say("human-genome build, %s [%s]"
+                    % (ln.split("] ", 1)[-1], smi))
+        out = {"n": n, "phases": phases, "rss_gib": host_memory("the build"),
+               "peak_build": max(peaks + [torch.cuda.max_memory_allocated()])}
+        if checks == "full":
+            if len(levels) != nlevels:
+                raise AssertionError("replayed %d levels of the %d the build "
+                                     "ran" % (len(levels), nlevels))
+            out["levels"], out["levels_w"] = levels, levels_w
+            out["replay_s"] = run_tool.replay_s
+            say("human-genome build: %d levels (%s merges) held to the plain "
+                "version inside the build, %.3f s left out of its wall"
+                % (len(levels), " ".join(str(r["merges"]) for r in levels),
+                   run_tool.replay_s))
+        rc, _, _ = run_tool(
+            "check_bwt of the build's result (%s, hand-off)" % label, [],
+            fn=lambda: 0 if check_bwt(built[0], text, device="cuda",
+                                      log=VerboseLog(1)) else 1)
+        # with bwtonly=0 the build's own SA/ISA walk took the hand-off and
+        # left its rows in the memo, which check_bwt then reads: no decode
+        # either way
+        if rc != 0 or "decode" in run_tool.log or (
+                bwtonly and "hand-off" not in run_tool.log):
+            raise AssertionError("check_bwt of the build's own result failed, "
+                                 "or decoded the .bwt")
+        del built[:]
+        if checks == "full":
+            if bwtonly:
+                rc, _, _ = run_tool("bwtcomputessa (%s)" % label, [
+                    "bwtcomputessa", "sasamplingrate=32",
+                    "isasamplingrate=262144", "device=cuda", bwth])
+                if rc != 0:
+                    raise AssertionError("bwtcomputessa failed on the " + label)
+            ssa_agrees_with_preisa(bwth, "human-genome build")
+            want = select_agrees_with_sa(bwth, args.seed + 14) \
+                if n < 1 << 32 else None
+        out["peak"] = max(out["peak_build"], torch.cuda.max_memory_allocated())
+        path_counts[label] = counts()
+        say("%s launches: %s" % (label, path_counts[label]))
+        need = ("lf_walk", "gap_chain_mk") + (
+            ("lf_walk_select",) if checks == "full" and n < 1 << 32 else ())
+        if n >= 1 << 32:
+            need = ("lf_walk_w", "gap_chain_mk", "gap_chain_mk_w")
+        if min(path_counts[label][k] for k in need) < 1:
+            raise AssertionError("the %s did not launch %s" % (label, need))
+        if checks != "full":
+            return out
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bwtb3m_tpu_torch", "checkbwt",
+             "inputtype=bytestream", "device=cuda", inph, bwth], cwd=REPO,
+            capture_output=True, text=True, timeout=900)
+        sys.stderr.write(proc.stderr)
+        out["fresh_checkbwt_s"] = time.monotonic() - t0
+        say("checkbwt (%s, fresh process, from .bwt): exit %d, wall %.3f s "
+            "with the interpreter's start, its peak RSS %.3f GiB | %s [%s]"
+            % (label, proc.returncode, out["fresh_checkbwt_s"],
+               resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss
+               / 2 ** 20, proc.stdout.strip(), smi))
+        if proc.returncode != 0 or "gok=1" not in proc.stdout \
+                or "decode" not in proc.stderr:
+            raise AssertionError("checkbwt in a fresh process did not print "
+                                 "gok=1 from the file")
+        if want is not None:
+            out["select"] = select_compare(bwth, want, label)
+        out["lf"] = lf_compare(bwth, text, label, ("sector", "sector_w")
+                               if n < 1 << 32 else ("sector",),
+                               ("verify_walk", "harvest_walk"),
+                               wide=n >= 1 << 32, sample=PLAIN_SAMPLE)
+        out["lf_w"] = out["lf"].pop("sector_w", None)
+        return out
+
+    if args.only == "human":
+        human = human_path(args.human_n, args.human_mem, args.human_hostmem,
+                           args.human_bwtonly, args.human_checks)
+        shutil.rmtree(WORK, ignore_errors=True)
+        for name, wall, busy in tools:
+            say("tool %-36s wall %.3f s, device busy %s [%s]"
+                % (name, wall, "not measured" if busy is None
+                   else "%.3f s" % busy, smi))
+        for name, (wall, dev_s, _span) in sorted(human["phases"].items(),
+                                                  key=lambda kv: -kv[1][0]):
+            say("human-genome build phase %-18s wall %.3f s, device busy %s "
+                "[%s]" % (name, wall, "%.3f s" % dev_s if dev_s
+                          else "not measured", smi))
+        say("peak device memory: human-genome build %.3f GiB, path %.3f GiB "
+            "[%s]" % (human["peak_build"] / 2 ** 30,
+                      human.get("peak", 0) / 2 ** 30, smi))
+        say("chip_smoke.py: %.3f s from its start to the report [%s]"
+            % (time.monotonic() - t_start, smi))
+        say(smi)
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     LAYOUTS_OF = {4: ("sector", "bitplane"), 7: ("bitplane",),
                   200: ("bytes",)}
 
@@ -339,6 +1108,78 @@ def main() -> int:
         seg = np.diff(np.r_[pos, n])
         start = (pos + seg) % n          # lane 0 wraps through n-1, ...
         return [torch.from_numpy(a).to(dev) for a in (isa[start], start, seg)]
+
+    def doctor_base(bwt, sigma):
+        """Counts before position 0 that put every symbol's occ count
+        across 2^32 halfway through the rows (``ops/wideocc.py::doctored``)."""
+        cnt = np.bincount(bwt, minlength=sigma)
+        return torch.from_numpy(((1 << 32) - cnt // 2).astype(np.int64)), cnt
+
+    W22 = {"lf_walk_w": {}, "gap_chain_mk_w": {}}
+
+    def wide_lf_2_22(sigma, layout, bwt, sa, isa, t_dev, r0, p0, seg, focc,
+                     narrow):
+        """``bwt_lf_walk_w`` (final rank, verify, harvest) against its
+        plain version on rows doctored so that every count straddles 2^32;
+        the 64-bit form on the undoctored rows and on the doctored ones
+        gives the narrow form's final ranks."""
+        base, cnt = doctor_base(bwt, sigma)
+        bwt_dev = torch.from_numpy(bwt.astype(np.uint8)).to(dev)
+        w = pw.doctored(bwt_dev, sigma, layout, base)
+        if int((w.thr != pw.THR_PAD).sum()) != int((cnt > 0).sum()):
+            raise AssertionError("the doctored rows do not wrap once per "
+                                 "symbol")
+        undoctored = build_focc_device(bwt_dev, sigma, layout, wide=True)
+        del bwt_dev
+        checks = {}
+        k, k_ms = timed(lambda: lw.lf_walk(w, r0, 256), reps=5)
+        p, p_ms = timed(lambda: lw.lf_walk_plain(w, r0, 256))
+        same = lw.lf_walk(focc, r0, 256)
+        if not (torch.equal(k, same)
+                and torch.equal(lw.lf_walk(undoctored, r0, 256), same)):
+            raise AssertionError("the 64-bit form's final ranks differ from "
+                                 "the narrow form's")
+        checks["lf_walk"] = (max_err(k, p), k_ms, p_ms)
+        k, k_ms = timed(lambda: lw.verify_walk(w, t_dev, r0, p0, seg),
+                        reps=5)
+        p, p_ms = timed(lambda: lw.verify_walk_plain(w, t_dev, r0, p0, seg))
+        if int(k.sum()) != 1:
+            raise AssertionError("the 64-bit verify walk found %d "
+                                 "mismatches, want 1" % int(k.sum()))
+        checks["verify_walk"] = (max_err(k, p), k_ms, p_ms)
+        (ks, ki), k_ms = timed(lambda: lw.harvest_walk(
+            w, r0, p0, seg, 32, 262144), reps=5)
+        (ps, pi), p_ms = timed(lambda: lw.harvest_walk_plain(
+            w, r0, p0, seg, 32, 262144))
+        if not (np.array_equal(ks.cpu().numpy(), sa[::32])
+                and np.array_equal(ki.cpu().numpy(), isa[::262144])):
+            raise AssertionError("the 64-bit harvest walk disagrees with "
+                                 "the sort")
+        checks["harvest_walk"] = (max(max_err(ks, ps), max_err(ki, pi)),
+                                  k_ms, p_ms)
+        # bytes moved once and steps taken, as lf_compare counts them
+        lanes, total = len(r0), int(seg.sum())
+        tables = nbytes(w.rows, w.thr, w.C)
+        work = {"lf_walk": (tables + 16 * lanes + 4 * lanes, 256 * lanes),
+                "verify_walk": (tables + nbytes(t_dev) + 24 * lanes
+                                + 8 * lanes, total),
+                "harvest_walk": (tables + 28 * lanes + nbytes(ks, ki), total)}
+        ops = LF_STEP_OPS[layout] + WIDE_STEP_OPS
+        for name, (err, k_ms, p_ms) in checks.items():
+            b_ms, b_by = bound(work[name][0], work[name][1] * ops)
+            checks[name] = (err, k_ms, p_ms, b_ms, b_by)
+            say("kernel %-12s 64-bit form, sigma=%-3d %-8s rows n=2^22 "
+                "doctored across 2^32, lanes=%d: max_abs_err %d, kernel "
+                "%.3f ms (narrow form %.3f ms), plain %.3f ms, bound %.3f ms "
+                "(%s)" % (name, sigma, layout, lanes, err, k_ms,
+                          narrow[name][1], p_ms, b_ms, b_by))
+            if err:
+                raise AssertionError("%s's 64-bit form disagrees with its "
+                                     "plain version" % name)
+        W22["lf_walk_w"]["sigma=%d %s" % (sigma, layout)] = {
+            name: {"max_abs_err": e, "ms": k_ms, "narrow_ms": narrow[name][1],
+                   "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+            for name, (e, k_ms, p_ms, b_ms, b_by) in checks.items()}
 
     n_small, nlanes = 1 << 22, 131072
     for sigma, layouts in LAYOUTS_OF.items():
@@ -395,6 +1236,8 @@ def main() -> int:
                 if err:
                     raise AssertionError("%s disagrees with its plain "
                                          "version" % name)
+            wide_lf_2_22(sigma, layout, bwt, sa, isa, t_dev, r0, p0, seg,
+                         focc, checks)
 
     # ---- 3b. what the walk's step rate follows: table size and lanes ---
     # kernel only (no plain version: the LF step of any symbol sequence is
@@ -426,123 +1269,73 @@ def main() -> int:
         del foccs
 
     # ---- 4. gap-chain kernel against its plain version at 2^22 ---------
-    def level_lanes(level):
-        """(kid, starts, seeds, lens) of an anchored level, as numpy."""
-        return (np.concatenate([np.full(sp.T, sp.k) for sp in level.specs]),
-                np.concatenate([sp.starts for sp in level.specs]),
-                np.concatenate([sp.seeds for sp in level.specs]),
-                np.concatenate([sp.lens for sp in level.specs]))
-
-    def mk_args(level, focc, kd, st):
-        return (focc, level.text_dev, level.gt_dev, level.c_first,
-                level.table, kd, st)
-
-    def level_buffers(level, focc):
-        gap = torch.empty(focc.n + 1, dtype=torch.int32, device=dev)
-        samp = torch.empty(level._nsamp, dtype=torch.int32, device=dev)
-
-        def clear():
-            gap.zero_()
-            samp.fill_(-1)
-
-        return gap, samp, clear
-
-    def level_compare(level, foccs, lanes, reps, warm_plain, label, lb=64):
-        """``bwt_gap_chain_mk`` against its plain version on the lanes
-        (kid, starts, seeds, lens) of ``level`` (a ``BatchedGapRunner``):
-        the recording form, then the anchor form over ``lb`` steps from
-        each merge's rank 0 and from its top, per rank-row layout in
-        ``foccs`` (more than one only for a level of one merge, whose
-        rank base is 0 on every layout).  Where ``level`` has computed its
-        own histogram and samples on that layout, both are held to them
-        too.  Returns {layout: {max_abs_err, ms, plain_ms, bound_ms,
-        bound_by, forms, steps, lanes}}, the times summed over the three
-        launches."""
-        kid, starts, seeds, lens = lanes
-        level._ensure_gt(level._caps(kid, starts + lb))
-        kd, st, sd, ln = level._lanes(kid, starts, seeds, lens)
-        rate = level.sample_rate
-        steps = int(lens.sum())
-        left = sum(sp.m - sp.s for sp in level.specs)
-        a_st = st + lb
-        a_ln = torch.full_like(ln, lb)
-        bases = np.array([level.specs[k].rbase for k in kid])
-        tops = bases + np.array([level.specs[k].gap_size for k in kid])
-        out = {}
-        for layout, focc in foccs.items():
-            say_l = "%s %s rows," % (label, layout)
-            args = mk_args(level, focc, kd, st)
-            gap, samp, clear = level_buffers(level, focc)
-            fk, k_ms = timed(lambda: gb.chain_walk_mk(*args, sd, ln, gap,
-                                                      samp, rate),
-                             reps=reps, setup=clear)
-            if int(gap.sum()) != left:
-                raise AssertionError("gap total %d != left blocks %d"
-                                     % (int(gap.sum()), left))
-            if focc is level.focc and level.gap is not None:
-                ref_gap, ref_samp = level.gap, level._samp
-            else:
-                ref_gap, ref_samp = gap.clone(), samp.clone()
-            errs = [max(max_err(gap, ref_gap), max_err(samp, ref_samp))]
-            fp, p_ms = timed(lambda: gb.gap_chain_mk_plain(
-                *args, sd, ln, gap, samp, rate), warm=warm_plain,
-                setup=clear)
-            errs.append(max(max_err(fk, fp), max_err(gap, ref_gap),
-                            max_err(samp, ref_samp)))
-            # each input read once, each output written once
-            nb = (nbytes(focc.rows, level.table, level.c_first) + steps
-                  + steps // 8 + len(st) * (4 + 8 + 4 + 4 + 4)
-                  + 4 * gap.numel() + 4 * samp.numel())
-            b_ms, b_by = bound(nb, steps * CHAIN_STEP_OPS[layout])
-            forms = {"recording": k_ms}
-            kt, pt = k_ms, p_ms
-            say("kernel gap_chain_mk %s chain form (%d steps): max_abs_err "
-                "%d, kernel %.3f ms (%.2f G steps/s), plain %.3f ms, bound "
-                "%.3f ms (%s)" % (say_l, steps, max(errs), k_ms,
-                                  steps / k_ms / 1e6, p_ms, b_ms, b_by))
-            del ref_gap, ref_samp, gap, samp, fk, fp
-            for which, r0s in (("from rank 0", bases),
-                               ("from the top", tops)):
-                a_sd = torch.from_numpy(gb.u32_bits(r0s)).to(dev)
-                a_args = (*mk_args(level, focc, kd, a_st), a_sd, a_ln)
-                k, k_ms = timed(lambda: gb.anchor_walk_mk(*a_args),
-                                reps=reps)
-                p_, p_ms = timed(lambda: gb.gap_chain_mk_plain(*a_args),
-                                 warm=warm_plain)
-                errs.append(max_err(k, p_))
-                ab_ms, _by = bound(
-                    nbytes(focc.rows, level.table, level.c_first)
-                    + lb * len(st) * 9 // 8 + len(st) * 24,
-                    lb * len(st) * CHAIN_STEP_OPS[layout])
-                b_ms += ab_ms
-                kt, pt = kt + k_ms, pt + p_ms
-                forms["anchor " + which] = k_ms
-                say("kernel gap_chain_mk %s anchor form %s, %d steps: "
-                    "max_abs_err %d, kernel %.3f ms, plain %.3f ms, bound "
-                    "%.3f ms" % (say_l, which, lb, errs[-1], k_ms, p_ms,
-                                 ab_ms))
-            if max(errs):
-                raise AssertionError("gap_chain_mk disagrees with its plain "
-                                     "version on %s rows" % layout)
-            out[layout] = {"max_abs_err": max(errs), "ms": kt,
-                           "plain_ms": pt, "bound_ms": b_ms,
-                           "bound_by": b_by, "forms": forms, "steps": steps,
-                           "lanes": len(st), "merges": len(level.specs)}
-        return out
-
     def one_merge(text_dev, text_host, sigma, s, m, e, r_start, hist, packed,
-                  rate, layouts, lane_bucket=1 << 16):
-        """A pair merge as a level of one, and its rank rows per layout."""
+                  rate, layouts, lane_bucket=1 << 16, wide=False):
+        """A pair merge as a level of one, and its rank rows per layout;
+        with ``wide`` the runner's wide mode (the 64-bit form) and wide
+        rows."""
         bits = bits_for(sigma)
         level = gb.BatchedGapRunner(
             text_dev, text_host, sigma, [(s, m, e, r_start, hist)], [packed],
             bits, lane_bucket=lane_bucket, sample_rate=rate,
-            layout=layouts[0])
+            layout=layouts[0], wide=wide)
         foccs = {layouts[0]: level.focc}
         for lay in layouts[1:]:
-            foccs[lay] = build_focc_concat([packed], [e - m], sigma, bits,
-                                           lay)[0]
+            foccs[lay] = (build_focc_from_packed(packed, e - m, sigma, bits,
+                                                 lay, wide=True) if wide
+                          else build_focc_concat([packed], [e - m], sigma,
+                                                 bits, lay)[0])
         return level, foccs
+
+    def chain_at_base(level, focc, lanes, rbase, label):
+        """The 64-bit form with the merge's ranks moved up by ``rbase``
+        (past 2^32): the rank rows', histogram's pointers handed to the
+        kernel lowered by the same rows and cells, c_first, isa_m and the
+        seeds raised by ``rbase``, so that every rank the kernel computes,
+        writes and indexes with passes 2^32.  Held to the plain version
+        at rank base 0: final ranks and samples less ``rbase``, the
+        histogram cell for cell.  A direct launch: not counted."""
+        kid, starts, seeds, lens = lanes
+        kd, st, sd, ln = level._lanes(kid, starts, seeds, lens)
+        rate = level.sample_rate
+        gap, samp, clear = level_buffers(level, focc)
+        clear()
+        fp = gb.gap_chain_mk_plain(*mk_args(level, focc, kd, st), sd, ln,
+                                   gap, samp, rate)
+        want_gap, want_samp = gap.clone(), samp.clone()
+        clear()
+        table = level.table.clone()
+        table[:, gb.M_K0] += rbase
+        c_first = level.c_first + rbase
+        thr, _c64 = pw.kernel_tables(focc)
+        sd_hi = sd + rbase
+        r_out = torch.empty_like(sd)
+        shift = rbase >> focc.SHIFT
+        lib = _build.load("gap_chain")
+        rc = lib.bwt_gap_chain_mk_w(
+            ctypes.c_void_p(focc.rows.data_ptr()
+                            - shift * focc.rows.shape[1]),
+            focc.rows.shape[1], ctypes.c_void_p(thr.data_ptr()), focc.sigma,
+            *(ctypes.c_void_p(t.data_ptr()) for t in (
+                level.text_dev, level.gt_dev, c_first, table, kd, st)),
+            ctypes.c_void_p(sd_hi.data_ptr()),
+            ctypes.c_void_p(ln.data_ptr()), ctypes.c_void_p(r_out.data_ptr()),
+            ctypes.c_void_p(gap.data_ptr() - 8 * rbase),
+            ctypes.c_void_p(samp.data_ptr()), rate, len(sd),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        torch.cuda.synchronize()
+        if rc:
+            raise RuntimeError("bwt_gap_chain_mk_w failed: %d" % rc)
+        seen = samp != -1
+        err = max(max_err(r_out - rbase, fp), max_err(gap, want_gap),
+                  max_err(torch.where(seen, samp - rbase, -1), want_samp))
+        say("kernel gap_chain_mk 64-bit form, %s, rank base 2^32 + 2^20 "
+            "(ranks %d..%d): max_abs_err %d against the plain version at "
+            "base 0" % (label, rbase, rbase + focc.n, err))
+        if err or int(r_out.min()) < 1 << 32:
+            raise AssertionError("the 64-bit chain disagrees at a rank base "
+                                 "past 2^32")
+        return err
 
     for sigma, layouts in LAYOUTS_OF.items():
         rng = np.random.default_rng(args.seed + 40 + sigma)
@@ -575,7 +1368,44 @@ def main() -> int:
                     and np.array_equal(level.specs[0].seeds,
                                        R[level.specs[0].starts + 1])):
                 raise AssertionError("gap chain disagrees with the sort")
-        del level, foccs, sa, isa, R
+        # the 64-bit form on the same merge: the wide runner's rows, then
+        # rows doctored so that every count crosses 2^32 (c_first lowered
+        # by the same base), its own anchors and chains on them, and a
+        # rank base past 2^32
+        packed = rows_from_host_bwt(rbwt, sigma, dev)
+        wlevel, wfoccs = one_merge(
+            torch.from_numpy(text).to(dev), text, sigma, 0, m_g, n_g,
+            int(R[m_g]), np.bincount(text[m_g:], minlength=sigma), packed,
+            64, layouts, wide=True)
+        base, _cnt = doctor_base(rbwt, sigma)
+        c_first0 = wlevel.c_first
+        rbwt_dev = torch.from_numpy(rbwt).to(dev)
+        lanes_w = (np.zeros(len(starts), np.int64), starts, R[starts + 1],
+                   lens)
+        for lay, wf in wfoccs.items():
+            label = ("sigma=%-3d right 2^22 ranks, left 2^22, 65536 lanes:"
+                     % sigma)
+            res = level_compare(wlevel, {lay: wf}, lanes_w, 5, True, label)
+            doc = pw.doctored(rbwt_dev, sigma, lay, base)
+            wlevel.focc, wlevel.c_first = doc, c_first0 - base.to(dev)
+            wlevel.compute()
+            view = wlevel.view(0)
+            if not (np.array_equal(view.harvest_samples()[1], R[0:m_g:64])
+                    and np.array_equal(
+                        view.gap.cpu().numpy(),
+                        np.bincount(R[:m_g], minlength=n_g - m_g + 1))):
+                raise AssertionError("the 64-bit chain on doctored rows "
+                                     "disagrees with the sort")
+            res_d = level_compare(wlevel, {lay: doc}, lanes_w, 5, True,
+                                  label + " doctored across 2^32,")
+            wlevel.focc, wlevel.c_first = wf, c_first0
+            err = chain_at_base(wlevel, wf, lanes_w, (1 << 32) + (1 << 20),
+                                "sigma=%d %s rows" % (sigma, lay))
+            W22["gap_chain_mk_w"]["sigma=%d %s" % (sigma, lay)] = {
+                "rows": res[lay], "doctored": res_d[lay],
+                "rank_base_past_2^32_max_abs_err": err}
+            del doc
+        del level, foccs, wlevel, wfoccs, sa, isa, R, rbwt_dev
 
     # ---- 5. single-block path -------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
@@ -587,55 +1417,6 @@ def main() -> int:
     say("input: n=%d ACGT with 1000 mutated repeats, made in %.2f s (host)"
         % (args.n, time.monotonic() - t0))
     bwt_path = inp + ".bwt"
-    tools = []
-
-    def run_tool(name, argv, fn=None):
-        """One CLI call (or ``fn()``, a library call that returns an exit
-        code): (exit code, stdout, {phase: (wall s, device s)}), with its
-        wall time and the card's busy time (kernel time sum from the
-        profiler); the tool's stderr log is echoed."""
-        torch.cuda.synchronize()
-        buf, ebuf = io.StringIO(), io.StringIO()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU,
-                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()       # the profiler's set-up and
-            try:                        # teardown stay out
-                with contextlib.redirect_stdout(buf), \
-                        contextlib.redirect_stderr(ebuf):
-                    rc = fn() if fn else dispatch(argv)
-                torch.cuda.synchronize()
-            finally:
-                sys.stderr.write(ebuf.getvalue())
-            wall = time.monotonic() - t0
-        evs = prof.key_averages()
-        cuda = torch.autograd.DeviceType.CUDA
-        busy_us = sum(e.self_device_time_total for e in evs
-                      if e.device_type == cuda and not e.is_user_annotation)
-        # per engine phase: the device time of the kernels launched inside
-        # its span (host-side range) and the span on the card's timeline
-        dev_us, span_us = {}, {}
-        for e in evs:
-            if e.key.startswith(PHASE_PREFIX):
-                k = e.key[len(PHASE_PREFIX):]
-                d = span_us if e.device_type == cuda else dev_us
-                d[k] = d.get(k, 0) + e.device_time_total
-        walls = {}
-        for line in ebuf.getvalue().splitlines():
-            if "phases (wall s): " in line:
-                walls = json.loads(line.split("phases (wall s): ", 1)[1])
-        phases = {k: (walls.get(k, 0.0), dev_us.get(k, 0) / 1e6,
-                      span_us.get(k, 0) / 1e6)
-                  for k in sorted(set(walls) | set(dev_us))}
-        tools.append((name, wall, busy_us / 1e6))
-        out = buf.getvalue()
-        say("%s: exit %d, wall %.3f s, device busy %s | %s"
-            % (name, rc, wall, "%.3f s" % (busy_us / 1e6) if busy_us
-               else "not measured", out.strip().replace("\n", " ")))
-        run_tool.log = ebuf.getvalue()
-        return rc, out, phases
-
-    path_counts = {}
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     rc, _, _ = run_tool("bwtb3m", ["bwtb3m", "inputtype=bytestream",
@@ -698,100 +1479,6 @@ def main() -> int:
         "lexsort doubling %.2f s on the host): ok" % t_np)
 
     # ---- 7. LF-walk kernel at the single-block path's shapes -------------
-    def lf_compare(bwt_file, raw_text, label,
-                   layouts=("sector", "bitplane"),
-                   forms=("lf_walk", "verify_walk", "harvest_walk")):
-        """Every LF-walk form against its plain version on the seeds and
-        segments that checkbwt and bwtcomputessa give it for ``bwt_file``:
-        on the rank rows the tools built (sector rows for DNA) and on
-        bit-plane rows of the same BWT, the kernel timed in turns (sector,
-        bit-plane, bit-plane, sector), for the ``layouts`` and ``forms``
-        asked.  Returns {layout: {max_abs_err, ms,
-        plain_ms, bound_ms, bound_by, forms}}; ms, plain_ms and bound_ms
-        are summed over the forms the tools launch (verify + harvest)."""
-        res = BwtResult.load(bwt_file)
-        focc, symmap = res.load_focc(dev)
-        if focc.LAYOUT != "sector":
-            raise AssertionError("the tools' rank rows for DNA are %s rows, "
-                                 "not sector rows" % focc.LAYOUT)
-        n = focc.n
-        foccs = {"sector": focc}
-        if "bitplane" in layouts:
-            bwt_dev = torch.cat([access(focc, torch.arange(
-                a, min(n, a + (1 << 24)), device=dev)).to(torch.uint8)
-                for a in range(0, n, 1 << 24)])
-            foccs["bitplane"] = build_focc_device(bwt_dev, focc.sigma,
-                                                  "bitplane")
-            del bwt_dev
-        ranks, positions, _rate = res.load_preisa()
-        ranks, positions, seg = seed_segments(ranks, positions,
-                                              len(raw_text))
-        table = np.zeros(256, np.uint8)
-        table[symmap] = np.arange(len(symmap))
-        t_dev = torch.from_numpy(table[raw_text]).to(dev)
-        r0, p0, sl = (torch.from_numpy(a).to(dev)
-                      for a in (ranks, positions, seg))
-        steps, total = int(seg.max()), int(seg.sum())
-        lane_io = len(ranks) * 4
-
-        def runs(f):
-            return {
-                "lf_walk": (lambda: lw.lf_walk(f, r0, steps),
-                            lambda: lw.lf_walk_plain(f, r0, steps),
-                            nbytes(f.rows) + 2 * lane_io,
-                            len(ranks) * steps),
-                "verify_walk": (
-                    lambda: lw.verify_walk(f, t_dev, r0, p0, sl),
-                    lambda: lw.verify_walk_plain(f, t_dev, r0, p0, sl),
-                    nbytes(f.rows, t_dev) + 5 * lane_io, total),
-                "harvest_walk": (
-                    lambda: torch.cat(lw.harvest_walk(f, r0, p0, sl, 32,
-                                                      262144)),
-                    lambda: torch.cat(lw.harvest_walk_plain(
-                        f, r0, p0, sl, 32, 262144)),
-                    nbytes(f.rows) + 4 * lane_io
-                    + 4 * (-(-n // 32) - (-n // 262144)), total),
-            }
-
-        out = {lay: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
-                     "bound_ms": 0.0, "bound_by": "bytes", "forms": {}}
-               for lay in foccs}
-        for name in forms:
-            k_ms = {lay: 0.0 for lay in foccs}
-            for lay in ("sector", "bitplane", "bitplane", "sector"):
-                if lay not in foccs:
-                    continue
-                k, ms = timed(runs(foccs[lay])[name][0], reps=3)
-                k_ms[lay] += ms / 2
-            for lay, f in foccs.items():
-                kern, plain, nb, nsteps = runs(f)[name]
-                k = kern()
-                p, p_ms = timed(plain, warm=False)
-                err = max_err(k, p)
-                b_ms, b_by = bound(nb, nsteps * LF_STEP_OPS[lay])
-                say("kernel %-12s %s, %s rows (n=%d, %d lanes, %d steps "
-                    "max): max_abs_err %d, kernel %.3f ms, plain %.3f ms, "
-                    "bound %.3f ms (%s)"
-                    % (name, label, lay, n, len(ranks), steps, err,
-                       k_ms[lay], p_ms, b_ms, b_by))
-                if err:
-                    raise AssertionError("%s disagrees with its plain "
-                                         "version on the %s, %s rows"
-                                         % (name, label, lay))
-                o = out[lay]
-                o["forms"][name] = k_ms[lay]
-                if name != "lf_walk":       # the forms the tools launch
-                    o["ms"] += k_ms[lay]
-                    o["plain_ms"] += p_ms
-                    o["bound_ms"] += b_ms
-                    o["bound_by"] = b_by
-        for lay, o in out.items():
-            say("kernel lf_walk, the tools' forms (verify_walk + "
-                "harvest_walk) on the %s, %s rows: kernel %.3f ms, plain "
-                "%.3f ms, bound %.3f ms"
-                % (label, lay, o["ms"], o["plain_ms"], o["bound_ms"]))
-        return out
-
     lf_single = lf_compare(bwt_path, text, "single-block path")
     del text
     shutil.rmtree(WORK, ignore_errors=True)
@@ -854,20 +1541,7 @@ def main() -> int:
     say("merge path launches: %s" % path_counts["merge path"])
     if min(path_counts["merge path"][k] for k in LIBRARIES) < 1:
         raise AssertionError("the merge path did not launch every kernel")
-    resm = BwtResult.load(bwtm)
-    pr, pp, prate = resm.load_preisa()
-    _r, sa_s = load_sampled_array(inpm + ".sa")
-    _r, isa_s = load_sampled_array(inpm + ".isa")
-    on_isa = pp % 262144 == 0
-    on_sa = pr % 32 == 0
-    if not (np.array_equal(isa_s[pp[on_isa] // 262144], pr[on_isa])
-            and np.array_equal(sa_s[pr[on_sa] // 32], pp[on_sa])
-            and on_isa.sum() == len(isa_s)):
-        raise AssertionError("bwtcomputessa's .sa/.isa disagree with the "
-                             "merge build's .preisa")
-    say("bwtcomputessa .sa/.isa agree with the merge build's .preisa: %d "
-        "ISA samples, %d SA samples at preisa pairs"
-        % (int(on_isa.sum()), int(on_sa.sum())))
+    prate = ssa_agrees_with_preisa(bwtm, "merge build")
     # the LF walk at the merge path's shapes (the rank rows come from the
     # memo that checkbwt and bwtcomputessa filled)
     lf_merge = lf_compare(bwtm, text, "merge path")
@@ -896,6 +1570,28 @@ def main() -> int:
     root = "root merge (left %d, right %d ranks" % (m_r - s_r, e_r - m_r)
     gc = level_compare(level, foccs, lanes, 3, False,
                        "%s, %d lanes):" % (root, len(starts)))
+    # the same merge through the runner's wide mode and the kernel's
+    # 64-bit form (what BWTB3M_FORCE_WIDE and a merge past 2^32 run):
+    # its own anchors give the same lanes, then the kernel against its
+    # plain version on them, beside the narrow form's times above
+    wlevel, wfoccs = one_merge(ctx.text_dev, ctx.text, 4, s_r, m_r, e_r,
+                               right.r_start, right.hist, right.packed,
+                               prate, ("sector",), wide=True)
+    wlevel.anchor_all()
+    if not all(np.array_equal(a, b)
+               for a, b in zip(level_lanes(wlevel), lanes)):
+        raise AssertionError("the wide runner's anchors differ from the "
+                             "narrow runner's")
+    gcw = level_compare(wlevel, wfoccs, lanes, 3, False,
+                        "%s, %d lanes):" % (root, len(starts)))
+    for lay, o in gcw.items():
+        say("gap_chain_mk %s, %d lanes), %s rows: 64-bit form %.3f ms "
+            "(recording %.3f), narrow form %.3f ms (recording %.3f): %.3f x "
+            "[%s]" % (root, len(starts), lay, o["ms"],
+                      o["forms"]["recording"], gc[lay]["ms"],
+                      gc[lay]["forms"]["recording"],
+                      o["ms"] / gc[lay]["ms"], smi))
+    del wlevel, wfoccs
 
     # the chain's own two questions, kernel only.  (a) the anchor form
     # over the root's lanes at their full length: the recording walk
@@ -971,11 +1667,66 @@ def main() -> int:
         l2(g0)
     del ctx, level, foccs, right, dense, gap, samp, gap_ref
 
+    # ---- 10b. the forced-wide merge path -------------------------------
+    # the 400M build once more with every merge wide; its files, checkbwt
+    # and bwtcomputessa (wide rows, the LF walk's 64-bit form) against the
+    # narrow run's
+    bwtw = os.path.join(WORK, "big_wide.bwt")
+    os.environ["BWTB3M_FORCE_WIDE"] = "1"
+    try:
+        reset_counts()
+        rc, _, wide_phases = run_tool("bwtb3m BWTB3M_FORCE_WIDE=1 (merge "
+                                      "path)", [
+            "bwtb3m", "inputtype=bytestream", "bwtonly=1", "device=cuda",
+            "mem=%d" % args.merge_mem, "outputfilename=" + bwtw, inpm])
+        if rc != 0 or "wide pair merge" not in run_tool.log:
+            raise AssertionError("the forced-wide build failed or did not "
+                                 "take the wide merges")
+        for ext in ("bwt", "hist", "preisa"):
+            if open(inpm + "." + ext, "rb").read() != \
+                    open(bwtw[:-4] + "." + ext, "rb").read():
+                raise AssertionError(".%s of the forced-wide build differs "
+                                     "from the narrow build" % ext)
+        say("BWTB3M_FORCE_WIDE=1 build == narrow build at n=%d: .bwt .hist "
+            ".preisa byte-identical" % nm)
+        rc, out, _ = run_tool("checkbwt BWTB3M_FORCE_WIDE=1 (merge path)", [
+            "checkbwt", "inputtype=bytestream", "device=cuda", inpm, bwtw])
+        if rc != 0 or "gok=1" not in out or "wide rows" not in run_tool.log:
+            raise AssertionError("checkbwt on wide rows did not print gok=1")
+        rc, _, _ = run_tool("bwtcomputessa BWTB3M_FORCE_WIDE=1 (merge path)",
+                            ["bwtcomputessa", "sasamplingrate=32",
+                             "isasamplingrate=262144", "device=cuda", bwtw])
+        for ext in ("sa", "isa"):
+            if rc != 0 or open(inpm + "." + ext, "rb").read() != \
+                    open(bwtw[:-4] + "." + ext, "rb").read():
+                raise AssertionError("bwtcomputessa's .%s on wide rows "
+                                     "differs from the narrow run's" % ext)
+        say("checkbwt gok=1 and bwtcomputessa .sa/.isa byte-identical to "
+            "the narrow run's, on wide rows")
+        path_counts["forced-wide merge path"] = counts()
+        say("forced-wide merge path launches: %s"
+            % path_counts["forced-wide merge path"])
+        c = path_counts["forced-wide merge path"]
+        if min(c["lf_walk_w"], c["gap_chain_mk_w"]) < 1 \
+                or c["lf_walk"] + c["gap_chain"] + c["lf_walk_select"]:
+            raise AssertionError("the forced-wide path did not run on the "
+                                 "64-bit forms alone")
+        lf_wide = lf_compare(bwtw, np.fromfile(inpm, np.uint8),
+                             "forced-wide merge path", ("sector",),
+                             ("verify_walk", "harvest_walk"), wide=True)
+        for lay, o in lf_wide.items():
+            say("kernel lf_walk verify + harvest at n=%d, %s rows: 64-bit "
+                "form %.3f ms, narrow form %.3f ms: %.3f x [%s]"
+                % (nm, lay, o["ms"], lf_merge[lay]["ms"],
+                   o["ms"] / lf_merge[lay]["ms"], smi))
+    finally:
+        del os.environ["BWTB3M_FORCE_WIDE"]
+
     # ---- 11. the genome path ---------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     ng = args.genome_n
-    wide = ng >= 1 << 31      # checkbwt and the SA tools need wide lanes
+    wide = ng >= 1 << 32      # the tools' walks take the 64-bit form
     inpg = os.path.join(WORK, "genome.bin")
     t0 = time.monotonic()
     text = make_text(ng, args.seed + 11)
@@ -986,10 +1737,9 @@ def main() -> int:
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     rc, _, genome_phases = run_tool("bwtb3m (genome path)", [
-        "bwtb3m", "inputtype=bytestream", "bwtonly=%d" % wide,
-        "sasamplingrate=32", "isasamplingrate=262144", "device=cuda",
-        "mem=%d" % args.genome_mem, "hostmem=%d" % args.genome_hostmem,
-        inpg])
+        "bwtb3m", "inputtype=bytestream", "bwtonly=0", "sasamplingrate=32",
+        "isasamplingrate=262144", "device=cuda", "mem=%d" % args.genome_mem,
+        "hostmem=%d" % args.genome_hostmem, inpg])
     if rc != 0:
         raise AssertionError("bwtb3m failed on the genome path")
     build_log = run_tool.log
@@ -1005,57 +1755,45 @@ def main() -> int:
         want_levels += k // 2 >= 2
         depth += 1               # one chain launch per level of the tree
         k -= k // 2
-    if len(levels) != want_levels or gb.LAUNCHES["chain"] != depth:
+    chains = gb.LAUNCHES["chain"] + gb.LAUNCHES["chain64"]
+    if len(levels) != want_levels or chains != depth:
         raise AssertionError("%d blocks: expected %d batched levels of %d, "
                              "the build ran %d (%d launches of the chain "
                              "form)" % (nblocks, want_levels, depth,
-                                        len(levels), gb.LAUNCHES["chain"]))
-    if not wide:
-        if "hand-off" not in build_log:
-            raise AssertionError("the build's SA/ISA walk did not take its "
-                                 "rank rows from the hand-off")
-        rc, out, _ = run_tool("checkbwt (genome path, in the build's "
-                              "process)", ["checkbwt", "inputtype=bytestream",
-                                           "device=cuda", inpg, bwtg])
-        if rc != 0 or "gok=1" not in out or "decode" in run_tool.log:
-            raise AssertionError("checkbwt through the hand-off did not "
-                                 "print gok=1, or decoded the file")
-        t0 = time.monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "bwtb3m_tpu_torch", "checkbwt",
-             "inputtype=bytestream", "device=cuda", inpg, bwtg], cwd=REPO,
-            capture_output=True, text=True, timeout=900)
-        sys.stderr.write(proc.stderr)
-        say("checkbwt (genome path, fresh process, from .bwt): exit %d, "
-            "wall %.3f s with the interpreter's start | %s [%s]"
-            % (proc.returncode, time.monotonic() - t0, proc.stdout.strip(),
-               smi))
-        if proc.returncode != 0 or "gok=1" not in proc.stdout \
-                or "decode" not in proc.stderr:
-            raise AssertionError("checkbwt in a fresh process did not print "
-                                 "gok=1 from the file")
-        isa_build = open(inpg + ".isa", "rb").read()
-        rc, _, _ = run_tool("hwtPreIsaToIsa (genome path)", [
-            "hwtPreIsaToIsa", "isasamplingrate=262144", "device=cuda", bwtg])
-        if rc != 0 or open(inpg + ".isa", "rb").read() != isa_build:
-            raise AssertionError("hwtPreIsaToIsa's .isa differs from the "
-                                 "build's")
-        # select_ssa of 2^20 ranks that the .sa samples name
-        _r, sa_s = load_sampled_array(inpg + ".sa")
-        rng = np.random.default_rng(args.seed + 12)
-        want_ranks = 32 * rng.integers(0, len(sa_s), 1 << 20)
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        got = select_ssa(bwtg, want_ranks, device=dev)
-        t_sel = time.monotonic() - t0
-        if not np.array_equal(got, sa_s[want_ranks // 32]):
-            raise AssertionError("select_ssa disagrees with the .sa samples")
-        say("select_ssa: 2^20 ranks agree with the .sa samples they name, "
-            "%.3f s wall [%s]" % (t_sel, smi))
+                                        len(levels), chains))
+    if "hand-off" not in build_log:
+        raise AssertionError("the build's SA/ISA walk did not take its "
+                             "rank rows from the hand-off")
+    rc, out, _ = run_tool("checkbwt (genome path, in the build's process)",
+                          ["checkbwt", "inputtype=bytestream", "device=cuda",
+                           inpg, bwtg])
+    if rc != 0 or "gok=1" not in out or "decode" in run_tool.log:
+        raise AssertionError("checkbwt through the hand-off did not print "
+                             "gok=1, or decoded the file")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bwtb3m_tpu_torch", "checkbwt",
+         "inputtype=bytestream", "device=cuda", inpg, bwtg], cwd=REPO,
+        capture_output=True, text=True, timeout=900)
+    sys.stderr.write(proc.stderr)
+    say("checkbwt (genome path, fresh process, from .bwt): exit %d, wall "
+        "%.3f s with the interpreter's start | %s [%s]"
+        % (proc.returncode, time.monotonic() - t0, proc.stdout.strip(), smi))
+    if proc.returncode != 0 or "gok=1" not in proc.stdout \
+            or "decode" not in proc.stderr:
+        raise AssertionError("checkbwt in a fresh process did not print "
+                             "gok=1 from the file")
+    isa_build = open(inpg + ".isa", "rb").read()
+    rc, _, _ = run_tool("hwtPreIsaToIsa (genome path)", [
+        "hwtPreIsaToIsa", "isasamplingrate=262144", "device=cuda", bwtg])
+    if rc != 0 or open(inpg + ".isa", "rb").read() != isa_build:
+        raise AssertionError("hwtPreIsaToIsa's .isa differs from the build's")
+    # select_ssa stops at 2^32 symbols (ROADMAP.md item 8)
+    want_ranks = None if wide else select_agrees_with_sa(bwtg, args.seed + 12)
     peak_genome = torch.cuda.max_memory_allocated()
     path_counts["genome path"] = counts()
     say("genome path launches: %s" % path_counts["genome path"])
-    need = ("gap_chain", "gap_chain_mk") if wide else tuple(KERNELS)
+    need = ("lf_walk_w", "gap_chain_mk", "gap_chain_mk_w") if wide else NARROW
     if min(path_counts["genome path"][k] for k in need) < 1:
         raise AssertionError("the genome path did not launch every kernel")
 
@@ -1063,213 +1801,149 @@ def main() -> int:
     # versions at the shapes the tools gave them (the rank rows come from
     # the memo the hand-off filled): the select visit on all of
     # select_ssa's lanes, the verify and harvest walks on checkbwt's and
-    # the SA/ISA walk's lanes
-    gsel = lf_genome = None
-    if not wide:
-        focc, _symmap = BwtResult.load(bwtg).load_focc(dev)
-        pr_ranks, _pp, prate_g = BwtResult.load(bwtg).load_preisa()
-        words = np.zeros(ng // 32 + 1, np.uint32)
-        np.bitwise_or.at(words, pr_ranks >> 5,
-                         np.uint32(1) << (pr_ranks & 31).astype(np.uint32))
-        bitw = torch.from_numpy(words.view(np.int32)).to(dev)
-        r_all = torch.from_numpy(want_ranks).to(dev)
-        cap = 2 * (int(prate_g) + 512)
-        (kr, ks_), sel_ms = timed(lambda: lw.select_walk(focc, bitw, r_all,
-                                                         cap), reps=3)
-        sel_steps = int(ks_.sum())
-        (pr_, ps_), sel_plain_ms = timed(lambda: lw.select_walk_plain(
-            focc, bitw, r_all, cap), warm=False)
-        sel_err = max(max_err(kr, pr_), max_err(ks_, ps_))
-        # each step reads its row's sector and a bitmap word; the data
-        # decide the steps
-        sel_bound, sel_by = bound(
-            nbytes(focc.rows, bitw) + len(r_all) * 16,
-            (sel_steps + len(r_all)) * (LF_STEP_OPS["sector"] + 5))
-        say("kernel lf_walk select visit, genome path (n=%d, %d lanes, %d "
-            "steps, %d at most): max_abs_err %d, kernel %.3f ms (%.2f G "
-            "steps/s), plain %.3f ms, bound %.3f ms (%s) [%s]"
-            % (ng, len(r_all), sel_steps, int(ks_.max()), sel_err, sel_ms,
-               sel_steps / sel_ms / 1e6, sel_plain_ms, sel_bound, sel_by,
-               smi))
-        if sel_err or int(ks_.min()) < 0:
-            raise AssertionError("the select visit disagrees with its plain "
-                                 "version")
-        gsel = {"sector": {"max_abs_err": sel_err, "ms": sel_ms,
-                           "plain_ms": sel_plain_ms, "lanes": len(r_all),
-                           "steps": sel_steps, "bound_ms": sel_bound,
-                           "bound_by": sel_by, "forms": {"select": sel_ms}}}
-        del focc, bitw, kr, ks_, pr_, ps_, r_all
-        lf_genome = lf_compare(bwtg, text, "genome path", ("sector",),
-                               ("verify_walk", "harvest_walk"))
+    # the SA/ISA walk's lanes (and through the 64-bit form on the same rows
+    # widened)
+    gsel = None if wide else select_compare(bwtg, want_ranks, "genome path")
+    lf_genome = lf_compare(bwtg, text, "genome path",
+                           ("sector",) if wide else ("sector", "sector_w"),
+                           ("verify_walk", "harvest_walk"), wide=wide,
+                           sample=PLAIN_SAMPLE)
+    lf_genome_w = lf_genome.pop("sector_w", None)
 
-    pair_phases = {}
-    if not wide:
-        # the same build pair by pair, through the library's entry point:
-        # the same files, and check_bwt of the result it returns takes
-        # the build's device symbols (the hand-off, no decode)
-        outp = os.path.join(WORK, "pairs.bwt")
-        argv = ["bwtb3m", "inputtype=bytestream", "bwtonly=1",
-                "batchmerges=0", "device=cuda", "mem=%d" % args.genome_mem,
-                "hostmem=%d" % args.genome_hostmem,
-                "outputfilename=" + outp, inpg]
-        built = []
+    # bwt_gap_chain_mk against its plain version at every shape the
+    # genome build gives it: the build once more through the engine,
+    # where every level's runner, right after its own anchors and
+    # chains, has its lanes replayed through the kernel and the plain
+    # version; the peak device memory of every block sort and level
+    # is held to the figures the engine's gates plan with
+    optsg = BwtOptions(input_path=inpg, mem=args.genome_mem,
+                       device="cuda", checkpoint=False,
+                       output_filename=os.path.join(WORK, "replay.bwt"))
+    table = np.zeros(256, np.uint8)
+    table[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    dense = table[text]
+    del text
+    prate_g = BwtResult.load(bwtg).load_preisa()[2]
+    replay, replay_w = [], []
+    mem = {"peak": 0, "sorts": [], "levels": []}
+    orig_compute = gb.BatchedGapRunner.compute
+    orig_pairs = merge_scaled._merge_pairs
+    orig_sort = merge_scaled._sort_block
 
-        def build_pairs():
-            built.append(compute_bwt(BwtOptions.from_arginfo(
-                ArgInfo(argv[1:], progname="bwtb3m"))))
-            return 0
+    def used(base):
+        return max(mem["peak"],
+                   torch.cuda.max_memory_allocated()) - base
 
-        rc, _, pair_phases = run_tool("bwtb3m batchmerges=0 (genome path, "
-                                      "compute_bwt)", argv, fn=build_pairs)
-        if rc != 0 or "batched level" in run_tool.log:
-            raise AssertionError("bwtb3m batchmerges=0 failed or batched")
-        for ln in run_tool.log.splitlines():
-            if "pair merge: " in ln:
-                say("genome build batchmerges=0, %s [%s]"
-                    % (ln.split("] ", 1)[-1], smi))
-        for ext in ("bwt", "hist", "preisa"):
-            if open(inpg + "." + ext, "rb").read() != \
-                    open(outp[:-4] + "." + ext, "rb").read():
-                raise AssertionError(".%s of batchmerges=0 differs from "
-                                     "batchmerges=1" % ext)
-        say("batchmerges=1 == batchmerges=0 at n=%d: .bwt .hist .preisa "
-            "byte-identical" % ng)
-        rc, _, _ = run_tool(
-            "check_bwt of that build's result (hand-off)", [],
-            fn=lambda: 0 if check_bwt(built[0], text, device="cuda",
-                                      log=VerboseLog(1)) else 1)
-        if rc != 0 or "hand-off" not in run_tool.log \
-                or "decode" in run_tool.log:
-            raise AssertionError("check_bwt of the build's own result "
-                                 "failed, or did not take the hand-off")
-        del built[:]
+    def fresh_peak():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem["peak"] = 0
+        return torch.cuda.memory_allocated()
 
-    gmk = None
-    if not wide:
-        # bwt_gap_chain_mk against its plain version at every shape the
-        # genome build gives it: the build once more through the engine,
-        # where every level's runner, right after its own anchors and
-        # chains, has its lanes replayed through the kernel and the plain
-        # version; the peak device memory of every block sort and level
-        # is held to the figures the engine's gates plan with
-        optsg = BwtOptions(input_path=inpg, mem=args.genome_mem,
-                           device="cuda", checkpoint=False,
-                           output_filename=os.path.join(WORK, "replay.bwt"))
-        table = np.zeros(256, np.uint8)
-        table[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
-        dense = table[text]
-        del text
-        prate_g = BwtResult.load(bwtg).load_preisa()[2]
-        replay, mem = [], {"peak": 0, "sorts": [], "levels": []}
-        orig_compute = gb.BatchedGapRunner.compute
-        orig_pairs = merge_scaled._merge_pairs
-        orig_sort = merge_scaled._sort_block
+    def spy_compute(self, *a, **k):
+        orig_compute(self, *a, **k)
+        mem["peak"] = used(0)
+        rec, rec_w = replay_level(self, "genome build")
+        replay.append(rec)
+        if rec_w:
+            replay_w.append(rec_w)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()   # the replay's buffers
 
-        def used(base):
-            return max(mem["peak"],
-                       torch.cuda.max_memory_allocated()) - base
+    def spy_pairs(ctx, pairs):
+        base = fresh_peak()
+        out = orig_pairs(ctx, pairs)
+        mem["levels"].append((len(pairs), used(base),
+                              merge_scaled.level_bytes_estimate(
+                                  pairs, ctx.sigma, ctx.bits, wide=any(
+                                      merge_scaled._is_wide(l, r)
+                                      for l, r in pairs))))
+        return out
 
-        def fresh_peak():
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            mem["peak"] = 0
-            return torch.cuda.memory_allocated()
+    def spy_sort(ctx, s, e):
+        base = fresh_peak()
+        reg = orig_sort(ctx, s, e)
+        mem["sorts"].append((e - s, used(base)))
+        return reg
 
-        def spy_compute(self, *a, **k):
-            orig_compute(self, *a, **k)
-            mem["peak"] = used(0)
-            rec = level_compare(
-                self, {"sector": self.focc}, level_lanes(self), 3, False,
-                "genome build, level of %d merge(s), %d ranks:"
-                % (len(self.specs), self.focc.n))["sector"]
-            rec["in_build_recording_ms"] = self.chain_ms
-            replay.append(rec)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()   # the replay's buffers
+    gb.BatchedGapRunner.compute = spy_compute
+    merge_scaled._merge_pairs = spy_pairs
+    merge_scaled._sort_block = spy_sort
+    t0 = time.monotonic()
+    try:
+        _bwt, spos, srank, _hist = merge_scaled.blockwise_bwt_scaled(
+            dense, 4, optsg, VerboseLog(0), sample_rate=prate_g,
+            device=dev)
+    finally:
+        gb.BatchedGapRunner.compute = orig_compute
+        merge_scaled._merge_pairs = orig_pairs
+        merge_scaled._sort_block = orig_sort
+    del _bwt, dense
+    pr_ranks, pr_pos, _rate = BwtResult.load(bwtg).load_preisa()
+    if not (np.array_equal(spos, pr_pos)
+            and np.array_equal(srank, pr_ranks)):
+        raise AssertionError("the replayed build's samples differ from "
+                             "the genome build's .preisa")
+    say("genome build replayed with every level against the plain "
+        "version: %d levels (%s merges), %.2f s, samples equal the "
+        "build's .preisa"
+        % (len(replay), " ".join(str(r["merges"]) for r in replay),
+           time.monotonic() - t0))
+    if [r["merges"] for r in replay][:want_levels] != [
+            int(ln.split("batched level: ")[1].split()[0])
+            for ln in levels]:
+        raise AssertionError("the replay's levels are not the build's")
+    la_cap = max(1024, optsg.large_lcp_thres)
+    for blen, peak in mem["sorts"]:
+        lo = merge_scaled.SORT_BYTES_PER_SYMBOL * (blen + 1024)
+        hi = merge_scaled.SORT_BYTES_PER_SYMBOL * (blen + la_cap)
+        say("block sort of %d symbols: peak %d bytes (%.2f per window "
+            "symbol at the first lookahead), the gate plans %d [%s]"
+            % (blen, peak, peak / (blen + 1024), lo, smi))
+        if peak > hi or lo > 1.3 * peak:
+            raise AssertionError("SORT_BYTES_PER_SYMBOL is off the "
+                                 "measured peak of a block sort")
+    for npairs, peak, est in mem["levels"]:
+        say("level of %d merge(s): peak %d bytes beyond the text and its "
+            "regions, level_bytes_estimate %d (%.2f x) [%s]"
+            % (npairs, peak, est, est / peak, smi))
+        if peak > est or est > 1.5 * peak:
+            raise AssertionError("level_bytes_estimate is off the "
+                                 "measured peak of a level")
+    gmk = {"sector": dict(replay[0], levels=replay)}
 
-        def spy_pairs(ctx, pairs):
-            base = fresh_peak()
-            out = orig_pairs(ctx, pairs)
-            mem["levels"].append((len(pairs), used(base),
-                                  merge_scaled.level_bytes_estimate(
-                                      pairs, ctx.sigma, ctx.bits)))
-            return out
-
-        def spy_sort(ctx, s, e):
-            base = fresh_peak()
-            reg = orig_sort(ctx, s, e)
-            mem["sorts"].append((e - s, used(base)))
-            return reg
-
-        gb.BatchedGapRunner.compute = spy_compute
-        merge_scaled._merge_pairs = spy_pairs
-        merge_scaled._sort_block = spy_sort
-        t0 = time.monotonic()
-        try:
-            _bwt, spos, srank, _hist = merge_scaled.blockwise_bwt_scaled(
-                dense, 4, optsg, VerboseLog(0), sample_rate=prate_g,
-                device=dev)
-        finally:
-            gb.BatchedGapRunner.compute = orig_compute
-            merge_scaled._merge_pairs = orig_pairs
-            merge_scaled._sort_block = orig_sort
-        del _bwt, dense
-        pr_ranks, pr_pos, _rate = BwtResult.load(bwtg).load_preisa()
-        if not (np.array_equal(spos, pr_pos)
-                and np.array_equal(srank, pr_ranks)):
-            raise AssertionError("the replayed build's samples differ from "
-                                 "the genome build's .preisa")
-        say("genome build replayed with every level against the plain "
-            "version: %d levels (%s merges), %.2f s, samples equal the "
-            "build's .preisa"
-            % (len(replay), " ".join(str(r["merges"]) for r in replay),
-               time.monotonic() - t0))
-        if [r["merges"] for r in replay][:want_levels] != [
-                int(ln.split("batched level: ")[1].split()[0])
-                for ln in levels]:
-            raise AssertionError("the replay's levels are not the build's")
-        la_cap = max(1024, optsg.large_lcp_thres)
-        for blen, peak in mem["sorts"]:
-            lo = merge_scaled.SORT_BYTES_PER_SYMBOL * (blen + 1024)
-            hi = merge_scaled.SORT_BYTES_PER_SYMBOL * (blen + la_cap)
-            say("block sort of %d symbols: peak %d bytes (%.2f per window "
-                "symbol at the first lookahead), the gate plans %d [%s]"
-                % (blen, peak, peak / (blen + 1024), lo, smi))
-            if peak > hi or lo > 1.3 * peak:
-                raise AssertionError("SORT_BYTES_PER_SYMBOL is off the "
-                                     "measured peak of a block sort")
-        for npairs, peak, est in mem["levels"]:
-            say("level of %d merge(s): peak %d bytes beyond the text and its "
-                "regions, level_bytes_estimate %d (%.2f x) [%s]"
-                % (npairs, peak, est, est / peak, smi))
-            if peak > est or est > 1.5 * peak:
-                raise AssertionError("level_bytes_estimate is off the "
-                                     "measured peak of a level")
-        gmk = {"sector": dict(replay[0], levels=replay)}
+    # ---- 11b. the human-genome path --------------------------------------
+    text = None
+    human = {"phases": {}}
+    if args.human_n:
+        human = human_path(args.human_n, args.human_mem, args.human_hostmem,
+                           args.human_bwtonly, args.human_checks)
 
     # ---- 12. report -----------------------------------------------------
     for name, wall, busy in tools:
-        say("tool %-36s wall %.3f s, device busy %.3f s [%s]"
-            % (name, wall, busy, smi))
+        say("tool %-36s wall %.3f s, device busy %s [%s]"
+            % (name, wall, "not measured" if busy is None
+               else "%.3f s" % busy, smi))
     for name, (wall, dev_s, span_s) in sorted(merge_phases.items(),
                                               key=lambda kv: -kv[1][0]):
         say("merge build phase %-18s wall %.3f s, device busy %s, device "
             "span %s [%s]" % (name, wall, "%.3f s" % dev_s if dev_s
                               else "not measured", "%.3f s" % span_s
                               if span_s else "not measured", smi))
-    for name in sorted(set(genome_phases) | set(pair_phases),
-                       key=lambda k: -genome_phases.get(k, (0,))[0]):
-        say("genome build phase %-18s batchmerges=1: wall %s, device busy "
-            "%s | batchmerges=0 (bwtonly=1): wall %s, device busy %s [%s]"
-            % ((name,) + tuple(
-                "%.3f s" % ph[name][i] if name in ph and ph[name][i]
-                else "not measured"
-                for ph in (genome_phases, pair_phases) for i in (0, 1))
-               + (smi,)))
+    for label, phases in (("genome build", genome_phases),
+                          ("forced-wide merge build", wide_phases),
+                          ("human-genome build", human["phases"])):
+        for name, (wall, dev_s, _span) in sorted(phases.items(),
+                                                  key=lambda kv: -kv[1][0]):
+            say("%s phase %-18s wall %.3f s, device busy %s [%s]"
+                % (label, name, wall, "%.3f s" % dev_s if dev_s
+                   else "not measured", smi))
     say("peak device memory: single-block path %.3f GiB, merge path %.3f "
-        "GiB, genome path (build, checkbwt and the SA tools) %.3f GiB [%s]"
+        "GiB, genome path (build, checkbwt and the SA tools) %.3f GiB, "
+        "human-genome build %.3f GiB, path %.3f GiB [%s]"
         % (peak_single / 2 ** 30, peak_merge / 2 ** 30,
-           peak_genome / 2 ** 30, smi))
+           peak_genome / 2 ** 30, human.get("peak_build", 0) / 2 ** 30,
+           human.get("peak", 0) / 2 ** 30, smi))
     shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     if loaded:
@@ -1279,17 +1953,36 @@ def main() -> int:
     for name, per_layout, extra in (
             ("lf_walk", lf_merge,
              {"layouts_single_block_path": lf_single,
-              "layouts_genome_path": lf_genome}),
+              "layouts_genome_path": lf_genome,
+              "layouts_human_genome_path": human.get("lf")}),
             ("gap_chain", gc,
              {"entry": "bwt_gap_chain_mk, one merge per launch",
               "root_full_length_ms": full,
               "root_recording_ms_by_log2_lanes": by_lanes}),
             ("gap_chain_mk", gmk,
-             {"entry": "bwt_gap_chain_mk, the genome build's levels"}),
-            ("lf_walk_select", gsel, {})):
-        if per_layout is None:            # a text of 2^31 symbols or more
+             {"entry": "bwt_gap_chain_mk, the genome build's levels",
+              "human_genome_levels": human.get("levels")}),
+            ("lf_walk_select", gsel,
+             {"human_genome_path": human.get("select")}),
+            ("lf_walk_w", lf_wide,
+             {"entry": "bwt_lf_walk_w, the 64-bit form",
+              "narrow_form_ms": lf_merge["sector"]["ms"],
+              "doctored_2^22": W22["lf_walk_w"],
+              "genome_path_rows_widened": lf_genome_w,
+              "human_genome_path_rows_widened": human.get("lf_w")}),
+            ("gap_chain_mk_w", gcw,
+             {"entry": "bwt_gap_chain_mk_w, the 64-bit form, at the root "
+              "merge of the 400M build",
+              "narrow_form_ms": gc["sector"]["ms"],
+              "doctored_2^22": W22["gap_chain_mk_w"],
+              "genome_levels_of_one_merge_rows_widened": replay_w,
+              "human_genome_levels_of_one_merge_rows_widened":
+              human.get("levels_w")})):
+        if per_layout is None:     # select_ssa stops at 2^32 symbols
             continue
         main = per_layout["sector"]       # the layout the path ran
+        groups = [per_layout] + [v for v in extra.values()
+                                 if isinstance(v, (dict, list))]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1],
@@ -1297,14 +1990,13 @@ def main() -> int:
             "shapes_of": ROW_PATH[name],
             "launches_by_path": {p: c[name]
                                  for p, c in path_counts.items()},
-            "max_abs_err": max(
-                v["max_abs_err"]
-                for group in (per_layout, lf_single, lf_genome or {})
-                for v in group.values()),
+            "max_abs_err": max(errors_in(groups)),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "layout": "sector", "layouts": per_layout,
             **extra})
+    say("chip_smoke.py: %.3f s from its start to the report [%s]"
+        % (time.monotonic() - t_start, smi))
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

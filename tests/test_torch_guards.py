@@ -111,8 +111,6 @@ def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
     ({"engine": "sharded"}, "item 9"),
     ({"bwt_codec": "rlh"}, "item 8"),
     ({"engine": "merge", "bwt_codec": "rlh"}, "item 8"),
-    ({"engine": "merge", "env": "BWTB3M_FORCE_WIDE"}, "item 6"),
-    ({"max_block_symbols": 256, "env": "BWTB3M_FORCE_WIDE"}, "item 6"),
 ])
 def test_unported_build_paths_raise(tmp_path, monkeypatch, kw, match):
     kw = dict(kw)
@@ -136,13 +134,33 @@ def test_merge_engine_paths_run(tmp_path, kw):
 
 
 def test_merge_engine_refuses_wide_merges(tmp_path):
+    """A merge past 2^32 takes the wide path and is never batched: a
+    batch that holds one is refused before anything runs (the wide path
+    itself: tests/test_torch_gapwide.py)."""
     from bwtb3m_tpu_torch.engine import merge_scaled as ms
     reg = ms.Region(0, 1 << 32, None, np.zeros(1, np.uint8), None, None, 0,
                     None)
     right = ms.Region(1 << 32, (1 << 32) + 256, None, None, None, None, 0,
                       None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ms._merge_pairs(None, [(reg, right)])
+    tail = ms.Region((1 << 32) + 256, (1 << 32) + 512, None, None, None,
+                     None, 0, None)
+    assert ms._is_wide(reg, right)
+    assert not ms._level_fits_batched(None, [(reg, right), (right, tail)])
+    with pytest.raises(ValueError, match="not batched"):
+        ms._merge_pairs(None, [(reg, right), (right, tail)])
+
+
+@pytest.mark.parametrize("kw", [{"engine": "merge"},
+                                {"max_block_symbols": 256}])
+def test_forced_wide_build_paths_run(tmp_path, monkeypatch, kw):
+    """engine=merge and auto above max_block_symbols under
+    BWTB3M_FORCE_WIDE take the wide merge path (they raised before it was
+    ported) and build what checkbwt accepts."""
+    monkeypatch.setenv("BWTB3M_FORCE_WIDE", "1")
+    inp = _dna(tmp_path)
+    res = compute_bwt(BwtOptions(input_path=inp, device="cpu", verbose=0,
+                                 bwt_only=True, **kw))
+    assert check_bwt(res, np.fromfile(inp, np.uint8), device="cpu")
 
 
 def test_sigma_above_256_checks_raise(tmp_path):

@@ -10,6 +10,7 @@ builds into ``bwtb3m_tpu_torch/build/`` under a per-process temporary
 name, so concurrent first uses all end with a loadable library.
 """
 
+import contextlib
 import gzip
 import importlib
 import os
@@ -42,12 +43,56 @@ def _bytes(path):
         return f.read()
 
 
+@contextlib.contextmanager
+def _reference_library(private_dir):
+    """The reference's ``native`` module with a library of its own.
+
+    The reference builds its library into one fixed
+    ``_bwtb3m_native.so.tmp`` beside its source; xdist workers that
+    import it at once race on that file, and a worker that loses gets
+    ``get_lib() is None`` for the rest of its life, so its writers take
+    their Python fallbacks (other lz4 bytes, no ``decode_all_u8``).  When
+    this process has no library, the reference builds one under
+    ``private_dir()`` (its ``.tmp`` then lies there too, where no other
+    worker writes); its attributes are restored on exit.  A
+    ``BWTB3M_NO_NATIVE`` in the environment (the reference's switch to
+    its fallbacks, which reproduces a lost race) is set aside for the
+    build."""
+    ref = importlib.import_module("bwtb3m_tpu.native")
+    if ref.get_lib() is not None:
+        yield ref
+        return
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the reference's native library cannot be "
+                    "built here")
+    saved = (ref._SO, ref._tried, ref._lib)
+    no_native = os.environ.pop("BWTB3M_NO_NATIVE", None)
+    ref._SO = os.path.join(str(private_dir()), "_bwtb3m_native.so")
+    ref._tried, ref._lib = False, None
+    try:
+        assert ref.get_lib() is not None, "the reference's g++ build failed"
+        yield ref
+    finally:
+        ref._SO, ref._tried, ref._lib = saved
+        if no_native is not None:
+            os.environ["BWTB3M_NO_NATIVE"] = no_native
+
+
+@pytest.fixture(scope="module")
+def ref_native(tmp_path_factory):
+    """The comparisons with the reference's native path run against a
+    library, whatever the xdist build race left this worker."""
+    with _reference_library(
+            lambda: tmp_path_factory.mktemp("ref_native")) as ref:
+        yield ref
+
+
 @pytest.mark.parametrize("sigma,n,runs,block", [
     (4, 10000, True, 4096), (4, 5000, False, 65536), (200, 7000, True, 1000),
     (256, 3000, False, 512), (1, 100, True, 64), (300, 2000, True, 256),
     (5000, 3000, False, 1024), (4, 0, False, 64)])
 def test_rl_codec_byte_identical_and_cross_loads(tmp_path, sigma, n, runs,
-                                                 block):
+                                                 block, ref_native):
     ref, port = both("io.rl")
     syms = _syms(n, sigma, sigma + n, runs)
     pr, pp = str(tmp_path / "ref.bwt"), str(tmp_path / "port.bwt")
@@ -181,7 +226,7 @@ def test_input_type_loaders_equal(tmp_path):
                                       getattr(port, fn)(t, 7, 6))
 
 
-def test_compact_pac_lz4_writers_byte_identical(tmp_path):
+def test_compact_pac_lz4_writers_byte_identical(tmp_path, ref_native):
     rng = np.random.default_rng(5)
     codes = rng.integers(0, 4, 1001).astype(np.uint8)
     wide = rng.integers(0, 32, 777).astype(np.uint8)
@@ -333,7 +378,7 @@ def test_bam_writer_byte_identical(tmp_path):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_native_entry_points_equal(seed):
+def test_native_entry_points_equal(seed, ref_native):
     ref, port = both("native")
     assert port.get_lib() is not None, port._error
     rng = np.random.default_rng(seed)
@@ -358,6 +403,35 @@ def test_native_entry_points_equal(seed):
     payload = big[:1000]
     np.testing.assert_array_equal(port.unpack_pac(payload, 3999, 1),
                                   ref.unpack_pac(payload, 3999, 1))
+
+
+def test_reference_library_lost_to_the_build_race_is_rebuilt(tmp_path):
+    """A worker whose reference ``get_lib()`` already returned None (it
+    lost the build race: ``_tried`` set, no library) still gets one from
+    what the ``ref_native`` fixture does, and the byte comparisons
+    hold."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the reference's native library cannot be "
+                    "built here")
+    ref = importlib.import_module("bwtb3m_tpu.native")
+    saved = (ref._SO, ref._tried, ref._lib)
+    ref._tried, ref._lib = True, None
+    try:
+        assert ref.get_lib() is None            # the lost race, replayed
+        with _reference_library(
+                lambda: (tmp_path / "lib").mkdir() or tmp_path / "lib") as mod:
+            assert mod is ref and ref.get_lib() is not None
+            assert ref._SO.startswith(str(tmp_path))
+            assert os.listdir(tmp_path / "lib") == ["_bwtb3m_native.so"]
+            test_native_entry_points_equal(0, mod)
+            work = tmp_path / "work"
+            work.mkdir()
+            test_rl_codec_byte_identical_and_cross_loads(
+                work, 4, 10000, True, 4096, mod)
+            test_compact_pac_lz4_writers_byte_identical(work, mod)
+        assert (ref._tried, ref._lib) == (True, None)
+    finally:
+        ref._SO, ref._tried, ref._lib = saved
 
 
 def test_port_keeps_only_the_entry_points_it_calls():

@@ -266,3 +266,106 @@ def test_kernels_refuse_rows_of_another_layout(cuda):
                      focc.n - 64, focc.sigma)
     with pytest.raises(ValueError, match="32-byte aligned"):
         lw.lf_walk(odd, r0.clamp(max=focc.n - 65), 1)
+
+
+# ------------------------------------------------- the 64-bit forms (wide)
+
+def _doctored(focc, bwt, sigma, layout, cuda):
+    """Wide rows of ``bwt`` whose occ counts cross 2^32 halfway through
+    every symbol (``ops/wideocc.py::doctored``): each rank reads a hi
+    word, and a walk still visits the undoctored ranks."""
+    from bwtb3m_tpu_torch.ops import wideocc as pw
+    cnt = np.bincount(bwt, minlength=sigma)
+    base = torch.from_numpy(((1 << 32) - cnt // 2).astype(np.int64))
+    w = pw.doctored(torch.from_numpy(bwt.astype(np.uint8)).to(cuda), sigma,
+                    layout if layout != "auto" else focc.LAYOUT, base)
+    assert int((w.thr != pw.THR_PAD).sum()) == int((cnt > 0).sum())
+    return w
+
+
+@pytest.mark.parametrize("sigma,layout", ROWS)
+def test_lf_walk_w_kernel_matches_plain(cuda, sigma, layout):
+    """``bwt_lf_walk_w`` (final rank, verify and harvest visits) on rows
+    whose counts straddle 2^32, against its plain version and the sort;
+    on undoctored rows the narrow and the 64-bit form give the same
+    ranks."""
+    from bwtb3m_tpu_torch.ops.focc_build import build_focc_device
+    n = (1 << 16) + 37
+    text, sa, isa, focc, (r0, p0, seg) = _build(sigma, n, 64, cuda, layout)
+    bwt = text[(sa - 1) % n]
+    w = _doctored(focc, bwt, sigma, layout, cuda)
+    before = dict(lw.LAUNCHES)
+    got = lw.lf_walk(w, r0, 300)
+    assert lw.LAUNCHES["none64"] == before["none64"] + 1
+    assert torch.equal(got, lw.lf_walk_plain(w, r0, 300))
+    assert torch.equal(got, lw.lf_walk(focc, r0, 300))
+    t = torch.from_numpy(text).to(cuda)
+    t[1000] = (t[1000] + 1) % sigma
+    bad = lw.verify_walk(w, t, r0, p0, seg)
+    assert lw.LAUNCHES["verify64"] == before["verify64"] + 1
+    assert torch.equal(bad, lw.verify_walk_plain(w, t, r0, p0, seg))
+    assert int(bad.sum()) == 1
+    sa_k, isa_k = lw.harvest_walk(w, r0, p0, seg, 32, 48)
+    assert lw.LAUNCHES["harvest64"] == before["harvest64"] + 1
+    sa_p, isa_p = lw.harvest_walk_plain(w, r0, p0, seg, 32, 48)
+    assert torch.equal(sa_k, sa_p) and torch.equal(isa_k, isa_p)
+    np.testing.assert_array_equal(sa_k.cpu().numpy(), sa[::32])
+    np.testing.assert_array_equal(isa_k.cpu().numpy(), isa[::48])
+    plain_rows = build_focc_device(torch.from_numpy(bwt.astype(np.uint8))
+                                   .to(cuda), sigma, w.LAYOUT, wide=True)
+    assert torch.equal(lw.lf_walk(plain_rows, r0, 300), got)
+
+
+@pytest.mark.parametrize("sigma,layout", ROWS)
+def test_gap_chain_mk_w_kernel_matches_plain(cuda, sigma, layout):
+    """``bwt_gap_chain_mk_w``: a wide runner's own anchors and chains on
+    the card give the sort's ranks, on its rows and on rows doctored so
+    that every count crosses 2^32 (c_first lowered by the same base);
+    both forms against the plain version on the same lanes."""
+    from bwtb3m_tpu_torch.ops import gapbatch as gb
+    from bwtb3m_tpu_torch.ops.devzip import bits_for, rows_from_host_bwt
+    n = (1 << 16) + 37
+    rng = np.random.default_rng(sigma * 31 + n)
+    text = rng.integers(0, sigma, n).astype(np.uint8)
+    m = n // 2
+    sa, isa, _bwt = suffix_array(text, sigma, "cpu")
+    right = sa[sa >= m]
+    rbwt = text[(right - 1) % n]
+    R = np.searchsorted(np.sort(isa[m:]), isa)
+    runner = gb.BatchedGapRunner(
+        torch.from_numpy(text).to(cuda), text, sigma,
+        [(0, m, n, int(R[m]), np.bincount(text[m:], minlength=sigma))],
+        [rows_from_host_bwt(rbwt, sigma, cuda)], bits_for(sigma),
+        lane_bucket=512, sample_rate=64, layout=layout, wide=True)
+    for doctor in (False, True):
+        if doctor:
+            w = _doctored(runner.focc, rbwt, sigma, layout, cuda)
+            cnt = np.bincount(rbwt, minlength=sigma)
+            runner.focc = w
+            runner.c_first = runner.c_first - torch.from_numpy(
+                ((1 << 32) - cnt // 2).astype(np.int64)).to(cuda)
+        before = dict(gb.LAUNCHES)
+        runner.compute()
+        assert gb.LAUNCHES["chain64"] == before["chain64"] + 1
+        assert gb.LAUNCHES["anchor64"] >= before["anchor64"] + 2
+        assert runner.gap.dtype == torch.int64
+        np.testing.assert_array_equal(runner.gap.cpu().numpy(),
+                                      np.bincount(R[:m], minlength=n - m + 1))
+        np.testing.assert_array_equal(runner.view(0).harvest_samples()[1],
+                                      R[0:m:64])
+        sp = runner.specs[0]
+        kd, st, sd, ln = runner._lanes(np.zeros(sp.T), sp.starts, sp.seeds,
+                                       sp.lens)
+        args = (runner.focc, runner.text_dev, runner.gt_dev, runner.c_first,
+                runner.table, kd, st)
+        gap = torch.zeros_like(runner.gap)
+        samp = torch.full_like(runner._samp, -1)
+        fp = gb.gap_chain_mk_plain(*args, sd, ln, gap, samp, 64)
+        assert torch.equal(gap, runner.gap) and torch.equal(
+            samp, runner._samp)
+        np.testing.assert_array_equal(fp.cpu().numpy(), sp.final_rs)
+        for r0 in (0, sp.gap_size):
+            sd0 = torch.full_like(sd, r0)
+            ln0 = ln.clamp(max=50)
+            assert torch.equal(gb.anchor_walk_mk(*args, sd0, ln0),
+                               gb.gap_chain_mk_plain(*args, sd0, ln0))
