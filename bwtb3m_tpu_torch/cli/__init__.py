@@ -9,8 +9,12 @@ The ported tools keep the reference package's argument surface and add
     hwtPreIsaToIsa  .isa at a chosen rate from .bwt + .preisa
     sortPreIsa      sort a .preisa by position (host only)
     sasubsample     thin a sampled .sa by a power of two (host only)
+    lcpbit          the succinct PLCP bit vector (.lcpbit) of a build
+    hwtToLCP        the .ulcp, .lcp and .rmm files of a build's LCP
+    checkLCPBit     verify a .lcpbit, prints lcpok=0|1
 
-(the last four live in ``cli/ssa_tools.py``, as in the reference).
+(the sampled-SA tools live in ``cli/ssa_tools.py`` and the LCP tools
+in ``cli/lcp_tools.py``, as in the reference).
 
 Every other tool of the reference package exits 2 with the ROADMAP.md
 item that will port it.
@@ -23,23 +27,21 @@ from typing import List
 
 import numpy as np
 
-from . import ssa_tools
+from . import lcp_tools, ssa_tools
 from ..io.inputtypes import parse_input_type
 from ..util.args import ArgInfo
 from ..util.log import VerboseLog
 
 # reference tools not ported yet -> ROADMAP.md Queue 1 item
 NOT_PORTED = {
-    "lcpbit": 7, "hwtToLCP": 7, "checkLCPBit": 7,
-    **{name: 8 for name in (
+    name: 8 for name in (
         "probeScanDna", "allHamDna", "bwtb3mdecoderl", "bwtdecodeblock",
         "bwttohwt", "hwtToRlHwt", "bwttodnarank", "bwttodnarank256",
         "bwtb3mtobwa", "arraytocompact", "fa4suffixarraytocompact",
         "fagzToCompact", "fagzToCompact4", "fagzToCompactUTerm",
         "fagzToCompact4BigBand", "fagzToCompact4BigBandBiDir",
         "digitsToCompact", "decodecompact", "bytestreamToLz4",
-        "bwttestdecodespeed")},
-}
+        "bwttestdecodespeed")}
 
 
 def checkbwt(argv: List[str]) -> int:
@@ -68,7 +70,8 @@ def bwtb3m(argv: List[str]) -> int:
     return main_bwtb3m(argv)
 
 
-TOOLS = {"bwtb3m": bwtb3m, "checkbwt": checkbwt, **ssa_tools.TOOLS}
+TOOLS = {"bwtb3m": bwtb3m, "checkbwt": checkbwt, **ssa_tools.TOOLS,
+         **lcp_tools.TOOLS}
 
 
 def dispatch(argv: List[str]) -> int:

@@ -11,7 +11,7 @@ importers use ``get_lib()`` and handle None.  A CUDA run calls
 when the library cannot be built: the numpy fallbacks are minutes slower
 at the sizes a GPU run has.
 
-Only the entry points the port calls are here; ``sais``, ``kasai_plcp``,
+Only the entry points the port calls are here; ``sais``,
 ``gap_interleave``, ``gt0``, ``rlh_decode_runs`` and ``pack_bits_u8``
 come with the slices that need them (ROADMAP.md).
 """
@@ -98,6 +98,9 @@ def get_lib():
         lib.c_rl_encode_u8.restype = i64
         lib.c_rl_decode_u8.argtypes = [ctypes.c_char_p, pu8, i64]
         lib.c_rl_decode_u8.restype = i64
+        p32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        lib.c_kasai_plcp.argtypes = [p32, p64, i64, p64]
+        lib.c_kasai_plcp.restype = None
         _lib = lib
         return _lib
 
@@ -236,3 +239,16 @@ def gamma_decode(bits: np.ndarray, count: int):
     if used < 0:
         return None
     return out[:count]
+
+
+def kasai_plcp(text: np.ndarray, sa: np.ndarray) -> Optional[np.ndarray]:
+    """Phi/Kasai PLCP (int64) of the circular text; None without the
+    native library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    text = np.ascontiguousarray(text, dtype=np.int32)
+    sa = np.ascontiguousarray(sa, dtype=np.int64)
+    out = np.zeros(len(text), dtype=np.int64)
+    lib.c_kasai_plcp(text, sa, len(text), out)
+    return out

@@ -11,9 +11,10 @@
 //   - the merge engine's host ops: the three-way rotation comparator,
 //     the byte histogram, the BWA .pac unpack
 //   - the RLB1 .bwt codec (io/rl.py)
+//   - the Phi/Kasai PLCP oracle (lcp/plcp.py::kasai_plcp)
 //
 // Still in the reference package only, to come with the slices that call
-// them: c_sais, c_kasai_plcp, c_gap_interleave, c_gt0, c_rlh_decode,
+// them: c_sais, c_gap_interleave, c_gt0, c_rlh_decode,
 // c_pack_bits / c_unpack_bits / c_pack_bits_u8, c_run_scan.
 
 #include <algorithm>
@@ -269,6 +270,24 @@ void c_unpack_pac(const uint8_t* pac, int64_t nbytes, int shift,
     ths.emplace_back(unpack_pac_range, pac, b0, b1, lut, out);
   }
   for (auto& th : ths) th.join();
+}
+
+// ------------------------------------------------------------- PLCP
+
+// Phi/Kasai PLCP for the circular text (verification oracle).
+void c_kasai_plcp(const int32_t* text, const int64_t* sa, int64_t n,
+                  int64_t* plcp) {
+  std::vector<int64_t> isa((size_t)n);
+  for (int64_t r = 0; r < n; ++r) isa[sa[r]] = r;
+  int64_t l = 0;
+  for (int64_t p = 0; p < n; ++p) {
+    int64_t r = isa[p];
+    if (r == 0) { plcp[p] = 0; l = 0; continue; }
+    int64_t q = sa[r - 1];
+    while (l < n && text[(p + l) % n] == text[(q + l) % n]) ++l;
+    plcp[p] = l;
+    if (l > 0) --l;
+  }
 }
 
 // --------------------------------------------------------------- RLB1 codec

@@ -39,6 +39,8 @@ ENTRY_POINTS = {
                                        i_),
                   "bwt_gap_chain_mk_w": ([p_, i_, p_, i_] + [p_] * 11
                                          + [ll_, i_, p_], i_)},
+    "kasai": {"bwt_kasai_plcp": ([p_] * 8 + [i_, ll_, ll_, i_, ll_, p_],
+                                 i_)},
 }
 
 

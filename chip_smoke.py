@@ -12,10 +12,11 @@ printed:
 
 1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
    and the port's native host library (g++), which must have built;
-2. build both kernel libraries from ``bwtb3m_tpu_torch/csrc`` (one nvcc
-   each, in parallel): the LF walk (``bwt_lf_walk`` and its 64-bit form
-   ``bwt_lf_walk_w``) and the gap chain (``bwt_gap_chain_mk``: a single
-   pair merge is a level of one; its 64-bit form ``bwt_gap_chain_mk_w``);
+2. build the three kernel libraries from ``bwtb3m_tpu_torch/csrc`` (one
+   nvcc each, in parallel): the LF walk (``bwt_lf_walk`` and its 64-bit
+   form ``bwt_lf_walk_w``), the gap chain (``bwt_gap_chain_mk``: a single
+   pair merge is a level of one; its 64-bit form ``bwt_gap_chain_mk_w``)
+   and the Kasai walk of PLCP (``bwt_kasai_plcp``);
 3. the LF-walk kernel through each of its entry points (final rank,
    verify visit, harvest visit, select visit) against its plain PyTorch
    version on the card, bit-exact, at n = 2^22 with 131,072 lanes, on
@@ -37,12 +38,23 @@ printed:
    still give the sort's ranks) and with the merge's rank base moved to
    2^32 + 2^20 (the kernel handed the rows' and histogram's pointers
    lowered by as many rows and cells);
+4b. the Kasai kernel against its plain version, bit-exact, at n = 2^22 on
+   random DNA codes (nibble windows), random bytes of sigma 200 (byte
+   windows) and DNA with 100 copies of 10,000-symbol segments (long
+   extensions before a lane's first commit), at 2^17 and 128 lanes, over
+   the whole text (the device route) and over two slabs (the slab route,
+   a > 0); with 128 lanes the plain version runs ``KASAI_CAP`` steps and
+   the kernel as many for the comparison; every PLCP is also held to the
+   host Phi/Kasai oracle, and the device encoder to the host's;
 5. the single-block path through the CLI dispatch with ``device=cuda``
    on a chromosome-sized text (n = 100,000,003 ACGT symbols from
    ``--seed``, random except for 1,000 copies of 1,000-10,000-symbol
    segments with 1% point mutations): ``bwtb3m``; ``checkbwt`` (gok=1);
    ``checkbwt`` on a copy with one BWT symbol changed (gok=0);
-   ``bwtcomputessa`` held against the build's own .sa/.isa;
+   ``bwtcomputessa`` held against the build's own .sa/.isa; then its PLCP:
+   ``lcpbit`` (the device route: the doubling sort's SA kept on the card,
+   one launch of the Kasai kernel), ``checkLCPBit`` (lcpok=1) and
+   ``checkLCPBit`` on a copy with one bit moved (lcpok=0, exit 1);
 6. an independent SA check at 2^22: on a text with a unique smallest
    terminator the circular suffix order equals the plain suffix order,
    which a short numpy prefix doubling (``np.lexsort``) computes here;
@@ -51,7 +63,8 @@ printed:
    on bit-plane rows built from the same BWT;
 8. engine against engine at 16,777,259 symbols: ``bwtb3m engine=merge
    mem=67108864`` (five blocks, three levels, a carried region) gives
-   the same .bwt/.hist/.preisa bytes as ``engine=doubling``;
+   the same .bwt/.hist/.preisa bytes as ``engine=doubling``; then
+   ``hwtToLCP checklcp=1`` on that build;
 9. the merge path at n = 400,000,009 (three blocks of the default
    mem=2G, two merges, checkpointing on): ``bwtb3m bwtonly=1`` (engine
    auto takes the scaled engine), ``checkbwt`` (gok=1), ``bwtcomputessa``
@@ -93,8 +106,17 @@ printed:
     each level's lanes replayed through the kernel and the plain version
     (``replay_level``).  That replay also holds the peak device memory of
     every block sort and level to the figures the engine's gates plan
-    with.  ``--genome-n`` of 2^32 or more runs the tools' walks through
-    the 64-bit form, and ``select_ssa`` only below;
+    with.  Before that replay, the path's PLCP: ``compute_sa_device``
+    over the build's rows (the LF-walk kernel's harvest visit at rate
+    1), ``compute_plcp_device`` (one launch of the Kasai kernel),
+    ``encode_plcp_bits_device`` and ``write_plcp_bytes``; 2^20 positions
+    from ``--seed`` held to the memory-mapped text (the rotations at p and
+    SA[ISA[p] - 1] share PLCP[p] symbols and differ after them) and to
+    the ``.lcpbit`` read back; the Kasai kernel at 2^15 to 2^18 lanes and
+    against its plain version on ``PLAIN_SAMPLE`` lanes.  ``--genome-n``
+    of 2^31 or more skips the PLCP (the reference's PLCP takes n < 2^31),
+    of 2^32 or more runs the tools' walks through the 64-bit form, and
+    ``select_ssa`` only below;
 12. the human-genome path at n = 3,200,000,021 (24 blocks at mem=2G,
     levels of 12, 6 and 3 merges, a pair and the root; ``hostmem=4G``):
     ``compute_bwt`` (``bwtonly=1``), each of whose levels is replayed
@@ -107,6 +129,7 @@ printed:
     against their plain versions (sampled), the first two also through
     the 64-bit form on the same rows widened.
     ``--human-n`` of 2^32 or more runs the wide path (64-bit forms);
+    past 2^31 the path has no PLCP, as in the reference;
     ``--human-checks build`` stops after ``check_bwt``; ``--only human``
     runs phases 1, 2 and this one alone (the runs made by hand);
 13. launch counts per path (> 0), kernel times against plain versions
@@ -119,8 +142,8 @@ kernels, and ``{"ok": true, "device": {...}}``.  A kernel's ``ms``,
 per launch; for the 64-bit forms the forced-wide 400M path's) or, for
 ``gap_chain_mk`` (the same entry at the genome build's first level of
 four merges; ``levels`` has every level) and the select visit, the
-genome path's, on the layout that path runs; ``launches`` is that
-path's count and ``layouts`` has the same numbers per layout.  Where
+genome path's, on the layout that path runs, and for the Kasai kernel
+the genome path's PLCP; ``launches`` is that path's count and ``layouts`` has the same numbers per layout.  Where
 the plain version ran on a sample of lanes, ``plain_on`` says so and
 ``plain_ms`` is that sample's.
 ``bound_ms`` is the larger of the bytes the call must move once (rank
@@ -174,13 +197,17 @@ KERNELS = {
                   "bwtb3m_tpu/engine/verify.py:201"),
     "gap_chain_mk_w": ("bwtb3m_tpu_torch/csrc/gap_chain.cu",
                        "bwtb3m_tpu/ops/gapwide.py:76"),
+    # the word-window Kasai walk of PLCP (lcpbit, hwtToLCP)
+    "kasai": ("bwtb3m_tpu_torch/csrc/kasai.cu",
+              "bwtb3m_tpu/lcp/plcp.py:187"),
 }
-LIBRARIES = ("lf_walk", "gap_chain")
+LIBRARIES = ("lf_walk", "gap_chain", "kasai")
 # the path whose launches and shapes a row of the kernels line reports
 ROW_PATH = {"lf_walk": "merge path", "gap_chain": "merge path",
             "gap_chain_mk": "genome path", "lf_walk_select": "genome path",
             "lf_walk_w": "forced-wide merge path",
-            "gap_chain_mk_w": "forced-wide merge path"}
+            "gap_chain_mk_w": "forced-wide merge path",
+            "kasai": "genome LCP path"}
 # the kernels each path must launch
 NARROW = ("lf_walk", "gap_chain", "gap_chain_mk", "lf_walk_select")
 PHASE_PREFIX = "bwtb3m::"
@@ -195,6 +222,11 @@ CHAIN_STEP_OPS = {"sector": 50, "bitplane": 150, "bytes": 160}
 # what a step of a 64-bit form adds: eight compares and adds of the hi
 # word against the wrap rows, the 64-bit C or c_first, 64-bit adds
 WIDE_STEP_OPS = 24
+# a step of csrc/kasai.cu: two wraps (64-bit add, compare, select), two
+# windows (index shift, mask, multiply, funnel shift), the XOR, lowest
+# bit, popcount and shift, three capped minima, the test; a commit adds
+# the store, the l update and the next position's tests; loads excluded
+KASAI_STEP_OPS = 40
 # the plain versions' share of the genome-scale paths: the recording
 # chain and the verify / harvest walks run plain on PLAIN_SAMPLE[0] lanes
 # spread over the path's lanes, each cut to PLAIN_SAMPLE[1] steps, and the
@@ -324,7 +356,10 @@ def main() -> int:
                                              seed_segments, select_ssa)
     from bwtb3m_tpu_torch.engine.verify import check_bwt
     from bwtb3m_tpu_torch.ops import _build
+    from bwtb3m_tpu_torch.engine.ssa import compute_sa_device
+    from bwtb3m_tpu_torch.lcp import plcp as lp
     from bwtb3m_tpu_torch.ops import gapbatch as gb
+    from bwtb3m_tpu_torch.ops import kasai as kas
     from bwtb3m_tpu_torch.ops import lf_walk as lw
     from bwtb3m_tpu_torch.ops import wideocc as pw
     from bwtb3m_tpu_torch.ops.devzip import bits_for, rows_from_host_bwt
@@ -369,6 +404,7 @@ def main() -> int:
     def reset_counts():
         lw.reset_launch_counts()
         gb.reset_launch_counts()
+        kas.kasai_walk.launches = 0
 
     def counts():
         chain = gb.LAUNCHES["chain"] + gb.LAUNCHES["anchor"]
@@ -379,6 +415,7 @@ def main() -> int:
                 "gap_chain": chain, "gap_chain_mk": chain,
                 "gap_chain_mk_w": gb.LAUNCHES["chain64"]
                 + gb.LAUNCHES["anchor64"],
+                "kasai": kas.kasai_walk.launches,
                 "gap_chain_mk (chain form)": gb.LAUNCHES["chain"],
                 "gap_chain_mk (anchor form)": gb.LAUNCHES["anchor"],
                 "lf_walk (by visit)": dict(L)}
@@ -424,13 +461,15 @@ def main() -> int:
     def uncounted():
         """Launches made to hold a kernel to its plain version inside a
         path's run are not the path's: the counts are put back."""
-        saved = dict(gb.LAUNCHES), dict(lw.LAUNCHES), lw.lf_walk.launches
+        saved = (dict(gb.LAUNCHES), dict(lw.LAUNCHES), lw.lf_walk.launches,
+                 kas.kasai_walk.launches)
         try:
             yield
         finally:
             gb.LAUNCHES.update(saved[0])
             lw.LAUNCHES.update(saved[1])
             lw.lf_walk.launches = saved[2]
+            kas.kasai_walk.launches = saved[3]
 
     def errors_in(tree):
         """Every ``max_abs_err`` (and ``..._max_abs_err``) in a nest of
@@ -1407,6 +1446,104 @@ def main() -> int:
             del doc
         del level, foccs, wlevel, wfoccs, sa, isa, R, rbwt_dev
 
+    # ---- 4b. the Kasai walk against its plain version at 2^22 ----------
+    def kasai_bound(words, npos, steps):
+        """(ms, which) of a walk over ``npos`` positions: the text words,
+        ISA and Phi read once and PLCP written once, or its steps."""
+        return bound(nbytes(words) + 12 * npos, steps * KASAI_STEP_OPS)
+
+    def kasai_run(words, phi, isa, p, pend, n, a, bits, steps=None,
+                  plain=False):
+        """(plcp, p, l, taken) of the walk over the slab of ``phi`` from
+        fresh buffers, by the kernel or its plain version."""
+        plcp = torch.zeros(isa.shape[0], dtype=torch.int32, device=dev)
+        taken = torch.zeros(len(p), dtype=torch.int32, device=dev)
+        fn = kas.kasai_plain if plain else kas.kasai_walk
+        out = fn(words, phi, isa, plcp, p, torch.zeros_like(p), pend, n, a,
+                 bits, steps=steps, taken=taken)
+        return out + (taken,)
+
+    def kasai_err(x, y):
+        return max(max_err(u, v) for u, v in zip(x, y))
+
+    def repeats_text(n, seed, copies=100, length=10_000):
+        """Random DNA codes with ``copies`` exact copies of
+        ``length``-symbol segments of itself: lanes that start inside a
+        copy extend for ``length`` / 8 steps before their first commit."""
+        rng = np.random.default_rng(seed)
+        t = rng.integers(0, 4, n).astype(np.uint8)
+        for _ in range(copies):
+            src, dst = rng.integers(0, n - length, 2)
+            t[dst:dst + length] = t[src:src + length].copy()
+        return t
+
+    KASAI_CAP = 1024     # the plain version's steps on 128-lane cases
+    kasai_22 = {}
+    n_k = 1 << 22
+    for label, sigma, text in (
+            ("sigma=4", 4, np.random.default_rng(args.seed + 60).integers(
+                0, 4, n_k).astype(np.uint8)),
+            ("sigma=200", 200, np.random.default_rng(args.seed + 61)
+             .integers(0, 200, n_k).astype(np.uint8)),
+            ("10,000-symbol repeats", 4, repeats_text(n_k, args.seed + 62))):
+        sa, _isa, _bwt = suffix_array(text, sigma, dev)
+        want = lp.kasai_plcp(text, sa)
+        words, phi_all, isa_all, bits = lp.device_walk_arrays(
+            text, sigma, torch.from_numpy(sa).to(dev))
+        for lanes in (1 << 17, 128):
+            for slabs in ([(0, n_k)], [(0, n_k // 2), (n_k // 2, n_k)]):
+                rec = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
+                       "bound_ms": 0.0, "steps": 0}
+                plcp_all = []
+                for a, b in slabs:
+                    phi, isa = phi_all[a:b], isa_all[a:b]
+                    p, pend = lp._lane_bounds(a, b, lanes, dev)
+                    full, k_ms = timed(lambda: kasai_run(
+                        words, phi, isa, p, pend, n_k, a, bits), reps=3)
+                    cap = None if lanes > KASAI_CAP else KASAI_CAP
+                    kern = full if cap is None else kasai_run(
+                        words, phi, isa, p, pend, n_k, a, bits, cap)
+                    plain, p_ms = timed(lambda: kasai_run(
+                        words, phi, isa, p, pend, n_k, a, bits, cap,
+                        plain=True), warm=False)
+                    err = kasai_err(kern, plain)
+                    steps = int(full[3].sum())
+                    b_ms, b_by = kasai_bound(words, b - a, steps)
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                    rec["ms"] += k_ms
+                    rec["plain_ms"] += p_ms
+                    rec["bound_ms"] += b_ms
+                    rec["bound_by"] = b_by
+                    rec["steps"] += steps
+                    plcp_all.append(full[0])
+                    if err or not np.array_equal(full[0].cpu().numpy(),
+                                                 want[a:b]):
+                        raise AssertionError(
+                            "the Kasai kernel disagrees with its plain "
+                            "version or the host oracle (%s, %d lanes, "
+                            "slab [%d, %d))" % (label, lanes, a, b))
+                if lanes <= KASAI_CAP:
+                    rec["plain_on"] = {"lanes": lanes,
+                                       "steps_at_most": KASAI_CAP}
+                plcp = torch.cat(plcp_all)
+                del full, kern, plain, plcp_all
+                nbits, by = lp.encode_plcp_bits_device(plcp)
+                host = lp.encode_plcp_bits(want)
+                if nbits != len(host) or not np.array_equal(
+                        np.unpackbits(by, bitorder="little")[:nbits], host):
+                    raise AssertionError("the device encoder disagrees with "
+                                         "the host's (%s)" % label)
+                key = "%s, %d lanes, %d slab(s)" % (label, lanes, len(slabs))
+                kasai_22[key] = rec
+                say("kernel kasai %s, n=2^22 (%d steps): max_abs_err %d, "
+                    "kernel %.3f ms (%.2f G steps/s), plain %.3f ms%s, bound "
+                    "%.3f ms (%s); device encode == host encode [%s]"
+                    % (key, rec["steps"], rec["max_abs_err"], rec["ms"],
+                       rec["steps"] / rec["ms"] / 1e6, rec["plain_ms"],
+                       " at %d steps" % KASAI_CAP if lanes <= KASAI_CAP
+                       else "", rec["bound_ms"], rec["bound_by"], smi))
+        del words, phi_all, isa_all, sa, want, plcp
+
     # ---- 5. single-block path -------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -1465,6 +1602,47 @@ def main() -> int:
         raise AssertionError("the single-block path never launched the "
                              "LF-walk kernel")
 
+    # ---- 5b. the single-block path's PLCP -------------------------------
+    def moved_bit_copy(lcpbit, bad):
+        """A copy of a .lcpbit with the first set bit after the first that
+        has a clear bit after it moved there: still n ones, one PLCP
+        value one higher."""
+        blob = bytearray(open(lcpbit, "rb").read())
+        bits = np.unpackbits(np.frombuffer(bytes(blob[20:20 + (1 << 20)]),
+                                           np.uint8), bitorder="little")
+        ones = np.flatnonzero(bits[:-1] & ~bits[1:])
+        j = int(ones[ones > 0][0])
+        blob[20 + j // 8] &= 0xFF ^ (1 << (j % 8))
+        blob[20 + (j + 1) // 8] |= 1 << ((j + 1) % 8)
+        with open(bad, "wb") as f:
+            f.write(bytes(blob))
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    lcpbit_s = inp + ".lcpbit"
+    rc, _, _ = run_tool("lcpbit (single-block path)",
+                        ["lcpbit", "device=cuda", bwt_path])
+    if rc != 0 or "plcp: device route" not in run_tool.log:
+        raise AssertionError("lcpbit failed or did not take the device "
+                             "route")
+    rc, out, _ = run_tool("checkLCPBit (single-block path)",
+                          ["checkLCPBit", "device=cuda", lcpbit_s, bwt_path])
+    if rc != 0 or out.strip() != "lcpok=1":
+        raise AssertionError("checkLCPBit did not print lcpok=1")
+    moved_bit_copy(lcpbit_s, os.path.join(WORK, "bad.lcpbit"))
+    rc, out, _ = run_tool("checkLCPBit (one bit moved)",
+                          ["checkLCPBit", "device=cuda",
+                           os.path.join(WORK, "bad.lcpbit"), bwt_path])
+    if rc != 1 or out.strip() != "lcpok=0":
+        raise AssertionError("checkLCPBit did not print lcpok=0 on the copy "
+                             "with one bit moved")
+    path_counts["single-block LCP path"] = counts()
+    peak_lcp_single = torch.cuda.max_memory_allocated()
+    say("single-block LCP path launches: %s"
+        % path_counts["single-block LCP path"])
+    if path_counts["single-block LCP path"]["kasai"] < 1:
+        raise AssertionError("lcpbit never launched the Kasai kernel")
+
     # ---- 6. independent SA check ---------------------------------------
     rng = np.random.default_rng(args.seed + 5)
     t_term = np.r_[rng.integers(1, 5, n_small - 1), 0].astype(np.uint8)
@@ -1504,6 +1682,18 @@ def main() -> int:
                                  "engine=doubling" % ext)
     say("engine=merge (mem=67108864: 5 blocks, 3 levels) == engine=doubling "
         "at n=%d: .bwt .hist .preisa byte-identical" % n8)
+    # hwtToLCP on that build: .ulcp, .lcp, .rmm and checklcp=1 (the host
+    # oracle over the same SA, and the .lcp read back)
+    reset_counts()
+    rc, _, _ = run_tool("hwtToLCP checklcp=1 n=%d" % n8, [
+        "hwtToLCP", "checklcp=1", "device=cuda", outs["doubling"]])
+    base8 = outs["doubling"][:-4]
+    if rc != 0 or "checklcp ok" not in run_tool.log or not all(
+            os.path.getsize(base8 + ext) for ext in (".ulcp", ".lcp", ".rmm")):
+        raise AssertionError("hwtToLCP checklcp=1 failed")
+    path_counts["hwtToLCP path"] = counts()
+    if path_counts["hwtToLCP path"]["kasai"] < 1:
+        raise AssertionError("hwtToLCP never launched the Kasai kernel")
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
@@ -1539,7 +1729,7 @@ def main() -> int:
     path_counts["merge path"] = counts()
     peak_merge = torch.cuda.max_memory_allocated()
     say("merge path launches: %s" % path_counts["merge path"])
-    if min(path_counts["merge path"][k] for k in LIBRARIES) < 1:
+    if min(path_counts["merge path"][k] for k in ("lf_walk", "gap_chain")) < 1:
         raise AssertionError("the merge path did not launch every kernel")
     prate = ssa_agrees_with_preisa(bwtm, "merge build")
     # the LF walk at the merge path's shapes (the rank rows come from the
@@ -1810,6 +2000,153 @@ def main() -> int:
                            sample=PLAIN_SAMPLE)
     lf_genome_w = lf_genome.pop("sector_w", None)
 
+    # ---- 11c. the genome path's PLCP ------------------------------------
+    # compute_sa_device (the LF-walk kernel's harvest visit at rate 1 over
+    # the build's rows), compute_plcp_device (one launch of the Kasai
+    # kernel), the device encoder and the PLB1 writer; then 2^20 positions
+    # held to the memory-mapped text, the .lcpbit read back at them, and
+    # the kernel against its plain version on a sample of lanes
+    glcp = None
+    if ng < 1 << 31:
+        table = np.zeros(256, np.uint8)
+        table[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+        dense_g = table[text]
+        lcpbit_g = inpg + ".lcpbit"
+        glcp = {}
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def genome_plcp():
+            t0 = time.monotonic()
+            sa_dev, _n = compute_sa_device(bwtg, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            plcp_dev = lp.compute_plcp_device(dense_g, 4, sa_dev, device=dev)
+            torch.cuda.synchronize()
+            t2 = time.monotonic()
+            nbits, by = lp.encode_plcp_bits_device(plcp_dev)
+            t3 = time.monotonic()
+            lp.write_plcp_bytes(lcpbit_g, ng, nbits, by)
+            t4 = time.monotonic()
+            glcp.update(sa=sa_dev, plcp=plcp_dev, wall={
+                "compute_sa_device": t1 - t0, "compute_plcp_device": t2 - t1,
+                "encode_plcp_bits_device": t3 - t2,
+                "write_plcp_bytes": t4 - t3})
+            return 0
+
+        run_tool("genome PLCP: compute_sa_device, compute_plcp_device, "
+                 "encode, write", [], fn=genome_plcp)
+        path_counts["genome LCP path"] = counts()
+        peak_glcp = torch.cuda.max_memory_allocated()
+        say("genome LCP path launches: %s; steps, wall s: %s; peak device "
+            "memory %.3f GiB [%s]"
+            % (path_counts["genome LCP path"],
+               {k: round(v, 3) for k, v in glcp["wall"].items()},
+               peak_glcp / 2 ** 30, smi))
+        if min(path_counts["genome LCP path"][k]
+               for k in ("kasai", "lf_walk")) < 1:
+            raise AssertionError("the genome PLCP did not launch the LF-walk "
+                                 "and Kasai kernels")
+        sa_dev, plcp_dev = glcp.pop("sa"), glcp.pop("plcp")
+        # 2^20 positions against the text: PLCP[p] = l where rotations p
+        # and q = SA[ISA[p] - 1] share l symbols and differ after them
+        rng = np.random.default_rng(args.seed + 15)
+        ps = np.unique(rng.integers(0, ng, 1 << 20))
+        ps_dev = torch.from_numpy(ps).to(dev)
+        mark = torch.zeros(ng, dtype=torch.bool, device=dev)
+        mark[ps_dev] = True
+        ranks = torch.nonzero(mark[sa_dev]).squeeze(1)
+        del mark
+        order = torch.argsort(sa_dev[ranks])
+        ranks = ranks[order]
+        if not np.array_equal(sa_dev[ranks].cpu().numpy(), ps):
+            raise AssertionError("the SA does not hold every position once")
+        qs = torch.where(ranks > 0, sa_dev[(ranks - 1).clamp(min=0)], -1)
+        ls = plcp_dev[ps_dev].long().cpu().numpy()
+        ranks, qs = ranks.cpu().numpy(), qs.cpu().numpy()
+        t0 = time.monotonic()
+        mm = np.memmap(inpg, np.uint8, mode="r")
+        bad = int(((ranks == 0) & (ls != 0)).sum())
+        live = np.flatnonzero(ranks > 0)
+        ar = np.arange(64)
+        off = 0
+        while len(live):
+            idx = (ps[live, None] + off + ar) % ng
+            jdx = (qs[live, None] + off + ar) % ng
+            ok = (mm[idx] == mm[jdx]) | (off + ar >= ls[live, None])
+            bad += int((~ok.all(axis=1)).sum())
+            live = live[ls[live] > off + 64]
+            off += 64
+        end = np.flatnonzero((ranks > 0) & (ls < ng))
+        bad += int((mm[(ps[end] + ls[end]) % ng]
+                    == mm[(qs[end] + ls[end]) % ng]).sum())
+        t_check = time.monotonic() - t0
+        t0 = time.monotonic()
+        dec_vals = lp.PLCPBitDecoder(lcpbit_g, n=ng).get(ps)
+        t_dec = time.monotonic() - t0
+        say("genome PLCP: %d positions against the text (max l %d, %.3f s "
+            "on the host): %d wrong; the .lcpbit read back at them (%.3f s): "
+            "%s" % (len(ps), int(ls.max()), t_check, bad, t_dec,
+                    "equal" if np.array_equal(dec_vals, ls) else "DIFFERENT"))
+        if bad or not np.array_equal(dec_vals, ls):
+            raise AssertionError("the genome PLCP fails its check against "
+                                 "the text or its .lcpbit")
+        del dec_vals, mm
+        # the kernel at the path's shapes (every lane, timed, with the
+        # steps it took), at 2^15 to 2^18 lanes, and against its plain
+        # version on PLAIN_SAMPLE lanes cut to PLAIN_SAMPLE[1] steps
+        words, phi, isa, bits = lp.device_walk_arrays(dense_g, 4, sa_dev)
+        del sa_dev
+        with uncounted():
+            by_lanes = {}
+            for lanes in (1 << 15, 1 << 16, 1 << 17, 1 << 18):
+                p, pend = lp._lane_bounds(0, ng, lanes, dev)
+                out, k_ms = timed(lambda: kasai_run(words, phi, isa, p, pend,
+                                                    ng, 0, bits), reps=2)
+                steps = int(out[3].sum())
+                if not torch.equal(out[0], plcp_dev):
+                    raise AssertionError("the Kasai walk depends on its "
+                                         "lanes")
+                by_lanes[lanes] = {"ms": k_ms, "steps": steps}
+                say("kernel kasai, genome path n=%d, %d lanes: %.3f ms, %d "
+                    "steps (%.2f G steps/s) [%s]"
+                    % (ng, lanes, k_ms, steps, steps / k_ms / 1e6, smi))
+                if lanes == lp.LANES:
+                    main_k = (p, pend, k_ms, steps)
+                del out
+            p, pend, k_ms, steps = main_k
+            pick = torch.from_numpy(np.linspace(
+                0, len(p) - 1, PLAIN_SAMPLE[0]).astype(np.int64)).to(dev)
+            kern = kasai_run(words, phi, isa, p[pick], pend[pick], ng, 0,
+                             bits, PLAIN_SAMPLE[1])
+            plain, p_ms = timed(lambda: kasai_run(
+                words, phi, isa, p[pick], pend[pick], ng, 0, bits,
+                PLAIN_SAMPLE[1], plain=True), warm=False)
+            err = kasai_err(kern, plain)
+            del kern, plain
+        b_ms, b_by = kasai_bound(words, ng, steps)
+        say("kernel kasai, genome path (n=%d, %d lanes, %d steps): "
+            "max_abs_err %d against the plain version on %d lanes of %d "
+            "steps, kernel %.3f ms (%.2f G steps/s), plain %.3f ms, bound "
+            "%.3f ms (%s) [%s]"
+            % (ng, len(p), steps, err, PLAIN_SAMPLE[0], PLAIN_SAMPLE[1],
+               k_ms, steps / k_ms / 1e6, p_ms, b_ms, b_by, smi))
+        if err:
+            raise AssertionError("the Kasai kernel disagrees with its plain "
+                                 "version on the genome path")
+        glcp.update(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                    bound_by=b_by, steps=steps, lanes=len(p), n=ng,
+                    plain_on={"lanes": PLAIN_SAMPLE[0],
+                              "steps_at_most": PLAIN_SAMPLE[1]},
+                    by_lanes=by_lanes, peak_device_bytes=peak_glcp,
+                    checked_positions=len(ps))
+        del words, phi, isa, plcp_dev, dense_g, ps_dev
+        torch.cuda.empty_cache()
+    else:
+        say("genome path: n >= 2^31, no PLCP (compute_sa_device and "
+            "compute_plcp take n < 2^31, as in the reference)")
+
     # bwt_gap_chain_mk against its plain version at every shape the
     # genome build gives it: the build once more through the engine,
     # where every level's runner, right after its own anchors and
@@ -1918,6 +2255,9 @@ def main() -> int:
     if args.human_n:
         human = human_path(args.human_n, args.human_mem, args.human_hostmem,
                            args.human_bwtonly, args.human_checks)
+    if args.human_n >= 1 << 31:
+        say("human-genome path: n >= 2^31, no PLCP (compute_sa_device and "
+            "compute_plcp take n < 2^31, as in the reference)")
 
     # ---- 12. report -----------------------------------------------------
     for name, wall, busy in tools:
@@ -1938,11 +2278,14 @@ def main() -> int:
             say("%s phase %-18s wall %.3f s, device busy %s [%s]"
                 % (label, name, wall, "%.3f s" % dev_s if dev_s
                    else "not measured", smi))
-    say("peak device memory: single-block path %.3f GiB, merge path %.3f "
-        "GiB, genome path (build, checkbwt and the SA tools) %.3f GiB, "
-        "human-genome build %.3f GiB, path %.3f GiB [%s]"
-        % (peak_single / 2 ** 30, peak_merge / 2 ** 30,
-           peak_genome / 2 ** 30, human.get("peak_build", 0) / 2 ** 30,
+    say("peak device memory: single-block path %.3f GiB, its LCP tools "
+        "%.3f GiB, merge path %.3f GiB, genome path (build, checkbwt and the "
+        "SA tools) %.3f GiB, its PLCP %.3f GiB, human-genome build %.3f GiB, "
+        "path %.3f GiB [%s]"
+        % (peak_single / 2 ** 30, peak_lcp_single / 2 ** 30,
+           peak_merge / 2 ** 30, peak_genome / 2 ** 30,
+           (glcp or {}).get("peak_device_bytes", 0) / 2 ** 30,
+           human.get("peak_build", 0) / 2 ** 30,
            human.get("peak", 0) / 2 ** 30, smi))
     shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -1995,6 +2338,23 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "layout": "sector", "layouts": per_layout,
             **extra})
+    if glcp:        # the genome path's PLCP ran (n < 2^31)
+        kernels.append({
+            "name": "kasai", "route": "cuda", "source": KERNELS["kasai"][0],
+            "replaces": KERNELS["kasai"][1],
+            "launches": path_counts[ROW_PATH["kasai"]]["kasai"],
+            "shapes_of": ROW_PATH["kasai"],
+            "launches_by_path": {p: c["kasai"]
+                                 for p, c in path_counts.items()},
+            "max_abs_err": max([glcp["max_abs_err"]]
+                               + list(errors_in(kasai_22))),
+            "ms": glcp["ms"], "plain_ms": glcp["plain_ms"],
+            "plain_on": glcp["plain_on"], "bound_ms": glcp["bound_ms"],
+            "bound_by": glcp["bound_by"], "library_ms": None,
+            "steps": glcp["steps"], "lanes": glcp["lanes"], "n": glcp["n"],
+            "ms_by_lanes": glcp["by_lanes"], "wall_s": glcp["wall"],
+            "peak_device_bytes": glcp["peak_device_bytes"],
+            "cases_2^22": kasai_22})
     say("chip_smoke.py: %.3f s from its start to the report [%s]"
         % (time.monotonic() - t_start, smi))
     say(smi)

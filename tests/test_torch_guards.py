@@ -52,6 +52,10 @@ out = inp + ".m.bwt"
 assert dispatch(["bwtb3m", "device=cpu", "verbose=0", "engine=merge",
                  "mem=16384", "outputfilename=" + out, inp]) == 0
 assert dispatch(["checkbwt", "device=cpu", "verbose=0", inp, out]) == 0
+assert dispatch(["lcpbit", "device=cpu", inp + ".bwt"]) == 0
+assert dispatch(["checkLCPBit", "device=cpu", inp + ".lcpbit",
+                 inp + ".bwt"]) == 0
+assert dispatch(["hwtToLCP", "checklcp=1", "device=cpu", inp + ".bwt"]) == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "bwtb3m_tpu"))
 assert not loaded, loaded
@@ -66,7 +70,7 @@ def test_slice_runs_with_jax_blocked(tmp_path):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
-    assert "gok=1" in proc.stdout
+    assert "gok=1" in proc.stdout and "lcpok=1" in proc.stdout
 
 
 def test_no_jax_import_in_port():
@@ -178,9 +182,9 @@ def test_sigma_above_256_checks_raise(tmp_path):
 
 
 def test_cli_refuses_unported_tools(capsys):
-    assert dispatch(["lcpbit", "x"]) == 2
-    assert "ROADMAP.md Queue 1 item 7" in capsys.readouterr().err
-    assert dispatch(["hwtToLCP", "x"]) == 2
+    assert dispatch(["probeScanDna", "x"]) == 2
+    assert "ROADMAP.md Queue 1 item 8" in capsys.readouterr().err
+    assert dispatch(["bwttestdecodespeed", "x"]) == 2
     assert dispatch(["bwttohwt", "x"]) == 2
     assert dispatch(["no-such-tool"]) == 1
 
@@ -215,9 +219,13 @@ def test_public_entry_points_default_to_the_card():
 
     from bwtb3m_tpu_torch import engine
     from bwtb3m_tpu_torch.engine.merge_scaled import blockwise_bwt_scaled
+    from bwtb3m_tpu_torch.lcp import plcp
     entry_points = [engine.compute_bwt, engine.check_bwt, engine.compute_ssa,
                     blockwise_bwt_scaled, engine.select_ssa,
-                    engine.compute_sa_device, engine.compute_isa_from_preisa]
+                    engine.compute_sa_device, engine.compute_isa_from_preisa,
+                    plcp.compute_plcp, plcp.compute_plcp_device,
+                    plcp.compute_plcp_scaled, plcp.compute_plcp_file,
+                    plcp.verify_plcp_file]
     with_device = 0
     for fn in entry_points:
         param = inspect.signature(fn).parameters.get("device")

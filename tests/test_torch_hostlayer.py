@@ -405,6 +405,29 @@ def test_native_entry_points_equal(seed, ref_native):
                                   ref.unpack_pac(payload, 3999, 1))
 
 
+@pytest.mark.parametrize("kind", ["random", "periodic", "bytes"])
+def test_native_kasai_plcp_equal(kind, ref_native):
+    """The PLCP oracle of lcpbit's checks, ``native.kasai_plcp``, gives the
+    reference's values: random DNA, a periodic text (l reaches n at every
+    rank but 0) and a byte text."""
+    ref, port = both("native")
+    rng = np.random.default_rng(len(kind))
+    if kind == "random":
+        text = rng.integers(0, 4, 5000)
+    elif kind == "periodic":
+        text = np.tile(rng.integers(0, 3, 7), 300)
+    else:
+        text = rng.integers(0, 256, 3000)
+    text = text.astype(np.int32)
+    sa = np.array(sorted(range(len(text)), key=lambda i: (
+        np.roll(text, -i).tobytes(), i)), np.int64)
+    got = port.kasai_plcp(text, sa)
+    np.testing.assert_array_equal(got, ref.kasai_plcp(text, sa))
+    assert got.dtype == np.int64
+    if kind == "periodic":
+        assert int(got.max()) == len(text)
+
+
 def test_reference_library_lost_to_the_build_race_is_rebuilt(tmp_path):
     """A worker whose reference ``get_lib()`` already returned None (it
     lost the build race: ``_tried`` set, no library) still gets one from
@@ -436,8 +459,7 @@ def test_reference_library_lost_to_the_build_race_is_rebuilt(tmp_path):
 
 def test_port_keeps_only_the_entry_points_it_calls():
     _ref, port = both("native")
-    for later in ("sais", "kasai_plcp", "gap_interleave", "gt0",
-                  "rlh_decode_runs"):
+    for later in ("sais", "gap_interleave", "gt0", "rlh_decode_runs"):
         assert not hasattr(port, later), later
     assert os.path.dirname(port._SO) == os.path.join(
         REPO, "bwtb3m_tpu_torch", "build")

@@ -1,8 +1,9 @@
 """The LF-walk and gap-chain CUDA kernels, through each of their entry
 points (``bwt_lf_walk``: final rank, verify, harvest, select;
 ``bwt_gap_chain_mk``: recording and anchor forms, one merge and several)
-and on each rank-row layout (sector, bit-plane, bytes), against the
-plain PyTorch versions, on the card.  Skipped without a CUDA device; on
+and on each rank-row layout (sector, bit-plane, bytes), and the Kasai
+walk ``bwt_kasai_plcp`` (nibble and byte windows, slabs, step caps),
+against the plain PyTorch versions, on the card.  Skipped without a CUDA device; on
 one, run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
 (the suite's conftest imports JAX, which the card's machine need not
@@ -369,3 +370,85 @@ def test_gap_chain_mk_w_kernel_matches_plain(cuda, sigma, layout):
             ln0 = ln.clamp(max=50)
             assert torch.equal(gb.anchor_walk_mk(*args, sd0, ln0),
                                gb.gap_chain_mk_plain(*args, sd0, ln0))
+
+
+def _kasai_case(kind, n, lanes, cuda, a=0, b=None):
+    """The walk's arrays for the slab [a, b) of a text, on the card, as
+    ``lcp/plcp.py`` sets them up."""
+    from bwtb3m_tpu_torch.lcp.plcp import _lane_bounds, _pack_text_words
+    rng = np.random.default_rng(n)
+    sigma = 200 if kind == "bytes" else 4
+    text = rng.integers(0, sigma, n).astype(np.uint8)
+    if kind == "ones":
+        text[:] = 1
+    elif kind == "repeats":
+        text[100:100 + n // 4] = text[n // 2:n // 2 + n // 4]
+    b = n if b is None else b
+    sa, isa, _bwt = suffix_array(text, sigma, cuda)
+    phi = np.zeros(n, np.int64)
+    phi[sa[1:]] = sa[:-1]
+    words = _pack_text_words(text, sigma, cuda)
+    p, pend = _lane_bounds(a, b, lanes, cuda)
+    arrays = [torch.from_numpy(x[a:b].astype(np.int32)).to(cuda)
+              for x in (phi, isa)]
+    return text, sa, words, arrays, p, pend, 4 if sigma <= 16 else 8
+
+
+@pytest.mark.parametrize("kind,n,lanes,slab", [
+    ("dna", (1 << 16) + 37, 4096, None), ("bytes", (1 << 16) + 3, 4096, None),
+    ("repeats", 1 << 16, 128, None), ("ones", 4099, 64, None),
+    ("dna", (1 << 16) + 37, 1000, (20000, 50001)), ("dna", 301, 4096, None)])
+def test_kasai_kernel_matches_plain(cuda, kind, n, lanes, slab):
+    from bwtb3m_tpu_torch.lcp.plcp import kasai_plcp
+    from bwtb3m_tpu_torch.ops import kasai as K
+    a, b = slab or (0, n)
+    text, sa, words, (phi, isa), p, pend, bits = _kasai_case(
+        kind, n, lanes, cuda, a, b)
+    for steps in (1, 7, 2048, None):
+        outs = []
+        for fn in (K.kasai_walk, K.kasai_plain):
+            plcp = torch.zeros(b - a, dtype=torch.int32, device=cuda)
+            taken = torch.zeros(len(p), dtype=torch.int32, device=cuda)
+            before = K.kasai_walk.launches
+            outs.append(fn(words, phi, isa, plcp, p, torch.zeros_like(p),
+                           pend, n, a, bits, steps=steps, taken=taken)
+                        + (taken,))
+            if fn is K.kasai_walk:
+                assert K.kasai_walk.launches == before + 1
+        for x, y in zip(*outs):
+            assert torch.equal(x, y), (kind, steps)
+    assert int(outs[0][3].sum()) >= b - a     # a commit per position
+    want = kasai_plcp(text.astype(np.int32), sa)[a:b]
+    np.testing.assert_array_equal(outs[0][0].cpu().numpy(), want)
+
+
+def test_kasai_device_route_and_encoder(cuda):
+    """``compute_plcp`` on the device route (the doubling's SA kept on the
+    card, one launch) and the device encoder against the host's."""
+    from bwtb3m_tpu_torch.lcp import plcp as P
+    from bwtb3m_tpu_torch.ops import kasai as K
+    rng = np.random.default_rng(5)
+    text = rng.integers(0, 4, (1 << 22) + 5).astype(np.int32)
+    before = K.kasai_walk.launches
+    plcp, sa = P.compute_plcp(text, 4, device=cuda)
+    assert K.kasai_walk.launches == before + 1
+    np.testing.assert_array_equal(plcp, P.kasai_plcp(text, sa))
+    nbits, by = P.encode_plcp_bits_device(
+        torch.from_numpy(plcp.astype(np.int32)).to(cuda))
+    bits = P.encode_plcp_bits(plcp)
+    assert nbits == len(bits)
+    np.testing.assert_array_equal(
+        np.unpackbits(by, bitorder="little")[:nbits], bits)
+
+
+def test_kasai_kernel_refuses_lanes_outside_the_slab(cuda):
+    from bwtb3m_tpu_torch.ops import kasai as K
+    _t, _sa, words, (phi, isa), p, pend, bits = _kasai_case(
+        "dna", 5000, 64, cuda, 1000, 3000)
+    plcp = torch.zeros(2000, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="outside the slab"):
+        K.kasai_walk(words, phi, isa, plcp, p - 1, torch.zeros_like(p), pend,
+                     5000, 1000, bits)
+    with pytest.raises(TypeError, match="int32"):
+        K.kasai_walk(words.long(), phi, isa, plcp, p, torch.zeros_like(p),
+                     pend, 5000, 1000, bits)
