@@ -10,13 +10,10 @@
 //                    steps whose symbol differs from the text read
 //   Visit::kHarvest  bwtb3m_tpu/engine/ssa.py::_harvest_chunk with its host
 //                    loop _harvest_fused: write the SA / ISA samples
-//   Visit::kSelect   bwtb3m_tpu/engine/ssa.py::_select_chunk: walk until the
+//   lf_select        bwtb3m_tpu/engine/ssa.py::_select_chunk: walk until the
 //                    current rank's bit is set in a bitmap of the .preisa
-//                    ranks, report that rank and the steps taken.  The
-//                    reference runs every lane for the full masked step
-//                    count; here a lane tests the bit (one more random
-//                    4-byte read per step) and leaves its loop at the hit,
-//                    so a warp diverges: hits come after 0..prate steps.
+//                    ranks, report that rank and the steps taken.  Its own
+//                    kernel, select_kernel below: lanes that end refill.
 //
 // One thread owns one walk lane.  Every LF step reads the lane's rank row,
 // and the symbol, the occ checkpoint and the in-block count all come from
@@ -72,7 +69,7 @@ using bwt_rows::make_sector;
 using bwt_rows::SectorRows;
 using bwt_rows::WideTerms;
 
-enum class Visit { kNone, kVerify, kHarvest, kSelect };
+enum class Visit { kNone, kVerify, kHarvest };
 
 // The lanes and what a step visits.  Lane i starts at rank r0[i] (and, for
 // a visit, at text position p0[i]) and takes seg_len[i] steps.  I is the
@@ -90,8 +87,6 @@ struct Walk {
   I sarate, isarate;     // the 64-bit form: sarate is a power of two
   I* sa;                 // kHarvest: SA[r / sarate] = p
   I* isa;                // kHarvest: ISA[p / isarate] = r
-  const uint32_t* bitwords;  // kSelect: bit r set where rank r ends the walk
-  int32_t* steps;        // kSelect: steps taken to the hit, -1 without one
 };
 
 // One LF step: sym = BWT[r], returns C[sym] + rank(sym, r); the 64-bit
@@ -114,7 +109,6 @@ __device__ __forceinline__ void walk_lane(const Rows& rows, const WideTerms& wt,
   I p = V == Visit::kVerify || V == Visit::kHarvest ? w.p0[i] : 0u;
   const int len = w.seg_len[i];
   int32_t bad = 0;
-  int32_t hit = -1;
   // the 64-bit harvest keeps p's quotient and remainder by isarate and
   // counts them down (a 64-bit division per step would cost more than
   // the step); SA indices are a shift, sarate being a power of two
@@ -127,12 +121,6 @@ __device__ __forceinline__ void walk_lane(const Rows& rows, const WideTerms& wt,
     sa_shift = __ffsll((long long)w.sarate) - 1;
   }
   for (int k = 0; k < len; ++k) {
-    if constexpr (V == Visit::kSelect) {
-      if ((__ldg(w.bitwords + (r >> 5)) >> (r & 31u)) & 1u) {
-        hit = k;
-        break;
-      }
-    }
     if constexpr (V == Visit::kHarvest) {
       // every rank and every position is visited by exactly one (lane,
       // step), so the sample writes are direct and race-free
@@ -164,7 +152,6 @@ __device__ __forceinline__ void walk_lane(const Rows& rows, const WideTerms& wt,
   }
   w.r_out[i] = r;
   if constexpr (V == Visit::kVerify) w.bad[i] = bad;
-  if constexpr (V == Visit::kSelect) w.steps[i] = hit;
 }
 
 template <Visit V, class I>
@@ -237,22 +224,130 @@ void launch(const void* rows, int roww, const void* C, int sigma, const Walk<I>&
   }
 }
 
+// ---------------------------------------------------------------- select
+//
+// The select walk (port of bwtb3m_tpu/engine/ssa.py::_select_chunk): lane
+// i LF-steps from rank r0[i] until bit r of a bitmap of the .preisa ranks
+// is set, tested before each of at most cap steps, and reports (rank,
+// steps), steps = -1 without a hit.
+//
+// What bounds it.  A step reads its rank row (one 32-byte sector on
+// sector rows) at a random rank, and the bit of the same rank: with the
+// bitmap (n / 8 bytes, 150 MB at 1.2 G symbols) far past the 50 MB L2,
+// that is a second random miss, and since the lane has to know the bit
+// before it may step, the two misses came one after the other.  The
+// marks are sparse (one per .preisa interval of 16,384 positions at 1.2
+// G: 73,243 marks), so more than 99.9% of those reads return 0.  And
+// lanes end after 0..cap steps, so in a grid of one thread per lane a
+// block kept its SM slot until its longest lane ended, about half its
+// threads idle.
+//
+// What the design does about it.
+//   A summary bitmap, one bit per block of 2^shift ranks (shift = 8: 586
+//   KB at 1.2 G symbols, 1.56 MB at 3.2 G), set where the block holds a
+//   mark, stays in the L2.  A step issues its row load and its summary
+//   load together (both depend on r alone), so it waits on one miss; the
+//   exact bitmap word is read only where the summary bit is set (about
+//   2^shift / prate of the steps, 1.6% at 1.2 G).  The row is read and
+//   stepped even on the step that hits; its result is then dropped.
+//   Lanes refill: a persistent grid of a few blocks per SM, each thread
+//   taking the next wanted rank from a counter (one atomicAdd per warp
+//   for the threads that need one) when its lane hits or reaches cap, so
+//   no thread idles while another lane of its block walks on.  Results
+//   are written at the wanted rank's slot, whichever thread took it.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, 2^20
+// wanted ranks on sector rows: 8.58 G steps at n = 1.2 G in 269 ms (31.9
+// G steps/s; one thread per lane, the bitmap alone: 517 ms), 17.16 G
+// steps at 3.2 G in 559 ms (1,072 ms): the rate of random sector reads
+// that the LF walk follows past the L2.  Of 1, 2, 4 and 8 blocks per SM
+// and summary blocks of 2^6 to 2^12 ranks, 4 blocks (135,168 resident
+// lanes) and 2^8 were fastest (ops/lf_walk.py; PERF.md has the sweep).
+
+struct Select {
+  const uint32_t* r0;        // wanted ranks
+  uint32_t* r_out;           // hit rank (or where the walk stopped)
+  int32_t* steps;            // steps to the hit, -1 without one
+  const uint32_t* bitwords;  // bit r set where r is a .preisa rank
+  const uint32_t* summary;   // bit b set where block b of 2^shift ranks has one
+  int* next;                 // the next wanted rank to take, from 0
+  int shift, cap, nlanes;
+};
+
+// The next wanted rank for each thread of the warp that asks together:
+// one atomicAdd for all of them.
+__device__ __forceinline__ int take_lane(int* next) {
+  const unsigned mask = __activemask();
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(mask) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(next, __popc(mask));
+  base = __shfl_sync(mask, base, leader);
+  return base + __popc(mask & ((1u << lane) - 1u));
+}
+
+template <class Rows>
+__device__ __forceinline__ void select_lanes(const Rows& rows, const Select& s) {
+  int i = take_lane(s.next);
+  uint32_t r = i < s.nlanes ? __ldg(s.r0 + i) : 0u;
+  int k = 0;
+  while (i < s.nlanes) {
+    int32_t done = -2;                  // -2: the lane walks on
+    if (k == s.cap) {
+      done = -1;
+    } else {
+      const uint32_t sw = __ldg(s.summary + (r >> (s.shift + 5)));
+      uint32_t sym;
+      const uint32_t nxt = rows.step(r, &sym);
+      if (((sw >> ((r >> s.shift) & 31u)) & 1u) &&
+          ((__ldg(s.bitwords + (r >> 5)) >> (r & 31u)) & 1u)) {
+        done = k;
+      } else {
+        r = nxt;
+        ++k;
+      }
+    }
+    if (done != -2) {
+      s.r_out[i] = r;
+      s.steps[i] = done;
+      i = take_lane(s.next);
+      if (i < s.nlanes) {
+        r = __ldg(s.r0 + i);
+        k = 0;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) select_sector_kernel(const uint8_t* rows,
+                                                                 const uint32_t* C,
+                                                                 int sigma, Select s) {
+  select_lanes(make_sector(rows, C, sigma), s);
+}
+
+__global__ void __launch_bounds__(kThreads) select_bp_kernel(const uint8_t* rows,
+                                                             const uint32_t* C, int sigma,
+                                                             Select s) {
+  select_lanes(make_bp(rows, C, sigma), s);
+}
+
+__global__ void __launch_bounds__(kThreads) select_byte_kernel(ByteRows rows, Select s) {
+  select_lanes(rows, s);
+}
+
 }  // namespace
 
 // The row width selects the layout: 32 bytes sector rows, 128 bytes
 // bit-plane rows, anything else byte rows (at least 384 bytes wide).  A
 // non-null text selects the verify visit, a
-// non-null sa_out the harvest visit, a non-null bitwords the select visit
-// (seg_len is then each lane's cap of steps); p0 is read only by the verify
-// and harvest visits.  Ranks, positions and samples are uint32 (int32
+// non-null sa_out the harvest visit; p0 is read only by the verify and
+// harvest visits.  Ranks, positions and samples are uint32 (int32
 // tensors holding uint32 bits).  Return value: cudaGetLastError() after
 // the launch.
 extern "C" int bwt_lf_walk(const void* rows, int roww, const void* C, int sigma,
                            long long n, const void* r0, const void* p0,
                            const void* seg_len, void* r_out, const void* text,
                            void* bad, int sarate, int isarate, void* sa_out,
-                           void* isa_out, const void* bitwords, void* steps_out,
-                           int nlanes, void* stream) {
+                           void* isa_out, int nlanes, void* stream) {
   Walk<uint32_t> w;
   w.r0 = static_cast<const uint32_t*>(r0);
   w.p0 = static_cast<const uint32_t*>(p0);
@@ -265,15 +360,11 @@ extern "C" int bwt_lf_walk(const void* rows, int roww, const void* C, int sigma,
   w.isarate = (uint32_t)isarate;
   w.sa = static_cast<uint32_t*>(sa_out);
   w.isa = static_cast<uint32_t*>(isa_out);
-  w.bitwords = static_cast<const uint32_t*>(bitwords);
-  w.steps = static_cast<int32_t*>(steps_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (text) {
     launch<Visit::kVerify>(rows, roww, C, sigma, w, nlanes, nullptr, nullptr, s);
   } else if (sa_out) {
     launch<Visit::kHarvest>(rows, roww, C, sigma, w, nlanes, nullptr, nullptr, s);
-  } else if (bitwords) {
-    launch<Visit::kSelect>(rows, roww, C, sigma, w, nlanes, nullptr, nullptr, s);
   } else {
     launch<Visit::kNone>(rows, roww, C, sigma, w, nlanes, nullptr, nullptr, s);
   }
@@ -310,6 +401,43 @@ extern "C" int bwt_lf_walk_w(const void* rows, int roww, const void* C64, const 
     launch<Visit::kHarvest>(rows, roww, nullptr, sigma, w, nlanes, thr, C64, s);
   } else {
     launch<Visit::kNone>(rows, roww, nullptr, sigma, w, nlanes, thr, C64, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The select walk on narrow rank rows (the row width selects the layout,
+// as for bwt_lf_walk): nlanes wanted ranks r0 (uint32), cap steps at
+// most; writes r_out (uint32) and steps (int32) per wanted rank.  bitwords
+// holds one bit per rank (n / 32 + 1 words), summary one bit per block of
+// 2^shift ranks (shift >= 5), set where the block holds a set bit of
+// bitwords.  next is one int32 on the card, 0 at the launch (nlanes plus
+// the grid's threads must stay below 2^31); blocks is the persistent
+// grid, kThreads threads each.  Return value: cudaGetLastError() after the
+// launch.
+extern "C" int bwt_lf_select(const void* rows, int roww, const void* C, int sigma,
+                             const void* r0, void* r_out, void* steps,
+                             const void* bitwords, const void* summary, int shift,
+                             int cap, int nlanes, void* next, int blocks,
+                             void* stream) {
+  Select s;
+  s.r0 = static_cast<const uint32_t*>(r0);
+  s.r_out = static_cast<uint32_t*>(r_out);
+  s.steps = static_cast<int32_t*>(steps);
+  s.bitwords = static_cast<const uint32_t*>(bitwords);
+  s.summary = static_cast<const uint32_t*>(summary);
+  s.next = static_cast<int*>(next);
+  s.shift = shift;
+  s.cap = cap;
+  s.nlanes = nlanes;
+  const auto* rp = static_cast<const uint8_t*>(rows);
+  const auto* cp = static_cast<const uint32_t*>(C);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (roww == kSectorRowBytes) {
+    select_sector_kernel<<<blocks, kThreads, 0, st>>>(rp, cp, sigma, s);
+  } else if (roww == kBpRowBytes) {
+    select_bp_kernel<<<blocks, kThreads, 0, st>>>(rp, cp, sigma, s);
+  } else {
+    select_byte_kernel<<<blocks, kThreads, 0, st>>>(ByteRows{rp, cp, roww}, s);
   }
   return (int)cudaGetLastError();
 }

@@ -7,11 +7,13 @@ the reference does:
         doubling that keeps every round's ranks, then a fixed descent
         over the levels (``_doubling_with_levels``, ``_plcp_descent``);
     n * 18 (19 for byte windows) bytes within the device budget: the
-        device route, the doubling's SA kept on the device, ISA and Phi
-        by scatter, one launch of the Kasai walk (``compute_plcp_device``);
-    otherwise the slab route: Phi, ISA and PLCP travel per slab of
-        positions while the text words stay on the device
-        (``compute_plcp_scaled``).
+        device route, the doubling's SA kept on the device, Phi by
+        scatter, one launch of the Kasai walk (``compute_plcp_device``);
+    otherwise the slab route: Phi and PLCP travel per slab of positions
+        while the text words stay on the device (``compute_plcp_scaled``).
+
+The walk reads no ISA: the reference tests ISA[p] != 0 only, which
+fails at p0 = SA[0] alone, and the walk takes p0.
 
 Both Kasai routes run the word-window walk of ``ops/kasai.py``, the CUDA
 kernel ``bwt_kasai_plcp`` on a card, in one launch per slab.  The
@@ -44,11 +46,12 @@ from ..util.devices import device_budget, resolve_device
 
 MAGIC = b"PLB1"
 SMALL_N = 1 << 22      # at most this many symbols: the level descent
-# lanes of the Kasai walk.  A lane reads ISA and Phi and writes PLCP at
-# consecutive positions, a sector of each per 8 positions; the lines of
-# 2^15 lanes stay in the card's 50 MB L2, those of 2^17 (the reference's
-# count) fill it (chip_smoke.py's lane sweep, PERF.md)
-LANES = 1 << 15
+# lanes of the Kasai walk.  A lane keeps its Phi and PLCP sectors and its
+# windows' words in registers, so lanes hold no lines in the L2 and more
+# of them hide the latency of the one random read a step makes: at 1.2 G
+# symbols 2^17 lanes (the reference's count) walk fastest of 2^15-2^18
+# (chip_smoke.py's lane sweep, PERF.md)
+LANES = 1 << 17
 
 
 # --------------------------------------------------------------------------
@@ -128,24 +131,23 @@ def _lane_bounds(a: int, b: int, lanes: int, device):
 
 
 def device_walk_arrays(text: np.ndarray, sigma: int, sa: torch.Tensor):
-    """The Kasai walk's arrays on the device of ``sa`` (int64, the whole
-    suffix array): (words, phi, isa, bits), ISA and Phi scattered from
-    the SA as int32; Phi of the rank-0 position is 0 (never read)."""
+    """The Kasai walk's arguments on the device of ``sa`` (int64, the
+    whole suffix array): (words, phi, p0, bits), Phi scattered from the
+    SA as int32 (Phi of the rank-0 position is 0, never read) and p0 =
+    SA[0]."""
     n, device = sa.shape[0], sa.device
     words = _pack_text_words(text, sigma, device)
-    isa = torch.empty(n, dtype=torch.int32, device=device)
-    isa[sa] = torch.arange(n, dtype=torch.int32, device=device)
     phi = torch.zeros(n, dtype=torch.int32, device=device)
     phi[sa[1:]] = sa[:-1].to(torch.int32)
-    return words, phi, isa, 4 if sigma <= 16 else 8
+    return words, phi, int(sa[0]), 4 if sigma <= 16 else 8
 
 
 def compute_plcp_device(text: np.ndarray, sigma: int, sa_dev: torch.Tensor,
                         lanes: int = LANES, device="cuda") -> torch.Tensor:
-    """PLCP of a text whose SA, ISA, Phi and PLCP fit the device: ``sa_dev``
+    """PLCP of a text whose SA, Phi and PLCP fit the device: ``sa_dev``
     is the suffix array on the device (``engine.ssa.compute_sa_device``
-    or the doubling's), ISA and Phi are scattered from it, and one launch
-    of the Kasai walk runs every lane to its end.  Any sigma <= 256 (byte
+    or the doubling's), Phi is scattered from it, and one launch of the
+    Kasai walk runs every lane to its end.  Any sigma <= 256 (byte
     windows above 16).  Returns PLCP as an int32 tensor [n] on
     ``device``."""
     device = resolve_device(device)
@@ -157,10 +159,10 @@ def compute_plcp_device(text: np.ndarray, sigma: int, sa_dev: torch.Tensor,
     if sa.shape != (n,):
         raise ValueError("the SA holds %d positions, the text %d"
                          % (sa.shape[0], n))
-    words, phi, isa, bits = device_walk_arrays(text, sigma, sa)
+    words, phi, p0, bits = device_walk_arrays(text, sigma, sa)
     plcp = torch.zeros(n, dtype=torch.int32, device=device)
     p, pend = _lane_bounds(0, n, lanes, device)
-    kasai_walk(words, phi, isa, plcp, p, torch.zeros_like(p), pend, n, 0,
+    kasai_walk(words, phi, p0, plcp, p, torch.zeros_like(p), pend, n, 0,
                bits)
     return plcp
 
@@ -203,10 +205,11 @@ def compute_plcp_scaled(text: np.ndarray, sigma: Optional[int] = None,
                         slab_positions: int = 1 << 28, device="cuda"
                         ) -> Tuple[np.ndarray, np.ndarray]:
     """PLCP with O(slab) device memory: the text words stay on the device,
-    Phi, ISA and PLCP travel per slab of ``slab_positions`` positions,
-    one launch of the Kasai walk each.  ``sa_isa`` supplies a precomputed
-    (sa, isa) pair, which skips the doubling sort and lets the walk take
-    texts up to 2^32 symbols.  Any sigma <= 256.  Returns (plcp int64
+    Phi and PLCP travel per slab of ``slab_positions`` positions, one
+    launch of the Kasai walk each.  ``sa_isa`` supplies a precomputed
+    (sa, isa) pair, as the reference's does (only its SA is read), which
+    skips the doubling sort and lets the walk take texts up to 2^32
+    symbols.  Any sigma <= 256.  Returns (plcp int64
     [n], sa int64 [n])."""
     device = resolve_device(device)
     text = np.asarray(text)
@@ -221,9 +224,9 @@ def compute_plcp_scaled(text: np.ndarray, sigma: Optional[int] = None,
     if n >= 1 << 32:
         raise ValueError("the slab walk takes n < 2^32")
     if sa_isa is not None:
-        sa, isa = (np.asarray(x) for x in sa_isa)
+        sa = np.asarray(sa_isa[0])
     else:
-        sa, isa, _bwt = suffix_array(text, sigma, device)
+        sa = suffix_array(text, sigma, device)[0]
     phi = np.zeros(n, np.uint32)
     phi[sa[1:]] = sa[:-1]        # rank 0 is committed as 0 by the walk
     bits = 4 if sigma <= 16 else 8
@@ -234,11 +237,9 @@ def compute_plcp_scaled(text: np.ndarray, sigma: Optional[int] = None,
         b = min(n, a + slab)
         p, pend = _lane_bounds(a, b, lanes, device)
         phi_d = torch.from_numpy(phi[a:b].view(np.int32)).to(device)
-        isa_d = torch.from_numpy(
-            isa[a:b].astype(np.uint32).view(np.int32)).to(device)
         plcp_d = torch.zeros(b - a, dtype=torch.int32, device=device)
-        kasai_walk(words, phi_d, isa_d, plcp_d, p, torch.zeros_like(p), pend,
-                   n, a, bits)
+        kasai_walk(words, phi_d, int(sa[0]), plcp_d, p, torch.zeros_like(p),
+                   pend, n, a, bits)
         plcp_host[a:b] = from_u32_bits(plcp_d).cpu().numpy()
     return plcp_host, np.asarray(sa, np.int64)
 

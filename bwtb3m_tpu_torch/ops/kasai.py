@@ -15,7 +15,8 @@ symbols:
            LSB-first symbols, spw = 8 nibbles (bits=4) or 4 bytes
            (bits=8), and one pad word (``lcp/plcp.py::_pack_text_words``)
     phi    int32 [slab]: Phi[a + i] = SA[ISA[a + i] - 1] (uint32 bits)
-    isa    int32 [slab]: ISA[a + i] (uint32 bits)
+    p0     int: SA[0], the one position of rank 0 (the reference reads
+           ISA at every step only to find it)
     plcp   int32 [>= slab]: PLCP[a + i] (uint32 bits), written in place
     p, l, pend  int64 [L]: lane i owns positions [p[i], pend[i]), with
            a <= p and pend <= a + slab, and carries l[i]
@@ -48,16 +49,17 @@ def _spec(bits: int):
     return (3, 7, 2) if bits == 4 else (2, 3, 3)
 
 
-def kasai_plain(words: torch.Tensor, phi: torch.Tensor, isa: torch.Tensor,
+def kasai_plain(words: torch.Tensor, phi: torch.Tensor, p0: int,
                 plcp: torch.Tensor, p: torch.Tensor, l: torch.Tensor,
                 pend: torch.Tensor, n: int, a: int, bits: int,
                 steps: Optional[int] = None, taken=None):
     """The walk in torch, step for step as ``_kasai_chunk2_impl``: at
     most ``steps`` steps (None: until every lane reaches its ``pend``).
-    Returns (plcp, p, l); ``plcp`` (and ``taken``) are written in
-    place."""
+    A position has a predecessor (the reference's ISA[p] != 0) unless it
+    is ``p0``.  Returns (plcp, p, l); ``plcp`` (and ``taken``) are
+    written in place."""
     wsh, wmsk, sym_sh = _spec(bits)
-    slab = isa.shape[0]
+    slab = phi.shape[0]
     p, l, pend = p.long(), l.long(), pend.long()
     # the reference's drop slot at ``slab`` takes the lanes that do not
     # commit, so a step writes without a mask (and without a host sync)
@@ -84,8 +86,7 @@ def kasai_plain(words: torch.Tensor, phi: torch.Tensor, isa: torch.Tensor,
         if steps is None and done % 64 == 0 and not bool(active.any()):
             break
         count += active
-        r = at(isa, p)
-        has_prev = r != 0
+        has_prev = p != p0
         pl = torch.where(active, wrap(p + l), 0)
         ql = torch.where(active, wrap(q + l), 0)
         x = win(pl) ^ win(ql)
@@ -115,18 +116,17 @@ def _lib():
     return load("kasai")
 
 
-def _check_args(words, phi, isa, plcp, p, pend, n: int, a: int, bits: int):
+def _check_args(words, phi, plcp, p, pend, n: int, a: int, bits: int):
     """What the kernel reads and writes must lie inside the tensors."""
-    slab = isa.shape[0]
-    for name, t in (("words", words), ("phi", phi), ("isa", isa),
-                    ("plcp", plcp)):
+    slab = phi.shape[0]
+    for name, t in (("words", words), ("phi", phi), ("plcp", plcp)):
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() \
                 or t.device != p.device:
             raise TypeError("%s must be a contiguous 1-D int32 tensor on %s"
                             % (name, p.device))
-    if phi.shape[0] != slab or plcp.shape[0] < slab:
-        raise ValueError("phi holds the slab's %d positions and plcp at "
-                         "least as many" % slab)
+    if plcp.shape[0] < slab:
+        raise ValueError("plcp holds at least the slab's %d positions"
+                         % slab)
     if not 0 < n < 1 << 32 or not 0 <= a < n:
         raise ValueError("the walk takes 0 <= a < n < 2^32")
     spw = 32 // bits
@@ -139,7 +139,7 @@ def _check_args(words, phi, isa, plcp, p, pend, n: int, a: int, bits: int):
                          "[%d, %d)" % (a, a + slab))
 
 
-def kasai_walk(words: torch.Tensor, phi: torch.Tensor, isa: torch.Tensor,
+def kasai_walk(words: torch.Tensor, phi: torch.Tensor, p0: int,
                plcp: torch.Tensor, p: torch.Tensor, l: torch.Tensor,
                pend: torch.Tensor, n: int, a: int, bits: int,
                steps: Optional[int] = None, taken=None):
@@ -148,12 +148,14 @@ def kasai_walk(words: torch.Tensor, phi: torch.Tensor, isa: torch.Tensor,
     l; ``plcp`` (and ``taken``) are written in place.  CPU tensors take
     ``kasai_plain``."""
     if p.device.type == "cpu":
-        return kasai_plain(words, phi, isa, plcp, p, l, pend, n, a, bits,
+        return kasai_plain(words, phi, p0, plcp, p, l, pend, n, a, bits,
                            steps, taken)
     if p.device.type != "cuda":
         raise ValueError("no Kasai kernel for device %s" % p.device)
     _spec(bits)
-    _check_args(words, phi, isa, plcp, p, pend, n, a, bits)
+    _check_args(words, phi, plcp, p, pend, n, a, bits)
+    if not 0 <= int(p0) < n:
+        raise ValueError("p0 = SA[0] lies in [0, n)")
     if taken is not None and (taken.dtype != torch.int32
                               or taken.shape != p.shape
                               or not taken.is_contiguous()
@@ -166,9 +168,9 @@ def kasai_walk(words: torch.Tensor, phi: torch.Tensor, isa: torch.Tensor,
     if len(p32) == 0:
         return plcp, p.long(), l.long()
     rc = _lib().bwt_kasai_plcp(
-        _ptr(words), _ptr(phi), _ptr(isa), _ptr(plcp), _ptr(p32), _ptr(l32),
-        _ptr(e32), _ptr(taken), len(p32), int(n), int(a), int(bits),
-        -1 if steps is None else int(steps),
+        _ptr(words), _ptr(phi), int(p0), _ptr(plcp), _ptr(p32), _ptr(l32),
+        _ptr(e32), _ptr(taken), len(p32), int(n), int(a), phi.shape[0],
+        int(bits), -1 if steps is None else int(steps),
         ctypes.c_void_p(torch.cuda.current_stream(p.device).cuda_stream))
     kasai_walk.launches += 1
     if rc != 0:
@@ -180,11 +182,11 @@ def kasai_walk(words: torch.Tensor, phi: torch.Tensor, isa: torch.Tensor,
 kasai_walk.launches = 0
 
 
-def kasai_inputs_from_jax(words, phi, isa, plcp, p, l, pend, device="cpu"):
+def kasai_inputs_from_jax(words, phi, p0, plcp, p, l, pend, device="cpu"):
     """The reference's walk state (numpy views of its uint32 jax arrays:
-    ``words``, ``phi``, ``isa``, ``plcp``, ``p``, ``l``, ``pend``) as this
-    module's tensors on ``device``: the arrays as int32 tensors of the
-    same bits, the lanes as int64."""
+    ``words``, ``phi``, ``plcp``, ``p``, ``l``, ``pend``; ``p0`` = SA[0]
+    in place of its ISA) as this module's arguments on ``device``: the
+    arrays as int32 tensors of the same bits, the lanes as int64."""
     def bits32(x):
         return torch.from_numpy(
             np.ascontiguousarray(x, np.uint32).view(np.int32).copy()).to(
@@ -193,5 +195,5 @@ def kasai_inputs_from_jax(words, phi, isa, plcp, p, l, pend, device="cpu"):
     def lanes(x):
         return torch.from_numpy(np.asarray(x, np.int64)).to(device)
 
-    return (bits32(words), bits32(phi), bits32(isa), bits32(plcp),
+    return (bits32(words), bits32(phi), int(p0), bits32(plcp),
             lanes(p), lanes(l), lanes(pend))

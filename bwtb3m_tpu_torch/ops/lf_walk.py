@@ -1,15 +1,18 @@
 """Batched LF walks: the CUDA kernel, its wrapper and plain versions.
 
 One kernel, ``bwt_lf_walk`` in ``csrc/lf_walk.cu``, ports
-``bwtb3m_tpu/ops/lf_pallas.py::lf_walk_pallas``.  Four entry points run
-it, each with what a step visits:
+``bwtb3m_tpu/ops/lf_pallas.py::lf_walk_pallas``.  Three entry points run
+it, each with what a step visits, and a fourth runs the select kernel of
+the same source, ``bwt_lf_select``:
 
     lf_walk       the final rank only, as lf_walk_pallas
     verify_walk   checkbwt's walk, <- bwtb3m_tpu/engine/verify.py::_verify_chunk
     harvest_walk  bwtcomputessa's walk, <- bwtb3m_tpu/engine/ssa.py::
                   _harvest_chunk (+ its host loop _harvest_fused)
     select_walk   select_ssa's walk, <- bwtb3m_tpu/engine/ssa.py::
-                  _select_chunk: to the first rank whose bit is set
+                  _select_chunk: to the first rank whose bit is set; a
+                  persistent grid whose lanes refill, testing a summary
+                  bitmap (``select_summary``) before the exact one
 
 Each thread owns one walk lane and runs all of its steps; a step loads
 one rank row and depends on the previous step's rank, so each lane is
@@ -25,9 +28,9 @@ and positions are int64 tensors at the interface.  On narrow rank rows
 rank or position there, marks an unvisited sample.  On the wide rows of
 ``ops/wideocc.py`` (n >= 2^32, or ``BWTB3M_FORCE_WIDE``) the entry
 points take the kernel's 64-bit form, ``bwt_lf_walk_w``, with int64
-lanes; the select visit stays narrow, as in the reference.  The two
-wrappers, ``_launch`` and ``_launch_w``, count every launch in
-``lf_walk.launches`` and per visit and form in ``LAUNCHES``.
+lanes; the select walk stays narrow, as in the reference.  The three
+wrappers, ``_launch``, ``_launch_w`` and ``_launch_select``, count every
+launch in ``lf_walk.launches`` and per visit and form in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,12 @@ import torch
 
 from .focc import as_u32_bits, from_u32_bits, kernel_row_width, lf_step
 from .wideocc import WideOcc, kernel_tables, lf_step_w
+
+# the select kernel: one summary bit per block of 2^SUMMARY_SHIFT ranks,
+# and SELECT_BLOCKS_PER_SM blocks of 256 threads per SM in its persistent
+# grid (chip_smoke.py's select sweep, PERF.md)
+SUMMARY_SHIFT = 8
+SELECT_BLOCKS_PER_SM = 4
 
 
 def _step_of(focc):
@@ -114,6 +123,26 @@ def select_walk_plain(focc, bitwords: torch.Tensor, r0: torch.Tensor,
     return r, steps
 
 
+def select_summary(bitwords: torch.Tensor,
+                   shift: int = SUMMARY_SHIFT) -> torch.Tensor:
+    """The select kernel's summary of a bitmap (uint32 words held as
+    int32): bit b is set where ranks [b << shift, (b + 1) << shift) hold a
+    set bit.  Built with torch on the bitmap's device; int32 words of
+    uint32 bits, enough for every rank the bitmap covers."""
+    if shift < 5:
+        raise ValueError("a summary block holds whole bitmap words")
+    per = 1 << (shift - 5)
+    nblk = -(-bitwords.shape[0] // per)
+    w = bitwords
+    if nblk * per != w.shape[0]:
+        w = torch.cat([w, w.new_zeros(nblk * per - w.shape[0])])
+    hit = (w.view(nblk, per) != 0).any(1)
+    nw = -(-nblk // 32)
+    hit = torch.cat([hit, hit.new_zeros(nw * 32 - nblk)]).view(nw, 32)
+    return as_u32_bits((hit.long() << torch.arange(32, device=hit.device))
+                       .sum(1))
+
+
 # ------------------------------------------------------------ CUDA wrappers
 
 def _lib():
@@ -160,9 +189,11 @@ def _steps_i32(t: torch.Tensor) -> torch.Tensor:
 
 def _samples(t: torch.Tensor) -> torch.Tensor:
     """Samples written by the narrow form (uint32 bits, 0xFFFFFFFF where
-    unvisited) -> int64, -1 where unvisited."""
-    v = from_u32_bits(t)
-    return torch.where(v == 0xFFFFFFFF, -1, v)
+    unvisited) -> int64, -1 where unvisited; in place on one int64 copy
+    (a full SA's temporaries set the genome PLCP's peak memory)."""
+    v = t.long()
+    v &= 0xFFFFFFFF
+    return v.masked_fill_(v == 0xFFFFFFFF, -1)
 
 
 def _check_range(name: str, t: torch.Tensor, hi: int) -> None:
@@ -200,15 +231,14 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def _launch(focc, r32: torch.Tensor, l32: torch.Tensor, p32=None, text=None,
-            bad=None, sarate=1, isarate=1, sa=None, isa=None, bitwords=None,
-            steps=None) -> torch.Tensor:
+            bad=None, sarate=1, isarate=1, sa=None,
+            isa=None) -> torch.Tensor:
     """The wrapper of the LF-walk kernel ``bwt_lf_walk``: lane i takes
     ``l32[i]`` LF steps from rank ``r32[i]``; returns the final ranks
     (int32 of uint32 bits).  With ``text`` it also counts each lane's
     mismatches into ``bad`` (verify visit); with ``sa`` / ``isa`` it
-    writes the samples (harvest visit); with ``bitwords`` a lane stops at
-    the first rank whose bit is set and ``steps`` takes its step count
-    (select visit).  Counts its launches in ``lf_walk.launches``."""
+    writes the samples (harvest visit).  Counts its launches in
+    ``lf_walk.launches``."""
     rows, roww, C, sigma = _rows_args(focc, r32.device)
     r_out = torch.empty_like(r32)
     if len(r32) == 0:
@@ -216,18 +246,52 @@ def _launch(focc, r32: torch.Tensor, l32: torch.Tensor, p32=None, text=None,
     rc = _lib().bwt_lf_walk(rows, roww, C, sigma, focc.n, _ptr(r32),
                             _ptr(p32), _ptr(l32), _ptr(r_out), _ptr(text),
                             _ptr(bad), _u32_arg(sarate), _u32_arg(isarate),
-                            _ptr(sa),
-                            _ptr(isa), _ptr(bitwords), _ptr(steps), len(r32),
+                            _ptr(sa), _ptr(isa), len(r32),
                             _stream(r32.device))
     lf_walk.launches += 1
-    LAUNCHES[_visit(text, sa, bitwords)] += 1
+    LAUNCHES[_visit(text, sa)] += 1
     _check(rc)
     return r_out
 
 
-def _visit(text, sa, bitwords) -> str:
+def _visit(text, sa) -> str:
     return ("verify" if text is not None else "harvest" if sa is not None
-            else "select" if bitwords is not None else "none")
+            else "none")
+
+
+def _launch_select(focc, bitwords: torch.Tensor, summary: torch.Tensor,
+                   r32: torch.Tensor, cap: int, blocks: int,
+                   shift: int = SUMMARY_SHIFT):
+    """The wrapper of the select kernel ``bwt_lf_select``: a persistent
+    grid of ``blocks`` blocks walks the wanted ranks ``r32`` (int32 of
+    uint32 bits), taking the next one as a lane ends; returns (hit ranks
+    as int32 of uint32 bits, int32 steps).  Counts its launches in
+    ``lf_walk.launches`` and ``LAUNCHES["select"]``."""
+    rows, roww, C, sigma = _rows_args(focc, r32.device)
+    r_out = torch.empty_like(r32)
+    steps = torch.empty(len(r32), dtype=torch.int32, device=r32.device)
+    if len(r32) == 0:
+        return r_out, steps
+    if not 0 <= cap < 1 << 31 or len(r32) + blocks * 256 >= 1 << 31:
+        raise ValueError("the select kernel takes cap < 2^31 and fewer "
+                         "than 2^31 lanes")
+    nxt = torch.zeros(1, dtype=torch.int32, device=r32.device)
+    rc = _lib().bwt_lf_select(rows, roww, C, sigma, _ptr(r32), _ptr(r_out),
+                              _ptr(steps), _ptr(bitwords), _ptr(summary),
+                              int(shift), int(cap), len(r32), _ptr(nxt),
+                              int(blocks), _stream(r32.device))
+    lf_walk.launches += 1
+    LAUNCHES["select"] += 1
+    _check(rc)
+    return r_out, steps
+
+
+def select_blocks(device, nlanes: int) -> int:
+    """The select kernel's persistent grid: ``SELECT_BLOCKS_PER_SM``
+    blocks of 256 threads on each SM of the card, no more than the lanes
+    fill."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(sms * SELECT_BLOCKS_PER_SM, -(-nlanes // 256)))
 
 
 def _launch_w(w: WideOcc, r64: torch.Tensor, l32: torch.Tensor, p64=None,
@@ -253,7 +317,7 @@ def _launch_w(w: WideOcc, r64: torch.Tensor, l32: torch.Tensor, p64=None,
         _ptr(text), _ptr(bad), int(sarate), int(isarate), _ptr(sa),
         _ptr(isa), len(r64), _stream(r64.device))
     lf_walk.launches += 1
-    LAUNCHES[_visit(text, sa, None) + "64"] += 1
+    LAUNCHES[_visit(text, sa) + "64"] += 1
     _check(rc)
     return r_out
 
@@ -324,7 +388,9 @@ def select_walk(focc, bitwords: torch.Tensor, r0: torch.Tensor, cap: int):
     """(hit rank, steps) as int64 tensors, steps -1 where no rank with a
     set bit came within ``cap`` steps; ``bitwords`` holds one bit per
     rank as uint32 words in an int32 tensor of at least n / 32 + 1
-    words.  Narrow rank rows only (n < 2^32)."""
+    words.  Narrow rank rows only (n < 2^32).  On the card the wrapper
+    builds the bitmap's summary (``select_summary``) and launches the
+    select kernel once."""
     if not _on_cuda(r0):
         return select_walk_plain(focc, bitwords, r0, cap)
     if isinstance(focc, WideOcc):
@@ -335,10 +401,11 @@ def select_walk(focc, bitwords: torch.Tensor, r0: torch.Tensor, cap: int):
         raise TypeError("bitwords must be a contiguous int32 tensor of "
                         "more than n=%d bits on %s" % (focc.n, r0.device))
     _check_range("ranks", r0, focc.n)
-    steps = torch.empty(len(r0), dtype=torch.int32, device=r0.device)
-    r_hit = _go(focc, r0, _steps_i32(torch.full_like(r0, int(cap))),
-                bitwords=bitwords, steps=steps)
-    return r_hit, steps.long()
+    r32, = _lanes([r0], False)
+    r_hit, steps = _launch_select(focc, bitwords, select_summary(bitwords),
+                                  r32, cap, select_blocks(r0.device,
+                                                          len(r0)))
+    return from_u32_bits(r_hit), steps.long()
 
 
 def reset_launch_counts() -> None:

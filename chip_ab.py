@@ -1,0 +1,271 @@
+#!/usr/bin/env python3
+"""Times the select walk and the Kasai walk of this tree against those of
+other trees of the port, on one GPU, in turns.
+
+    python3 chip_ab.py --other DIR [--other DIR ...] [--only kasai|select]
+                       [--seed 0] [--genome-n 1200000011]
+                       [--human-n 3200000021]
+
+Each ``DIR`` holds a ``bwtb3m_tpu_torch`` package (an earlier commit
+unpacked with ``git archive <commit> | tar -x -C DIR``, under a directory
+that ``.gitignore`` lists); it is imported under another name and builds
+its kernels into its own ``build/``.  Its ``kasai_walk`` may take ISA
+(before the walk took p0) or p0.  Every case runs the trees in the order
+this, others, others reversed, this, each timed over two calls after a
+warm one, and their results must be equal.
+
+Kasai (``--only kasai`` or both): on 2^22-symbol texts (DNA, sigma 200,
+``chip_smoke.repeats_text``) at 128 and 2^17 lanes, one slab and two;
+on ``make_text`` of 16,777,259 and 100,000,003 symbols (the sizes of
+``chip_smoke.py``'s ``hwtToLCP`` and ``lcpbit`` paths) at 2^15 and 2^17
+lanes; then on ``--genome-n`` symbols of ``chip_smoke.make_text`` and of
+``repeats_text`` with as many 10,000-symbol copies per symbol as at
+2^22, the SA from ``compute_bwt`` (``bwtonly=1``, ``mem=2G``) and
+``compute_sa_device``: one launch over every position at 2^15, 2^16 and
+2^17 lanes, and the slab route's launches (slabs of 2^28 positions) at
+2^15 and 2^17 lanes per slab.
+
+Select (``--only select`` or both): ``select_walk`` of 2^20 random ranks
+(the cap ``select_ssa`` gives) on the build of ``make_text`` of
+``--genome-n`` symbols (the Kasai walk's) and of ``--human-n`` symbols
+(0: skipped; ``hostmem=4G``).
+
+Each line carries the card's name and power limit; the last line is a
+JSON object of every time.  Imports nothing of JAX.
+"""
+
+import argparse
+import importlib
+import importlib.util
+import inspect
+import json
+import os
+import shutil
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(REPO, "smoke_out")
+
+
+def load_tree(root: str, i: int):
+    """The package under ``root`` imported as ``tree<i>_bwtb3m_tpu_torch``:
+    the modules the comparisons call."""
+    name = "tree%d_bwtb3m_tpu_torch" % i
+    pkg = os.path.join(os.path.abspath(root), "bwtb3m_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return {k: importlib.import_module("%s.%s" % (name, k))
+            for k in ("ops.lf_walk", "ops.kasai", "ops.focc_bp")}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", action="append", required=True)
+    ap.add_argument("--only", choices=("kasai", "select"))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--genome-n", type=int, default=1_200_000_011)
+    ap.add_argument("--human-n", type=int, default=3_200_000_021)
+    args = ap.parse_args()
+    import chip_smoke
+    sys.meta_path.insert(0, chip_smoke._BlockJax())
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_ab: torch.cuda.is_available() is False")
+    from chip_smoke import make_text, nvidia_smi_line, repeats_text
+    from bwtb3m_tpu_torch.engine.api import compute_bwt
+    from bwtb3m_tpu_torch.engine.options import BwtOptions
+    from bwtb3m_tpu_torch.engine.result import BwtResult
+    from bwtb3m_tpu_torch.engine.ssa import compute_sa_device
+    from bwtb3m_tpu_torch.lcp import plcp as lp
+    from bwtb3m_tpu_torch.ops import focc_bp, kasai, lf_walk
+    from bwtb3m_tpu_torch.ops.doubling import suffix_array
+
+    trees = {"this": {"ops.lf_walk": lf_walk, "ops.kasai": kasai,
+                      "ops.focc_bp": focc_bp}}
+    for i, root in enumerate(args.other):
+        trees[os.path.basename(os.path.normpath(root))] = load_tree(root, i)
+    names = list(trees)
+    order = names + names[::-1]
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    report = {"card": smi, "trees": names, "kasai": {}, "select": {}}
+
+    def say(msg):
+        print("%s [%s]" % (msg, smi), flush=True)
+
+    def timed(fn, reps=2):
+        """(result, ms per call) over ``reps`` calls after a warm one."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        out = fn()
+        torch.cuda.synchronize()
+        total = 0.0
+        for _ in range(reps):
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+        return out, total / reps
+
+    def in_turns(label, run, same):
+        """``run(name)`` for every tree in turns; ``same(a, b)`` must hold
+        of each tree's result against this tree's.  {name: [ms, ms]}."""
+        times = {k: [] for k in names}
+        outs = {}
+        for who in order:
+            outs[who], ms = timed(lambda: run(who))
+            times[who].append(ms)
+        for who in names[1:]:
+            if not same(outs["this"], outs[who]):
+                raise AssertionError("%s: %s and this tree differ"
+                                     % (label, who))
+        say("%s: %s" % (label, ", ".join(
+            "%s %s ms" % (k, " / ".join("%.3f" % t for t in v))
+            for k, v in times.items())))
+        return times, outs["this"]
+
+    def build(text, n, hostmem=0):
+        shutil.rmtree(WORK, ignore_errors=True)
+        os.makedirs(WORK)
+        inp = os.path.join(WORK, "ab%d.bin" % n)
+        text.tofile(inp)
+        t0 = time.monotonic()
+        compute_bwt(BwtOptions(input_path=inp, bwt_only=True, verbose=0,
+                               device="cuda", checkpoint=False,
+                               host_mem=hostmem or None))
+        torch.cuda.synchronize()
+        say("n=%d: compute_bwt bwtonly=1 %.3f s" % (n, time.monotonic() - t0))
+        return inp + ".bwt"
+
+    # ---- the Kasai walk ----------------------------------------------------
+    def kasai_arrays(text, sigma, sa):
+        """(words, phi, p0, bits, isa) on the card from an SA tensor."""
+        words, phi, p0, bits = lp.device_walk_arrays(text, sigma, sa)
+        n = sa.shape[0]
+        isa = torch.empty(n, dtype=torch.int32, device=dev)
+        isa[sa] = torch.arange(n, dtype=torch.int32, device=dev)
+        return words, phi, p0, bits, isa
+
+    def kasai_case(label, arrs, n, lanes, slabs):
+        """Every tree's walk over ``slabs`` (a list of (a, b)), ``lanes``
+        lanes each, the PLCP equal; the steps from this tree's."""
+        words, phi, p0, bits, isa = arrs
+        bounds = [(a, b) + lp._lane_bounds(a, b, lanes, dev)
+                  for a, b in slabs]
+
+        def run(who):
+            mod = trees[who]["ops.kasai"]
+            takes_isa = list(inspect.signature(
+                mod.kasai_walk).parameters)[2] == "isa"
+            plcp = torch.zeros(n, dtype=torch.int32, device=dev)
+            steps = torch.zeros((), dtype=torch.int64, device=dev)
+            for a, b, p, pend in bounds:
+                taken = torch.zeros(len(p), dtype=torch.int32, device=dev)
+                mod.kasai_walk(words, phi[a:b], isa[a:b] if takes_isa else p0,
+                               plcp[a:b], p, torch.zeros_like(p), pend, n, a,
+                               bits, taken=taken)
+                steps += taken.sum()
+            return plcp, steps
+
+        times, (_plcp, steps) = in_turns(
+            "kasai %s, %d lanes, %d slab(s)" % (label, lanes, len(slabs)),
+            run, lambda x, y: torch.equal(x[0], y[0]))
+        report["kasai"]["%s, %d lanes, %d slab(s)" % (label, lanes,
+                                                       len(slabs))] = {
+            "steps": int(steps), "ms": times}
+
+    # ---- the select walk ---------------------------------------------------
+    def select_case(bwt, n, seed, label):
+        res = BwtResult.load(bwt)
+        focc, _symmap = res.load_focc(dev, wide=False)
+        marks, _pos, prate = res.load_preisa()
+        words = np.zeros(n // 32 + 1, np.uint32)
+        np.bitwise_or.at(words, marks >> 5,
+                         np.uint32(1) << (marks & 31).astype(np.uint32))
+        bitw = torch.from_numpy(words.view(np.int32)).to(dev)
+        del words
+        r0 = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, n, 1 << 20)).to(dev)
+        cap = 2 * (int(prate) + 512)
+        foccs = {k: t["ops.focc_bp"].FusedOccSector(focc.rows, focc.C,
+                                                     focc.n, focc.sigma)
+                 for k, t in trees.items()}
+        times, (_r, steps) = in_turns(
+            "select %s (2^20 lanes)" % label,
+            lambda who: trees[who]["ops.lf_walk"].select_walk(
+                foccs[who], bitw, r0, cap),
+            lambda a, b: torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+        report["select"][label] = {"n": n, "lanes": 1 << 20,
+                                   "steps": int(steps.sum()),
+                                   "marks": len(marks), "ms": times}
+
+    kasai_on, select_on = args.only != "select", args.only != "kasai"
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    if kasai_on:
+        n = 1 << 22
+        for label, sigma, text in (
+                ("2^22 sigma=4", 4, np.random.default_rng(args.seed + 60)
+                 .integers(0, 4, n).astype(np.uint8)),
+                ("2^22 sigma=200", 200, np.random.default_rng(args.seed + 61)
+                 .integers(0, 200, n).astype(np.uint8)),
+                ("2^22 10,000-symbol repeats", 4,
+                 repeats_text(n, args.seed + 62))):
+            sa = torch.from_numpy(suffix_array(text, sigma, dev)[0]).to(dev)
+            arrs = kasai_arrays(text, sigma, sa)
+            del sa
+            for lanes in (128, 1 << 17):
+                for slabs in ([(0, n)], [(0, n // 2), (n // 2, n)]):
+                    kasai_case(label, arrs, n, lanes, slabs)
+            del arrs
+        for n in (16_777_259, 100_000_003):
+            dense = np.searchsorted(acgt, make_text(n, args.seed + 1))
+            dense = dense.astype(np.uint8)
+            sa = torch.from_numpy(suffix_array(dense, 4, dev)[0]).to(dev)
+            arrs = kasai_arrays(dense, 4, sa)
+            del sa, dense
+            for lanes in (1 << 15, 1 << 17):
+                kasai_case("n=%d make_text" % n, arrs, n, lanes, [(0, n)])
+            del arrs
+    ng = args.genome_n
+    for label, codes in (
+            ("genome make_text", lambda: np.searchsorted(
+                acgt, make_text(ng, args.seed + 11)).astype(np.uint8)),
+            ("genome repeats", lambda: repeats_text(
+                ng, args.seed + 16, copies=ng * 100 >> 22))):
+        if not kasai_on and label != "genome make_text":
+            continue
+        dense = codes()
+        bwt = build(acgt[dense], ng)
+        if select_on and label == "genome make_text":
+            select_case(bwt, ng, args.seed + 12, "genome")
+        if not kasai_on:
+            continue
+        sa, _n = compute_sa_device(bwt, device=dev)
+        arrs = kasai_arrays(dense, 4, sa)
+        del sa
+        for lanes in (1 << 15, 1 << 16, 1 << 17):
+            kasai_case(label, arrs, ng, lanes, [(0, ng)])
+        slabs = [(a, min(ng, a + (1 << 28))) for a in range(0, ng, 1 << 28)]
+        for lanes in (1 << 15, 1 << 17):
+            kasai_case(label, arrs, ng, lanes, slabs)
+        del arrs, dense
+        torch.cuda.empty_cache()
+    if select_on and args.human_n:
+        nh = args.human_n
+        select_case(build(make_text(nh, args.seed + 13), nh, 4 * 1024 ** 3),
+                    nh, args.seed + 14, "human genome")
+    shutil.rmtree(WORK, ignore_errors=True)
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

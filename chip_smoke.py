@@ -13,8 +13,9 @@ printed:
 1. environment: the card (nvidia-smi name and power limit), CUDA, nvcc,
    and the port's native host library (g++), which must have built;
 2. build the three kernel libraries from ``bwtb3m_tpu_torch/csrc`` (one
-   nvcc each, in parallel): the LF walk (``bwt_lf_walk`` and its 64-bit
-   form ``bwt_lf_walk_w``), the gap chain (``bwt_gap_chain_mk``: a single
+   nvcc each, in parallel): the LF walk (``bwt_lf_walk``, its 64-bit
+   form ``bwt_lf_walk_w`` and the select kernel ``bwt_lf_select``), the
+   gap chain (``bwt_gap_chain_mk``: a single
    pair merge is a level of one; its 64-bit form ``bwt_gap_chain_mk_w``)
    and the Kasai walk of PLCP (``bwt_kasai_plcp``);
 3. the LF-walk kernel through each of its entry points (final rank,
@@ -97,7 +98,9 @@ printed:
     2^20 ranks held against the .sa samples they name.  Then every
     kernel of that path against its plain version at the shapes the path
     gave it (the plain version on a sample of lanes, ``PLAIN_SAMPLE`` and
-    ``SELECT_CUT``): the select visit; the verify and harvest walks on
+    ``SELECT_CUT``): the select visit, then its persistent grid at 1 to
+    8 blocks per SM and its summary at blocks of 2^6 to 2^12 ranks, each
+    with its share of summary false hits; the verify and harvest walks on
     checkbwt's and the SA/ISA walk's lanes over the 1.2G rows, and their
     64-bit form on the same rows widened; and ``bwt_gap_chain_mk``
     (recording form and both anchor bounds) on every level of the build
@@ -112,7 +115,8 @@ printed:
     ``encode_plcp_bits_device`` and ``write_plcp_bytes``; 2^20 positions
     from ``--seed`` held to the memory-mapped text (the rotations at p and
     SA[ISA[p] - 1] share PLCP[p] symbols and differ after them) and to
-    the ``.lcpbit`` read back; the Kasai kernel at 2^15 to 2^18 lanes and
+    the ``.lcpbit`` read back; the Kasai kernel at 2^15 to 2^18 lanes (the
+    lane sweep) and
     against its plain version on ``PLAIN_SAMPLE`` lanes.  ``--genome-n``
     of 2^31 or more skips the PLCP (the reference's PLCP takes n < 2^31),
     of 2^32 or more runs the tools' walks through the 64-bit form, and
@@ -274,6 +278,20 @@ def make_text(n: int, seed: int):
             rng.integers(0, 4, int(mut.sum()))]
         text[dst:dst + ln] = seg
     return text
+
+
+def repeats_text(n: int, seed: int, copies: int = 100, length: int = 10_000):
+    """Random DNA codes (0-3) with ``copies`` exact copies of
+    ``length``-symbol segments of itself: lanes of the Kasai walk that
+    start inside a copy extend for ``length`` / 8 steps before their first
+    commit."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 4, n).astype(np.uint8)
+    for _ in range(copies):
+        src, dst = rng.integers(0, n - length, 2)
+        t[dst:dst + length] = t[src:src + length].copy()
+    return t
 
 
 def numpy_sa(text):
@@ -744,11 +762,74 @@ def main() -> int:
             "%.3f s wall [%s]" % (t_sel, smi))
         return want
 
-    def select_compare(bwt_file, want_ranks, label):
+    def false_hit_share(summ, shift, n, marks):
+        """(share of ranks whose summary bit is set, share of ranks whose
+        summary bit is set though they are no mark): the steps of walks
+        that visit ranks at random which read the exact bitmap word, and
+        those of them that find no mark there."""
+        nblk = -(-n // (1 << shift))
+        w = lw.from_u32_bits(summ)
+        bits = ((w[:, None] >> torch.arange(32, device=w.device)) & 1) \
+            .reshape(-1)[:nblk].bool()
+        start = torch.arange(nblk, device=w.device, dtype=torch.int64) \
+            << shift
+        covered = int((n - start).clamp(max=1 << shift)[bits].sum())
+        return covered / n, (covered - marks) / n
+
+    def select_sweep(focc, bitw, r_all, cap, kr, ks_, n, marks, label):
+        """The select kernel alone over the same lanes: its persistent
+        grid at 1, 2, 4 and 8 blocks per SM (blocks x 256 x SMs resident
+        lanes where the SM holds them: the ptxas register line in the
+        build log says whether it does), then the summary's block at
+        2^6 to 2^12 ranks, each with its share of summary false hits;
+        every run must give the wrapper's results."""
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        r32 = lw.as_u32_bits(r_all)
+        out = {"sms": sms, "by_blocks": {}, "by_summary_shift": {}}
+
+        def run(summ, shift, per_sm):
+            (rk, sk), ms = timed(lambda: lw._launch_select(
+                focc, bitw, summ, r32, cap, sms * per_sm, shift), reps=2)
+            if not (torch.equal(lw.from_u32_bits(rk), kr)
+                    and torch.equal(sk.long(), ks_)):
+                raise AssertionError("the select kernel's results depend on "
+                                     "its grid or its summary")
+            return ms
+
+        steps = int(ks_.sum())
+        with uncounted():
+            summ = lw.select_summary(bitw)
+            for per_sm in (1, 2, 4, 8):
+                ms = run(summ, lw.SUMMARY_SHIFT, per_sm)
+                resident = per_sm * sms * 256
+                out["by_blocks"][per_sm] = {"ms": ms,
+                                            "resident_lanes": resident}
+                say("kernel lf_walk select sweep, %s: %d blocks per SM "
+                    "(%d resident lanes), summary 2^%d: %.3f ms (%.2f G "
+                    "steps/s) [%s]" % (label, per_sm, resident,
+                                       lw.SUMMARY_SHIFT, ms,
+                                       steps / ms / 1e6, smi))
+            for shift in (6, 8, 10, 12):
+                summ = lw.select_summary(bitw, shift)
+                ms = run(summ, shift, lw.SELECT_BLOCKS_PER_SM)
+                read, false = false_hit_share(summ, shift, n, marks)
+                out["by_summary_shift"][shift] = {
+                    "ms": ms, "summary_bytes": nbytes(summ),
+                    "exact_read_share": read, "false_hit_share": false}
+                say("kernel lf_walk select sweep, %s: summary 2^%d (%d "
+                    "bytes), %d blocks per SM: %.3f ms; ranks whose "
+                    "summary bit is set %.5f, of them no mark (false hits) "
+                    "%.5f of all ranks [%s]"
+                    % (label, shift, nbytes(summ), lw.SELECT_BLOCKS_PER_SM,
+                       ms, read, false, smi))
+        return out
+
+    def select_compare(bwt_file, want_ranks, label, sweep=False):
         """The select visit on every lane ``select_ssa`` gave it (timed),
         and against its plain version on every 64th lane with the cap cut
         to ``SELECT_CUT`` steps, the kernel on the same (a lane without a
-        hit within the cap ends with -1 in both)."""
+        hit within the cap ends with -1 in both); with ``sweep``, also
+        ``select_sweep``."""
         res = BwtResult.load(bwt_file)
         focc, _symmap = res.load_focc(dev, wide=False)
         pr_ranks, _pp, prate = res.load_preisa()
@@ -767,8 +848,9 @@ def main() -> int:
         (pr_, ps_), sel_plain_ms = timed(lambda: lw.select_walk_plain(
             focc, bitw, r_cut, SELECT_CUT), warm=False)
         sel_err = max(max_err(kr_c, pr_), max_err(ks_c, ps_))
-        # each step reads its row's sector and a bitmap word; the data
-        # decide the steps
+        # the function: each step an LF step and a test of its rank's
+        # bit (the summary is this design's, not the function's); the
+        # data decide the steps
         sel_bound, sel_by = bound(
             nbytes(focc.rows, bitw) + len(r_all) * 16,
             (sel_steps + len(r_all)) * (LF_STEP_OPS["sector"] + 5))
@@ -782,12 +864,16 @@ def main() -> int:
         if sel_err or int(ks_.min()) < 0:
             raise AssertionError("the select visit disagrees with its plain "
                                  "version")
-        return {"sector": {"max_abs_err": sel_err, "ms": sel_ms,
-                           "plain_ms": sel_plain_ms, "lanes": len(r_all),
-                           "steps": sel_steps, "bound_ms": sel_bound,
-                           "bound_by": sel_by, "forms": {"select": sel_ms},
-                           "plain_on": {"lanes": len(r_cut),
-                                        "steps_at_most": SELECT_CUT}}}
+        rec = {"max_abs_err": sel_err, "ms": sel_ms,
+               "plain_ms": sel_plain_ms, "lanes": len(r_all),
+               "steps": sel_steps, "bound_ms": sel_bound,
+               "bound_by": sel_by, "forms": {"select": sel_ms},
+               "plain_on": {"lanes": len(r_cut),
+                            "steps_at_most": SELECT_CUT}}
+        if sweep:
+            rec["sweep"] = select_sweep(focc, bitw, r_all, cap, kr, ks_,
+                                        res.n, len(pr_ranks), label)
+        return {"sector": rec}
 
     def host_memory(label):
         """This process's peak RSS so far and ``free -g``, printed."""
@@ -1448,34 +1534,23 @@ def main() -> int:
 
     # ---- 4b. the Kasai walk against its plain version at 2^22 ----------
     def kasai_bound(words, npos, steps):
-        """(ms, which) of a walk over ``npos`` positions: the text words,
-        ISA and Phi read once and PLCP written once, or its steps."""
-        return bound(nbytes(words) + 12 * npos, steps * KASAI_STEP_OPS)
+        """(ms, which) of a walk over ``npos`` positions: the text words
+        and Phi read once and PLCP written once, or its steps."""
+        return bound(nbytes(words) + 8 * npos, steps * KASAI_STEP_OPS)
 
-    def kasai_run(words, phi, isa, p, pend, n, a, bits, steps=None,
+    def kasai_run(words, phi, p0, p, pend, n, a, bits, steps=None,
                   plain=False):
         """(plcp, p, l, taken) of the walk over the slab of ``phi`` from
         fresh buffers, by the kernel or its plain version."""
-        plcp = torch.zeros(isa.shape[0], dtype=torch.int32, device=dev)
+        plcp = torch.zeros(phi.shape[0], dtype=torch.int32, device=dev)
         taken = torch.zeros(len(p), dtype=torch.int32, device=dev)
         fn = kas.kasai_plain if plain else kas.kasai_walk
-        out = fn(words, phi, isa, plcp, p, torch.zeros_like(p), pend, n, a,
+        out = fn(words, phi, p0, plcp, p, torch.zeros_like(p), pend, n, a,
                  bits, steps=steps, taken=taken)
         return out + (taken,)
 
     def kasai_err(x, y):
         return max(max_err(u, v) for u, v in zip(x, y))
-
-    def repeats_text(n, seed, copies=100, length=10_000):
-        """Random DNA codes with ``copies`` exact copies of
-        ``length``-symbol segments of itself: lanes that start inside a
-        copy extend for ``length`` / 8 steps before their first commit."""
-        rng = np.random.default_rng(seed)
-        t = rng.integers(0, 4, n).astype(np.uint8)
-        for _ in range(copies):
-            src, dst = rng.integers(0, n - length, 2)
-            t[dst:dst + length] = t[src:src + length].copy()
-        return t
 
     KASAI_CAP = 1024     # the plain version's steps on 128-lane cases
     kasai_22 = {}
@@ -1488,7 +1563,7 @@ def main() -> int:
             ("10,000-symbol repeats", 4, repeats_text(n_k, args.seed + 62))):
         sa, _isa, _bwt = suffix_array(text, sigma, dev)
         want = lp.kasai_plcp(text, sa)
-        words, phi_all, isa_all, bits = lp.device_walk_arrays(
+        words, phi_all, p0, bits = lp.device_walk_arrays(
             text, sigma, torch.from_numpy(sa).to(dev))
         for lanes in (1 << 17, 128):
             for slabs in ([(0, n_k)], [(0, n_k // 2), (n_k // 2, n_k)]):
@@ -1496,15 +1571,15 @@ def main() -> int:
                        "bound_ms": 0.0, "steps": 0}
                 plcp_all = []
                 for a, b in slabs:
-                    phi, isa = phi_all[a:b], isa_all[a:b]
+                    phi = phi_all[a:b]
                     p, pend = lp._lane_bounds(a, b, lanes, dev)
                     full, k_ms = timed(lambda: kasai_run(
-                        words, phi, isa, p, pend, n_k, a, bits), reps=3)
+                        words, phi, p0, p, pend, n_k, a, bits), reps=3)
                     cap = None if lanes > KASAI_CAP else KASAI_CAP
                     kern = full if cap is None else kasai_run(
-                        words, phi, isa, p, pend, n_k, a, bits, cap)
+                        words, phi, p0, p, pend, n_k, a, bits, cap)
                     plain, p_ms = timed(lambda: kasai_run(
-                        words, phi, isa, p, pend, n_k, a, bits, cap,
+                        words, phi, p0, p, pend, n_k, a, bits, cap,
                         plain=True), warm=False)
                     err = kasai_err(kern, plain)
                     steps = int(full[3].sum())
@@ -1542,7 +1617,7 @@ def main() -> int:
                        rec["steps"] / rec["ms"] / 1e6, rec["plain_ms"],
                        " at %d steps" % KASAI_CAP if lanes <= KASAI_CAP
                        else "", rec["bound_ms"], rec["bound_by"], smi))
-        del words, phi_all, isa_all, sa, want, plcp
+        del words, phi_all, sa, want, plcp
 
     # ---- 5. single-block path -------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1993,7 +2068,8 @@ def main() -> int:
     # select_ssa's lanes, the verify and harvest walks on checkbwt's and
     # the SA/ISA walk's lanes (and through the 64-bit form on the same rows
     # widened)
-    gsel = None if wide else select_compare(bwtg, want_ranks, "genome path")
+    gsel = None if wide else select_compare(bwtg, want_ranks, "genome path",
+                                            sweep=True)
     lf_genome = lf_compare(bwtg, text, "genome path",
                            ("sector",) if wide else ("sector", "sector_w"),
                            ("verify_walk", "harvest_walk"), wide=wide,
@@ -2096,19 +2172,19 @@ def main() -> int:
         # the kernel at the path's shapes (every lane, timed, with the
         # steps it took), at 2^15 to 2^18 lanes, and against its plain
         # version on PLAIN_SAMPLE lanes cut to PLAIN_SAMPLE[1] steps
-        words, phi, isa, bits = lp.device_walk_arrays(dense_g, 4, sa_dev)
+        words, phi, p0, bits = lp.device_walk_arrays(dense_g, 4, sa_dev)
         del sa_dev
         with uncounted():
-            by_lanes = {}
+            kasai_lanes = {}
             for lanes in (1 << 15, 1 << 16, 1 << 17, 1 << 18):
                 p, pend = lp._lane_bounds(0, ng, lanes, dev)
-                out, k_ms = timed(lambda: kasai_run(words, phi, isa, p, pend,
+                out, k_ms = timed(lambda: kasai_run(words, phi, p0, p, pend,
                                                     ng, 0, bits), reps=2)
                 steps = int(out[3].sum())
                 if not torch.equal(out[0], plcp_dev):
                     raise AssertionError("the Kasai walk depends on its "
                                          "lanes")
-                by_lanes[lanes] = {"ms": k_ms, "steps": steps}
+                kasai_lanes[lanes] = {"ms": k_ms, "steps": steps}
                 say("kernel kasai, genome path n=%d, %d lanes: %.3f ms, %d "
                     "steps (%.2f G steps/s) [%s]"
                     % (ng, lanes, k_ms, steps, steps / k_ms / 1e6, smi))
@@ -2118,10 +2194,10 @@ def main() -> int:
             p, pend, k_ms, steps = main_k
             pick = torch.from_numpy(np.linspace(
                 0, len(p) - 1, PLAIN_SAMPLE[0]).astype(np.int64)).to(dev)
-            kern = kasai_run(words, phi, isa, p[pick], pend[pick], ng, 0,
+            kern = kasai_run(words, phi, p0, p[pick], pend[pick], ng, 0,
                              bits, PLAIN_SAMPLE[1])
             plain, p_ms = timed(lambda: kasai_run(
-                words, phi, isa, p[pick], pend[pick], ng, 0, bits,
+                words, phi, p0, p[pick], pend[pick], ng, 0, bits,
                 PLAIN_SAMPLE[1], plain=True), warm=False)
             err = kasai_err(kern, plain)
             del kern, plain
@@ -2139,9 +2215,9 @@ def main() -> int:
                     bound_by=b_by, steps=steps, lanes=len(p), n=ng,
                     plain_on={"lanes": PLAIN_SAMPLE[0],
                               "steps_at_most": PLAIN_SAMPLE[1]},
-                    by_lanes=by_lanes, peak_device_bytes=peak_glcp,
+                    by_lanes=kasai_lanes, peak_device_bytes=peak_glcp,
                     checked_positions=len(ps))
-        del words, phi, isa, plcp_dev, dense_g, ps_dev
+        del words, phi, plcp_dev, dense_g, ps_dev
         torch.cuda.empty_cache()
     else:
         say("genome path: n >= 2^31, no PLCP (compute_sa_device and "

@@ -1,9 +1,11 @@
 """The LF-walk and gap-chain CUDA kernels, through each of their entry
-points (``bwt_lf_walk``: final rank, verify, harvest, select;
+points (``bwt_lf_walk``: final rank, verify, harvest; ``bwt_lf_select``:
+the select walk with its summary bitmap and lanes that refill;
 ``bwt_gap_chain_mk``: recording and anchor forms, one merge and several)
 and on each rank-row layout (sector, bit-plane, bytes), and the Kasai
-walk ``bwt_kasai_plcp`` (nibble and byte windows, slabs, step caps),
-against the plain PyTorch versions, on the card.  Skipped without a CUDA device; on
+walk ``bwt_kasai_plcp`` (nibble and byte windows, slabs, step caps,
+ragged lanes, p0 inside a lane and at its edge), against the plain
+PyTorch versions, on the card.  Skipped without a CUDA device; on
 one, run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
 (the suite's conftest imports JAX, which the card's machine need not
@@ -256,6 +258,61 @@ def test_select_kernel_matches_plain(cuda, sigma, layout):
     assert int((s_c < 0).sum()) > 0
 
 
+@pytest.mark.parametrize("sigma,layout", ROWS)
+def test_select_kernel_refills_its_lanes(cuda, sigma, layout):
+    """The persistent grid against the plain version where its lanes
+    refill: more wanted ranks than resident threads (a grid of 2 blocks
+    and the wrapper's own), duplicates, ranks that hit at step 0, lanes
+    that reach the cap (-1), and summary false hits: marks in blocks the
+    walks pass without landing on them."""
+    n = (1 << 17) + 37
+    _t, sa, isa, focc, _lanes = _build(sigma, n, 64, cuda, layout)
+    rng = np.random.default_rng(sigma + 1)
+    marks = np.unique(isa[::211])
+    # a decoy in the summary block of each of 2,000 random ranks: the
+    # block's bit is set there although the rank is not a mark
+    decoys = rng.integers(0, n, 2000)
+    decoys = (decoys & ~255) | ((decoys + 1 + rng.integers(0, 200, 2000))
+                                & 255)
+    decoys = np.setdiff1d(np.clip(decoys, 0, n - 1), marks)
+    words = np.zeros(n // 32 + 1, np.uint32)
+    np.bitwise_or.at(words, marks >> 5,
+                     np.uint32(1) << (marks & 31).astype(np.uint32))
+    bitwords = torch.from_numpy(words.view(np.int32)).to(cuda)
+    with_decoys = words.copy()
+    np.bitwise_or.at(with_decoys, decoys >> 5,
+                     np.uint32(1) << (decoys & 31).astype(np.uint32))
+    summary = lw.select_summary(
+        torch.from_numpy(with_decoys.view(np.int32)).to(cuda))
+    want = np.r_[rng.integers(0, n, 150_000), marks[:300], marks[:300], 0,
+                 n - 1, np.repeat(rng.integers(0, n, 50), 7)]
+    r0 = torch.from_numpy(want).to(cuda)
+    r32 = lw.as_u32_bits(r0)
+    for cap in (400, 30, 0):
+        r_p, s_p = lw.select_walk_plain(focc, bitwords, r0, cap)
+        for blocks in (2, lw.select_blocks(cuda, len(want))):
+            before = lw.LAUNCHES["select"]
+            r_k, s_k = lw._launch_select(focc, bitwords, summary, r32, cap,
+                                         blocks)
+            torch.cuda.synchronize()
+            assert lw.LAUNCHES["select"] == before + 1
+            assert torch.equal(lw.from_u32_bits(r_k), r_p), (cap, blocks)
+            assert torch.equal(s_k.long(), s_p), (cap, blocks)
+        if cap == 400:
+            assert int(s_p.min()) == 0 and int((s_p == 0).sum()) >= 600
+            assert int(s_p.max()) > 30
+            np.testing.assert_array_equal(
+                (sa[r_p.cpu().numpy()] + s_p.cpu().numpy()) % n, sa[want])
+        elif cap == 30:
+            assert int((s_p < 0).sum()) > 0
+        else:
+            assert bool((s_p == -1).all()) and torch.equal(r_p, r0)
+    # the wrapper builds its own summary: the same results
+    r_w, s_w = lw.select_walk(focc, bitwords, r0, 400)
+    r_p, s_p = lw.select_walk_plain(focc, bitwords, r0, 400)
+    assert torch.equal(r_w, r_p) and torch.equal(s_w, s_p)
+
+
 def test_kernels_refuse_rows_of_another_layout(cuda):
     from bwtb3m_tpu_torch.ops.focc_bp import FusedOccBP
     _t, _sa, _isa, focc, (r0, _p0, _seg) = _build(4, 5000, 64, cuda,
@@ -384,14 +441,14 @@ def _kasai_case(kind, n, lanes, cuda, a=0, b=None):
     elif kind == "repeats":
         text[100:100 + n // 4] = text[n // 2:n // 2 + n // 4]
     b = n if b is None else b
-    sa, isa, _bwt = suffix_array(text, sigma, cuda)
+    sa, _isa, _bwt = suffix_array(text, sigma, cuda)
     phi = np.zeros(n, np.int64)
     phi[sa[1:]] = sa[:-1]
     words = _pack_text_words(text, sigma, cuda)
     p, pend = _lane_bounds(a, b, lanes, cuda)
-    arrays = [torch.from_numpy(x[a:b].astype(np.int32)).to(cuda)
-              for x in (phi, isa)]
-    return text, sa, words, arrays, p, pend, 4 if sigma <= 16 else 8
+    phi = torch.from_numpy(phi[a:b].astype(np.int32)).to(cuda)
+    return text, sa, words, (phi, int(sa[0])), p, pend, \
+        4 if sigma <= 16 else 8
 
 
 @pytest.mark.parametrize("kind,n,lanes,slab", [
@@ -402,7 +459,7 @@ def test_kasai_kernel_matches_plain(cuda, kind, n, lanes, slab):
     from bwtb3m_tpu_torch.lcp.plcp import kasai_plcp
     from bwtb3m_tpu_torch.ops import kasai as K
     a, b = slab or (0, n)
-    text, sa, words, (phi, isa), p, pend, bits = _kasai_case(
+    text, sa, words, (phi, p0), p, pend, bits = _kasai_case(
         kind, n, lanes, cuda, a, b)
     for steps in (1, 7, 2048, None):
         outs = []
@@ -410,7 +467,7 @@ def test_kasai_kernel_matches_plain(cuda, kind, n, lanes, slab):
             plcp = torch.zeros(b - a, dtype=torch.int32, device=cuda)
             taken = torch.zeros(len(p), dtype=torch.int32, device=cuda)
             before = K.kasai_walk.launches
-            outs.append(fn(words, phi, isa, plcp, p, torch.zeros_like(p),
+            outs.append(fn(words, phi, p0, plcp, p, torch.zeros_like(p),
                            pend, n, a, bits, steps=steps, taken=taken)
                         + (taken,))
             if fn is K.kasai_walk:
@@ -420,6 +477,71 @@ def test_kasai_kernel_matches_plain(cuda, kind, n, lanes, slab):
     assert int(outs[0][3].sum()) >= b - a     # a commit per position
     want = kasai_plcp(text.astype(np.int32), sa)[a:b]
     np.testing.assert_array_equal(outs[0][0].cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("kind,where", [
+    ("dna", "inside"), ("dna", "edge"), ("bytes", "inside"),
+    ("bytes", "edge"), ("repeats", "inside"), ("wrap", "edge")])
+def test_kasai_kernel_ragged_lanes_match_plain(cuda, kind, where):
+    """The kernel against its plain version after 1, 7 and 2,048 steps,
+    resumed, and to the end, on lanes whose bounds are no multiples of 8,
+    lanes of 1-7 positions, p0 inside a lane and at a lane's edge,
+    10,000-symbol repeats and a window that wraps past n; over the whole
+    text and over a slab whose tensors start off a 32-byte sector."""
+    from bwtb3m_tpu_torch.lcp.plcp import _pack_text_words, kasai_plcp
+    from bwtb3m_tpu_torch.ops import kasai as K
+    n = 40_009
+    rng = np.random.default_rng(n + len(kind))
+    sigma = 200 if kind == "bytes" else 4
+    text = rng.integers(0, sigma, n).astype(np.uint8)
+    if kind == "repeats":
+        for dst in (15_000, 27_000):
+            text[dst:dst + 10_000] = text[500:10_500]
+    elif kind == "wrap":
+        text[n - 600:] = text[:600]
+    sa, _isa, _bwt = suffix_array(text, sigma, cuda)
+    p0 = int(sa[0])
+    phi_h = np.zeros(n, np.int64)
+    phi_h[sa[1:]] = sa[:-1]
+    words = _pack_text_words(text, sigma, cuda)
+    bits = 4 if sigma <= 16 else 8
+    cuts = set(rng.choice(np.arange(1, n), 3000, replace=False).tolist())
+    for c in rng.choice(np.arange(8, n - 16), 300, replace=False):
+        cuts.update(int(c) + d for d in (0, 1, 3, 10))
+    cuts = {c for c in cuts if 0 < c < n and c % 8}
+    if where == "inside":
+        cuts -= set(range(p0 - 3, p0 + 4))
+    else:
+        cuts.update({p0, p0 + 1} & set(range(1, n)))
+    want = kasai_plcp(text.astype(np.int32), sa)
+    if kind == "wrap":
+        assert int((np.arange(n) + want).max()) > n
+    for a, b, skew in ((0, n, 0), (3, n - 5, 3)):
+        bounds = np.array(sorted({c for c in cuts if a < c < b} | {a, b}),
+                          np.int64)
+        p = torch.from_numpy(bounds[:-1]).to(cuda)
+        pend = torch.from_numpy(bounds[1:]).to(cuda)
+        # the slab's Phi and PLCP views start ``skew`` words into a sector
+        phi_store = torch.zeros(b - a + 8, dtype=torch.int32, device=cuda)
+        phi = phi_store[skew:skew + b - a]
+        phi.copy_(torch.from_numpy(phi_h[a:b].astype(np.int32)))
+        states = []
+        for fn in (K.kasai_walk, K.kasai_plain):
+            plcp = torch.zeros(b - a + 8, dtype=torch.int32,
+                               device=cuda)[skew:skew + b - a]
+            st = (plcp, p, torch.zeros_like(p))
+            trail = []
+            for steps in (1, 7, 2048, None):
+                taken = torch.zeros(len(p), dtype=torch.int32, device=cuda)
+                st = fn(words, phi, p0, st[0], st[1], st[2], pend, n, a,
+                        bits, steps=steps, taken=taken)
+                trail.append(tuple(x.clone() for x in st) + (taken,))
+            states.append(trail)
+        for got, ref in zip(*states):
+            for x, y in zip(got, ref):
+                assert torch.equal(x, y), (kind, where, a)
+        np.testing.assert_array_equal(states[0][-1][0].cpu().numpy(),
+                                      want[a:b])
 
 
 def test_kasai_device_route_and_encoder(cuda):
@@ -443,12 +565,15 @@ def test_kasai_device_route_and_encoder(cuda):
 
 def test_kasai_kernel_refuses_lanes_outside_the_slab(cuda):
     from bwtb3m_tpu_torch.ops import kasai as K
-    _t, _sa, words, (phi, isa), p, pend, bits = _kasai_case(
+    _t, _sa, words, (phi, p0), p, pend, bits = _kasai_case(
         "dna", 5000, 64, cuda, 1000, 3000)
     plcp = torch.zeros(2000, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="outside the slab"):
-        K.kasai_walk(words, phi, isa, plcp, p - 1, torch.zeros_like(p), pend,
+        K.kasai_walk(words, phi, p0, plcp, p - 1, torch.zeros_like(p), pend,
                      5000, 1000, bits)
     with pytest.raises(TypeError, match="int32"):
-        K.kasai_walk(words.long(), phi, isa, plcp, p, torch.zeros_like(p),
+        K.kasai_walk(words.long(), phi, p0, plcp, p, torch.zeros_like(p),
                      pend, 5000, 1000, bits)
+    with pytest.raises(ValueError, match="p0"):
+        K.kasai_walk(words, phi, 5000, plcp, p, torch.zeros_like(p), pend,
+                     5000, 1000, bits)

@@ -8,8 +8,9 @@ ranks, rank 0 and duplicates, on sector, bit-plane and byte rows),
 ``compute_sa_device`` against the full suffix array, ``hwtPreIsaToIsa``
 against the reference tool's ``.isa`` bytes, ``sortPreIsa`` and
 ``sasubsample`` byte for byte, and the select walk's plain version
-against the reference's ``_select_chunk``.  Exact equality; on the CPU
-the walks run their plain versions.
+against the reference's ``_select_chunk``; the select kernel's summary
+bitmap (``select_summary``) against the blocks that hold a mark.  Exact
+equality; on the CPU the walks run their plain versions.
 """
 
 import filecmp
@@ -34,7 +35,8 @@ from bwtb3m_tpu_torch.engine import (BwtOptions, compute_bwt,
                                      compute_sa_device, select_ssa)
 from bwtb3m_tpu_torch.io import formats
 from bwtb3m_tpu_torch.ops.focc_build import focc_from_jax
-from bwtb3m_tpu_torch.ops.lf_walk import select_walk, select_walk_plain
+from bwtb3m_tpu_torch.ops.lf_walk import (select_summary, select_walk,
+                                          select_walk_plain)
 
 
 def _build(tmp_path, name, lo, hi, n, seed, **kw):
@@ -207,3 +209,43 @@ def test_tools_are_listed_as_ported():
     for name in ("hwtPreIsaToIsa", "sortPreIsa", "sasubsample",
                  "bwtcomputessa"):
         assert name in TOOLS and name not in NOT_PORTED
+
+
+def _bitmap(marks, n):
+    words = np.zeros(n // 32 + 1, np.uint32)
+    np.bitwise_or.at(words, marks >> 5,
+                     np.uint32(1) << (marks & 31).astype(np.uint32))
+    return torch.from_numpy(words.view(np.int32))
+
+
+@pytest.mark.parametrize("n,shift", [
+    (1 << 16, 8), ((1 << 16) + 37, 8), (100_003, 5), (100_003, 11),
+    (255, 8), (257, 8), (70_000, 12)])
+def test_select_summary_sets_the_blocks_that_hold_a_mark(n, shift):
+    """Bit b of the summary is set where ranks [b << shift, (b + 1) <<
+    shift) hold a mark and nowhere else, with marks at block edges, at
+    rank 0, at rank n - 1 and n no multiple of 2^shift; every rank's
+    summary word exists."""
+    rng = np.random.default_rng(n + shift)
+    blk = 1 << shift
+    edges = np.arange(0, n, blk)
+    marks = np.unique(np.r_[0, n - 1, edges[1::3], edges[2::5] - 1,
+                            rng.integers(0, n, 40)])
+    marks = marks[(marks >= 0) & (marks < n)]
+    summ = select_summary(_bitmap(marks, n), shift)
+    assert summ.dtype == torch.int32
+    bits = np.unpackbits(summ.numpy().view(np.uint8), bitorder="little")
+    nblk = -(-(n // 32 + 1) * 32 // blk)
+    assert len(bits) >= nblk and len(bits) * blk > n - 1
+    want = np.zeros(len(bits), np.uint8)
+    want[marks >> shift] = 1
+    np.testing.assert_array_equal(bits, want)
+    assert bits[0] == 1 and bits[(n - 1) >> shift] == 1
+    # no mark: no bit
+    empty = select_summary(_bitmap(np.zeros(0, np.int64), n), shift)
+    assert int(empty.abs().sum()) == 0
+
+
+def test_select_summary_refuses_blocks_below_a_word():
+    with pytest.raises(ValueError, match="whole bitmap words"):
+        select_summary(_bitmap(np.array([3]), 100), 4)
