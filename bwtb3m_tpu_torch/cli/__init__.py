@@ -12,9 +12,11 @@ The ported tools keep the reference package's argument surface and add
     lcpbit          the succinct PLCP bit vector (.lcpbit) of a build
     hwtToLCP        the .ulcp, .lcp and .rmm files of a build's LCP
     checkLCPBit     verify a .lcpbit, prints lcpok=0|1
+    bwttestdecodespeed  LF-step throughput of batched walks
 
-(the sampled-SA tools live in ``cli/ssa_tools.py`` and the LCP tools
-in ``cli/lcp_tools.py``, as in the reference).
+(the sampled-SA tools live in ``cli/ssa_tools.py``, the LCP tools in
+``cli/lcp_tools.py`` and the speed tool in ``cli/speed.py``, as in the
+reference).
 
 Every other tool of the reference package exits 2 with the ROADMAP.md
 item that will port it.
@@ -27,7 +29,7 @@ from typing import List
 
 import numpy as np
 
-from . import lcp_tools, ssa_tools
+from . import lcp_tools, speed, ssa_tools
 from ..io.inputtypes import parse_input_type
 from ..util.args import ArgInfo
 from ..util.log import VerboseLog
@@ -40,8 +42,7 @@ NOT_PORTED = {
         "bwtb3mtobwa", "arraytocompact", "fa4suffixarraytocompact",
         "fagzToCompact", "fagzToCompact4", "fagzToCompactUTerm",
         "fagzToCompact4BigBand", "fagzToCompact4BigBandBiDir",
-        "digitsToCompact", "decodecompact", "bytestreamToLz4",
-        "bwttestdecodespeed")}
+        "digitsToCompact", "decodecompact", "bytestreamToLz4")}
 
 
 def checkbwt(argv: List[str]) -> int:
@@ -71,7 +72,7 @@ def bwtb3m(argv: List[str]) -> int:
 
 
 TOOLS = {"bwtb3m": bwtb3m, "checkbwt": checkbwt, **ssa_tools.TOOLS,
-         **lcp_tools.TOOLS}
+         **lcp_tools.TOOLS, **speed.TOOLS}
 
 
 def dispatch(argv: List[str]) -> int:

@@ -25,6 +25,12 @@
 //   byte rows (sigma <= 256), roww bytes per block (multiple of 128):
 //     bytes 0..255                 the block's symbols
 //     bytes 256 + 4c .. +3         occ checkpoint of symbol c, little endian
+//   wavelet rows (256 < sigma <= 65536, n < 2^31; ops/wavelet_rows.py),
+//   a fourth family with the same three calls but no block rows: a
+//   wavelet matrix of `levels` bit levels, each level nsec 32-byte sectors
+//     word 0                       ones of the level before the sector
+//     words 1..7                   the level's next 224 bits, LSB first
+//   step, symrank and rank descend the levels, one sector per level.
 #pragma once
 
 #include <cstdint>
@@ -237,6 +243,129 @@ struct ByteRows {
     return count<R>(rows + (size_t)(r >> 8) * (size_t)roww, sym, (uint32_t)r & 255u);
   }
 };
+
+// Wavelet rows.  A descent from position i reads at each level l the
+// sector of i, the bit b there and the ones before i, and goes on at
+// z[l] + ones (b = 1) or i - ones (b = 0), z[l] being the level's zeros;
+// the levels' sectors depend on each other, so a step is `levels`
+// dependent 32-byte reads (two 16-byte loads each).  Along BWT[i]'s own
+// bits the descent yields the symbol and the end position f, and
+// LF(i) = D[sym] + f; along c's bits, rank(c, i) = f - start[c].  The
+// zeros sit in registers; D and start are read from shared memory where a
+// kernel staged them (stage_wavelet), else with __ldg.  Ranks are uint32
+// (the callers keep n below 2^31); the division by 224 is by a constant.
+constexpr int kWmMaxLevels = 16;
+constexpr uint32_t kWmSectorBits = 224;
+
+// What the host passes: the sectors ([levels][nsec] x 32 bytes, 32-byte
+// aligned), the zeros per level (uint32 [levels]), D and start (uint32
+// [sigma]); stage: 0 none, 1 D, 2 start into shared memory.
+struct WaveletArgs {
+  const uint4* sec;
+  unsigned long long nsec;
+  int levels;
+  int sigma;
+  const uint32_t* zeros;
+  const uint32_t* D;
+  const uint32_t* start;
+  int stage;
+};
+
+struct WaveletRows {
+  static constexpr int kShift = 0;
+  static constexpr int kMaxSigma = 65536;
+  const uint4* sec;
+  unsigned long long nsec;
+  int levels;
+  uint32_t z[kWmMaxLevels];
+  const uint32_t* D;
+  const uint32_t* start;
+  bool staged;
+
+  __device__ __forceinline__ uint32_t tab(const uint32_t* t, uint32_t c) const {
+    return staged ? t[c] : __ldg(t + c);
+  }
+
+  // The ones of level l before position i, and the bit at i.
+  __device__ __forceinline__ uint32_t level(int l, uint32_t i, uint32_t* bit) const {
+    const uint32_t s = i / kWmSectorBits;
+    const uint32_t off = i - s * kWmSectorBits;
+    const uint4* p = sec + 2 * ((size_t)l * nsec + s);
+    const uint4 a = __ldg(p), b = __ldg(p + 1);
+    const uint32_t w[7] = {a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const uint32_t wi = off >> 5, sh = off & 31u;
+    uint32_t ones = a.x, cur = 0;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      if ((uint32_t)k < wi) ones += __popc(w[k]);
+      if ((uint32_t)k == wi) cur = w[k];
+    }
+    *bit = (cur >> sh) & 1u;
+    return ones + __popc(cur & ((1u << sh) - 1u));
+  }
+
+  // Descent along BWT[i]'s bits (c < 0) or along c's: returns f, and the
+  // symbol read in *sym.
+  __device__ __forceinline__ uint32_t descend(uint32_t i, int c, uint32_t* sym) const {
+    uint32_t s = 0;
+#pragma unroll
+    for (int l = 0; l < kWmMaxLevels; ++l) {
+      if (l < levels) {
+        uint32_t bit;
+        const uint32_t ones = level(l, i, &bit);
+        if (c >= 0) bit = ((uint32_t)c >> (levels - 1 - l)) & 1u;
+        i = bit ? z[l] + ones : i - ones;
+        s = (s << 1) | bit;
+      }
+    }
+    *sym = s;
+    return i;
+  }
+
+  template <class R>
+  __device__ __forceinline__ R symrank(R r, uint32_t* sym_out) const {
+    const uint32_t f = descend((uint32_t)r, -1, sym_out);
+    return (R)(f - tab(start, *sym_out));
+  }
+
+  __device__ __forceinline__ uint32_t step(uint32_t r, uint32_t* sym_out) const {
+    const uint32_t f = descend(r, -1, sym_out);
+    return tab(D, *sym_out) + f;
+  }
+
+  template <class R>
+  __device__ __forceinline__ R rank(uint32_t sym, R r) const {
+    uint32_t s;
+    const uint32_t f = descend((uint32_t)r, (int)sym, &s);
+    return (R)(f - tab(start, sym));
+  }
+};
+
+// The block's wavelet rows: the zeros into registers and, where the host
+// asked (a.stage), D or start into s_tab (a.sigma words of dynamic shared
+// memory).  Every thread of the block must call it.
+__device__ __forceinline__ WaveletRows stage_wavelet(const WaveletArgs& a, uint32_t* s_tab) {
+  WaveletRows w;
+  w.sec = a.sec;
+  w.nsec = a.nsec;
+  w.levels = a.levels;
+#pragma unroll
+  for (int l = 0; l < kWmMaxLevels; ++l) w.z[l] = l < a.levels ? __ldg(a.zeros + l) : 0u;
+  w.D = a.D;
+  w.start = a.start;
+  w.staged = a.stage != 0;
+  if (a.stage) {
+    const uint32_t* src = a.stage == 1 ? a.D : a.start;
+    for (int k = threadIdx.x; k < a.sigma; k += blockDim.x) s_tab[k] = __ldg(src + k);
+    __syncthreads();
+    if (a.stage == 1) {
+      w.D = s_tab;
+    } else {
+      w.start = s_tab;
+    }
+  }
+  return w;
+}
 
 // The 64-bit forms' additions to a row's rank: the hi word of the occ
 // checkpoint, #{k : thr[sym][k] <= row} << 32 (ops/wideocc.py), and the

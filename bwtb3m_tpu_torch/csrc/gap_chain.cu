@@ -1,5 +1,12 @@
 // The merge engine's gap-chain kernel (sm_90a).
 //
+// Alphabets past 256 distinct symbols: bwt_gap_chain_mk_wm runs the
+// recording and anchor forms over the wavelet rows of the right region
+// (focc_rows.cuh::WaveletRows), one merge per launch, with a uint16 text;
+// it replaces the reference's legacy engine's chain and anchor walks
+// (bwtb3m_tpu/ops/gap.py::_chain_steps, _anchor_steps), which the port
+// maps onto its scaled engine.
+//
 // Port of bwtb3m_tpu/ops/gapdev.py::_chain_chunk_impl / ::_anchor_chunk_impl
 // (one pair merge) and of bwtb3m_tpu/ops/gapbatch.py::_chain_chunk_mk_impl /
 // ::_anchor_chunk_mk_impl (the K pair merges of one level of the merge tree
@@ -100,10 +107,11 @@ struct Merge {
 };
 
 // I: ranks, positions and samples (uint32_t narrow, unsigned long long in
-// the 64-bit form); Cell: the histogram's cells (uint32_t, unsigned long long).
-template <class I, class Cell>
+// the 64-bit form); Cell: the histogram's cells (uint32_t, unsigned long
+// long); T: the text's symbols (uint16_t on the wavelet rows).
+template <class I, class Cell, class T = uint8_t>
 struct Chain {
-  const uint8_t* text;      // dense text, n symbols
+  const T* text;            // dense text, n symbols
   const uint8_t* gt;        // wrap-term bits, LSB first
   const I* c_first;         // c_first[m.c_first + c]: rbase + right rotations below c
   const Merge<I>* table;    // K merges
@@ -117,9 +125,9 @@ struct Chain {
   I rate;
 };
 
-template <bool kRecord, class I, class Cell, class Rows>
+template <bool kRecord, class I, class Cell, class T, class Rows>
 __device__ __forceinline__ void chain_lane(const Rows& rows, const WideTerms& wt,
-                                           const Chain<I, Cell>& ch, int j) {
+                                           const Chain<I, Cell, T>& ch, int j) {
   const Merge<I> m = ch.table[ch.kid[j]];
   const I* c_first = ch.c_first + m.c_first;
   const uint8_t* gt = ch.gt + m.gt_base;
@@ -199,13 +207,13 @@ int launch(const void* rows_v, int roww, const Chain<I, Cell>& ch, int nlanes,
   return (int)cudaGetLastError();
 }
 
-template <class I, class Cell>
-Chain<I, Cell> make_chain(const void* text, const void* gt, const void* c_first,
-                          const void* table, const void* kid, const void* starts,
-                          const void* seeds, const void* lens, void* r_out, void* gap,
-                          void* samp, long long rate) {
-  Chain<I, Cell> ch{};
-  ch.text = static_cast<const uint8_t*>(text);
+template <class I, class Cell, class T = uint8_t>
+Chain<I, Cell, T> make_chain(const void* text, const void* gt, const void* c_first,
+                             const void* table, const void* kid, const void* starts,
+                             const void* seeds, const void* lens, void* r_out, void* gap,
+                             void* samp, long long rate) {
+  Chain<I, Cell, T> ch{};
+  ch.text = static_cast<const T*>(text);
   ch.gt = static_cast<const uint8_t*>(gt);
   ch.c_first = static_cast<const I*>(c_first);
   ch.table = static_cast<const Merge<I>*>(table);
@@ -218,6 +226,18 @@ Chain<I, Cell> make_chain(const void* text, const void* gt, const void* c_first,
   ch.samp = static_cast<I*>(samp);
   ch.rate = (I)rate;
   return ch;
+}
+
+// The wavelet rows (one merge, narrow): start staged in shared memory
+// where the host gave the bytes for it, the text uint16.
+template <bool kRecord>
+__global__ void chain_wm_kernel(bwt_rows::WaveletArgs a,
+                                Chain<uint32_t, uint32_t, uint16_t> ch, int nlanes) {
+  extern __shared__ uint32_t s_tab[];
+  const bwt_rows::WaveletRows rows = bwt_rows::stage_wavelet(a, s_tab);
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= nlanes) return;
+  chain_lane<kRecord>(rows, WideTerms{}, ch, j);
 }
 
 }  // namespace
@@ -253,6 +273,39 @@ extern "C" int bwt_gap_chain_mk_w(const void* rows, int roww, const void* thr, i
                 make_chain<U, U>(text, gt, c_first, table, kid, starts, seeds, lens,
                                  r_out, gap, samp, rate),
                 nlanes, thr, sigma, stream);
+}
+
+// One pair merge over wavelet rows (more than 256 distinct symbols, n <
+// 2^31; ops/wavelet_rows.py): the right region's sectors ([levels][nsec]
+// x 32 bytes), zeros (uint32 [levels]) and start (uint32 [sigma]); text
+// is the dense text as uint16; the rest as bwt_gap_chain_mk with one
+// merge.  start sits in shared memory when smem_bytes is not 0.
+extern "C" int bwt_gap_chain_mk_wm(const void* sectors, long long nsec, int levels,
+                                   const void* zeros, const void* start, int sigma,
+                                   int smem_bytes, const void* text, const void* gt,
+                                   const void* c_first, const void* table, const void* kid,
+                                   const void* starts, const void* seeds, const void* lens,
+                                   void* r_out, void* gap, void* samp, int rate, int nlanes,
+                                   void* stream) {
+  bwt_rows::WaveletArgs a;
+  a.sec = static_cast<const uint4*>(sectors);
+  a.nsec = (unsigned long long)nsec;
+  a.levels = levels;
+  a.sigma = sigma;
+  a.zeros = static_cast<const uint32_t*>(zeros);
+  a.D = nullptr;
+  a.start = static_cast<const uint32_t*>(start);
+  a.stage = smem_bytes ? 2 : 0;
+  const auto ch = make_chain<uint32_t, uint32_t, uint16_t>(
+      text, gt, c_first, table, kid, starts, seeds, lens, r_out, gap, samp, rate);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = (nlanes + kThreads - 1) / kThreads;
+  if (gap != nullptr) {
+    chain_wm_kernel<true><<<grid, kThreads, smem_bytes, s>>>(a, ch, nlanes);
+  } else {
+    chain_wm_kernel<false><<<grid, kThreads, smem_bytes, s>>>(a, ch, nlanes);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* bwt_error_string(int code) {

@@ -47,6 +47,15 @@
 //
 // Row layouts and the LF step: focc_rows.cuh (shared with gap_chain.cu).
 //
+// Alphabets past 256 symbols: bwt_lf_walk_wm instantiates the same walk
+// (final rank, verify, harvest; narrow, uint32) over the wavelet rows
+// (focc_rows.cuh::WaveletRows, ops/wavelet_rows.py) and replaces the
+// reference's legacy walks over its OccTable: ops/lf.py::lf_walk,
+// engine/verify.py::_walk_verify_run and engine/ssa.py::_harvest_walk.
+// Its text is uint16 (the dense symbol ids).  A step is one descent, a
+// dependent 32-byte sector read per level (13 for 5,000 symbols), where
+// the other families read one row.
+//
 // The entry point launches on the caller's stream, does not synchronise
 // and returns cudaGetLastError() right after the launch.
 
@@ -67,6 +76,8 @@ using bwt_rows::kThrK;
 using bwt_rows::make_bp;
 using bwt_rows::make_sector;
 using bwt_rows::SectorRows;
+using bwt_rows::WaveletArgs;
+using bwt_rows::WaveletRows;
 using bwt_rows::WideTerms;
 
 enum class Visit { kNone, kVerify, kHarvest };
@@ -74,15 +85,16 @@ enum class Visit { kNone, kVerify, kHarvest };
 // The lanes and what a step visits.  Lane i starts at rank r0[i] (and, for
 // a visit, at text position p0[i]) and takes seg_len[i] steps.  I is the
 // rank and position type: uint32_t in the narrow form (n < 2^32), unsigned
-// long long in the 64-bit form.
-template <class I>
+// long long in the 64-bit form; T the text's symbol type (uint16_t on the
+// wavelet rows).
+template <class I, class T = uint8_t>
 struct Walk {
   const I* r0;
   const I* p0;
   const int32_t* seg_len;
   I* r_out;              // final rank per lane
   I n;
-  const uint8_t* text;   // kVerify: densified text
+  const T* text;         // kVerify: densified text
   int32_t* bad;          // kVerify: mismatches per lane
   I sarate, isarate;     // the 64-bit form: sarate is a power of two
   I* sa;                 // kHarvest: SA[r / sarate] = p
@@ -101,9 +113,9 @@ __device__ __forceinline__ I lf(const Rows& rows, const WideTerms& wt, I r, uint
   }
 }
 
-template <Visit V, class I, class Rows>
+template <Visit V, class I, class T, class Rows>
 __device__ __forceinline__ void walk_lane(const Rows& rows, const WideTerms& wt,
-                                          const Walk<I>& w, int i) {
+                                          const Walk<I, T>& w, int i) {
   constexpr bool kWide = sizeof(I) == 8;
   I r = w.r0[i];
   I p = V == Visit::kVerify || V == Visit::kHarvest ? w.p0[i] : 0u;
@@ -204,6 +216,17 @@ __global__ void lf_walk_byte_kernel(ByteRows rows, int sigma, Walk<I> w, int nla
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nlanes) return;
   walk_lane<V, I>(rows, wt, w, i);
+}
+
+// The wavelet rows: D staged in shared memory where sigma words fit
+// (the host passes the bytes), the text uint16.
+template <Visit V>
+__global__ void lf_walk_wm_kernel(WaveletArgs a, Walk<uint32_t, uint16_t> w, int nlanes) {
+  extern __shared__ uint32_t s_tab[];
+  const WaveletRows rows = bwt_rows::stage_wavelet(a, s_tab);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nlanes) return;
+  walk_lane<V, uint32_t>(rows, WideTerms{}, w, i);
 }
 
 template <Visit V, class I>
@@ -401,6 +424,50 @@ extern "C" int bwt_lf_walk_w(const void* rows, int roww, const void* C64, const 
     launch<Visit::kHarvest>(rows, roww, nullptr, sigma, w, nlanes, thr, C64, s);
   } else {
     launch<Visit::kNone>(rows, roww, nullptr, sigma, w, nlanes, thr, C64, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The walk over wavelet rows (sigma > 256, n < 2^31): sectors ([levels]
+// [nsec] x 32 bytes), zeros (uint32 [levels]) and D (uint32 [sigma]) of
+// ops/wavelet_rows.py; text (verify) is the densified text as uint16;
+// otherwise as bwt_lf_walk.  D sits in shared memory when smem_bytes (the
+// host's choice, sigma * 4 or 0) is not 0.
+extern "C" int bwt_lf_walk_wm(const void* sectors, long long nsec, int levels,
+                              const void* zeros, const void* D, int sigma,
+                              int smem_bytes, long long n, const void* r0,
+                              const void* p0, const void* seg_len, void* r_out,
+                              const void* text, void* bad, int sarate, int isarate,
+                              void* sa_out, void* isa_out, int nlanes, void* stream) {
+  WaveletArgs a;
+  a.sec = static_cast<const uint4*>(sectors);
+  a.nsec = (unsigned long long)nsec;
+  a.levels = levels;
+  a.sigma = sigma;
+  a.zeros = static_cast<const uint32_t*>(zeros);
+  a.D = static_cast<const uint32_t*>(D);
+  a.start = nullptr;
+  a.stage = smem_bytes ? 1 : 0;
+  Walk<uint32_t, uint16_t> w;
+  w.r0 = static_cast<const uint32_t*>(r0);
+  w.p0 = static_cast<const uint32_t*>(p0);
+  w.seg_len = static_cast<const int32_t*>(seg_len);
+  w.r_out = static_cast<uint32_t*>(r_out);
+  w.n = (uint32_t)n;
+  w.text = static_cast<const uint16_t*>(text);
+  w.bad = static_cast<int32_t*>(bad);
+  w.sarate = (uint32_t)sarate;
+  w.isarate = (uint32_t)isarate;
+  w.sa = static_cast<uint32_t*>(sa_out);
+  w.isa = static_cast<uint32_t*>(isa_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = (nlanes + kThreads - 1) / kThreads;
+  if (text) {
+    lf_walk_wm_kernel<Visit::kVerify><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
+  } else if (sa_out) {
+    lf_walk_wm_kernel<Visit::kHarvest><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
+  } else {
+    lf_walk_wm_kernel<Visit::kNone><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
   }
   return (int)cudaGetLastError();
 }

@@ -19,11 +19,19 @@ its rank rows from them instead of decoding the file.
 The writers are the port's copies of the reference package's host modules
 (``io/``), so every file is byte-identical to the reference's for the
 same input; ``.meta`` keeps ``"format": "bwtb3m_tpu/v1"``, the name of
-the file format.
+the file format.  ``bwtcodec=rlh`` writes the Huffman-coded RLH1 ``.bwt``
+(``io/rlh.py``).
+
+An alphabet of more than 256 distinct symbols (a UTF-8 text) takes the
+scaled engine too, where the reference takes its legacy full-SA engine:
+the text is compacted to dense uint16 ids, and the engine runs on 16-bit
+regions and wavelet rank rows, pair by pair, with no checkpoints
+(``engine/merge_scaled.py``); the files are the reference's.  More than
+65,536 distinct symbols raise ``NotImplementedError`` (ROADMAP.md Queue 1
+item 11).
 
 Not ported yet (they raise ``NotImplementedError`` naming their
-ROADMAP.md item): ``engine=merge-legacy``, the sharded engine and
-``bwtcodec=rlh``.
+ROADMAP.md item): ``engine=merge-legacy`` and the sharded engine.
 """
 
 from __future__ import annotations
@@ -54,9 +62,6 @@ def _refuse_unported(options: BwtOptions) -> None:
         raise NotImplementedError(
             "engine=merge-legacy is not ported (it becomes an alias of the "
             "scaled engine): ROADMAP.md Queue 1 item 10")
-    if options.bwt_codec == "rlh":
-        raise NotImplementedError(
-            "bwtcodec=rlh is not ported yet: ROADMAP.md Queue 1 item 8")
 
 
 def _remove(path: Optional[str]) -> None:
@@ -77,10 +82,11 @@ def _spill_text(symbols: np.ndarray, options: BwtOptions, log: VerboseLog):
     if not options.host_mem or 2 * n <= options.host_mem:
         return symbols, None
     path = options.tmp_prefix + "_text.u8"
-    np.asarray(symbols, np.uint8).tofile(path)
+    dt = np.uint16 if np.asarray(symbols).dtype == np.uint16 else np.uint8
+    np.asarray(symbols, dt).tofile(path)
     log.v("hostmem=%d: text (%d bytes) spilled to memmap %s"
-          % (options.host_mem, n, path))
-    return np.memmap(path, np.uint8, "r"), path
+          % (options.host_mem, n * np.dtype(dt).itemsize, path))
+    return np.memmap(path, dt, "r"), path
 
 
 def compute_bwt(options: BwtOptions,
@@ -135,7 +141,11 @@ def compute_bwt(options: BwtOptions,
     files = {}
     with log.span("write .bwt (%s)" % options.bwt_codec), \
             phase("write .bwt"):
-        write_bwt(options.output_filename, bwt, sigma)
+        if options.bwt_codec == "rlh":
+            from ..io.rlh import rlh_encode
+            rlh_encode(options.output_filename, bwt, sigma=sigma)
+        else:
+            write_bwt(options.output_filename, bwt, sigma)
         files["bwt"] = options.output_filename
 
     with log.span("output hist"):
@@ -208,10 +218,11 @@ def _merge_engine(symbols, sigma: int, prate: int, options: BwtOptions,
                   device, log: VerboseLog, phase: Phases, rows_out: list,
                   bounded_spill: Optional[str]):
     """The scaled engine after the reference's alphabet compaction: a
-    sigma > 256 alphabet with <= 256 distinct symbols compacts to bytes,
-    a byte alphabet with <= 16 distinct symbols to nibbles (a strictly
-    monotonic remap keeps rotation order, so the BWT maps back through
-    the same table).  A memory-mapped text (``hostmem=``) is compacted
+    sigma > 256 alphabet with <= 256 distinct symbols compacts to bytes
+    and one with more to dense uint16 ids (up to 65,536), a byte alphabet
+    with <= 16 distinct symbols to nibbles (a strictly monotonic remap
+    keeps rotation order, so the BWT maps back through the same table).
+    A memory-mapped text (``hostmem=``) is compacted
     chunk by chunk into a second map; ``bounded_spill`` and every spill
     made here are removed when the engine returns.  Returns (bwt, preisa
     positions, preisa ranks, symmap or None)."""
@@ -219,14 +230,20 @@ def _merge_engine(symbols, sigma: int, prate: int, options: BwtOptions,
 
     symmap = None
     if sigma > 256:
-        uniq = np.unique(np.asarray(symbols))
-        if len(uniq) > 256:
-            raise NotImplementedError(
-                "the merge engine for more than 256 distinct symbols (the "
-                "sigma > 256 rank path) is not ported yet: ROADMAP.md "
-                "Queue 1 item 8")
-        symmap = uniq
-        symbols = np.searchsorted(uniq, np.asarray(symbols)).astype(np.uint8)
+        with log.span("alphabet compaction scan"):
+            syms_np = np.asarray(symbols)
+            # the distinct symbols (np.unique's) from one counting pass
+            uniq = np.flatnonzero(np.bincount(syms_np, minlength=sigma))
+            if len(uniq) > 1 << 16:
+                raise NotImplementedError(
+                    "the merge engine for more than 65,536 distinct symbols "
+                    "is not ported: ROADMAP.md Queue 1 item 11")
+            table = np.zeros(sigma, np.uint8 if len(uniq) <= 256
+                             else np.uint16)
+            table[uniq] = np.arange(len(uniq))
+            symmap = uniq.astype(np.int64)
+            symbols = table[syms_np]
+            del syms_np, table
         log.v("alphabet rank-compacted: %d distinct symbols" % len(uniq))
     elif sigma > 16:
         with log.span("alphabet compaction scan"):

@@ -26,6 +26,19 @@ the chains, a right rank r gains cnt_le[r].  Completed regions are checkpointed 
 and a build stopped by ``<output>.stop`` or a crash resumes from them.
 The BWT crosses to the host once, at the end.
 
+More than 256 distinct symbols (the reference sends such a text to its
+legacy full-SA engine, ``engine/merge.py::blockwise_bwt``): the text is
+dense uint16 ids, on the device as int16 of the same bits; regions pack
+at 16 bits; the block sorts take 16-bit symbols; the gt bits come from
+the native comparator's uint16 form; each merge's right region gets its
+own wavelet rank rows (``ops/wavelet_rows.py``) and the chains run
+through ``bwt_gap_chain_mk_wm``, so the merges run pair by pair
+(``_level_fits_batched`` refuses such a level) and texts stay below 2^31
+symbols.  As in the reference's legacy engine there are no checkpoints;
+``<output>.stop`` still stops the build.  The final region is not handed
+to the result (``DeviceRowsHandle``): the tools build wavelet rows from
+the file.
+
 The wide path (the reference's ``_merge_pair_scaled`` wide branch): a
 merge whose right region reaches (2^24-1)*256 - 2 ranks, whose left
 block reaches 2^32 symbols or whose positions pass 2^32 (the narrow
@@ -56,6 +69,7 @@ from ..ops.devzip import (bits_for, cnt_le_at_ranks, device_interleave,
 from ..ops.focc_build import concat_layout
 from ..ops.gapbatch import BatchedGapRunner
 from ..ops.gapdev import cmp_rot
+from ..ops.wavelet_rows import symbol_values
 from ..ops.windowsort import block_suffix_order
 from ..util.devices import device_budget
 from ..util.log import VerboseLog
@@ -120,10 +134,11 @@ class _Ctx:
                  lane_bucket: int, device: torch.device, phase: Phases,
                  nthreads: int = 4, budget: Optional[int] = None):
         # a memory-mapped text (hostmem=) stays a memmap: the host reads
-        # it page by page
-        mapped = isinstance(text, np.memmap) and text.dtype == np.uint8
+        # it page by page.  Past 256 symbols the dense ids are uint16
+        dt = np.uint16 if sigma > 256 else np.uint8
+        mapped = isinstance(text, np.memmap) and text.dtype == dt
         self.text = (text if mapped
-                     else np.ascontiguousarray(text, dtype=np.uint8))
+                     else np.ascontiguousarray(text, dtype=dt))
         self.n = len(self.text)
         self.sigma = sigma
         self.rate = rate
@@ -137,16 +152,20 @@ class _Ctx:
         self.ckpt_key = None
         self._budget = budget
         with phase("text upload"):
+            # uint16 ids travel as the int16 of their bits
+            tdt = torch.int16 if dt == np.uint16 else torch.uint8
+            vdt = np.int16 if dt == np.uint16 else np.uint8
             if mapped:
                 # in chunks: never one host copy of n bytes
-                self.text_dev = torch.empty(self.n, dtype=torch.uint8,
+                self.text_dev = torch.empty(self.n, dtype=tdt,
                                             device=device)
                 for a in range(0, self.n, TEXT_CHUNK):
                     b = min(self.n, a + TEXT_CHUNK)
                     self.text_dev[a:b] = torch.from_numpy(
-                        np.array(self.text[a:b])).to(device)
+                        np.array(self.text[a:b]).view(vdt)).to(device)
             else:
-                self.text_dev = torch.from_numpy(self.text).to(device)
+                self.text_dev = torch.from_numpy(self.text.view(vdt)).to(
+                    device)
 
     def budget(self) -> int:
         """Device bytes a step may plan with now: the caller's figure, or
@@ -220,7 +239,7 @@ def _plan_blocks_fixed(n: int, max_block: int) -> List[Tuple[int, int]]:
 
 
 def _device_window(ctx: _Ctx, s: int, W: int) -> torch.Tensor:
-    """The circular window text[s : s+W] (uint8, on the device)."""
+    """The circular window text[s : s+W] (on the device)."""
     s %= ctx.n
     if s + W <= ctx.n:
         return ctx.text_dev[s:s + W]
@@ -370,7 +389,8 @@ def _derive_region(ctx: _Ctx, s: int, e: int, sa_local: torch.Tensor
     spos = np.arange(s + first, e, ctx.rate, dtype=np.int64)
     sranks = inv[first::ctx.rate].cpu().numpy()
     r_start = int(inv[0])
-    hist = torch.bincount(ctx.text_dev[s:e], minlength=ctx.sigma)[
+    hist = torch.bincount(symbol_values(ctx.text_dev[s:e]),
+                          minlength=ctx.sigma)[
         :ctx.sigma].cpu().numpy().astype(np.int64)
     return Region(s, e, packed, None, spos, sranks, r_start, hist)
 
@@ -468,9 +488,11 @@ def level_bytes_estimate(pairs, sigma: int, bits: int,
 
 def _level_fits_batched(ctx: _Ctx, pairs) -> bool:
     """Gate of the batched-level path: no pair needs the wide path (the
-    reference never batches a wide level), the level's rank space stays
-    256 short of 2^32, and its state fits the device budget."""
-    if any(_is_wide(l, r) for l, r in pairs):
+    reference never batches a wide level), the alphabet has at most 256
+    symbols (past them each right region has its own wavelet rows), the
+    level's rank space stays 256 short of 2^32, and its state fits the
+    device budget."""
+    if any(_is_wide(l, r) for l, r in pairs) or ctx.sigma > 256:
         return False
     cls, _roww, _first, total_rows = concat_layout(
         [r.e - r.s for _l, r in pairs], ctx.sigma)
@@ -490,6 +512,9 @@ def _merge_pairs(ctx: _Ctx, pairs) -> List[Region]:
         assert r.s == l.e
     if wide and len(pairs) > 1:
         raise ValueError("a wide merge is not batched")
+    # past 256 symbols texts stay below 2^31 (blockwise_bwt_scaled): never
+    # wide, BWTB3M_FORCE_WIDE included, as the reference's legacy engine
+    wide = wide and ctx.sigma <= 256
     phase = ctx.phase
     runner = BatchedGapRunner(
         ctx.text_dev, ctx.text, ctx.sigma,
@@ -550,10 +575,11 @@ def blockwise_bwt_scaled(
     phase = phase or Phases(device)
     text = symbols if isinstance(symbols, np.memmap) else np.asarray(symbols)
     n = len(text)
-    if sigma > 256:
-        raise ValueError("scaled merge engine supports sigma <= 256 "
-                         "(byte device text); rank-compact the alphabet "
-                         "first (engine/api.py does)")
+    if sigma > 1 << 16 or (sigma > 256 and n >= 1 << 31):
+        raise ValueError("the scaled merge engine takes at most 65,536 "
+                         "dense symbols, and past 256 fewer than 2^31 "
+                         "symbols; rank-compact the alphabet first "
+                         "(engine/api.py does)")
     _validate_scale(n)
     ctx = _Ctx(text, sigma, sample_rate, options, log, lane_bucket, device,
                phase, budget=budget)
@@ -565,7 +591,8 @@ def blockwise_bwt_scaled(
     # saved tree nodes
     ckpt = None
     avail = {}
-    if options.checkpoint and options.tmp_prefix and len(blocks) > 1:
+    if (options.checkpoint and options.tmp_prefix and len(blocks) > 1
+            and sigma <= 256):
         ctx.ckpt_key = build_key(ctx.text, sigma, sample_rate,
                                  blocks[0][1] - blocks[0][0])
         ckpt = MergeCheckpointer(options.tmp_prefix, ctx.ckpt_key, ctx.bits,
@@ -669,7 +696,7 @@ def blockwise_bwt_scaled(
         with phase("final download"):
             bwt = _region_bwt(ctx, final)  # one download per build
         if (rows_out is not None and final.packed is not None
-                and bool((final.hist > 0).all())):
+                and sigma <= 256 and bool((final.hist > 0).all())):
             rows_out.append(DeviceRowsHandle(
                 final.packed, ctx.bits, n, sigma,
                 np.asarray(final.hist, np.int64).copy()))

@@ -12,8 +12,9 @@ that builds and never checks pins the symbols only while it keeps the
 result.  Texts of 2^32 symbols or more, or any text under
 ``BWTB3M_FORCE_WIDE``, get the wide rank rows (``ops/wideocc.py``); the
 memo key carries the variant, so narrow rows never serve a wide request
-nor the other way round.  The legacy ``load_occ`` is not ported yet
-(ROADMAP.md Queue 1 item 8).
+nor the other way round.  Alphabets past 256 symbols take the wavelet
+rank rows of ``ops/wavelet_rows.py`` (``load_wavelet``, the port of the
+reference's ``load_occ``), memoized in the same memo.
 """
 
 from __future__ import annotations
@@ -181,6 +182,57 @@ class BwtResult:
         _FOCC_CACHE.clear()   # hold at most one (rows are 0.5-5 B/symbol)
         _FOCC_CACHE[key] = out
         return out
+
+    def load_wavelet(self, device, dense: bool = True, log=None):
+        """Wavelet rank rows of the ``.bwt`` on ``device`` (texts below
+        2^31 symbols; ``ops/wavelet_rows.py``): (rows, symbol_map or
+        None).  The port of the reference's ``load_occ``: with ``dense``
+        a sparse alphabet is densified, ``symbol_map[dense_id]`` being
+        the file's symbol, as there.  The decoded symbols go to the
+        device as int32 and are densified there.  Memoized with
+        ``load_focc``'s memo on (path, mtime, size, dense, device)."""
+        from ..ops.wavelet_rows import build_wavelet
+
+        device = torch.device(device)
+        if self.n >= 1 << 31:
+            raise ValueError("wavelet rank rows (sigma > 256) take n < 2^31, "
+                             "as the reference's int32 lanes: n=%d" % self.n)
+        fkey = _file_key(self.bwt_path)
+        key = fkey + (bool(dense), str(device), "wavelet")
+        hit = _FOCC_CACHE.get(key)
+        if hit is not None:
+            return hit
+        t0 = time.monotonic()
+        bwt = self.load_bwt()
+        t_decode = time.monotonic() - t0
+        t0 = time.monotonic()
+        sym = torch.from_numpy(np.ascontiguousarray(bwt, np.int32)).to(device)
+        del bwt
+        sigma, symmap = self.sigma, None
+        if dense:
+            hist = torch.bincount(sym, minlength=sigma)
+            present = torch.nonzero(hist).squeeze(1)
+            if len(present) and (len(present) < sigma
+                                 or int(present[-1]) >= len(present)):
+                table = torch.zeros(len(hist), dtype=torch.int32,
+                                    device=device)
+                table[present] = torch.arange(len(present), dtype=torch.int32,
+                                              device=device)
+                sym = table[sym.long()]
+                sigma = len(present)
+                symmap = present.cpu().numpy().astype(np.int64)
+        wm = build_wavelet(sym, sigma)
+        del sym
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if log is not None:
+            log.v("rank rows: decode %.3fs (host), densify + build %.3fs "
+                  "(%s), sigma=%d, wavelet rows of %d levels, %d bytes"
+                  % (t_decode, time.monotonic() - t0, device, sigma,
+                     wm.levels, wm.nbytes()))
+        _FOCC_CACHE.clear()
+        _FOCC_CACHE[key] = (wm, symmap)
+        return wm, symmap
 
     def _focc_from_handoff(self, fkey, device, dense: bool, log,
                            layout: str, wide: bool):

@@ -25,8 +25,15 @@ its rules: a power-of-two SA sampling rate of at least 4 (or one of n or
 more, an ISA-only walk), and fewer than 2^31 SA samples.  ``select_ssa``
 and ``compute_sa_device`` stay narrow, below 2^32 and 2^31 symbols, as
 in the reference; past 2^32 the reference's ``select_ssa`` goes through
-the FM index's locate, which is not ported (ROADMAP.md Queue 1 item 8),
-nor is the sigma > 256 legacy path.
+the FM index's locate, which is not ported (ROADMAP.md Queue 1 item 8b).
+
+Past 256 symbols (the reference's legacy ``_harvest_walk``) the walks of
+``compute_ssa`` and ``compute_isa_from_preisa`` run over the wavelet
+rows of ``ops/wavelet_rows.py`` through the kernel's form
+``bwt_lf_walk_wm``, for texts below 2^31 symbols (the reference's int32
+lanes; ``ValueError`` past them).  ``compute_sa_device`` raises
+``ValueError`` there, and so does ``select_ssa`` when no sampled ``.sa``
+exists, as in the reference.
 """
 
 from __future__ import annotations
@@ -72,13 +79,6 @@ def seed_segments(ranks: np.ndarray, positions: np.ndarray, n: int):
     return ranks, positions, seg_len
 
 
-def _refuse_unported(result: BwtResult, what: str) -> None:
-    if result.sigma > 256:
-        raise NotImplementedError(
-            "%s for sigma > 256 (legacy rank path) is not ported yet: "
-            "ROADMAP.md Queue 1 item 8" % what)
-
-
 def _wide_sa_rate(sarate: int, n: int) -> int:
     """The SA rate the 64-bit harvest walks with: the reference's rules
     for wide lanes (``_harvest_fused_w``).  An ISA-only walk (a rate of
@@ -99,11 +99,19 @@ def _harvest(result: BwtResult, sarate: int, isarate: int, device, log,
              wide=None):
     """(SA samples, ISA samples, lanes) on ``device`` (int64, -1 where
     unvisited): the harvest walk from every ``.preisa`` seed, on the wide
-    rank rows where ``wide`` (default: ``wide_rows(n)``) says so."""
+    rank rows where ``wide`` (default: ``wide_rows(n)``) says so, on the
+    wavelet rows past 256 symbols."""
     n = result.n
+    if result.sigma > 256 and n >= 1 << 31:
+        raise ValueError("the SA tools past 256 symbols take n < 2^31, as "
+                         "the reference's int32 lanes: n=%d" % n)
     ranks, positions, _rate = result.load_preisa()
     ranks, positions, seg_len = seed_segments(ranks, positions, n)
-    focc, _symmap = result.load_focc(device, dense=True, log=log, wide=wide)
+    if result.sigma > 256:              # the wavelet rows (n < 2^31)
+        focc, _symmap = result.load_wavelet(device, dense=True, log=log)
+    else:
+        focc, _symmap = result.load_focc(device, dense=True, log=log,
+                                         wide=wide)
     walk_rate = sarate
     if isinstance(focc, WideOcc):
         walk_rate = _wide_sa_rate(sarate, n)
@@ -137,7 +145,6 @@ def compute_ssa(
     if sa_sampling_rate < 1 or isa_sampling_rate < 1:
         raise ValueError("sampling rates must be >= 1")
     result = result or BwtResult.load(bwt_path)
-    _refuse_unported(result, "bwtcomputessa")
     t0 = time.monotonic()
     sa_dev, isa_dev, nlanes = _harvest(result, sa_sampling_rate,
                                        isa_sampling_rate, device, log)
@@ -175,10 +182,9 @@ def compute_sa_device(bwt_path: str, log: Optional[VerboseLog] = None,
     log = log or VerboseLog(0)
     device = resolve_device(device)
     result = BwtResult.load(bwt_path)
-    _refuse_unported(result, "compute_sa_device")
     n = result.n
-    if n >= 1 << 31:
-        raise ValueError("compute_sa_device needs n < 2^31")
+    if n >= 1 << 31 or result.sigma > 256:
+        raise ValueError("compute_sa_device needs n < 2^31, sigma <= 256")
     sa, _isa, _nlanes = _harvest(result, 1, n, device, log, wide=False)
     if bool((sa < 0).any()):
         raise AssertionError("LF walk failed to visit every rank")
@@ -196,7 +202,6 @@ def compute_isa_from_preisa(bwt_path: str, isa_sampling_rate: int = 64,
     if isa_sampling_rate < 1:
         raise ValueError("sampling rates must be >= 1")
     result = BwtResult.load(bwt_path)
-    _refuse_unported(result, "hwtPreIsaToIsa")
     _sa, isa, _nlanes = _harvest(result, result.n, isa_sampling_rate,
                                  device, log)
     isa_vals = isa.cpu().numpy()
@@ -230,10 +235,13 @@ def select_ssa(bwt_path: str, ranks: np.ndarray,
     if (ranks < 0).any() or (ranks >= n).any():
         raise ValueError("ranks out of range")
     if result.sigma > 256 or n >= 1 << 32:
+        if result.sa_path is None:
+            raise ValueError("select_ssa past 2^32 (or sigma > 256) "
+                             "currently needs a sampled .sa")
         raise NotImplementedError(
             "select_ssa for sigma > 256 or n >= 2^32 goes through the "
             "sampled-SA locate of the FM index, which is not ported yet: "
-            "ROADMAP.md Queue 1 item 8")
+            "ROADMAP.md Queue 1 item 8b")
     pr_ranks, pr_pos, prate = result.load_preisa()
     focc, _symmap = result.load_focc(device, dense=True, log=log, wide=False)
     words = np.zeros(n // 32 + 1, np.uint32)

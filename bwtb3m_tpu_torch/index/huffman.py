@@ -1,7 +1,8 @@
 """Canonical Huffman trees, the shape of the ``.hwt`` wavelet tree.
 
-Carried over from ``bwtb3m_tpu/index/huffman.py`` (host numpy) without
-the reader-side helpers, which the ``.hwt`` writer does not use.
+Carried over from ``bwtb3m_tpu/index/huffman.py`` (host numpy): the
+``.hwt`` writer builds it from a histogram, the RLH1 reader
+(``io/rlh.py``) rebuilds it from code lengths (``from_lengths``).
 Deterministic construction: ties in the priority queue are broken
 by (weight, order-of-creation), and the final code is canonicalized
 (sorted by (length, symbol)) so a tree rebuilt from the same histogram is
@@ -89,6 +90,27 @@ class HuffmanTree:
                         self.children[node][bit] = nxt
                     node = nxt[1]
         self.num_inner = len(self.children)
+
+    @classmethod
+    def from_lengths(cls, lengths: Dict[int, int]) -> "HuffmanTree":
+        """Rebuild the canonical tree from code lengths only."""
+        obj = cls.__new__(cls)
+        obj.hist = {s: 1 for s in lengths}
+        obj.symbols = sorted(lengths)
+        obj.length = {int(s): int(l) for s, l in lengths.items()}
+        order = sorted(obj.symbols, key=lambda s: (obj.length[s], s))
+        obj.code = {}
+        code = 0
+        prev_len = 0
+        for s in order:
+            l = obj.length[s]
+            code <<= (l - prev_len)
+            obj.code[s] = code
+            code += 1
+            prev_len = l
+        obj.max_length = max(obj.length.values())
+        obj._build_nodes()
+        return obj
 
     def code_arrays(self, sigma: int) -> Tuple[np.ndarray, np.ndarray]:
         """(codes, lengths) dense arrays up to sigma (0 length = absent)."""

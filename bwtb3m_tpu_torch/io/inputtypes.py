@@ -189,7 +189,10 @@ class Utf8Input(InputType):
     def load(path: str) -> Tuple[np.ndarray, int]:
         with open(path, "rb") as f:
             text = f.read().decode("utf-8")
-        codes = np.array([ord(c) for c in text], dtype=np.int32)
+        # the code points, through UTF-32 (a list of ord() would take
+        # minutes and tens of GB at 10^8 symbols)
+        codes = np.frombuffer(text.encode("utf-32-le"),
+                              np.uint32).astype(np.int32)
         sigma = int(codes.max()) + 1 if len(codes) else 1
         return codes, sigma
 

@@ -97,9 +97,17 @@ def rl_encode(
         running = np.zeros(sigma, dtype=np.uint64)
 
         # split runs at block boundaries so each block decodes independently
-        starts = _run_starts(symbols)
+        # (the union of run starts and block starts, as one O(n) mask)
         bounds = np.arange(0, n, block_size, dtype=np.int64)
-        all_starts = np.union1d(starts, bounds) if n else bounds
+        if n:
+            mark = np.empty(n, bool)
+            mark[0] = True
+            np.not_equal(symbols[1:], symbols[:-1], out=mark[1:])
+            mark[bounds] = True
+            all_starts = np.flatnonzero(mark).astype(np.int64)
+            del mark
+        else:
+            all_starts = bounds
         all_ends = np.concatenate([all_starts[1:], [n]])
         lens = all_ends - all_starts
         syms = symbols[all_starts] if n else np.zeros(0, dtype=symbols.dtype)
@@ -293,9 +301,8 @@ def open_bwt(path: str):
     if magic == MAGIC:
         return RLReader(path)
     if magic == b"RLH1":
-        raise NotImplementedError(
-            "the RLH1 codec (bwtcodec=rlh) is not ported yet: ROADMAP.md "
-            "Queue 1 item 8 (%s)" % path)
+        from .rlh import RLHReader
+        return RLHReader(path)
     raise ValueError("unknown .bwt magic %r in %s" % (magic, path))
 
 

@@ -12,8 +12,10 @@ when the library cannot be built: the numpy fallbacks are minutes slower
 at the sizes a GPU run has.
 
 Only the entry points the port calls are here; ``sais``,
-``gap_interleave``, ``gt0``, ``rlh_decode_runs`` and ``pack_bits_u8``
-come with the slices that need them (ROADMAP.md).
+``gap_interleave``, ``gt0`` and ``pack_bits_u8`` come with the slices
+that need them (ROADMAP.md).  ``cmp_rot`` also takes a uint16 text (the
+merge engine's dense ids past 256 distinct symbols), which the
+reference's does not.
 """
 
 from __future__ import annotations
@@ -90,6 +92,14 @@ def get_lib():
         lib.c_gamma_decode.restype = i64
         lib.c_cmp_rot.argtypes = [pu8, i64, i64, p64, i64, i64, pi8]
         lib.c_cmp_rot.restype = None
+        pu16 = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+        lib.c_cmp_rot_u16.argtypes = [pu16, i64, i64, p64, i64, i64, pi8]
+        lib.c_cmp_rot_u16.restype = None
+        pu32 = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+        p32i = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        lib.c_rlh_decode.argtypes = [pu8, i64, i64, pu32, pu8, i64, p32i,
+                                     p64]
+        lib.c_rlh_decode.restype = i64
         lib.c_hist_u8.argtypes = [pu8, i64, i64, p64]
         lib.c_hist_u8.restype = None
         lib.c_unpack_pac.argtypes = [pu8, i64, ctypes.c_int, i64, pu8]
@@ -171,17 +181,41 @@ def rl_decode_u8(path: str, n: int):
 def cmp_rot(text: np.ndarray, n: int, e: int, xs: np.ndarray,
             nthreads: int = 4) -> Optional[np.ndarray]:
     """Three-way circular compare sign(rot(x) - rot(e)) for each x in xs.
-    text: the plain uint8 text (n bytes; spans wrap modularly in C).
-    Returns int8 [len(xs)] or None without the native lib."""
+    text: the plain uint8 text, or a uint16 one (n symbols; spans wrap
+    modularly in C).  Returns int8 [len(xs)] or None without the native
+    lib."""
     lib = get_lib()
     if lib is None:
         return None
     xs = np.ascontiguousarray(xs, dtype=np.int64)
     out = np.zeros(max(1, len(xs)), dtype=np.int8)
     if len(xs):
-        lib.c_cmp_rot(np.ascontiguousarray(text, np.uint8), n, e,
-                      xs, len(xs), nthreads, out)
+        if np.asarray(text).dtype == np.uint16:
+            lib.c_cmp_rot_u16(np.ascontiguousarray(text), n, e, xs, len(xs),
+                              nthreads, out)
+        else:
+            lib.c_cmp_rot(np.ascontiguousarray(text, np.uint8), n, e,
+                          xs, len(xs), nthreads, out)
     return out[: len(xs)]
+
+
+def rlh_decode_runs(payload: bytes, nbits: int, nruns: int,
+                    canon_syms: np.ndarray, canon_lens: np.ndarray):
+    """Decode huffman+gamma run pairs; None if no native lib or error."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    data = np.frombuffer(payload, dtype=np.uint8)
+    run_syms = np.zeros(max(1, nruns), dtype=np.int32)
+    run_lens = np.zeros(max(1, nruns), dtype=np.int64)
+    used = lib.c_rlh_decode(
+        np.ascontiguousarray(data), nbits, nruns,
+        np.ascontiguousarray(canon_syms, np.uint32),
+        np.ascontiguousarray(canon_lens, np.uint8),
+        len(canon_syms), run_syms, run_lens)
+    if used < 0:
+        return None
+    return run_syms[:nruns], run_lens[:nruns]
 
 
 def hist_u8(text: np.ndarray, nthreads: int = 8,

@@ -167,7 +167,13 @@ int64_t c_gamma_decode(const uint8_t* bytes, int64_t nbits, int64_t count,
 // `text` is the plain n-byte text: spans compare through chunks clipped
 // at each side's wrap point (a doubled copy of the text would cost 2n
 // extra host bytes).
-static void cmp_rot_range(const uint8_t* text, int64_t n, int64_t e,
+// T is the symbol type: uint8_t, or uint16_t for the dense ids of an
+// alphabet of more than 256 distinct symbols (the merge engine's 16-bit
+// text); memcmp tests equality, the symbols' own compare orders them.
+// (Templates take C++ linkage inside this extern "C" block.)
+extern "C++" {
+template <class T>
+static void cmp_rot_range(const T* text, int64_t n, int64_t e,
                           const int64_t* xs, int64_t b0, int64_t b1,
                           int8_t* out) {
   for (int64_t j = b0; j < b1; ++j) {
@@ -179,7 +185,7 @@ static void cmp_rot_range(const uint8_t* text, int64_t n, int64_t e,
       int64_t chunk = n - l < 4096 ? n - l : 4096;
       if (n - ox < chunk) chunk = n - ox;
       if (n - oe < chunk) chunk = n - oe;
-      if (std::memcmp(text + ox, text + oe, (size_t)chunk) == 0) {
+      if (std::memcmp(text + ox, text + oe, (size_t)chunk * sizeof(T)) == 0) {
         l += chunk;
         ox += chunk; if (ox == n) ox = 0;
         oe += chunk; if (oe == n) oe = 0;
@@ -196,6 +202,7 @@ static void cmp_rot_range(const uint8_t* text, int64_t n, int64_t e,
     out[j] = r;
   }
 }
+}  // extern "C++"
 
 // Multithreaded byte histogram: out[256] int64 counts, at memory speed
 // (numpy's bincount converts every byte to int64 first).
@@ -223,10 +230,12 @@ void c_hist_u8(const uint8_t* text, int64_t n, int64_t nthreads,
   for (auto& th : ths) th.join();
 }
 
-void c_cmp_rot(const uint8_t* text, int64_t n, int64_t e, const int64_t* xs,
-               int64_t nx, int64_t nthreads, int8_t* out) {
+extern "C++" {
+template <class T>
+static void cmp_rot_threads(const T* text, int64_t n, int64_t e, const int64_t* xs,
+                            int64_t nx, int64_t nthreads, int8_t* out) {
   if (nthreads <= 1 || nx < 4096) {
-    cmp_rot_range(text, n, e, xs, 0, nx, out);
+    cmp_rot_range<T>(text, n, e, xs, 0, nx, out);
     return;
   }
   std::vector<std::thread> ths;
@@ -234,10 +243,81 @@ void c_cmp_rot(const uint8_t* text, int64_t n, int64_t e, const int64_t* xs,
   for (int64_t t = 0; t < nthreads; ++t) {
     int64_t b0 = t * per, b1 = b0 + per < nx ? b0 + per : nx;
     if (b0 >= b1) break;
-    ths.emplace_back(cmp_rot_range, text, n, e, xs, b0, b1, out);
+    ths.emplace_back(cmp_rot_range<T>, text, n, e, xs, b0, b1, out);
   }
   for (auto& th : ths) th.join();
 }
+}  // extern "C++"
+
+void c_cmp_rot(const uint8_t* text, int64_t n, int64_t e, const int64_t* xs,
+               int64_t nx, int64_t nthreads, int8_t* out) {
+  cmp_rot_threads<uint8_t>(text, n, e, xs, nx, nthreads, out);
+}
+
+void c_cmp_rot_u16(const uint16_t* text, int64_t n, int64_t e, const int64_t* xs,
+                   int64_t nx, int64_t nthreads, int8_t* out) {
+  cmp_rot_threads<uint16_t>(text, n, e, xs, nx, nthreads, out);
+}
+
+// Decode `nruns` (huffman(sym), gamma(len)) pairs from an LSB-first bit
+// stream. canon_syms/canon_lens are the canonical code table sorted by
+// (length, symbol). Returns bits consumed or -1.
+int64_t c_rlh_decode(const uint8_t* bytes, int64_t nbits, int64_t nruns,
+                     const uint32_t* canon_syms, const uint8_t* canon_lens,
+                     int64_t nsyms, int32_t* run_syms, int64_t* run_lens) {
+  // canonical decode tables per length
+  uint32_t first_code[64] = {0};
+  int64_t offset[64] = {0};
+  int64_t cnt[64] = {0};
+  int maxlen = 0;
+  for (int64_t j = 0; j < nsyms; ++j) {
+    cnt[canon_lens[j]]++;
+    if (canon_lens[j] > maxlen) maxlen = canon_lens[j];
+  }
+  {
+    uint32_t code = 0;
+    int64_t idx = 0;
+    for (int l = 1; l <= maxlen; ++l) {
+      code <<= 1;
+      first_code[l] = code;
+      offset[l] = idx;
+      code += (uint32_t)cnt[l];
+      idx += cnt[l];
+    }
+  }
+  int64_t i = 0;
+  for (int64_t k = 0; k < nruns; ++k) {
+    // huffman symbol: read bits MSB-first until a valid code
+    uint32_t code = 0;
+    int l = 0;
+    int32_t sym = -1;
+    while (l < maxlen + 1) {
+      if (i >= nbits) return -1;
+      code = (code << 1) | (uint32_t)((bytes[i >> 3] >> (i & 7)) & 1);
+      ++i;
+      ++l;
+      if (cnt[l] && code >= first_code[l] &&
+          code < first_code[l] + (uint32_t)cnt[l]) {
+        sym = (int32_t)canon_syms[offset[l] + (code - first_code[l])];
+        break;
+      }
+    }
+    if (sym < 0) return -1;
+    run_syms[k] = sym;
+    // gamma length
+    int64_t nz = 0;
+    while (i < nbits && !((bytes[i >> 3] >> (i & 7)) & 1)) { ++nz; ++i; }
+    if (i + nz + 1 > nbits) return -1;
+    uint64_t v = 0;
+    for (int64_t j = 0; j <= nz; ++j) {
+      v = (v << 1) | (uint64_t)((bytes[i >> 3] >> (i & 7)) & 1);
+      ++i;
+    }
+    run_lens[k] = (int64_t)v;
+  }
+  return i;
+}
+
 
 // BWA .pac 2-bit unpack (base i at bits (3-(i&3))*2 of byte i>>2, see
 // io/pac.py) with an optional +shift (pacterm maps bases to {1..4}).

@@ -4,7 +4,9 @@ device, plus the region byte storage and the sample-rank helpers.
 Port of ``bwtb3m_tpu/ops/devzip.py`` (narrow variants).  A region's BWT
 lives on the device as flat packed bytes: LSB-first nibbles for
 ``bits=4`` (sigma <= 16), raw bytes for ``bits=8`` — the byte order of
-``engine/checkpoint.py``'s region files.  The reference's 2-D
+``engine/checkpoint.py``'s region files — and little-endian uint16 for
+``bits=16`` (more than 256 distinct symbols; those builds write no
+checkpoints).  The reference's 2-D
 [rows, 256] layout and its shape buckets were XLA:TPU limits.
 
 Interleave semantics (the reference's gap-guided merge of two BWT
@@ -32,11 +34,14 @@ ZIP_CHUNK = 1 << 26
 
 
 def bits_for(sigma: int) -> int:
-    return 4 if sigma <= 16 else 8
+    return 4 if sigma <= 16 else 8 if sigma <= 256 else 16
 
 
 def pack_region(bwt: torch.Tensor, bits: int) -> torch.Tensor:
-    """uint8 symbols -> region bytes (padded with 0 to whole bytes)."""
+    """uint8 symbols (int16 for ``bits=16``) -> region bytes (padded
+    with 0 to whole bytes)."""
+    if bits == 16:
+        return pack_bits(bwt, 16)
     pad = (-bwt.shape[0]) % (8 // bits)
     if pad:
         bwt = torch.cat([bwt, torch.zeros(pad, dtype=bwt.dtype,
@@ -51,8 +56,10 @@ def rows_from_host_bwt(bwt: np.ndarray, sigma: int, device) -> torch.Tensor:
 
 
 def rows_to_host_bwt(packed: torch.Tensor, n: int, bits: int) -> np.ndarray:
-    """Region bytes -> host uint8 [n] (one packed download)."""
-    return unpack_bits(packed.cpu(), bits, n).numpy()
+    """Region bytes -> host uint8 [n] (uint16 for ``bits=16``; one packed
+    download)."""
+    out = unpack_bits(packed.cpu(), bits, n).numpy()
+    return out.view(np.uint16) if bits == 16 else out
 
 
 def gap_cum(gap: torch.Tensor) -> torch.Tensor:
@@ -112,7 +119,7 @@ def device_interleave(left: torch.Tensor, A: int, right: torch.Tensor,
     ts = torch.arange(0, total + chunk, chunk, device=dev).clamp(max=total)
     r_b = torch.searchsorted(F, ts).cpu().tolist()
     ts = ts.cpu().tolist()
-    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    out = torch.empty(total, dtype=lsym.dtype, device=dev)
     for c in range(len(ts) - 1):
         t0, t1 = ts[c], ts[c + 1]
         if t1 <= t0:

@@ -47,6 +47,13 @@ WideDeviceGapRunner``: its rank rows are ``ops/wideocc.py``'s wide rows,
 its ranks, constants, samples and histogram cells are int64, and the
 walks take the kernel's 64-bit form, ``bwt_gap_chain_mk_w``.  The
 reference never batches a wide level, and neither does the engine.
+
+Past 256 distinct symbols (``bits=16``) the runner holds one merge too:
+its right region's rank rows are the wavelet rows of
+``ops/wavelet_rows.py``, the text is the int16 of the dense uint16 ids,
+and the walks take the entry ``bwt_gap_chain_mk_wm`` (narrow words),
+in place of the reference's legacy ``ops/gap.py::_chain_steps`` and
+``_anchor_steps``.
 """
 
 from __future__ import annotations
@@ -59,9 +66,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import wavelet_rows as wr
 from .focc import from_u32_bits, kernel_row_width, rank
 from .focc_build import build_focc_concat, build_focc_from_packed
 from .gapdev import TEXT_BLOCK, wrap_bits
+from .pack import unpack_bits
+from .wavelet_rows import WaveletRows, symbol_values
 from .wideocc import WideOcc, kernel_tables, rank_w
 
 _U32 = 0xFFFFFFFF
@@ -70,8 +80,10 @@ _U32 = 0xFFFFFFFF
 MERGE_WORDS = 8
 (M_CFIRST, M_K0, M_K1, M_K2, M_LO0, M_GTBASE, M_SAMPBASE,
  M_SAMPP0) = range(MERGE_WORDS)
-# launches per form ("64": the 64-bit form, bwt_gap_chain_mk_w)
-LAUNCHES = {"chain": 0, "anchor": 0, "chain64": 0, "anchor64": 0}
+# launches per form ("64": the 64-bit form, bwt_gap_chain_mk_w; "_wm":
+# bwt_gap_chain_mk_wm over wavelet rows)
+LAUNCHES = {"chain": 0, "anchor": 0, "chain64": 0, "anchor64": 0,
+            "chain_wm": 0, "anchor_wm": 0}
 
 
 def reset_launch_counts() -> None:
@@ -108,7 +120,8 @@ def gap_chain_mk_plain(focc, text: torch.Tensor, gt: torch.Tensor,
     vectorized over lanes."""
     wide = isinstance(focc, WideOcc)
     mask = -1 if wide else _U32                   # x & -1 == x
-    rank_of = rank_w if wide else rank
+    rank_of = (rank_w if wide else wr.rank if isinstance(focc, WaveletRows)
+               else rank)
     m = word_values(focc, table)[kid.long()]      # [T, MERGE_WORDS]
     cf = word_values(focc, c_first)
     r, st, ln = word_values(focc, seeds), starts.long(), lens.long()
@@ -117,7 +130,7 @@ def gap_chain_mk_plain(focc, text: torch.Tensor, gt: torch.Tensor,
     for k in range(steps):
         act = k < ln
         p = st - torch.clamp(last, max=k)   # finished lanes stay in range
-        c = text[p].long()
+        c = symbol_values(text[p])
         off = p - m[:, M_LO0]
         g = (gt[m[:, M_GTBASE] + (off >> 3)].long() >> (off & 7)) & 1
         r_new = (cf[m[:, M_CFIRST] + c] + rank_of(focc, c, r)
@@ -151,8 +164,11 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def _check_args(focc, text, gt, c_first, table, kid, starts, seeds, lens):
     dev = seeds.device
     wide = isinstance(focc, WideOcc)
+    wavelet = isinstance(focc, WaveletRows)
     word = torch.int64 if wide else torch.int32
-    for name, t, dt in (("text", text, torch.uint8), ("gt", gt, torch.uint8),
+    for name, t, dt in (("text", text,
+                         torch.int16 if wavelet else torch.uint8),
+                        ("gt", gt, torch.uint8),
                         ("c_first", c_first, word), ("table", table, word),
                         ("kid", kid, torch.int32),
                         ("starts", starts, torch.int64),
@@ -169,10 +185,21 @@ def _check_args(focc, text, gt, c_first, table, kid, starts, seeds, lens):
     if not wide and focc.n >= 1 << 32:
         raise ValueError("the narrow gap chain keeps ranks in uint32: the "
                          "level's rank space < 2^32")
-    if focc.rows.device != dev:
-        raise TypeError("rank rows on %s, lanes on %s"
-                        % (focc.rows.device, dev))
-    kernel_row_width(focc.focc if wide else focc)
+    if wavelet:
+        if focc.n >= 1 << 31 or table.shape[0] != 1 \
+                or focc.sectors.data_ptr() % 32:
+            raise ValueError("the chain over wavelet rows holds one merge "
+                             "of n < 2^31 ranks in 32-byte aligned sectors")
+        for t in (focc.sectors, focc.Z, focc.start):
+            if t.device != dev or t.dtype != torch.int32 \
+                    or not t.is_contiguous():
+                raise TypeError("wavelet rows must be contiguous int32 "
+                                "tensors on %s" % dev)
+    else:
+        if focc.rows.device != dev:
+            raise TypeError("rank rows on %s, lanes on %s"
+                            % (focc.rows.device, dev))
+        kernel_row_width(focc.focc if wide else focc)
     if len(seeds):
         # walked positions must lie inside the text and the merge's gt
         # bits, c_first words inside their table, seeds inside the rank
@@ -224,16 +251,22 @@ def _launch(focc, text, gt, c_first, table, kid, starts, seeds, lens,
     lanes = (_ptr(text), _ptr(gt), _ptr(c_first), _ptr(table), _ptr(kid),
              _ptr(starts), _ptr(seeds), _ptr(lens), _ptr(r_out), _ptr(gap),
              _ptr(samp))
+    wavelet = isinstance(focc, WaveletRows)
     if wide:
         thr, _C = kernel_tables(focc)
         rc = lib.bwt_gap_chain_mk_w(
             _ptr(focc.rows), focc.rows.shape[1], _ptr(thr), focc.sigma,
             *lanes, int(rate), len(seeds), stream)
+    elif wavelet:
+        rc = lib.bwt_gap_chain_mk_wm(
+            _ptr(focc.sectors), focc.nsec, focc.levels, _ptr(focc.Z),
+            _ptr(focc.start), focc.sigma, wr.smem_bytes(focc.sigma), *lanes,
+            int(rate), len(seeds), stream)
     else:
         rc = lib.bwt_gap_chain_mk(_ptr(focc.rows), focc.rows.shape[1],
                                   *lanes, int(rate), len(seeds), stream)
     LAUNCHES[("chain" if gap is not None else "anchor")
-             + ("64" if wide else "")] += 1
+             + ("64" if wide else "_wm" if wavelet else "")] += 1
     if rc != 0:
         raise RuntimeError("CUDA kernel launch failed: %s (%d)"
                            % (lib.bwt_error_string(rc).decode(), rc))
@@ -319,7 +352,15 @@ class BatchedGapRunner:
         dev = text_dev.device
         self.wide = wide
         with self.phase("rank rows"):
-            if wide:
+            if bits == 16:
+                if len(merges) != 1 or wide:
+                    raise ValueError("a runner over wavelet rows holds one "
+                                     "narrow merge")
+                (_s, m, e, _i, _h), = merges
+                self.focc = wr.build_wavelet(
+                    unpack_bits(right_packed[0], 16, e - m), self.sigma)
+                rbases = np.zeros(1, np.int64)
+            elif wide:
                 if len(merges) != 1:
                     raise ValueError("a wide runner holds one merge")
                 (_s, m, e, _i, _h), = merges

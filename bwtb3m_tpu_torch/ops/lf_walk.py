@@ -21,6 +21,14 @@ rate) hides it, and the walk is then bound by the 32-byte sectors its
 steps gather: one on sector rows (sigma <= 4), four on bit-plane rows
 (``csrc/lf_walk.cu`` has the measured rates; PERF.md).
 
+Past 256 symbols the rank rows are the wavelet rows of
+``ops/wavelet_rows.py`` and the first three entry points take the
+kernel's form ``bwt_lf_walk_wm`` (narrow, n < 2^31; the text uint16 bits
+in an int16 tensor): the port of the reference's walks over its
+``OccTable``, ``ops/lf.py::lf_walk``, ``engine/verify.py::
+_walk_verify_run`` and ``engine/ssa.py::_harvest_walk``.  A step is one
+descent, a 32-byte sector per bit level.
+
 An entry point launches the kernel for CUDA tensors and uses its plain
 PyTorch version only for CPU tensors; any other device raises.  Ranks
 and positions are int64 tensors at the interface.  On narrow rank rows
@@ -28,9 +36,10 @@ and positions are int64 tensors at the interface.  On narrow rank rows
 rank or position there, marks an unvisited sample.  On the wide rows of
 ``ops/wideocc.py`` (n >= 2^32, or ``BWTB3M_FORCE_WIDE``) the entry
 points take the kernel's 64-bit form, ``bwt_lf_walk_w``, with int64
-lanes; the select walk stays narrow, as in the reference.  The three
-wrappers, ``_launch``, ``_launch_w`` and ``_launch_select``, count every
-launch in ``lf_walk.launches`` and per visit and form in ``LAUNCHES``.
+lanes; the select walk stays narrow, as in the reference.  The four
+wrappers, ``_launch``, ``_launch_w``, ``_launch_wm`` and
+``_launch_select``, count every launch in ``lf_walk.launches`` and per
+visit and form in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ import ctypes
 
 import torch
 
+from . import wavelet_rows as wr
 from .focc import as_u32_bits, from_u32_bits, kernel_row_width, lf_step
+from .wavelet_rows import WaveletRows, symbol_values
 from .wideocc import WideOcc, kernel_tables, lf_step_w
 
 # the select kernel: one summary bit per block of 2^SUMMARY_SHIFT ranks,
@@ -50,7 +61,9 @@ SELECT_BLOCKS_PER_SM = 4
 
 
 def _step_of(focc):
-    """The plain LF step of narrow or wide rank rows."""
+    """The plain LF step of narrow, wide or wavelet rank rows."""
+    if isinstance(focc, WaveletRows):
+        return wr.lf_step
     return lf_step_w if isinstance(focc, WideOcc) else lf_step
 
 # ------------------------------------------------------------ plain versions
@@ -66,7 +79,7 @@ def lf_walk_plain(focc, r0: torch.Tensor, steps: int) -> torch.Tensor:
 def verify_walk_plain(focc, text: torch.Tensor, r0: torch.Tensor,
                       p0: torch.Tensor, seg_len: torch.Tensor) -> torch.Tensor:
     """Per-lane count of steps k < seg_len whose emitted symbol bwt[r]
-    differs from text[(p0 - 1 - k) mod n]."""
+    differs from text[(p0 - 1 - k) mod n] (int16 text: uint16 bits)."""
     n = text.shape[0]
     r, p, lens = r0.long(), p0.long(), seg_len.long()
     bad = torch.zeros_like(r)
@@ -75,7 +88,7 @@ def verify_walk_plain(focc, text: torch.Tensor, r0: torch.Tensor,
     for k in range(steps):
         sym, r2 = step(focc, r)
         p = torch.where(p == 0, n - 1, p - 1)
-        bad += (k < lens) & (sym != text[p].long())
+        bad += (k < lens) & (sym != symbol_values(text[p]))
         r = r2
     return bad
 
@@ -322,13 +335,47 @@ def _launch_w(w: WideOcc, r64: torch.Tensor, l32: torch.Tensor, p64=None,
     return r_out
 
 
+def _launch_wm(wm: WaveletRows, r32: torch.Tensor, l32: torch.Tensor,
+               p32=None, text=None, bad=None, sarate=1, isarate=1, sa=None,
+               isa=None) -> torch.Tensor:
+    """The wrapper of the kernel's form over wavelet rows,
+    ``bwt_lf_walk_wm``: as ``_launch`` (uint32 bits in int32 lanes), the
+    verify visit's text int16 (uint16 bits).  Counts its launches in
+    ``lf_walk.launches`` and ``LAUNCHES["<visit>_wm"]``."""
+    dev = r32.device
+    for t in (wm.sectors, wm.Z, wm.D):
+        if t.device != dev or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise TypeError("wavelet rows must be contiguous int32 tensors "
+                            "on %s" % dev)
+    if wm.n >= 1 << 31 or wm.sectors.data_ptr() % 32:
+        raise ValueError("wavelet rows hold n < 2^31 in 32-byte aligned "
+                         "sectors")
+    r_out = torch.empty_like(r32)
+    if len(r32) == 0:
+        return r_out
+    rc = _lib().bwt_lf_walk_wm(
+        _ptr(wm.sectors), wm.nsec, wm.levels, _ptr(wm.Z), _ptr(wm.D),
+        wm.sigma, wr.smem_bytes(wm.sigma), wm.n, _ptr(r32), _ptr(p32),
+        _ptr(l32), _ptr(r_out), _ptr(text), _ptr(bad), _u32_arg(sarate),
+        _u32_arg(isarate), _ptr(sa), _ptr(isa), len(r32), _stream(dev))
+    lf_walk.launches += 1
+    LAUNCHES[_visit(text, sa) + "_wm"] += 1
+    _check(rc)
+    return r_out
+
+
 def _go(focc, r, l32, p=None, **kw):
-    """Launch the kernel's form for the rows (narrow, or 64-bit on wide
-    rows) on ranks ``r`` and positions ``p``; the final ranks, int64."""
+    """Launch the kernel's form for the rows (narrow, 64-bit on wide
+    rows, or over wavelet rows) on ranks ``r`` and positions ``p``; the
+    final ranks, int64."""
     wide = isinstance(focc, WideOcc)
     lanes = _lanes([r] + ([p] if p is not None else []), wide)
     if wide:
         return _launch_w(focc, lanes[0], l32, *lanes[1:], **kw)
+    if isinstance(focc, WaveletRows):
+        return from_u32_bits(_launch_wm(focc, lanes[0], l32, *lanes[1:],
+                                        **kw))
     return from_u32_bits(_launch(focc, lanes[0], l32, *lanes[1:], **kw))
 
 
@@ -341,21 +388,25 @@ def lf_walk(focc, r0: torch.Tensor, steps: int) -> torch.Tensor:
 
 
 lf_walk.launches = 0
-# the same launches by what a step visits, and by form ("64": bwt_lf_walk_w)
+# the same launches by what a step visits, and by form ("64":
+# bwt_lf_walk_w, "_wm": bwt_lf_walk_wm)
 LAUNCHES = {"none": 0, "verify": 0, "harvest": 0, "select": 0,
-            "none64": 0, "verify64": 0, "harvest64": 0}
+            "none64": 0, "verify64": 0, "harvest64": 0,
+            "none_wm": 0, "verify_wm": 0, "harvest_wm": 0}
 
 
 def verify_walk(focc, text: torch.Tensor, r0: torch.Tensor, p0: torch.Tensor,
                 seg_len: torch.Tensor) -> torch.Tensor:
     """Per-lane mismatch counts (int64) of the checkbwt walk; ``text`` is
-    the densified text as a flat uint8 tensor on the lanes' device."""
+    the densified text as a flat uint8 tensor on the lanes' device (int16
+    of uint16 bits on wavelet rows)."""
     if not _on_cuda(r0):
         return verify_walk_plain(focc, text, r0, p0, seg_len)
-    if text.dtype != torch.uint8 or text.device != r0.device \
+    tdt = torch.int16 if isinstance(focc, WaveletRows) else torch.uint8
+    if text.dtype != tdt or text.device != r0.device \
             or not text.is_contiguous() or text.shape[0] != focc.n:
-        raise TypeError("text must be a contiguous uint8 tensor of n=%d "
-                        "symbols on %s" % (focc.n, r0.device))
+        raise TypeError("text must be a contiguous %s tensor of n=%d "
+                        "symbols on %s" % (tdt, focc.n, r0.device))
     _check_range("ranks", r0, focc.n)
     _check_range("positions", p0, focc.n)
     bad = torch.zeros(len(r0), dtype=torch.int32, device=r0.device)
@@ -393,7 +444,7 @@ def select_walk(focc, bitwords: torch.Tensor, r0: torch.Tensor, cap: int):
     select kernel once."""
     if not _on_cuda(r0):
         return select_walk_plain(focc, bitwords, r0, cap)
-    if isinstance(focc, WideOcc):
+    if isinstance(focc, (WideOcc, WaveletRows)):
         raise ValueError("the select walk runs on narrow rank rows")
     if bitwords.dtype != torch.int32 or bitwords.device != r0.device \
             or not bitwords.is_contiguous() \

@@ -11,7 +11,8 @@ window.
 
 Semantics kept exactly:
 
-- symbols are shifted to 1..sigma; pad is 0 (low) or sigma+1 (high);
+- symbols are shifted to 1..sigma; pad is 0 (low) or sigma+1 (high)
+  (an int16 window holds the uint16 bits of dense ids past 256 symbols);
 - the first sort takes three packed words of ``w = 32 // bits`` symbols
   each, position last (ties stay in position order);
 - doubling rounds sort (rank, rank at +k) with ``pad_rank`` -1 (low) or
@@ -56,7 +57,10 @@ def window_order(window: torch.Tensor, sigma: int, pad_high: bool,
     bits = max(1, math.ceil(math.log2(sigma + 2)))
     w = max(1, 32 // bits)
     pad_val = sigma + 1 if pad_high else 0
-    u = window.to(torch.int64) + 1
+    u = window.to(torch.int64)
+    if window.dtype == torch.int16:       # uint16 bits: dense ids past 256
+        u &= 0xFFFF
+    u += 1
 
     def packed_key(offset: int) -> torch.Tensor:
         key = torch.zeros(W, dtype=torch.int64, device=dev)

@@ -5,7 +5,8 @@
                           [--genome-n 1200000011] [--genome-hostmem 0]
                           [--human-n 3200000021] [--human-hostmem 4294967296]
                           [--human-bwtonly 1] [--human-checks full]
-                          [--only all|human]
+                          [--alphabet-n 400000009] [--alphabet-mem 2G]
+                          [--only all|human|alphabet]
 
 Phases, in order; any failure exits non-zero and no result line is
 printed:
@@ -14,9 +15,11 @@ printed:
    and the port's native host library (g++), which must have built;
 2. build the three kernel libraries from ``bwtb3m_tpu_torch/csrc`` (one
    nvcc each, in parallel): the LF walk (``bwt_lf_walk``, its 64-bit
-   form ``bwt_lf_walk_w`` and the select kernel ``bwt_lf_select``), the
+   form ``bwt_lf_walk_w``, its form over wavelet rows ``bwt_lf_walk_wm``
+   and the select kernel ``bwt_lf_select``), the
    gap chain (``bwt_gap_chain_mk``: a single
-   pair merge is a level of one; its 64-bit form ``bwt_gap_chain_mk_w``)
+   pair merge is a level of one; its 64-bit form ``bwt_gap_chain_mk_w``;
+   its form over wavelet rows ``bwt_gap_chain_mk_wm``)
    and the Kasai walk of PLCP (``bwt_kasai_plcp``);
 3. the LF-walk kernel through each of its entry points (final rank,
    verify visit, harvest visit, select visit) against its plain PyTorch
@@ -54,8 +57,7 @@ printed:
    ``checkbwt`` on a copy with one BWT symbol changed (gok=0);
    ``bwtcomputessa`` held against the build's own .sa/.isa; then its PLCP:
    ``lcpbit`` (the device route: the doubling sort's SA kept on the card,
-   one launch of the Kasai kernel), ``checkLCPBit`` (lcpok=1) and
-   ``checkLCPBit`` on a copy with one bit moved (lcpok=0, exit 1);
+   one launch of the Kasai kernel);
 6. an independent SA check at 2^22: on a text with a unique smallest
    terminator the circular suffix order equals the plain suffix order,
    which a short numpy prefix doubling (``np.lexsort``) computes here;
@@ -65,7 +67,9 @@ printed:
 8. engine against engine at 16,777,259 symbols: ``bwtb3m engine=merge
    mem=67108864`` (five blocks, three levels, a carried region) gives
    the same .bwt/.hist/.preisa bytes as ``engine=doubling``; then
-   ``hwtToLCP checklcp=1`` on that build;
+   ``hwtToLCP checklcp=1`` on that build, its ``lcpbit``, ``checkLCPBit``
+   (lcpok=1) and ``checkLCPBit`` on a copy with one bit moved (lcpok=0,
+   exit 1): the host oracle runs at this size, not at step 5's;
 9. the merge path at n = 400,000,009 (three blocks of the default
    mem=2G, two merges, checkpointing on): ``bwtb3m bwtonly=1`` (engine
    auto takes the scaled engine), ``checkbwt`` (gok=1), ``bwtcomputessa``
@@ -129,14 +133,36 @@ printed:
     the result it returns in the same process (the hand-off);
     ``bwtcomputessa`` at rate 32 / 262144 held to the ``.preisa``;
     ``select_ssa`` of 2^20 ranks held to the ``.sa``; ``checkbwt`` in a
-    fresh process from ``.bwt``; the verify, harvest and select walks
+    fresh process from ``.bwt`` with ``--only human`` (62-89 s; the
+    default run leaves it to the genome and alphabet paths to stay
+    within its time); the verify, harvest and select walks
     against their plain versions (sampled), the first two also through
     the 64-bit form on the same rows widened.
     ``--human-n`` of 2^32 or more runs the wide path (64-bit forms);
     past 2^31 the path has no PLCP, as in the reference;
     ``--human-checks build`` stops after ``check_bwt``; ``--only human``
     runs phases 1, 2 and this one alone (the runs made by hand);
-13. launch counts per path (> 0), kernel times against plain versions
+13. alphabets past 256 symbols (after step 11, before step 12): both
+    forms over wavelet rows against their plain versions at 2^22 over 300
+    and 5,000 symbols (the walk's final-rank, verify and harvest forms on
+    131,072 lanes; the chain's recording and anchor forms on a merge of
+    two halves, whose histogram must be the sort's); then a code-point
+    text of ``--alphabet-n`` = 400,000,009 symbols over 5,000 distinct
+    code points (``utf8_corpus``: Zipf over ASCII, Latin, Greek, Cyrillic
+    and CJK, 1,000 mutated repeats) written as UTF-8: ``bwtb3m
+    inputtype=utf-8 mem=2G bwtonly=1`` (three blocks, the merge engine on
+    16-bit regions, two pair merges through ``bwt_gap_chain_mk_wm``),
+    ``checkbwt`` in a fresh process (gok=1), ``bwtcomputessa`` held to the
+    ``.preisa``, ``hwtPreIsaToIsa`` (the same ``.isa``),
+    ``bwttestdecodespeed``; the wavelet rows' bytes against the
+    reference's OccTable layout's; the walk's verify and harvest forms on
+    the tools' lanes over the path's rows and the root merge's chain
+    against their plain versions (sampled); then ``bwtcodec=rlh`` at
+    16,777,259 symbols of the same kind: ``engine=merge bwtonly=0``
+    against ``engine=doubling``, the same ``.bwt``/``.hist``/``.preisa``
+    bytes, and ``checkbwt`` of the RLH1 file.  ``--only alphabet`` runs
+    phases 1, 2 and this one alone;
+14. launch counts per path (> 0), kernel times against plain versions
     and bounds, per-phase wall and device time, peak device memory.
 
 The last three lines are the nvidia-smi line, a JSON object of the
@@ -146,8 +172,9 @@ kernels, and ``{"ok": true, "device": {...}}``.  A kernel's ``ms``,
 per launch; for the 64-bit forms the forced-wide 400M path's) or, for
 ``gap_chain_mk`` (the same entry at the genome build's first level of
 four merges; ``levels`` has every level) and the select visit, the
-genome path's, on the layout that path runs, and for the Kasai kernel
-the genome path's PLCP; ``launches`` is that path's count and ``layouts`` has the same numbers per layout.  Where
+genome path's, on the layout that path runs, for the Kasai kernel
+the genome path's PLCP, and for the forms over wavelet rows
+(``lf_walk_wm``, ``gap_chain_mk_wm``) the alphabet path's; ``launches`` is that path's count and ``layouts`` has the same numbers per layout.  Where
 the plain version ran on a sample of lanes, ``plain_on`` says so and
 ``plain_ms`` is that sample's.
 ``bound_ms`` is the larger of the bytes the call must move once (rank
@@ -204,6 +231,15 @@ KERNELS = {
     # the word-window Kasai walk of PLCP (lcpbit, hwtToLCP)
     "kasai": ("bwtb3m_tpu_torch/csrc/kasai.cu",
               "bwtb3m_tpu/lcp/plcp.py:187"),
+    # alphabets past 256 symbols: the walk and the chain over wavelet rows
+    # (entries bwt_lf_walk_wm, bwt_gap_chain_mk_wm), in place of the
+    # reference's legacy walks over its OccTable (checkbwt's
+    # _walk_verify_run; _harvest_walk and ops/lf.py::lf_walk beside it) and
+    # its legacy engine's chain and anchor steps
+    "lf_walk_wm": ("bwtb3m_tpu_torch/csrc/lf_walk.cu",
+                   "bwtb3m_tpu/engine/verify.py:308"),
+    "gap_chain_mk_wm": ("bwtb3m_tpu_torch/csrc/gap_chain.cu",
+                        "bwtb3m_tpu/ops/gap.py:50"),
 }
 LIBRARIES = ("lf_walk", "gap_chain", "kasai")
 # the path whose launches and shapes a row of the kernels line reports
@@ -211,7 +247,8 @@ ROW_PATH = {"lf_walk": "merge path", "gap_chain": "merge path",
             "gap_chain_mk": "genome path", "lf_walk_select": "genome path",
             "lf_walk_w": "forced-wide merge path",
             "gap_chain_mk_w": "forced-wide merge path",
-            "kasai": "genome LCP path"}
+            "kasai": "genome LCP path", "lf_walk_wm": "alphabet path",
+            "gap_chain_mk_wm": "alphabet path"}
 # the kernels each path must launch
 NARROW = ("lf_walk", "gap_chain", "gap_chain_mk", "lf_walk_select")
 PHASE_PREFIX = "bwtb3m::"
@@ -231,6 +268,15 @@ WIDE_STEP_OPS = 24
 # bit, popcount and shift, three capped minima, the test; a commit adds
 # the store, the l update and the next position's tests; loads excluded
 KASAI_STEP_OPS = 40
+# a level of a descent over wavelet rows (csrc/focc_rows.cuh::
+# WaveletRows::level and descend): the division by 224 (multiply-high,
+# shift), the offset, the sector address, seven compare-select-popcount-adds
+# over the bit words, the word select, mask, popcount, the bit, the
+# select of the next position and the symbol's shift-or; loads excluded
+WM_LEVEL_OPS = 55
+# what a step adds beside its levels: D or start and the visit's or the
+# chain's own bookkeeping (as LF_STEP_OPS / CHAIN_STEP_OPS less the row)
+WM_STEP_OPS = {"walk": 12, "chain": 30}
 # the plain versions' share of the genome-scale paths: the recording
 # chain and the verify / harvest walks run plain on PLAIN_SAMPLE[0] lanes
 # spread over the path's lanes, each cut to PLAIN_SAMPLE[1] steps, and the
@@ -294,6 +340,57 @@ def repeats_text(n: int, seed: int, copies: int = 100, length: int = 10_000):
     return t
 
 
+def utf8_corpus(n: int, seed: int, nsym: int = 5000, copies: int = 1000,
+                device="cuda"):
+    """Code points (uint32) of ``nsym`` distinct symbols from printable
+    ASCII, Latin, Greek, Cyrillic and CJK ideographs, at Zipf frequencies
+    (s = 1.0, in that order), every symbol present, with ``copies``
+    copies of 1,000-10,000-symbol segments of the text itself with 1%
+    point changes (as ``make_text`` makes repeats): the shape of a UTF-8
+    natural-language corpus.  The symbols are drawn on ``device`` by the
+    inverse of the Zipf CDF (a generator seeded with ``seed``), the
+    copies on the host."""
+    import numpy as np
+    import torch
+    pool = np.concatenate([np.arange(0x20, 0x7f), np.arange(0xc0, 0x250),
+                           np.arange(0x391, 0x3ca), np.arange(0x400, 0x460),
+                           np.arange(0x4e00, 0xa000)])[:nsym]
+    p = 1.0 / np.arange(1, nsym + 1)
+    cdf = torch.from_numpy(np.cumsum(p / p.sum())).to(device)
+    pool_t = torch.from_numpy(pool.astype(np.int32)).to(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    codes = np.empty(n, np.uint32)
+    for a in range(0, n, 1 << 26):
+        b = min(n, a + (1 << 26))
+        u = torch.rand(b - a, generator=gen, device=device,
+                       dtype=torch.float64)
+        idx = torch.searchsorted(cdf, u).clamp_(max=nsym - 1)
+        codes[a:b] = pool_t[idx].cpu().numpy()
+    codes[:nsym] = pool
+    rng = np.random.default_rng(seed)
+    for _ in range(copies):
+        ln = int(rng.integers(1000, 10001))
+        src, dst = rng.integers(nsym, n - ln, 2)
+        seg = codes[src:src + ln].copy()
+        mut = rng.random(ln) < 0.01
+        seg[mut] = pool[rng.integers(0, nsym, int(mut.sum()))]
+        codes[dst:dst + ln] = seg
+    return codes
+
+
+def write_utf8(path: str, codes) -> int:
+    """Write code points as UTF-8, in chunks; returns the bytes written."""
+    size = 0
+    with open(path, "wb") as f:
+        for a in range(0, len(codes), 1 << 26):
+            data = (codes[a:a + (1 << 26)].astype("<u4").tobytes()
+                    .decode("utf-32-le").encode("utf-8"))
+            f.write(data)
+            size += len(data)
+    return size
+
+
 def numpy_sa(text):
     """Suffix array of a text that ends in a unique smallest symbol: prefix
     doubling on (rank, next rank) pairs with ``np.lexsort``, an
@@ -345,9 +442,15 @@ def main() -> int:
                     help="build: only the build and check_bwt of its "
                     "result; full: also the SA tools, checkbwt in a fresh "
                     "process and the kernels against their plain versions")
-    ap.add_argument("--only", default="all", choices=("all", "human"),
-                    help="human: the environment, the kernel build and the "
-                    "human-genome path alone")
+    ap.add_argument("--alphabet-n", type=int, default=400_000_009,
+                    help="alphabet path text length (code points over "
+                    "5,000 symbols; 0 skips the path)")
+    ap.add_argument("--alphabet-mem", type=int, default=2 * 1024 ** 3,
+                    help="mem= of the alphabet path's build")
+    ap.add_argument("--only", default="all",
+                    choices=("all", "human", "alphabet"),
+                    help="human / alphabet: the environment, the kernel "
+                    "build and that path alone")
     args = ap.parse_args()
     t_start = time.monotonic()
     sys.meta_path.insert(0, _BlockJax())
@@ -379,6 +482,7 @@ def main() -> int:
     from bwtb3m_tpu_torch.ops import gapbatch as gb
     from bwtb3m_tpu_torch.ops import kasai as kas
     from bwtb3m_tpu_torch.ops import lf_walk as lw
+    from bwtb3m_tpu_torch.ops import wavelet_rows as wr
     from bwtb3m_tpu_torch.ops import wideocc as pw
     from bwtb3m_tpu_torch.ops.devzip import bits_for, rows_from_host_bwt
     from bwtb3m_tpu_torch.ops.doubling import suffix_array
@@ -428,6 +532,10 @@ def main() -> int:
         chain = gb.LAUNCHES["chain"] + gb.LAUNCHES["anchor"]
         L = lw.LAUNCHES
         return {"lf_walk": L["none"] + L["verify"] + L["harvest"],
+                "lf_walk_wm": L["none_wm"] + L["verify_wm"]
+                + L["harvest_wm"],
+                "gap_chain_mk_wm": gb.LAUNCHES["chain_wm"]
+                + gb.LAUNCHES["anchor_wm"],
                 "lf_walk_select": L["select"],
                 "lf_walk_w": L["none64"] + L["verify64"] + L["harvest64"],
                 "gap_chain": chain, "gap_chain_mk": chain,
@@ -514,6 +622,22 @@ def main() -> int:
 
     def is_wide(focc):
         return isinstance(focc, pw.WideOcc)
+
+    def is_wavelet(focc):
+        return isinstance(focc, wr.WaveletRows)
+
+    def rows_bytes(focc):
+        """The rank rows' bytes: the wavelet rows' sectors and tables, or
+        the fused rows."""
+        if is_wavelet(focc):
+            return nbytes(focc.sectors, focc.Z, focc.start, focc.D)
+        return nbytes(focc.rows)
+
+    def chain_step_ops(focc, layout):
+        if is_wavelet(focc):
+            return WM_LEVEL_OPS * focc.levels + WM_STEP_OPS["chain"]
+        return CHAIN_STEP_OPS[layout] + (WIDE_STEP_OPS if is_wide(focc)
+                                         else 0)
 
     def widened(focc):
         """Narrow rank rows of fewer than 2^32 symbols as wide rows: no occ
@@ -941,8 +1065,8 @@ def main() -> int:
             say_l = "%s %s rows%s," % (label, layout,
                                        " (64-bit form)" if is_wide(focc)
                                        else "")
-            step_ops = CHAIN_STEP_OPS[layout] + (WIDE_STEP_OPS
-                                                 if is_wide(focc) else 0)
+            step_ops = chain_step_ops(focc, layout)
+            tb = level.text_dev.element_size()
             args = mk_args(level, focc, kd, st)
             gap, samp, clear = level_buffers(level, focc)
             fk, k_ms = timed(lambda: gb.chain_walk_mk(*args, sd, ln, gap,
@@ -974,8 +1098,8 @@ def main() -> int:
                             max_err(samp, ref_samp)))
             # each input read once, each output written once
             wb = 8 if is_wide(focc) else 4
-            nb = (nbytes(focc.rows, level.table, level.c_first) + steps
-                  + steps // 8 + len(st) * (4 + 8 + 2 * wb + 4)
+            nb = (rows_bytes(focc) + nbytes(level.table, level.c_first)
+                  + tb * steps + steps // 8 + len(st) * (4 + 8 + 2 * wb + 4)
                   + gap.element_size() * gap.numel()
                   + samp.element_size() * samp.numel())
             b_ms, b_by = bound(nb, steps * step_ops)
@@ -999,8 +1123,9 @@ def main() -> int:
                                  warm=warm_plain)
                 errs.append(max_err(k, p_))
                 ab_ms, _by = bound(
-                    nbytes(focc.rows, level.table, level.c_first)
-                    + lb * len(st) * 9 // 8 + len(st) * (16 + 2 * wb),
+                    rows_bytes(focc) + nbytes(level.table, level.c_first)
+                    + lb * len(st) * (8 * tb + 1) // 8
+                    + len(st) * (16 + 2 * wb),
                     lb * len(st) * step_ops)
                 b_ms += ab_ms
                 kt, pt = kt + k_ms, pt + p_ms
@@ -1070,7 +1195,8 @@ def main() -> int:
         device time and memory are left out of the build's), bwtcomputessa
         at rate 32 / 262144 held to the .preisa, ``select_ssa`` of 2^20
         ranks held to the .sa (below 2^32 symbols), checkbwt in a fresh
-        process from .bwt, then the verify, harvest and select walks
+        process from .bwt (``--only human`` only), then the verify,
+        harvest and select walks
         against their plain versions on a sample of lanes (the first two
         also through the 64-bit form on the same rows widened).  Returns
         what the report needs."""
@@ -1174,23 +1300,27 @@ def main() -> int:
             raise AssertionError("the %s did not launch %s" % (label, need))
         if checks != "full":
             return out
-        torch.cuda.empty_cache()
-        t0 = time.monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "bwtb3m_tpu_torch", "checkbwt",
-             "inputtype=bytestream", "device=cuda", inph, bwth], cwd=REPO,
-            capture_output=True, text=True, timeout=900)
-        sys.stderr.write(proc.stderr)
-        out["fresh_checkbwt_s"] = time.monotonic() - t0
-        say("checkbwt (%s, fresh process, from .bwt): exit %d, wall %.3f s "
-            "with the interpreter's start, its peak RSS %.3f GiB | %s [%s]"
-            % (label, proc.returncode, out["fresh_checkbwt_s"],
-               resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss
-               / 2 ** 20, proc.stdout.strip(), smi))
-        if proc.returncode != 0 or "gok=1" not in proc.stdout \
-                or "decode" not in proc.stderr:
-            raise AssertionError("checkbwt in a fresh process did not print "
-                                 "gok=1 from the file")
+        # checkbwt in a fresh process at this size (62-89 s) only in the
+        # runs by hand (--only human): the default run keeps its time
+        # under the limit with the genome and alphabet paths' fresh checks
+        if args.only == "human":
+            torch.cuda.empty_cache()
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [sys.executable, "-m", "bwtb3m_tpu_torch", "checkbwt",
+                 "inputtype=bytestream", "device=cuda", inph, bwth],
+                cwd=REPO, capture_output=True, text=True, timeout=900)
+            sys.stderr.write(proc.stderr)
+            out["fresh_checkbwt_s"] = time.monotonic() - t0
+            say("checkbwt (%s, fresh process, from .bwt): exit %d, wall %.3f "
+                "s with the interpreter's start, its peak RSS %.3f GiB | %s "
+                "[%s]" % (label, proc.returncode, out["fresh_checkbwt_s"],
+                          resource.getrusage(resource.RUSAGE_CHILDREN)
+                          .ru_maxrss / 2 ** 20, proc.stdout.strip(), smi))
+            if proc.returncode != 0 or "gok=1" not in proc.stdout \
+                    or "decode" not in proc.stderr:
+                raise AssertionError("checkbwt in a fresh process did not "
+                                     "print gok=1 from the file")
         if want is not None:
             out["select"] = select_compare(bwth, want, label)
         out["lf"] = lf_compare(bwth, text, label, ("sector", "sector_w")
@@ -1199,6 +1329,344 @@ def main() -> int:
                                wide=n >= 1 << 32, sample=PLAIN_SAMPLE)
         out["lf_w"] = out["lf"].pop("sector_w", None)
         return out
+
+    # ---- 13. alphabets past 256 symbols (wavelet rows) -----------------
+    def wm_lf_compare(wm, t16, ranks, positions, seg, label, sample=None,
+                      forms=("lf_walk", "verify_walk", "harvest_walk")):
+        """``bwt_lf_walk_wm`` (final rank, verify, harvest) against its
+        plain version on the lanes (ranks, positions, segment lengths)
+        that checkbwt and bwtcomputessa give it; ``sample`` = (lanes,
+        steps): the plain version on that many lanes spread over the
+        seeds, each cut to that many steps, the kernel on the same cut
+        lanes (its time on every lane is ``ms``).  Returns {max_abs_err,
+        ms, plain_ms, bound_ms, bound_by, forms}; ms, plain_ms and
+        bound_ms summed over the forms the tools launch (verify +
+        harvest)."""
+        n, T = wm.n, len(ranks)
+        steps, total = int(seg.max()), int(seg.sum())
+        step_ops = WM_LEVEL_OPS * wm.levels + WM_STEP_OPS["walk"]
+
+        def lanes_of(rk, ps, sl):
+            return [torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+                    for a in (rk, ps, sl)]
+
+        full = cut = lanes_of(ranks, positions, seg)
+        if sample:
+            pick = np.linspace(0, T - 1, sample[0]).astype(np.int64)
+            cut = lanes_of(ranks[pick], positions[pick],
+                           np.minimum(seg[pick], sample[1]))
+
+        def runs(lanes):
+            r0, p0, sl = lanes
+            st = int(sl.max())
+            return {
+                "lf_walk": (lambda: lw.lf_walk(wm, r0, st),
+                            lambda: lw.lf_walk_plain(wm, r0, st)),
+                "verify_walk": (
+                    lambda: lw.verify_walk(wm, t16, r0, p0, sl),
+                    lambda: lw.verify_walk_plain(wm, t16, r0, p0, sl)),
+                "harvest_walk": (
+                    lambda: torch.cat(lw.harvest_walk(wm, r0, p0, sl, 32,
+                                                      262144)),
+                    lambda: torch.cat(lw.harvest_walk_plain(
+                        wm, r0, p0, sl, 32, 262144)))}
+
+        # each input read once, each output written once; the steps the
+        # data ask for
+        rows = rows_bytes(wm)
+        work = {"lf_walk": (rows + 12 * T, T * steps),
+                "verify_walk": (rows + nbytes(t16) + 24 * T, total),
+                "harvest_walk": (rows + 20 * T + 4 * (-(-n // 32)
+                                                      + -(-n // 262144)),
+                                 total)}
+        out = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "bound_by": "operations", "forms": {}, "lanes": T,
+               "levels": wm.levels, "sigma": wm.sigma, "n": n}
+        if sample:
+            out["plain_on"] = {"lanes": sample[0],
+                               "steps_at_most": sample[1]}
+        for name in forms:
+            _k, k_ms = timed(runs(full)[name][0], reps=3)
+            kern, plain = runs(cut)[name]
+            k = kern()
+            p, p_ms = timed(plain, warm=False)
+            err = max_err(k, p)
+            nb, nsteps = work[name]
+            b_ms, b_by = bound(nb, nsteps * step_ops)
+            say("kernel %-12s %s, wavelet rows (n=%d, sigma=%d, %d levels, "
+                "%d lanes, %d steps max): max_abs_err %d, kernel %.3f ms "
+                "(%.2f G steps/s, %.2f G sectors/s), plain %.3f ms%s, bound "
+                "%.3f ms (%s) [%s]"
+                % (name, label, n, wm.sigma, wm.levels, T, steps, err, k_ms,
+                   nsteps / k_ms / 1e6, nsteps * wm.levels / k_ms / 1e6,
+                   p_ms, " on %d lanes of %d steps at most" % tuple(sample)
+                   if sample else "", b_ms, b_by, smi))
+            if err:
+                raise AssertionError("%s disagrees with its plain version "
+                                     "on the %s" % (name, label))
+            out["forms"][name] = {"ms": k_ms, "plain_ms": p_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "steps": nsteps}
+            if name != "lf_walk":
+                out["ms"] += k_ms
+                out["plain_ms"] += p_ms
+                out["bound_ms"] += b_ms
+                out["bound_by"] = b_by
+        return out
+
+    def wm_merge(text16_host, sigma, s, m, e, rate, label, sample=None):
+        """The merge of [s, m) into [m, e) of a text of dense uint16 ids as
+        the engine runs it (a runner of one merge over the right block's
+        wavelet rows, its own anchors), and ``bwt_gap_chain_mk_wm``
+        against its plain version on its lanes (``level_compare``);
+        returns (record, level)."""
+        opts = BwtOptions(input_path="x", mem=1 << 40, device="cuda")
+        ctx = merge_scaled._Ctx(text16_host, sigma, rate, opts, None,
+                                1 << 16, dev, Phases(dev))
+        right = merge_scaled._sort_block(ctx, m, e)
+        level = gb.BatchedGapRunner(
+            ctx.text_dev, ctx.text, sigma,
+            [(s, m, e, right.r_start, right.hist)], [right.packed], 16,
+            lane_bucket=1 << 16, sample_rate=rate)
+        level.anchor_all()
+        lanes = level_lanes(level)
+        rec = level_compare(level, {"wavelet": level.focc}, lanes, 3, False,
+                            "%s (left %d, right %d ranks, %d lanes):"
+                            % (label, m - s, e - m, len(lanes[0])),
+                            sample=sample)["wavelet"]
+        rec["levels"] = level.focc.levels
+        return rec, level, right
+
+    def alphabet_2_22(sigma):
+        """Both new forms against their plain versions at 2^22 symbols over
+        ``sigma`` dense symbols (every symbol present): the walk's three
+        forms on 131,072 lanes, the chain's recording and anchor forms on
+        a merge of two halves, whose histogram must also be the sort's."""
+        n = 1 << 22
+        rng = np.random.default_rng(args.seed + sigma)
+        text = rng.integers(0, sigma, n).astype(np.uint16)
+        text[:sigma] = np.arange(sigma)
+        sa, isa, bwt = suffix_array(text.astype(np.int32), sigma, dev)
+        wm = wr.build_wavelet_host(bwt, sigma, dev)
+        rate = n // 131072
+        pos = np.arange(0, n, rate, dtype=np.int64)
+        seg = np.diff(np.r_[pos, n])
+        start = (pos + seg) % n
+        t16 = wr.as_u16_bits(torch.from_numpy(text.astype(np.int64)).to(dev))
+        lf = wm_lf_compare(wm, t16, isa[start], start, seg,
+                           "2^22, sigma %d" % sigma)
+        del wm, t16
+        m = n // 2
+        rec, level, _right = wm_merge(text, sigma, 0, m, n, 64,
+                                      "gap_chain_mk_wm 2^22, sigma %d"
+                                      % sigma)
+        level.compute()
+        R = np.searchsorted(np.sort(isa[m:]), isa[:m])
+        if not np.array_equal(level.gap.cpu().numpy(),
+                              np.bincount(R, minlength=n - m + 1)):
+            raise AssertionError("the chain over wavelet rows disagrees with "
+                                 "the sort at sigma %d" % sigma)
+        return {"lf_walk_wm": lf, "gap_chain_mk_wm": rec}
+
+    def alphabet_path(n, mem):
+        """The path of alphabets past 256 symbols (module docstring, step
+        13); returns its record."""
+        out = {"phases": {}}
+        with uncounted():
+            out["2^22"] = {s: alphabet_2_22(s) for s in (300, 5000)}
+        shutil.rmtree(WORK, ignore_errors=True)
+        os.makedirs(WORK)
+        inp = os.path.join(WORK, "corpus.txt")
+        t0 = time.monotonic()
+        codes = utf8_corpus(n, args.seed + 13, device=dev)
+        size = write_utf8(inp, codes)
+        say("input: n=%d code points over 5000 symbols (Zipf s=1.0 over "
+            "ASCII, Latin, Greek, Cyrillic, CJK; 1000 mutated repeats), "
+            "%d bytes of UTF-8, made in %.2f s (host)"
+            % (n, size, time.monotonic() - t0))
+        bwt = inp + ".bwt"
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rc, _, out["phases"] = run_tool("bwtb3m (alphabet path)", [
+            "bwtb3m", "inputtype=utf-8", "bwtonly=1", "device=cuda",
+            "mem=%d" % mem, inp])
+        if rc != 0 or "chains" not in out["phases"]:
+            raise AssertionError("bwtb3m failed or did not take the merge "
+                                 "engine on the alphabet path")
+        out["peak_build"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bwtb3m_tpu_torch", "checkbwt",
+             "inputtype=utf-8", "device=cuda", inp, bwt], cwd=REPO,
+            capture_output=True, text=True, timeout=900)
+        sys.stderr.write(proc.stderr)
+        out["fresh_checkbwt_s"] = time.monotonic() - t0
+        say("checkbwt (alphabet path, fresh process, from .bwt): exit %d, "
+            "wall %.3f s with the interpreter's start | %s [%s]"
+            % (proc.returncode, out["fresh_checkbwt_s"], proc.stdout.strip(),
+               smi))
+        if proc.returncode != 0 or "gok=1" not in proc.stdout \
+                or "wavelet rows" not in proc.stderr:
+            raise AssertionError("checkbwt in a fresh process did not print "
+                                 "gok=1 over wavelet rows")
+        rc, _, _ = run_tool("bwtcomputessa (alphabet path)", [
+            "bwtcomputessa", "sasamplingrate=32", "isasamplingrate=262144",
+            "device=cuda", bwt])
+        if rc != 0:
+            raise AssertionError("bwtcomputessa failed on the alphabet path")
+        prate = ssa_agrees_with_preisa(bwt, "alphabet build")
+        isa_ref = os.path.join(WORK, "ssa.isa")
+        shutil.copy(inp + ".isa", isa_ref)
+        rc, _, _ = run_tool("hwtPreIsaToIsa (alphabet path)", [
+            "hwtPreIsaToIsa", "isasamplingrate=262144", "device=cuda", bwt])
+        if rc != 0 or open(inp + ".isa", "rb").read() != \
+                open(isa_ref, "rb").read():
+            raise AssertionError("hwtPreIsaToIsa's .isa differs from "
+                                 "bwtcomputessa's on the alphabet path")
+        rc, _, _ = run_tool("bwttestdecodespeed (alphabet path)", [
+            "bwttestdecodespeed", "device=cuda", bwt])
+        if rc != 0 or run_tool.log.count("LF-steps/s") != 5:
+            raise AssertionError("bwttestdecodespeed failed")
+        path_counts["alphabet path"] = counts()
+        out["peak"] = torch.cuda.max_memory_allocated()
+        say("alphabet path launches: %s" % path_counts["alphabet path"])
+        if min(path_counts["alphabet path"][k]
+               for k in ("lf_walk_wm", "gap_chain_mk_wm")) < 1:
+            raise AssertionError("the alphabet path did not launch both "
+                                 "kernels over wavelet rows")
+        res = BwtResult.load(bwt)
+        wm, symmap = res.load_wavelet(dev)
+        out["wavelet_bytes"] = wm.nbytes()
+        out["occtable_bytes"] = wr.occtable_bytes(n, wm.sigma)
+        say("rank rows of the alphabet path: wavelet rows %d bytes (%d "
+            "levels of %d sectors), the reference's OccTable layout would "
+            "need %d bytes (%.1f x) [%s]"
+            % (out["wavelet_bytes"], wm.levels, wm.nsec,
+               out["occtable_bytes"],
+               out["occtable_bytes"] / out["wavelet_bytes"], smi))
+        # the kernels at the path's shapes: the tools' lanes over the
+        # path's own rows, the root merge's chain
+        table = np.zeros(int(symmap.max()) + 1, np.uint16)
+        table[symmap] = np.arange(len(symmap))
+        dense = table[codes]
+        del codes
+        ranks, positions, _r = res.load_preisa()
+        ranks, positions, seg = seed_segments(ranks, positions, n)
+        t16 = torch.from_numpy(dense.view(np.int16)).to(dev)
+        with uncounted():
+            out["lf"] = wm_lf_compare(wm, t16, ranks, positions, seg,
+                                      "alphabet path", sample=PLAIN_SAMPLE,
+                                      forms=("verify_walk", "harvest_walk"))
+        del t16, wm
+        opts = BwtOptions(input_path=inp, mem=mem, device="cuda")
+        blocks = merge_scaled._plan_blocks_fixed(n, opts.max_block_symbols)
+        if len(blocks) != 3:
+            raise AssertionError("expected 3 blocks, planned %d"
+                                 % len(blocks))
+        # with three blocks the root merges [0, m) with the carried last
+        # block [m, n)
+        m_r, e_r = blocks[-1]
+        with uncounted():
+            out["chain"], level, _right = wm_merge(
+                dense, len(symmap), 0, m_r, e_r, prate,
+                "gap_chain_mk_wm root merge, alphabet path",
+                sample=PLAIN_SAMPLE)
+        del level, _right, dense
+        torch.cuda.empty_cache()
+        # bwtcodec=rlh, bwtonly=0 at 16,777,259: engine=merge against
+        # engine=doubling, every file equal, then checkbwt of the RLH1 file
+        n2 = 16_777_259
+        inp2 = os.path.join(WORK, "corpus16m.txt")
+        write_utf8(inp2, utf8_corpus(n2, args.seed + 14, device=dev))
+        outs = {}
+        for eng, extra in (("merge", ["mem=67108864", "bwtonly=0"]),
+                           ("doubling", ["bwtonly=1"])):
+            outs[eng] = os.path.join(WORK, "c16m_%s.bwt" % eng)
+            rc, _, _ = run_tool("bwtb3m bwtcodec=rlh engine=%s n=%d" % (eng,
+                                                                        n2), [
+                "bwtb3m", "inputtype=utf-8", "bwtcodec=rlh", "device=cuda",
+                "engine=" + eng, "outputfilename=" + outs[eng], *extra,
+                inp2])
+            if rc != 0:
+                raise AssertionError("bwtb3m bwtcodec=rlh engine=%s failed"
+                                     % eng)
+        ssa_agrees_with_preisa(outs["merge"], "RLH1 merge build")
+        for ext in ("bwt", "hist", "preisa"):
+            a, b = (open(outs[e][:-4] + "." + ext, "rb").read()
+                    for e in ("merge", "doubling"))
+            if a != b:
+                raise AssertionError(".%s of engine=merge differs from "
+                                     "engine=doubling (RLH, utf-8)" % ext)
+        if open(outs["merge"], "rb").read(4) != b"RLH1":
+            raise AssertionError("bwtcodec=rlh did not write an RLH1 file")
+        rc, o, _ = run_tool("checkbwt (RLH1, n=%d)" % n2, [
+            "checkbwt", "inputtype=utf-8", "device=cuda", inp2,
+            outs["merge"]])
+        if rc != 0 or "gok=1" not in o:
+            raise AssertionError("checkbwt of the RLH1 build failed")
+        say("bwtcodec=rlh, n=%d over 5000 symbols: engine=merge "
+            "(mem=67108864, bwtonly=0: .sa .isa .hwt written, the samples "
+            "agree with the .preisa) == engine=doubling, .bwt .hist .preisa "
+            "byte-identical; checkbwt gok=1 on the RLH1 file" % n2)
+        shutil.rmtree(WORK, ignore_errors=True)
+        return out
+
+    def alphabet_kernels(alpha):
+        """The kernels line's rows of the two forms over wavelet rows: the
+        alphabet path's shapes (its tools' verify + harvest walks, its
+        root merge's chain), with the 2^22 cases beside them."""
+        rows = []
+        for name, main in (("lf_walk_wm", alpha["lf"]),
+                           ("gap_chain_mk_wm", alpha["chain"])):
+            cases = {str(s): c[name] for s, c in alpha["2^22"].items()}
+            rows.append({
+                "name": name, "route": "cuda", "source": KERNELS[name][0],
+                "replaces": KERNELS[name][1],
+                "launches": path_counts["alphabet path"][name],
+                "shapes_of": ROW_PATH[name],
+                "launches_by_path": {p: c[name]
+                                     for p, c in path_counts.items()},
+                "max_abs_err": max(errors_in([main, cases])),
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "plain_on": main.get("plain_on"),
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": None, "layout": "wavelet",
+                "levels": main["levels"], "forms": main["forms"],
+                "sigma_2^22": cases})
+        return rows
+
+    def alphabet_report(alpha):
+        for name, (wall, dev_s, _span) in sorted(
+                alpha["phases"].items(), key=lambda kv: -kv[1][0]):
+            say("alphabet build phase %-18s wall %.3f s, device busy %s [%s]"
+                % (name, wall, "%.3f s" % dev_s if dev_s else "not measured",
+                   smi))
+        say("peak device memory: alphabet build %.3f GiB, path %.3f GiB; "
+            "wavelet rows %.3f GiB, OccTable layout %.3f GiB [%s]"
+            % (alpha["peak_build"] / 2 ** 30, alpha["peak"] / 2 ** 30,
+               alpha["wavelet_bytes"] / 2 ** 30,
+               alpha["occtable_bytes"] / 2 ** 30, smi))
+
+    if args.only == "alphabet":
+        alpha = alphabet_path(args.alphabet_n, args.alphabet_mem)
+        for name, wall, busy in tools:
+            say("tool %-36s wall %.3f s, device busy %s [%s]"
+                % (name, wall, "not measured" if busy is None
+                   else "%.3f s" % busy, smi))
+        alphabet_report(alpha)
+        loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        if loaded:
+            raise AssertionError("JAX or the JAX package was imported: %s"
+                                 % loaded)
+        say("chip_smoke.py: %.3f s from its start to the report [%s]"
+            % (time.monotonic() - t_start, smi))
+        say(smi)
+        say(json.dumps({"kernels": alphabet_kernels(alpha)}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if args.only == "human":
         human = human_path(args.human_n, args.human_mem, args.human_hostmem,
@@ -1700,17 +2168,6 @@ def main() -> int:
     if rc != 0 or "plcp: device route" not in run_tool.log:
         raise AssertionError("lcpbit failed or did not take the device "
                              "route")
-    rc, out, _ = run_tool("checkLCPBit (single-block path)",
-                          ["checkLCPBit", "device=cuda", lcpbit_s, bwt_path])
-    if rc != 0 or out.strip() != "lcpok=1":
-        raise AssertionError("checkLCPBit did not print lcpok=1")
-    moved_bit_copy(lcpbit_s, os.path.join(WORK, "bad.lcpbit"))
-    rc, out, _ = run_tool("checkLCPBit (one bit moved)",
-                          ["checkLCPBit", "device=cuda",
-                           os.path.join(WORK, "bad.lcpbit"), bwt_path])
-    if rc != 1 or out.strip() != "lcpok=0":
-        raise AssertionError("checkLCPBit did not print lcpok=0 on the copy "
-                             "with one bit moved")
     path_counts["single-block LCP path"] = counts()
     peak_lcp_single = torch.cuda.max_memory_allocated()
     say("single-block LCP path launches: %s"
@@ -1769,6 +2226,23 @@ def main() -> int:
     path_counts["hwtToLCP path"] = counts()
     if path_counts["hwtToLCP path"]["kasai"] < 1:
         raise AssertionError("hwtToLCP never launched the Kasai kernel")
+    # checkLCPBit's host oracle here, not at the single-block path's
+    # 100,000,003 (12-23 s a call there): lcpok=1 on this build's
+    # .lcpbit, lcpok=0 on a copy with one bit moved
+    lcpbit8 = base8 + ".lcpbit"
+    rc, _, _ = run_tool("lcpbit n=%d" % n8, ["lcpbit", "device=cuda",
+                                             outs["doubling"]])
+    rc2, out, _ = run_tool("checkLCPBit n=%d" % n8, [
+        "checkLCPBit", "device=cuda", lcpbit8, outs["doubling"]])
+    if rc != 0 or rc2 != 0 or out.strip() != "lcpok=1":
+        raise AssertionError("checkLCPBit did not print lcpok=1")
+    moved_bit_copy(lcpbit8, os.path.join(WORK, "bad.lcpbit"))
+    rc, out, _ = run_tool("checkLCPBit (one bit moved) n=%d" % n8,
+                          ["checkLCPBit", "device=cuda",
+                           os.path.join(WORK, "bad.lcpbit"), outs["doubling"]])
+    if rc != 1 or out.strip() != "lcpok=0":
+        raise AssertionError("checkLCPBit did not print lcpok=0 on the copy "
+                             "with one bit moved")
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
@@ -2325,8 +2799,13 @@ def main() -> int:
                                  "measured peak of a level")
     gmk = {"sector": dict(replay[0], levels=replay)}
 
-    # ---- 11b. the human-genome path --------------------------------------
+    # ---- 13. alphabets past 256 symbols ---------------------------------
     text = None
+    alpha = None
+    if args.alphabet_n:
+        alpha = alphabet_path(args.alphabet_n, args.alphabet_mem)
+
+    # ---- 11b. the human-genome path --------------------------------------
     human = {"phases": {}}
     if args.human_n:
         human = human_path(args.human_n, args.human_mem, args.human_hostmem,
@@ -2363,6 +2842,8 @@ def main() -> int:
            (glcp or {}).get("peak_device_bytes", 0) / 2 ** 30,
            human.get("peak_build", 0) / 2 ** 30,
            human.get("peak", 0) / 2 ** 30, smi))
+    if alpha:
+        alphabet_report(alpha)
     shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     if loaded:
@@ -2431,6 +2912,8 @@ def main() -> int:
             "ms_by_lanes": glcp["by_lanes"], "wall_s": glcp["wall"],
             "peak_device_bytes": glcp["peak_device_bytes"],
             "cases_2^22": kasai_22})
+    if alpha:
+        kernels.extend(alphabet_kernels(alpha))
     say("chip_smoke.py: %.3f s from its start to the report [%s]"
         % (time.monotonic() - t_start, smi))
     say(smi)

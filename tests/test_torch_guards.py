@@ -5,7 +5,9 @@
   imports any of them;
 - ``device=cuda`` without CUDA raises instead of running on the CPU;
 - paths that are not ported yet raise ``NotImplementedError`` (or, on
-  the CLI, exit 2 naming their ROADMAP.md item);
+  the CLI, exit 2 naming their ROADMAP.md item), and the ones this
+  refusal once covered run (``bwtcodec=rlh``, the tools past 256
+  symbols);
 - a kernel build without ``nvcc`` raises.
 """
 
@@ -56,6 +58,15 @@ assert dispatch(["lcpbit", "device=cpu", inp + ".bwt"]) == 0
 assert dispatch(["checkLCPBit", "device=cpu", inp + ".lcpbit",
                  inp + ".bwt"]) == 0
 assert dispatch(["hwtToLCP", "checklcp=1", "device=cpu", inp + ".bwt"]) == 0
+u = inp + ".u8"
+codes = (0x4e00 + rng.integers(0, 300, 3000)).astype("<u4")
+open(u, "wb").write(codes.tobytes().decode("utf-32-le").encode("utf-8"))
+assert dispatch(["bwtb3m", "device=cpu", "verbose=0", "inputtype=utf-8",
+                 "engine=merge", "mem=16384", "bwtcodec=rlh", u]) == 0
+assert dispatch(["checkbwt", "device=cpu", "verbose=0", "inputtype=utf-8",
+                 u, u + ".bwt"]) == 0
+assert dispatch(["bwttestdecodespeed", "device=cpu", "verbose=0", "steps=8",
+                 "maxstreams=8", u + ".bwt"]) == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "bwtb3m_tpu"))
 assert not loaded, loaded
@@ -113,8 +124,6 @@ def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("kw,match", [
     ({"engine": "merge-legacy"}, "item 10"),
     ({"engine": "sharded"}, "item 9"),
-    ({"bwt_codec": "rlh"}, "item 8"),
-    ({"engine": "merge", "bwt_codec": "rlh"}, "item 8"),
 ])
 def test_unported_build_paths_raise(tmp_path, monkeypatch, kw, match):
     kw = dict(kw)
@@ -124,6 +133,26 @@ def test_unported_build_paths_raise(tmp_path, monkeypatch, kw, match):
                       **kw)
     with pytest.raises(NotImplementedError, match=match):
         compute_bwt(opts)
+
+
+@pytest.mark.parametrize("kw", [{"bwt_codec": "rlh"},
+                                {"engine": "merge", "bwt_codec": "rlh"}])
+def test_rlh_build_paths_run(tmp_path, kw):
+    """bwtcodec=rlh (refused before the codec was ported) writes the
+    reference's RLH1 .bwt with either engine, and checkbwt reads it."""
+    from bwtb3m_tpu.engine import BwtOptions as JaxOptions
+    from bwtb3m_tpu.engine import compute_bwt as jax_compute_bwt
+    inp = _dna(tmp_path)
+    out = str(tmp_path / "p.bwt")
+    res = compute_bwt(BwtOptions(input_path=inp, device="cpu", verbose=0,
+                                 output_filename=out, mem=16384, **kw))
+    jax_compute_bwt(JaxOptions(input_path=inp, verbose=0, mem=16384,
+                               output_filename=str(tmp_path / "r.bwt"),
+                               **kw))
+    assert open(out, "rb").read() == open(str(tmp_path / "r.bwt"),
+                                          "rb").read()
+    assert open(out, "rb").read(4) == b"RLH1"
+    assert check_bwt(res, np.fromfile(inp, np.uint8), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [{"engine": "merge"},
@@ -168,23 +197,34 @@ def test_forced_wide_build_paths_run(tmp_path, monkeypatch, kw):
 
 
 def test_sigma_above_256_checks_raise(tmp_path):
+    """checkbwt and bwtcomputessa past 256 symbols (refused before the
+    wavelet rank rows were ported) run: gok, and the reference's .sa and
+    .isa bytes.  What still raises there is the reference's int32 limit:
+    ValueError from n = 2^31 on (tests/test_torch_legacy_walks.py)."""
+    from bwtb3m_tpu.engine.ssa import compute_ssa as jax_compute_ssa
+    from bwtb3m_tpu.io.inputtypes import parse_input_type
     p = tmp_path / "u.txt"
-    p.write_text("héllo 世界 " * 20, encoding="utf-8")
+    # not a power of a shorter string: in both packages the SA walk of a
+    # text with equal rotations misses positions and raises
+    p.write_text("héllo 世界 " * 20 + "終", encoding="utf-8")
     res = compute_bwt(BwtOptions(input_path=str(p), input_type="utf-8",
                                  device="cpu", verbose=0))
     assert res.sigma > 256
-    from bwtb3m_tpu.io.inputtypes import parse_input_type
     text, _s = parse_input_type("utf-8").load(str(p))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        check_bwt(BwtResult.load(res.bwt_path), text, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        compute_ssa(res.bwt_path, device="cpu")
+    assert check_bwt(BwtResult.load(res.bwt_path), text, device="cpu")
+    sa_path, isa_path = compute_ssa(res.bwt_path, 4, 8, device="cpu")
+    got = [open(f, "rb").read() for f in (sa_path, isa_path)]
+    jax_compute_ssa(res.bwt_path, 4, 8)
+    assert got == [open(f, "rb").read() for f in (sa_path, isa_path)]
+    with pytest.raises(ValueError, match="2\\^31"):
+        check_bwt(BwtResult({"n": 1 << 31, "sigma": 300, "files": {}}),
+                  np.broadcast_to(np.int8(1), (1 << 31,)), device="cpu")
 
 
 def test_cli_refuses_unported_tools(capsys):
     assert dispatch(["probeScanDna", "x"]) == 2
     assert "ROADMAP.md Queue 1 item 8" in capsys.readouterr().err
-    assert dispatch(["bwttestdecodespeed", "x"]) == 2
+    assert dispatch(["bwtb3mdecoderl", "x"]) == 2
     assert dispatch(["bwttohwt", "x"]) == 2
     assert dispatch(["no-such-tool"]) == 1
 

@@ -137,12 +137,24 @@ def test_rl_numpy_encoder_matches_native(tmp_path, monkeypatch):
 
 
 def test_rlh_files_are_refused_by_name(tmp_path):
-    _ref, port = both("io.rl")
-    p = str(tmp_path / "x.bwt")
-    with open(p, "wb") as f:
-        f.write(b"RLH1" + bytes(60))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port.open_bwt(p)
+    """RLH1 files (refused by name before the codec was ported) open by
+    their magic in both packages: each opens the other's file and reads
+    the same symbols, histogram and ranks."""
+    ref, port = both("io.rl")
+    ref_rlh, port_rlh = both("io.rlh")
+    syms = _syms(5000, 300, 8, runs=True)
+    a, b = str(tmp_path / "a.bwt"), str(tmp_path / "b.bwt")
+    ref_rlh.rlh_encode(a, syms, sigma=300, block_size=1000)
+    port_rlh.rlh_encode(b, syms, sigma=300, block_size=1000)
+    assert _bytes(a) == _bytes(b)
+    for mod, path in ((ref, b), (port, a)):
+        with mod.open_bwt(path) as r:
+            np.testing.assert_array_equal(r.decode_all(), syms)
+            np.testing.assert_array_equal(
+                r.symbol_histogram().astype(np.int64),
+                np.bincount(syms, minlength=300))
+            assert r.rank(7, 2500) == int(np.count_nonzero(
+                syms[:2500] == 7))
 
 
 def test_sidecar_formats_byte_identical_and_cross_load(tmp_path):
@@ -459,7 +471,7 @@ def test_reference_library_lost_to_the_build_race_is_rebuilt(tmp_path):
 
 def test_port_keeps_only_the_entry_points_it_calls():
     _ref, port = both("native")
-    for later in ("sais", "gap_interleave", "gt0", "rlh_decode_runs"):
+    for later in ("sais", "gap_interleave", "gt0"):
         assert not hasattr(port, later), later
     assert os.path.dirname(port._SO) == os.path.join(
         REPO, "bwtb3m_tpu_torch", "build")

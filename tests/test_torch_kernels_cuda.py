@@ -577,3 +577,108 @@ def test_kasai_kernel_refuses_lanes_outside_the_slab(cuda):
     with pytest.raises(ValueError, match="p0"):
         K.kasai_walk(words, phi, 5000, plcp, p, torch.zeros_like(p), pend,
                      5000, 1000, bits)
+
+
+# ------------------------------------------------ wavelet rows (sigma > 256)
+# 13,000 symbols: D and start past the shared-memory limit, read with __ldg
+WM_SIGMAS = [300, 5000, 13000]
+
+
+def _wm_build(sigma, n, rate, cuda):
+    from bwtb3m_tpu_torch.ops.wavelet_rows import build_wavelet_host
+    rng = np.random.default_rng(sigma + n)
+    text = rng.integers(0, sigma, n).astype(np.int32)
+    text[:sigma] = np.arange(sigma)           # every symbol present
+    sa, isa, bwt = suffix_array(text, sigma, cuda)
+    wm = build_wavelet_host(bwt.astype(np.int32), sigma, cuda)
+    pos = np.arange(0, n, rate, dtype=np.int64)
+    seg = np.diff(np.r_[pos, n])
+    start = (pos + seg) % n
+    lanes = [torch.from_numpy(a).to(cuda) for a in (isa[start], start, seg)]
+    return text, sa, isa, wm, lanes
+
+
+@pytest.mark.parametrize("sigma", WM_SIGMAS)
+def test_lf_walk_wm_kernel_matches_plain(cuda, sigma):
+    """bwt_lf_walk_wm's final-rank, verify and harvest forms against the
+    plain descent, and the harvest against the sort's SA and ISA."""
+    from bwtb3m_tpu_torch.ops.wavelet_rows import as_u16_bits
+    n = (1 << 16) + 37
+    text, sa, isa, wm, (r0, p0, seg) = _wm_build(sigma, n, 64, cuda)
+    before = dict(lw.LAUNCHES)
+    got = lw.lf_walk(wm, r0, 300)
+    assert lw.LAUNCHES["none_wm"] == before["none_wm"] + 1
+    assert torch.equal(got, lw.lf_walk_plain(wm, r0, 300))
+    t = as_u16_bits(torch.from_numpy(text).to(cuda))
+    assert int(lw.verify_walk(wm, t, r0, p0, seg).sum()) == 0
+    t[1000] = as_u16_bits(torch.tensor([(text[1000] + 1) % sigma],
+                                       device=cuda))[0]
+    bad = lw.verify_walk(wm, t, r0, p0, seg)
+    assert lw.LAUNCHES["verify_wm"] == before["verify_wm"] + 2
+    assert torch.equal(bad, lw.verify_walk_plain(wm, t, r0, p0, seg))
+    assert int(bad.sum()) == 1
+    got = lw.harvest_walk(wm, r0, p0, seg, 32, 48)
+    assert lw.LAUNCHES["harvest_wm"] == before["harvest_wm"] + 1
+    want = lw.harvest_walk_plain(wm, r0, p0, seg, 32, 48)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0].cpu().numpy(), sa[::32])
+    np.testing.assert_array_equal(got[1].cpu().numpy(), isa[::48])
+
+
+@pytest.mark.parametrize("sigma", WM_SIGMAS)
+def test_gap_chain_mk_wm_kernel_matches_plain(cuda, sigma):
+    """bwt_gap_chain_mk_wm's recording and anchor forms against the plain
+    version on a merge of [0, m) into [m, n) over 16-bit regions, and the
+    recorded ranks against the sort's."""
+    from bwtb3m_tpu_torch.ops import gapbatch as gb
+    from bwtb3m_tpu_torch.ops.devzip import pack_region
+    from bwtb3m_tpu_torch.ops.wavelet_rows import as_u16_bits
+    n = (1 << 16) + 37
+    rng = np.random.default_rng(sigma * 31 + n)
+    text = rng.integers(0, sigma, n).astype(np.uint16)
+    text[:sigma] = np.arange(sigma)
+    m = n // 2
+    sa, isa, _bwt = suffix_array(text.astype(np.int32), sigma, "cpu")
+    right = sa[sa >= m]
+    R = np.searchsorted(np.sort(isa[m:]), isa)
+    hist = np.bincount(text[m:], minlength=sigma)
+    rbwt = as_u16_bits(torch.from_numpy(
+        text[(right - 1) % n].astype(np.int64)).to(cuda))
+    runner = gb.BatchedGapRunner(
+        torch.from_numpy(text.view(np.int16)).to(cuda), text, sigma,
+        [(0, m, n, int(R[m]), hist)], [pack_region(rbwt, 16)], 16,
+        lane_bucket=512, sample_rate=64)
+    bounds = np.linspace(0, m, 513).astype(np.int64)
+    starts, lens = bounds[1:] - 1, np.diff(bounds)
+    runner._ensure_gt([int(starts.max()) + 1])
+    kd, st, sd, ln = runner._lanes(np.zeros(len(starts)), starts,
+                                   R[(starts + 1) % n], lens)
+    args = (runner.focc, runner.text_dev, runner.gt_dev, runner.c_first,
+            runner.table, kd, st, sd, ln)
+    sp = runner.specs[0]
+    outs = []
+    for fn in (gb.chain_walk_mk, gb.gap_chain_mk_plain):
+        gap = torch.zeros(runner.focc.n + 1, dtype=torch.int32, device=cuda)
+        samp = torch.full((sp.nsamp,), -1, dtype=torch.int32, device=cuda)
+        before = dict(gb.LAUNCHES)
+        final = fn(*args, gap, samp, 64)
+        if fn is gb.chain_walk_mk:
+            assert gb.LAUNCHES["chain_wm"] == before["chain_wm"] + 1
+        outs.append((final, gap, samp))
+    (fk, gk, sk), (fp, gp, sp_) = outs
+    assert torch.equal(fk, fp) and torch.equal(gk, gp) \
+        and torch.equal(sk, sp_)
+    np.testing.assert_array_equal(sk.cpu().numpy(), R[0:m:64])
+    np.testing.assert_array_equal(
+        gk.cpu().numpy(), np.bincount(R[:m], minlength=runner.focc.n + 1))
+    for r0 in (0, sp.gap_size):
+        sd0 = torch.full_like(sd, r0)
+        before = gb.LAUNCHES["anchor_wm"]
+        a = gb.anchor_walk_mk(*args[:7], sd0, ln)
+        assert gb.LAUNCHES["anchor_wm"] == before + 1
+        assert torch.equal(a, gb.gap_chain_mk_plain(*args[:7], sd0, ln))
+    # the runner's own anchors and chains give the sort's ranks
+    runner.compute()
+    np.testing.assert_array_equal(
+        runner.gap.cpu().numpy(),
+        np.bincount(R[:m], minlength=runner.focc.n + 1))

@@ -212,13 +212,21 @@ def _fake_result(tmp_path, n):
 
 
 def test_select_gate_at_2_32(tmp_path):
-    """select_ssa refuses n >= 2^32 (naming ROADMAP.md item 8, the FM
-    index's locate) and no longer refuses the band from 2^31: there it
-    goes on to read the .preisa (missing here)."""
+    """select_ssa from n = 2^32 raises ValueError without a sampled .sa,
+    as the reference does; with one the reference locates through the FM
+    index, which the port refuses (NotImplementedError naming ROADMAP.md
+    item 8b).  It no longer refuses the band from 2^31: there it goes on
+    to read the .preisa (missing here)."""
     from bwtb3m_tpu_torch.engine.ssa import select_ssa
-    with pytest.raises(NotImplementedError, match="item 8"):
-        select_ssa(_fake_result(tmp_path, TWO32), np.zeros(1, np.int64),
-                   device="cpu")
+    path = _fake_result(tmp_path, TWO32)
+    with pytest.raises(ValueError, match="needs a sampled .sa"):
+        select_ssa(path, np.zeros(1, np.int64), device="cpu")
+    meta = json.load(open(path[:-4] + ".meta"))
+    meta["files"]["sa"] = path[:-4] + ".sa"
+    with open(path[:-4] + ".meta", "w") as f:
+        json.dump(meta, f)
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        select_ssa(path, np.zeros(1, np.int64), device="cpu")
     with pytest.raises(FileNotFoundError):
         select_ssa(_fake_result(tmp_path, BASE), np.zeros(1, np.int64),
                    device="cpu")
