@@ -26,11 +26,14 @@
 //     bytes 0..255                 the block's symbols
 //     bytes 256 + 4c .. +3         occ checkpoint of symbol c, little endian
 //   wavelet rows (256 < sigma <= 65536, n < 2^31; ops/wavelet_rows.py),
-//   a fourth family with the same three calls but no block rows: a
-//   wavelet matrix of `levels` bit levels, each level nsec 32-byte sectors
-//     word 0                       ones of the level before the sector
-//     words 1..7                   the level's next 224 bits, LSB first
-//   step, symrank and rank descend the levels, one sector per level.
+//   a fourth family with the same three calls but no block rows: an 8-ary
+//   wavelet matrix of `levels` levels of base-8 digits, each level nblk
+//   64-byte blocks, 64-byte aligned
+//     words 0..6                   digits 0..6 of the level before the
+//                                  block (7s: 96 b less their sum)
+//     words 7..15                  bit planes 0, 1, 2 of the next 96
+//                                  digits, 3 words each, LSB first
+//   step, symrank and rank descend the levels, one block per level.
 #pragma once
 
 #include <cstdint>
@@ -244,28 +247,34 @@ struct ByteRows {
   }
 };
 
-// Wavelet rows.  A descent from position i reads at each level l the
-// sector of i, the bit b there and the ones before i, and goes on at
-// z[l] + ones (b = 1) or i - ones (b = 0), z[l] being the level's zeros;
-// the levels' sectors depend on each other, so a step is `levels`
-// dependent 32-byte reads (two 16-byte loads each).  Along BWT[i]'s own
-// bits the descent yields the symbol and the end position f, and
-// LF(i) = D[sym] + f; along c's bits, rank(c, i) = f - start[c].  The
-// zeros sit in registers; D and start are read from shared memory where a
-// kernel staged them (stage_wavelet), else with __ldg.  Ranks are uint32
-// (the callers keep n below 2^31); the division by 224 is by a constant.
-constexpr int kWmMaxLevels = 16;
-constexpr uint32_t kWmSectorBits = 224;
+// Wavelet rows, an 8-ary matrix.  A descent from position i reads at each
+// level l the block of i, the digit d there and k, the d digits before i,
+// and goes on at zc[l][d] + k, zc[l][d] being the level's digits below d;
+// the levels' blocks depend on each other, so a step is `levels`
+// dependent 64-byte reads (four 16-byte loads each): 5 at 5,000 symbols.
+// Past the L2 the walks are bound by the card's rate of dependent random
+// reads, and a random 64 bytes costs little more than a random 32 (the
+// 4-ary matrix of 32-byte sectors, 7 reads a step, was 1.32x slower;
+// PERF.md), so a step's time is its level count.  Along BWT[i]'s own
+// digits the descent yields the symbol and the end position f, and
+// LF(i) = D[sym] + f; along c's digits, rank(c, i) = f - start[c].  The
+// digit table zc sits in shared memory (8 words a level); D and start
+// are read from shared memory where a kernel staged them
+// (stage_wavelet), else with __ldg.  Ranks are uint32 (the callers keep
+// n below 2^31); the division by 96 is by a constant (multiply-high).
+constexpr int kWmMaxLevels = 6;
+constexpr int kWmRadix = 8;
+constexpr uint32_t kWmBlockDigits = 96;
 
-// What the host passes: the sectors ([levels][nsec] x 32 bytes, 32-byte
-// aligned), the zeros per level (uint32 [levels]), D and start (uint32
-// [sigma]); stage: 0 none, 1 D, 2 start into shared memory.
+// What the host passes: the blocks ([levels][nblk] x 64 bytes, 64-byte
+// aligned), the digit table (uint32 [levels][8]: digits below d), D and
+// start (uint32 [sigma]); stage: 0 none, 1 D, 2 start into shared memory.
 struct WaveletArgs {
-  const uint4* sec;
-  unsigned long long nsec;
+  const uint4* blk;
+  unsigned long long nblk;
   int levels;
   int sigma;
-  const uint32_t* zeros;
+  const uint32_t* zc;
   const uint32_t* D;
   const uint32_t* start;
   int stage;
@@ -274,10 +283,10 @@ struct WaveletArgs {
 struct WaveletRows {
   static constexpr int kShift = 0;
   static constexpr int kMaxSigma = 65536;
-  const uint4* sec;
-  unsigned long long nsec;
+  const uint4* blk;
+  unsigned long long nblk;
   int levels;
-  uint32_t z[kWmMaxLevels];
+  const uint32_t* zc;  // shared memory, [levels][8]
   const uint32_t* D;
   const uint32_t* start;
   bool staged;
@@ -286,36 +295,71 @@ struct WaveletRows {
     return staged ? t[c] : __ldg(t + c);
   }
 
-  // The ones of level l before position i, and the bit at i.
-  __device__ __forceinline__ uint32_t level(int l, uint32_t i, uint32_t* bit) const {
-    const uint32_t s = i / kWmSectorBits;
-    const uint32_t off = i - s * kWmSectorBits;
-    const uint4* p = sec + 2 * ((size_t)l * nsec + s);
-    const uint4 a = __ldg(p), b = __ldg(p + 1);
-    const uint32_t w[7] = {a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  // rank_d(i) on level l: the digits d of the level before position i,
+  // d being the digit at i where want < 0, else want.  The in-block count
+  // is ops/wavelet_rows.py::digit_rank over the three plane words of each
+  // word index: XOR each plane with ~0 where d's bit is 0, AND the three,
+  // popcount under the prefix mask; no branch on the word index.
+  __device__ __forceinline__ uint32_t level(int l, uint32_t i, int want,
+                                            uint32_t* d_out) const {
+    const uint32_t s = i / kWmBlockDigits;
+    const uint32_t off = i - s * kWmBlockDigits;
+    const uint4* p = blk + 4 * ((size_t)l * nblk + s);
+    const uint4 q0 = __ldg(p), q1 = __ldg(p + 1), q2 = __ldg(p + 2), q3 = __ldg(p + 3);
+    const uint32_t cnt[7] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z};
+    const uint32_t p0[3] = {q1.w, q2.x, q2.y};
+    const uint32_t p1[3] = {q2.z, q2.w, q3.x};
+    const uint32_t p2[3] = {q3.y, q3.z, q3.w};
     const uint32_t wi = off >> 5, sh = off & 31u;
-    uint32_t ones = a.x, cur = 0;
+    uint32_t d;
+    if (want < 0) {
+      uint32_t a0 = 0, a1 = 0, a2 = 0;
 #pragma unroll
-    for (int k = 0; k < 7; ++k) {
-      if ((uint32_t)k < wi) ones += __popc(w[k]);
-      if ((uint32_t)k == wi) cur = w[k];
+      for (int k = 0; k < 3; ++k) {
+        if ((uint32_t)k == wi) {
+          a0 = p0[k];
+          a1 = p1[k];
+          a2 = p2[k];
+        }
+      }
+      d = ((a0 >> sh) & 1u) | (((a1 >> sh) & 1u) << 1) | (((a2 >> sh) & 1u) << 2);
+    } else {
+      d = (uint32_t)want;
     }
-    *bit = (cur >> sh) & 1u;
-    return ones + __popc(cur & ((1u << sh) - 1u));
+    // e_j = ~0 where bit j of d is 0: (plane ^ e_j) marks the digits whose
+    // bit j equals d's
+    const uint32_t e0 = (d & 1u) - 1u, e1 = ((d >> 1) & 1u) - 1u, e2 = ((d >> 2) & 1u) - 1u;
+    const uint32_t part = (1u << sh) - 1u;  // sh <= 31
+    uint32_t k_in = 0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const uint32_t m = (p0[k] ^ e0) & (p1[k] ^ e1) & (p2[k] ^ e2);
+      const uint32_t mask = (uint32_t)k < wi ? 0xFFFFFFFFu : ((uint32_t)k == wi ? part : 0u);
+      k_in += __popc(m & mask);
+    }
+    uint32_t before = s * kWmBlockDigits;  // the 7s: 96 s less the others
+#pragma unroll
+    for (int j = 0; j < 7; ++j) before -= cnt[j];
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      if ((uint32_t)j == d) before = cnt[j];
+    }
+    *d_out = d;
+    return before + k_in;
   }
 
-  // Descent along BWT[i]'s bits (c < 0) or along c's: returns f, and the
+  // Descent along BWT[i]'s digits (c < 0) or along c's: returns f, and the
   // symbol read in *sym.
   __device__ __forceinline__ uint32_t descend(uint32_t i, int c, uint32_t* sym) const {
     uint32_t s = 0;
 #pragma unroll
     for (int l = 0; l < kWmMaxLevels; ++l) {
       if (l < levels) {
-        uint32_t bit;
-        const uint32_t ones = level(l, i, &bit);
-        if (c >= 0) bit = ((uint32_t)c >> (levels - 1 - l)) & 1u;
-        i = bit ? z[l] + ones : i - ones;
-        s = (s << 1) | bit;
+        const int want = c < 0 ? -1 : (int)(((uint32_t)c >> (3 * (levels - 1 - l))) & 7u);
+        uint32_t d;
+        const uint32_t k = level(l, i, want, &d);
+        i = zc[kWmRadix * l + d] + k;
+        s = (s << 3) | d;
       }
     }
     *sym = s;
@@ -341,28 +385,32 @@ struct WaveletRows {
   }
 };
 
-// The block's wavelet rows: the zeros into registers and, where the host
-// asked (a.stage), D or start into s_tab (a.sigma words of dynamic shared
-// memory).  Every thread of the block must call it.
+// The block's wavelet rows: the digit table into shared memory and, where
+// the host asked (a.stage), D or start into s_tab (a.sigma words of
+// dynamic shared memory; the host keeps them and the static digit table
+// within the 48 KB a launch takes without opting in,
+// ops/wavelet_rows.py::SMEM_LIMIT).  Every thread of the block must call
+// it.
 __device__ __forceinline__ WaveletRows stage_wavelet(const WaveletArgs& a, uint32_t* s_tab) {
+  __shared__ uint32_t s_zc[kWmRadix * kWmMaxLevels];
   WaveletRows w;
-  w.sec = a.sec;
-  w.nsec = a.nsec;
+  w.blk = a.blk;
+  w.nblk = a.nblk;
   w.levels = a.levels;
-#pragma unroll
-  for (int l = 0; l < kWmMaxLevels; ++l) w.z[l] = l < a.levels ? __ldg(a.zeros + l) : 0u;
+  for (int k = threadIdx.x; k < kWmRadix * a.levels; k += blockDim.x) s_zc[k] = __ldg(a.zc + k);
+  w.zc = s_zc;
   w.D = a.D;
   w.start = a.start;
   w.staged = a.stage != 0;
   if (a.stage) {
     const uint32_t* src = a.stage == 1 ? a.D : a.start;
     for (int k = threadIdx.x; k < a.sigma; k += blockDim.x) s_tab[k] = __ldg(src + k);
-    __syncthreads();
-    if (a.stage == 1) {
-      w.D = s_tab;
-    } else {
-      w.start = s_tab;
-    }
+  }
+  __syncthreads();
+  if (a.stage == 1) {
+    w.D = s_tab;
+  } else if (a.stage == 2) {
+    w.start = s_tab;
   }
   return w;
 }

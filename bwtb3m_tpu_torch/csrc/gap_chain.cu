@@ -276,23 +276,24 @@ extern "C" int bwt_gap_chain_mk_w(const void* rows, int roww, const void* thr, i
 }
 
 // One pair merge over wavelet rows (more than 256 distinct symbols, n <
-// 2^31; ops/wavelet_rows.py): the right region's sectors ([levels][nsec]
-// x 32 bytes), zeros (uint32 [levels]) and start (uint32 [sigma]); text
-// is the dense text as uint16; the rest as bwt_gap_chain_mk with one
-// merge.  start sits in shared memory when smem_bytes is not 0.
-extern "C" int bwt_gap_chain_mk_wm(const void* sectors, long long nsec, int levels,
-                                   const void* zeros, const void* start, int sigma,
+// 2^31; ops/wavelet_rows.py): the right region's blocks ([levels][nblk]
+// x 64 bytes), the digit table zc (uint32 [levels][8]) and start (uint32
+// [sigma]); text is the dense text as uint16; the rest as
+// bwt_gap_chain_mk with one merge.  start sits in shared memory when
+// smem_bytes is not 0.
+extern "C" int bwt_gap_chain_mk_wm(const void* blocks, long long nblk, int levels,
+                                   const void* zc, const void* start, int sigma,
                                    int smem_bytes, const void* text, const void* gt,
                                    const void* c_first, const void* table, const void* kid,
                                    const void* starts, const void* seeds, const void* lens,
                                    void* r_out, void* gap, void* samp, int rate, int nlanes,
                                    void* stream) {
   bwt_rows::WaveletArgs a;
-  a.sec = static_cast<const uint4*>(sectors);
-  a.nsec = (unsigned long long)nsec;
+  a.blk = static_cast<const uint4*>(blocks);
+  a.nblk = (unsigned long long)nblk;
   a.levels = levels;
   a.sigma = sigma;
-  a.zeros = static_cast<const uint32_t*>(zeros);
+  a.zc = static_cast<const uint32_t*>(zc);
   a.D = nullptr;
   a.start = static_cast<const uint32_t*>(start);
   a.stage = smem_bytes ? 2 : 0;

@@ -53,8 +53,9 @@
 // reference's legacy walks over its OccTable: ops/lf.py::lf_walk,
 // engine/verify.py::_walk_verify_run and engine/ssa.py::_harvest_walk.
 // Its text is uint16 (the dense symbol ids).  A step is one descent, a
-// dependent 32-byte sector read per level (13 for 5,000 symbols), where
-// the other families read one row.
+// dependent 64-byte block read per level of three bits (5 for 5,000
+// symbols), where the other families read one row: a miss costing 64
+// bytes whatever is asked (above), the block is as cheap as a sector.
 //
 // The entry point launches on the caller's stream, does not synchronise
 // and returns cudaGetLastError() right after the launch.
@@ -428,23 +429,23 @@ extern "C" int bwt_lf_walk_w(const void* rows, int roww, const void* C64, const 
   return (int)cudaGetLastError();
 }
 
-// The walk over wavelet rows (sigma > 256, n < 2^31): sectors ([levels]
-// [nsec] x 32 bytes), zeros (uint32 [levels]) and D (uint32 [sigma]) of
-// ops/wavelet_rows.py; text (verify) is the densified text as uint16;
-// otherwise as bwt_lf_walk.  D sits in shared memory when smem_bytes (the
-// host's choice, sigma * 4 or 0) is not 0.
-extern "C" int bwt_lf_walk_wm(const void* sectors, long long nsec, int levels,
-                              const void* zeros, const void* D, int sigma,
+// The walk over wavelet rows (sigma > 256, n < 2^31): blocks ([levels]
+// [nblk] x 64 bytes), the digit table zc (uint32 [levels][8]) and D
+// (uint32 [sigma]) of ops/wavelet_rows.py; text (verify) is the densified
+// text as uint16; otherwise as bwt_lf_walk.  D sits in shared memory
+// when smem_bytes (the host's choice, sigma * 4 or 0) is not 0.
+extern "C" int bwt_lf_walk_wm(const void* blocks, long long nblk, int levels,
+                              const void* zc, const void* D, int sigma,
                               int smem_bytes, long long n, const void* r0,
                               const void* p0, const void* seg_len, void* r_out,
                               const void* text, void* bad, int sarate, int isarate,
                               void* sa_out, void* isa_out, int nlanes, void* stream) {
   WaveletArgs a;
-  a.sec = static_cast<const uint4*>(sectors);
-  a.nsec = (unsigned long long)nsec;
+  a.blk = static_cast<const uint4*>(blocks);
+  a.nblk = (unsigned long long)nblk;
   a.levels = levels;
   a.sigma = sigma;
-  a.zeros = static_cast<const uint32_t*>(zeros);
+  a.zc = static_cast<const uint32_t*>(zc);
   a.D = static_cast<const uint32_t*>(D);
   a.start = nullptr;
   a.stage = smem_bytes ? 1 : 0;

@@ -186,15 +186,9 @@ def _check_args(focc, text, gt, c_first, table, kid, starts, seeds, lens):
         raise ValueError("the narrow gap chain keeps ranks in uint32: the "
                          "level's rank space < 2^32")
     if wavelet:
-        if focc.n >= 1 << 31 or table.shape[0] != 1 \
-                or focc.sectors.data_ptr() % 32:
-            raise ValueError("the chain over wavelet rows holds one merge "
-                             "of n < 2^31 ranks in 32-byte aligned sectors")
-        for t in (focc.sectors, focc.Z, focc.start):
-            if t.device != dev or t.dtype != torch.int32 \
-                    or not t.is_contiguous():
-                raise TypeError("wavelet rows must be contiguous int32 "
-                                "tensors on %s" % dev)
+        if table.shape[0] != 1:
+            raise ValueError("the chain over wavelet rows holds one merge")
+        wr.check_kernel_rows(focc, dev, focc.start)
     else:
         if focc.rows.device != dev:
             raise TypeError("rank rows on %s, lanes on %s"
@@ -259,7 +253,7 @@ def _launch(focc, text, gt, c_first, table, kid, starts, seeds, lens,
             *lanes, int(rate), len(seeds), stream)
     elif wavelet:
         rc = lib.bwt_gap_chain_mk_wm(
-            _ptr(focc.sectors), focc.nsec, focc.levels, _ptr(focc.Z),
+            _ptr(focc.blocks), focc.nblk, focc.levels, _ptr(focc.Zc),
             _ptr(focc.start), focc.sigma, wr.smem_bytes(focc.sigma), *lanes,
             int(rate), len(seeds), stream)
     else:

@@ -27,7 +27,7 @@ kernel's form ``bwt_lf_walk_wm`` (narrow, n < 2^31; the text uint16 bits
 in an int16 tensor): the port of the reference's walks over its
 ``OccTable``, ``ops/lf.py::lf_walk``, ``engine/verify.py::
 _walk_verify_run`` and ``engine/ssa.py::_harvest_walk``.  A step is one
-descent, a 32-byte sector per bit level.
+descent, a 64-byte block per level of three bits.
 
 An entry point launches the kernel for CUDA tensors and uses its plain
 PyTorch version only for CPU tensors; any other device raises.  Ranks
@@ -343,19 +343,12 @@ def _launch_wm(wm: WaveletRows, r32: torch.Tensor, l32: torch.Tensor,
     verify visit's text int16 (uint16 bits).  Counts its launches in
     ``lf_walk.launches`` and ``LAUNCHES["<visit>_wm"]``."""
     dev = r32.device
-    for t in (wm.sectors, wm.Z, wm.D):
-        if t.device != dev or t.dtype != torch.int32 \
-                or not t.is_contiguous():
-            raise TypeError("wavelet rows must be contiguous int32 tensors "
-                            "on %s" % dev)
-    if wm.n >= 1 << 31 or wm.sectors.data_ptr() % 32:
-        raise ValueError("wavelet rows hold n < 2^31 in 32-byte aligned "
-                         "sectors")
+    wr.check_kernel_rows(wm, dev, wm.D)
     r_out = torch.empty_like(r32)
     if len(r32) == 0:
         return r_out
     rc = _lib().bwt_lf_walk_wm(
-        _ptr(wm.sectors), wm.nsec, wm.levels, _ptr(wm.Z), _ptr(wm.D),
+        _ptr(wm.blocks), wm.nblk, wm.levels, _ptr(wm.Zc), _ptr(wm.D),
         wm.sigma, wr.smem_bytes(wm.sigma), wm.n, _ptr(r32), _ptr(p32),
         _ptr(l32), _ptr(r_out), _ptr(text), _ptr(bad), _u32_arg(sarate),
         _u32_arg(isarate), _ptr(sa), _ptr(isa), len(r32), _stream(dev))

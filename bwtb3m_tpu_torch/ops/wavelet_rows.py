@@ -5,39 +5,47 @@ Port of ``bwtb3m_tpu/ops/rank.py`` (``OccTable``: ``_build_occ_jax``,
 ``ops/lf.py::lf_step_batch`` over it.  The reference keeps an int32 count
 of every symbol for every 128-symbol block, (4 sigma / 128 + 4) bytes a
 symbol: 62.5 GB of counts for 400 M symbols over 5,000 symbols.  The C++
-tool it stands for answers these ranks with a wavelet tree; here the
-alphabet's ``levels`` = ceil(log2 sigma) bit levels form a wavelet
-matrix, a few bits a symbol per level, which computes the same
-functions: access, rank and LF.
+tool it stands for answers these ranks with a wavelet tree; here an
+8-ary wavelet matrix of ``levels`` = ceil(bits(sigma - 1) / 3) levels,
+three bits of the symbol per level, computes the same functions: access,
+rank and LF.
 
-Level 0 holds the most significant bit of every BWT symbol, in BWT
-order.  The sequence of level l + 1 is level l's, stably partitioned by
-the bit of level l: zeros first, then ones.  ``Z[l]`` is the number of
-zeros of level l.  A descent from position i reads, at each level, the
-bit b at i and the ones before it, and goes on at ``Z[l] + ones`` (b = 1)
-or ``i - ones`` (b = 0): along BWT[i]'s own bits it is ``access`` and the
-LF step at once, along a symbol c's bits it is ``rank(c, i)``.  Where the
-descent ends, f, the symbols lie in order of their bit-reversed values,
-so symbol c's run starts at ``start[c]`` and
+A symbol's base-8 digits go one to a level, the most significant at
+level 0, which holds them in BWT order.  The sequence of level l + 1 is
+level l's, stably partitioned by the digit of level l: the 0s, then the
+1s, ..., the 7s.  ``Zc[l][d]`` is the number of digits below d on level
+l.  A descent from position i reads, at each level, the digit d at i and
+``k = rank_d(i)``, the d digits before i, and goes on at
+``Zc[l][d] + k``: along BWT[i]'s own digits it is ``access`` and the LF
+step at once, along a symbol c's digits it is ``rank(c, i)``.  Where the
+descent ends, f, the symbols lie in the order of their digit-reversed
+values, so symbol c's run starts at ``start[c]`` and
 
     rank(c, i) = f - start[c],     LF(i) = C[sym] + rank(sym, i) = D[sym] + f
 
 with ``D[c] = C[c] - start[c]``.
 
-A level is stored in 32-byte sectors, the unit of a random read on the
-card: word 0 is the count of ones before the sector, words 1..7 hold the
-next 224 bits, LSB first.  A descent therefore reads one sector per
-level.  A level has ``n // 224 + 1`` sectors, so that position n (a rank
-of n) has one.  At 400 M symbols over 5,000 symbols (13 levels) that is
-743 MB.
+A level is stored in 64-byte blocks, 64-byte aligned: words 0..6 are the
+counts of digits 0..6 before the block (the count of 7s is 96 b less
+their sum), words 7..15 three bit planes of the next 96 digits, plane j
+(bit j of each digit) in words 7 + 3j .. 9 + 3j, LSB first.  A descent
+reads one block per level, two 32-byte sectors side by side: the card
+fetches a random 64 bytes at nearly the cost of 32 (PERF.md), so the
+walks pay per dependent read, and a step at 5,000 symbols makes 5 where
+a binary matrix of 32-byte sectors makes 13 and a 4-ary one 7.  A level
+has ``n // 96 + 1`` blocks, so that position n (a rank of n) has one.
+At 400 M symbols over 5,000 symbols that is 1,333 MB.  The count of a
+digit inside a block is ``digit_rank`` on each plane word triple: XOR
+each plane with d's bit spread, AND the three, mask, popcount.
 
 The plain functions below are the CPU path and the version the CUDA
 kernels (``csrc/focc_rows.cuh::WaveletRows``, in ``csrc/lf_walk.cu`` and
-``csrc/gap_chain.cu``) are held against: they read the very sectors the
-kernels read.  Positions and ranks stay below 2^31, as the reference's
-int32 lanes do; ``build_wavelet`` refuses longer texts.  The reference's
-``rank_all_symbols_batch`` and ``backward_search_step`` have no caller
-yet (ROADMAP.md, items 8b and 8c).
+``csrc/gap_chain.cu``) are held against: they read the very blocks the
+kernels read, with the kernels' integer recipe.  Positions and ranks
+stay below 2^31, as the reference's int32 lanes do; ``build_wavelet``
+refuses longer texts.  The reference's ``rank_all_symbols_batch`` and
+``backward_search_step`` have no caller yet (ROADMAP.md, items 8b and
+8c).
 """
 
 from __future__ import annotations
@@ -48,17 +56,24 @@ from typing import ClassVar, Optional
 import numpy as np
 import torch
 
-from .focc_bp import popcount32, prefix_mask
+from .focc_bp import popcount32
 
-SECTOR_BITS = 224
-SECTOR_WORDS = 8              # the ones before the sector + 7 bit words
-MAX_SYMBOLS = 1 << 16         # 16 levels at most
+RADIX = 8                     # base-8 digits, three bits a level
+DIGIT_BITS = 3
+BLOCK_DIGITS = 96             # digits of a 64-byte block
+BLOCK_WORDS = 16              # 7 digit counts + 3 planes of 3 words
+COUNT_WORDS = RADIX - 1
+PLANE_WORDS = 3
+MAX_SYMBOLS = 1 << 16         # 6 levels at most
+MAX_LEVELS = 6
 _U32 = 0xFFFFFFFF
 
 
 # D or start, one uint32 per symbol, go to shared memory up to the 48 KB
-# a block takes without opting in (12,288 symbols)
-SMEM_LIMIT = 48 * 1024
+# a block takes without opting in, less the digit table that
+# csrc/focc_rows.cuh::stage_wavelet holds there statically (RADIX words a
+# level): 12,240 symbols
+SMEM_LIMIT = 48 * 1024 - 4 * RADIX * MAX_LEVELS
 
 
 def smem_bytes(sigma: int) -> int:
@@ -68,16 +83,19 @@ def smem_bytes(sigma: int) -> int:
 
 
 def levels_for(sigma: int) -> int:
-    """Bit levels of a dense alphabet of ``sigma`` symbols (at least 1)."""
-    return max(1, (int(sigma) - 1).bit_length())
+    """Levels of base-8 digits of a dense alphabet of ``sigma`` symbols
+    (at least 1)."""
+    return max(1, ((int(sigma) - 1).bit_length() + DIGIT_BITS - 1)
+               // DIGIT_BITS)
 
 
 @dataclasses.dataclass
 class WaveletRows:
-    """The wavelet matrix of a BWT over the dense alphabet [0, sigma)."""
+    """The 8-ary wavelet matrix of a BWT over the dense alphabet
+    [0, sigma)."""
 
-    sectors: torch.Tensor     # int32 [levels, nsec, 8], uint32 bits
-    Z: torch.Tensor           # int32 [levels]: zeros of each level
+    blocks: torch.Tensor      # int32 [levels, nblk, 16], uint32 words
+    Zc: torch.Tensor          # int32 [levels, 8]: digits below d per level
     start: torch.Tensor       # int32 [sigma]: start of c's run at the end
     D: torch.Tensor           # int32 [sigma]: C[c] - start[c]
     C: torch.Tensor           # int64 [sigma + 1]
@@ -89,15 +107,15 @@ class WaveletRows:
 
     @property
     def levels(self) -> int:
-        return self.sectors.shape[0]
+        return self.blocks.shape[0]
 
     @property
-    def nsec(self) -> int:
-        return self.sectors.shape[1]
+    def nblk(self) -> int:
+        return self.blocks.shape[1]
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.sectors, self.Z, self.start, self.D,
+                   for t in (self.blocks, self.Zc, self.start, self.D,
                              self.C))
 
 
@@ -117,34 +135,58 @@ def as_u16_bits(t: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 15, v - (1 << 16), v).to(torch.int16)
 
 
-def _bit_reversed(c: torch.Tensor, levels: int) -> torch.Tensor:
+def digit_rank(w: torch.Tensor, d: torch.Tensor,
+               keep: torch.Tensor) -> torch.Tensor:
+    """Digits equal to d among the first ``keep`` (0..32) digits of one
+    word of each bit plane, ``w[..., j]`` the word of plane j (uint32 in
+    int64; d and keep broadcast against ``w[..., 0]``): each plane XOR
+    ~0 where d's bit is 0 marks the digits whose bit j is d's, the AND of
+    the three marks the digits equal to d, and the popcount below keep
+    bits counts them.  The recipe of ``WaveletRows::level``."""
+    match = None
+    for j in range(DIGIT_BITS):
+        e = (((d >> j) & 1) - 1) & _U32
+        m = w[..., j] ^ e
+        match = m if match is None else match & m
+    return popcount32(match & ((torch.ones_like(keep) << keep) - 1))
+
+
+def _digit_reversed(c: torch.Tensor, levels: int) -> torch.Tensor:
+    """c with its ``levels`` base-8 digits in reverse order."""
     out = torch.zeros_like(c)
     for l in range(levels):
-        out |= ((c >> l) & 1) << (levels - 1 - l)
+        out |= ((c >> (DIGIT_BITS * l)) & (RADIX - 1)) \
+            << (DIGIT_BITS * (levels - 1 - l))
     return out
 
 
-def _pack_level(bits: torch.Tensor, n: int, nsec: int) -> torch.Tensor:
-    """[nsec, 8] int32 sectors of one level's 0/1 bits (uint8 [n])."""
-    dev = bits.device
-    padded = torch.zeros(nsec * SECTOR_BITS, dtype=torch.uint8, device=dev)
-    padded[:n] = bits
-    by = padded.view(-1, 8)
-    packed = by[:, 0].clone()
-    for k in range(1, 8):
-        packed |= by[:, k] << k
-    ones = padded.view(nsec, SECTOR_BITS).sum(1)
-    out = torch.empty((nsec, SECTOR_WORDS), dtype=torch.int32, device=dev)
-    out[:, 0] = (torch.cumsum(ones, 0) - ones).to(torch.int32)
-    out[:, 1:] = packed.view(nsec, 4 * (SECTOR_WORDS - 1)).view(torch.int32)
+def _pack_level(dig: torch.Tensor, n: int, nblk: int) -> torch.Tensor:
+    """[nblk, 16] int32 blocks of one level's digits (uint8 [n])."""
+    dev = dig.device
+    padded = torch.zeros(nblk * BLOCK_DIGITS, dtype=torch.uint8,
+                         device=dev)
+    padded[:n] = dig
+    per = padded.view(nblk, BLOCK_DIGITS)
+    out = torch.empty((nblk, BLOCK_WORDS), dtype=torch.int32, device=dev)
+    for d in range(COUNT_WORDS):
+        cnt = (per == d).sum(1)
+        out[:, d] = (torch.cumsum(cnt, 0) - cnt).to(torch.int32)
+    for j in range(DIGIT_BITS):
+        by = ((padded >> j) & 1).view(-1, 8)
+        packed = by[:, 0].clone()
+        for k in range(1, 8):
+            packed |= by[:, k] << k
+        w0 = COUNT_WORDS + PLANE_WORDS * j
+        out[:, w0:w0 + PLANE_WORDS] = packed.view(
+            nblk, 4 * PLANE_WORDS).view(torch.int32)
     return out
 
 
 def build_wavelet(bwt: torch.Tensor, sigma: int) -> WaveletRows:
     """The wavelet rows of a BWT of dense symbols in [0, sigma), built
-    on the tensor's device with torch: per level a bit extraction, the
-    sector packing and one stable partition.  ``bwt`` is any integer
-    tensor; int16 holds uint16 bits."""
+    on the tensor's device with torch: per level a 3-bit extraction, the
+    block packing with its seven counts and one stable 8-way partition.
+    ``bwt`` is any integer tensor; int16 holds uint16 bits."""
     n = int(bwt.shape[0])
     sigma = int(sigma)
     if n >= 1 << 31:
@@ -155,30 +197,31 @@ def build_wavelet(bwt: torch.Tensor, sigma: int) -> WaveletRows:
                          % (MAX_SYMBOLS, sigma))
     dev = bwt.device
     levels = levels_for(sigma)
-    nsec = n // SECTOR_BITS + 1
-    sectors = torch.empty((levels, nsec, SECTOR_WORDS), dtype=torch.int32,
-                          device=dev)
+    nblk = n // BLOCK_DIGITS + 1
+    blocks = torch.empty((levels, nblk, BLOCK_WORDS), dtype=torch.int32,
+                         device=dev)
     seq = symbol_values(bwt).to(torch.int32)
     hist = torch.bincount(seq, minlength=sigma)[:sigma]
     if n and int(seq.max()) >= sigma:
         raise ValueError("BWT symbols outside [0, %d)" % sigma)
-    Z = torch.empty(levels, dtype=torch.int32, device=dev)
+    Zc = torch.zeros((levels, RADIX), dtype=torch.int32, device=dev)
     for l in range(levels):
-        bit = ((seq >> (levels - 1 - l)) & 1).to(torch.uint8)
-        sectors[l] = _pack_level(bit, n, nsec)
-        one = bit.bool()
-        Z[l] = n - int(one.sum())
+        dig = ((seq >> (DIGIT_BITS * (levels - 1 - l)))
+               & (RADIX - 1)).to(torch.uint8)
+        blocks[l] = _pack_level(dig, n, nblk)
+        cnt = torch.bincount(dig, minlength=RADIX)
+        Zc[l, 1:] = torch.cumsum(cnt, 0)[:RADIX - 1].to(torch.int32)
         if l + 1 < levels:
-            seq = torch.cat([seq[~one], seq[one]])
-        del bit, one
+            seq = torch.cat([seq[dig == d] for d in range(RADIX)])
+        del dig
     del seq
     C = torch.zeros(sigma + 1, dtype=torch.int64, device=dev)
     C[1:] = torch.cumsum(hist, 0)
-    key = _bit_reversed(torch.arange(sigma, device=dev), levels)
+    key = _digit_reversed(torch.arange(sigma, device=dev), levels)
     order = torch.argsort(key)
     start = torch.empty(sigma, dtype=torch.int64, device=dev)
     start[order] = torch.cumsum(hist[order], 0) - hist[order]
-    return WaveletRows(sectors.contiguous(), Z, start.to(torch.int32),
+    return WaveletRows(blocks.contiguous(), Zc, start.to(torch.int32),
                        (C[:sigma] - start).to(torch.int32), C, n, sigma)
 
 
@@ -192,34 +235,66 @@ def build_wavelet_host(bwt: np.ndarray, sigma: int, device) -> WaveletRows:
     return build_wavelet(t.to(device), sigma)
 
 
+def check_kernel_rows(wm: WaveletRows, dev, table: torch.Tensor) -> None:
+    """Raise unless the rows are as the kernels read them: n < 2^31,
+    contiguous int32 blocks on ``dev`` aligned to 64 bytes, the
+    ``[levels, 8]`` table Zc and ``table`` (D or start) beside them."""
+    for t in (wm.blocks, wm.Zc, table):
+        if t.device != dev or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise TypeError("wavelet rows must be contiguous int32 tensors "
+                            "on %s" % dev)
+    if tuple(wm.Zc.shape) != (wm.levels, RADIX) \
+            or wm.levels > MAX_LEVELS or wm.blocks.shape[2] != BLOCK_WORDS:
+        raise ValueError("wavelet rows of at most %d levels of 16-word "
+                         "blocks with a [levels, 8] digit table"
+                         % MAX_LEVELS)
+    if wm.n >= 1 << 31 or wm.blocks.data_ptr() % 64:
+        raise ValueError("wavelet rows hold n < 2^31 in 64-byte aligned "
+                         "blocks")
+
+
 # ------------------------------------------------------------ plain queries
 
-def _level(wm: WaveletRows, l: int, i: torch.Tensor):
-    """(ones before i, bit at i) of level l for int64 positions i."""
-    sec = i // SECTOR_BITS
-    off = i - sec * SECTOR_BITS
-    row = wm.sectors[l][sec]                       # [B, 8]
-    words = row[:, 1:].long() & _U32
-    ones = (row[:, 0].long() & _U32) + popcount32(
-        words & prefix_mask(off, SECTOR_WORDS - 1)).sum(1)
-    word = words.gather(1, (off >> 5)[:, None]).squeeze(1)
-    return ones, (word >> (off & 31)) & 1
+def _level(wm: WaveletRows, l: int, i: torch.Tensor,
+           d: Optional[torch.Tensor] = None):
+    """(rank_d(i), d) on level l for int64 positions i: the d digits of
+    the level before i, d being the digit at i unless given."""
+    blk = i // BLOCK_DIGITS
+    off = i - blk * BLOCK_DIGITS
+    row = wm.blocks[l][blk].long() & _U32                # [B, 16]
+    counts = row[:, :COUNT_WORDS]
+    # [B, word, plane]
+    planes = row[:, COUNT_WORDS:].view(-1, DIGIT_BITS,
+                                       PLANE_WORDS).transpose(1, 2)
+    if d is None:
+        word = planes.gather(1, (off >> 5)[:, None, None].expand(
+            -1, 1, DIGIT_BITS)).squeeze(1)                # [B, plane]
+        bits = (word >> (off & 31)[:, None]) & 1
+        d = sum(bits[:, j] << j for j in range(DIGIT_BITS))
+    before = torch.where(
+        d < COUNT_WORDS,
+        counts.gather(1, d.clamp(max=COUNT_WORDS - 1)[:, None]).squeeze(1),
+        BLOCK_DIGITS * blk - counts.sum(1))
+    keep = (off[:, None] - 32 * torch.arange(PLANE_WORDS,
+                                             device=i.device)).clamp(0, 32)
+    return before + digit_rank(planes, d[:, None], keep).sum(1), d
 
 
 def _descend(wm: WaveletRows, i: torch.Tensor,
              c: Optional[torch.Tensor] = None):
     """(symbol, end position f) of the descent from positions i: along
-    BWT[i]'s bits, or along the bits of the symbols ``c``."""
+    BWT[i]'s digits, or along the digits of the symbols ``c``."""
     i = i.long()
     sym = torch.zeros_like(i)
-    Z = wm.Z.long()
+    Zc = wm.Zc.long()
     L = wm.levels
     for l in range(L):
-        ones, bit = _level(wm, l, i)
-        if c is not None:
-            bit = (c >> (L - 1 - l)) & 1
-        i = torch.where(bit == 1, Z[l] + ones, i - ones)
-        sym = (sym << 1) | bit
+        want = None if c is None else \
+            (c >> (DIGIT_BITS * (L - 1 - l))) & (RADIX - 1)
+        k, d = _level(wm, l, i, want)
+        i = Zc[l][d] + k
+        sym = (sym << DIGIT_BITS) | d
     return sym, i
 
 

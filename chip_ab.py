@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Times the select walk and the Kasai walk of this tree against those of
-other trees of the port, on one GPU, in turns.
+"""Times the select walk, the Kasai walk and the two kernel forms over
+wavelet rows of this tree against those of other trees of the port, on
+one GPU, in turns.
 
-    python3 chip_ab.py --other DIR [--other DIR ...] [--only kasai|select]
-                       [--seed 0] [--genome-n 1200000011]
-                       [--human-n 3200000021]
+    python3 chip_ab.py --other DIR [--other DIR ...]
+                       [--only kasai|select|wavelet] [--seed 0]
+                       [--genome-n 1200000011] [--human-n 3200000021]
+                       [--alphabet-n 400000009] [--alphabet-mem 2G]
 
 Each ``DIR`` holds a ``bwtb3m_tpu_torch`` package (an earlier commit
 unpacked with ``git archive <commit> | tar -x -C DIR``, under a directory
@@ -30,8 +32,24 @@ Select (``--only select`` or both): ``select_walk`` of 2^20 random ranks
 ``--genome-n`` symbols (the Kasai walk's) and of ``--human-n`` symbols
 (0: skipped; ``hostmem=4G``).
 
-Each line carries the card's name and power limit; the last line is a
-JSON object of every time.  Imports nothing of JAX.
+Wavelet (``--only wavelet`` or all): ``bwt_lf_walk_wm`` and
+``bwt_gap_chain_mk_wm``, each tree over its own rows of the same BWT.  At
+2^22 symbols over 300, 5,000 and 65,536 symbols (``chip_smoke.py``'s
+cases): the final-rank, verify and harvest forms on 131,072 lanes, the
+chain's recording form and its two anchor bounds on a merge of two
+halves.  Then ``chip_smoke.utf8_corpus`` of ``--alphabet-n`` code points
+over 5,000 symbols, built by ``bwtb3m inputtype=utf-8 bwtonly=1``
+(``--alphabet-mem``): verify and harvest on checkbwt's and
+bwtcomputessa's lanes, and the root merge's chain and anchors.  Beside
+each chain, the final-rank walk over the same right region's rows with
+the chain's lanes (seeds below the region's n) and its longest lane's
+steps: it reads as many sectors a step as the chain's rank descent, so
+the chain's time less the walk's is what the chain's own work (the
+histogram's atomic, text and gt reads) costs.
+
+No ``--only`` runs all three.  Each line carries the card's name and
+power limit; the last line is a JSON object of every time.  Imports
+nothing of JAX.
 """
 
 import argparse
@@ -41,11 +59,15 @@ import inspect
 import json
 import os
 import shutil
+import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "smoke_out")
+# the modules the comparisons call, of every tree
+MODULES = ("ops.lf_walk", "ops.kasai", "ops.focc_bp", "ops.wavelet_rows",
+           "ops.gapbatch", "engine.merge_scaled")
 
 
 def load_tree(root: str, i: int):
@@ -59,17 +81,18 @@ def load_tree(root: str, i: int):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return {k: importlib.import_module("%s.%s" % (name, k))
-            for k in ("ops.lf_walk", "ops.kasai", "ops.focc_bp")}
+    return {k: importlib.import_module("%s.%s" % (name, k)) for k in MODULES}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", required=True)
-    ap.add_argument("--only", choices=("kasai", "select"))
+    ap.add_argument("--only", choices=("kasai", "select", "wavelet"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--genome-n", type=int, default=1_200_000_011)
     ap.add_argument("--human-n", type=int, default=3_200_000_021)
+    ap.add_argument("--alphabet-n", type=int, default=400_000_009)
+    ap.add_argument("--alphabet-mem", type=int, default=2 * 1024 ** 3)
     args = ap.parse_args()
     import chip_smoke
     sys.meta_path.insert(0, chip_smoke._BlockJax())
@@ -78,36 +101,49 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_ab: torch.cuda.is_available() is False")
-    from chip_smoke import make_text, nvidia_smi_line, repeats_text
+    from chip_smoke import (dense_ids, level_lanes, make_text, merge_runner,
+                            nvidia_smi_line, repeats_text, utf8_corpus,
+                            wavelet_case_2_22, write_utf8)
     from bwtb3m_tpu_torch.engine.api import compute_bwt
     from bwtb3m_tpu_torch.engine.options import BwtOptions
-    from bwtb3m_tpu_torch.engine.result import BwtResult
-    from bwtb3m_tpu_torch.engine.ssa import compute_sa_device
+    from bwtb3m_tpu_torch.engine.result import BwtResult, clear_caches
+    from bwtb3m_tpu_torch.engine.ssa import compute_sa_device, seed_segments
     from bwtb3m_tpu_torch.lcp import plcp as lp
-    from bwtb3m_tpu_torch.ops import focc_bp, kasai, lf_walk
     from bwtb3m_tpu_torch.ops.doubling import suffix_array
 
-    trees = {"this": {"ops.lf_walk": lf_walk, "ops.kasai": kasai,
-                      "ops.focc_bp": focc_bp}}
+    trees = {"this": {k: importlib.import_module("bwtb3m_tpu_torch." + k)
+                      for k in MODULES}}
     for i, root in enumerate(args.other):
         trees[os.path.basename(os.path.normpath(root))] = load_tree(root, i)
     names = list(trees)
     order = names + names[::-1]
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
-    report = {"card": smi, "trees": names, "kasai": {}, "select": {}}
+    report = {"card": smi, "trees": names, "kasai": {}, "select": {},
+              "wavelet": {}}
 
     def say(msg):
         print("%s [%s]" % (msg, smi), flush=True)
 
-    def timed(fn, reps=2):
-        """(result, ms per call) over ``reps`` calls after a warm one."""
+    def timed(fn, reps=2, setup=None):
+        """(result, ms per call) over ``reps`` calls after a warm one, 20
+        where the warm call took under 5 ms (a launch's noise is tenths
+        of a millisecond); ``setup()`` before each call, untimed."""
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if setup:
+            setup()
+        start.record()
         out = fn()
+        end.record()
         torch.cuda.synchronize()
+        if start.elapsed_time(end) < 5.0:
+            reps = max(reps, 20)
         total = 0.0
         for _ in range(reps):
+            if setup:
+                setup()
+                torch.cuda.synchronize()
             start.record()
             out = fn()
             end.record()
@@ -115,13 +151,15 @@ def main() -> int:
             total += start.elapsed_time(end)
         return out, total / reps
 
-    def in_turns(label, run, same):
-        """``run(name)`` for every tree in turns; ``same(a, b)`` must hold
-        of each tree's result against this tree's.  {name: [ms, ms]}."""
+    def in_turns(label, run, same, setup=None):
+        """``run(name)`` for every tree in turns (``setup(name)`` before
+        each call, untimed); ``same(a, b)`` must hold of each tree's
+        result against this tree's.  {name: [ms, ms]}."""
         times = {k: [] for k in names}
         outs = {}
         for who in order:
-            outs[who], ms = timed(lambda: run(who))
+            outs[who], ms = timed(lambda: run(who), setup=setup and (
+                lambda: setup(who)))
             times[who].append(ms)
         for who in names[1:]:
             if not same(outs["this"], outs[who]):
@@ -207,7 +245,165 @@ def main() -> int:
                                    "steps": int(steps.sum()),
                                    "marks": len(marks), "ms": times}
 
-    kasai_on, select_on = args.only != "select", args.only != "kasai"
+    # ---- the two forms over wavelet rows ------------------------------------
+    def wm_walks(label, sym, sigma, t16, r0, p0, seg, forms):
+        """The walk's ``forms`` of every tree over its own rows built from
+        the dense BWT ``sym`` (a device tensor), on the lanes (r0, p0,
+        seg), results equal."""
+        wms = {k: t["ops.wavelet_rows"].build_wavelet(sym, sigma)
+               for k, t in trees.items()}
+        steps = int(seg.max())
+        calls = {
+            "final rank": lambda lw, wm: lw.lf_walk(wm, r0, steps),
+            "verify": lambda lw, wm: lw.verify_walk(wm, t16, r0, p0, seg),
+            "harvest": lambda lw, wm: torch.cat(lw.harvest_walk(
+                wm, r0, p0, seg, 32, 262144))}
+        rec = {"lanes": len(r0), "steps": int(seg.sum()),
+               "levels": {k: wm.levels for k, wm in wms.items()}}
+        for form in forms:
+            rec[form], _out = in_turns(
+                "wavelet %s, %s (%d lanes, levels %s)"
+                % (label, form, len(r0), rec["levels"]),
+                lambda who: calls[form](trees[who]["ops.lf_walk"], wms[who]),
+                torch.equal)
+        return rec
+
+    def wm_merge(label, text16, sigma, s_, m, e, rate):
+        """The merge of [s_, m) into [m, e) as the engine runs it, one
+        runner per tree over its own rows of the right region: the
+        recording form on this tree's anchored lanes (final ranks,
+        histogram and samples equal), the anchor form from rank 0 and
+        from the top (64 steps), and the final-rank walk over the same
+        rows with the chain's lanes and longest lane's steps."""
+        runners = {who: merge_runner(t["engine.merge_scaled"], text16, sigma,
+                                     s_, m, e, rate, dev)[0]
+                   for who, t in trees.items()}
+        here = runners["this"]
+        sps = here.specs
+        kid, starts, seeds, lens = level_lanes(here)
+        lb = 64
+        tops = np.full(len(kid), sps[0].rbase + sps[0].gap_size)
+        bases = np.full(len(kid), sps[0].rbase)
+        args_of, bufs = {}, {}
+        for who, lv in runners.items():
+            lv._ensure_gt(lv._caps(kid, starts + lb))
+            kd, st, sd, ln = lv._lanes(kid, starts, seeds, lens)
+            common = (lv.focc, lv.text_dev, lv.gt_dev, lv.c_first, lv.table,
+                      kd)
+            args_of[who] = {
+                "chain": common + (st, sd, ln),
+                "anchor from rank 0": common + (
+                    st + lb, lv._lanes(kid, starts, bases, lens)[2],
+                    torch.full_like(ln, lb)),
+                "anchor from the top": common + (
+                    st + lb, lv._lanes(kid, starts, tops, lens)[2],
+                    torch.full_like(ln, lb))}
+            bufs[who] = (torch.empty(lv.focc.n + 1, dtype=torch.int32,
+                                     device=dev),
+                         torch.empty(lv._nsamp, dtype=torch.int32,
+                                     device=dev))
+
+        def clear(who):
+            bufs[who][0].zero_()
+            bufs[who][1].fill_(-1)
+
+        def record(who):
+            gb = trees[who]["ops.gapbatch"]
+            r = gb.chain_walk_mk(*args_of[who]["chain"], *bufs[who],
+                                 rate)
+            return r, bufs[who][0], bufs[who][1]
+
+        rec = {"lanes": len(kid), "steps": int(lens.sum()),
+               "ranks": int(here.focc.n),
+               "levels": {k: lv.focc.levels for k, lv in runners.items()}}
+        rec["recording"], _out = in_turns(
+            "wavelet %s, chain recording form (%d lanes, %d steps)"
+            % (label, len(kid), rec["steps"]), record,
+            lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)),
+            setup=clear)
+        for which in ("anchor from rank 0", "anchor from the top"):
+            rec[which], _out = in_turns(
+                "wavelet %s, chain %s (%d steps)" % (label, which, lb),
+                lambda who: trees[who]["ops.gapbatch"].anchor_walk_mk(
+                    *args_of[who][which]), torch.equal)
+        # the chain's lanes as final-rank walks over the same rows
+        r0 = torch.from_numpy(np.minimum(seeds - sps[0].rbase,
+                                         here.focc.n - 1)).to(dev)
+        steps = int(lens.max())
+        rec["walk on the chain's lanes"], _out = in_turns(
+            "wavelet %s, final-rank walk on the chain's lanes (%d lanes x "
+            "%d steps)" % (label, len(kid), steps),
+            lambda who: trees[who]["ops.lf_walk"].lf_walk(
+                runners[who].focc, r0, steps), torch.equal)
+        rec["walk_steps"] = len(kid) * steps
+        del runners, args_of, bufs
+        torch.cuda.empty_cache()
+        return rec
+
+    def wm_2_22(sigma):
+        """chip_smoke.py's cases at 2^22 symbols over ``sigma``."""
+        text, _isa, bwt, lanes = wavelet_case_2_22(sigma, args.seed, dev)
+        n = len(text)
+        sym = torch.from_numpy(np.ascontiguousarray(bwt, np.int32)).to(dev)
+        lanes = [torch.from_numpy(a).to(dev) for a in lanes]
+        t16 = torch.from_numpy(text.view(np.int16)).to(dev)
+        label = "2^22 sigma=%d" % sigma
+        out = {"walk": wm_walks(label, sym, sigma, t16, *lanes,
+                                ("final rank", "verify", "harvest"))}
+        del sym, t16, lanes
+        out["merge"] = wm_merge(label, text, sigma, 0, n // 2, n, 64)
+        return out
+
+    def wm_alphabet(n, mem):
+        """The alphabet path's shapes: the build of ``utf8_corpus``, the
+        tools' verify and harvest lanes, the root merge."""
+        shutil.rmtree(WORK, ignore_errors=True)
+        os.makedirs(WORK)
+        inp = os.path.join(WORK, "corpus.txt")
+        codes = utf8_corpus(n, args.seed + 13, device=dev)
+        write_utf8(inp, codes)
+        t0 = time.monotonic()
+        subprocess.run([sys.executable, "-m", "bwtb3m_tpu_torch", "bwtb3m",
+                        "inputtype=utf-8", "bwtonly=1", "device=cuda",
+                        "mem=%d" % mem, inp], cwd=REPO, check=True,
+                       stdout=subprocess.DEVNULL, timeout=1800)
+        say("n=%d code points over 5000 symbols: bwtb3m inputtype=utf-8 "
+            "bwtonly=1 %.3f s" % (n, time.monotonic() - t0))
+        res = BwtResult.load(inp + ".bwt")
+        wm, symmap = res.load_wavelet(dev)
+        sigma = wm.sigma
+        del wm
+        clear_caches()
+        sym = torch.from_numpy(dense_ids(symmap, res.load_bwt()).astype(
+            np.int32)).to(dev)
+        dense = dense_ids(symmap, codes)
+        del codes
+        ranks, positions, prate = res.load_preisa()
+        ranks, positions, seg = seed_segments(ranks, positions, n)
+        lanes = [torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+                 for a in (ranks, positions, seg)]
+        t16 = torch.from_numpy(dense.view(np.int16)).to(dev)
+        out = {"n": n, "walk": wm_walks("alphabet path", sym, sigma, t16,
+                                        *lanes, ("verify", "harvest"))}
+        del sym, t16, lanes
+        torch.cuda.empty_cache()
+        mx = BwtOptions(input_path=inp, mem=mem).max_block_symbols
+        blocks = trees["this"]["engine.merge_scaled"]._plan_blocks_fixed(
+            n, mx)
+        m_r, e_r = blocks[-1]
+        out["merge"] = wm_merge("alphabet path root merge", dense, sigma, 0,
+                                m_r, e_r, int(prate))
+        shutil.rmtree(WORK, ignore_errors=True)
+        return out
+
+    kasai_on = args.only in (None, "kasai")
+    select_on = args.only in (None, "select")
+    if args.only in (None, "wavelet"):
+        for sigma in (300, 5000, 65536):
+            report["wavelet"]["2^22 sigma=%d" % sigma] = wm_2_22(sigma)
+        if args.alphabet_n:
+            report["wavelet"]["alphabet path"] = wm_alphabet(
+                args.alphabet_n, args.alphabet_mem)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     if kasai_on:
         n = 1 << 22
@@ -235,7 +431,7 @@ def main() -> int:
                 kasai_case("n=%d make_text" % n, arrs, n, lanes, [(0, n)])
             del arrs
     ng = args.genome_n
-    for label, codes in (
+    for label, codes in () if not (kasai_on or select_on) else (
             ("genome make_text", lambda: np.searchsorted(
                 acgt, make_text(ng, args.seed + 11)).astype(np.uint8)),
             ("genome repeats", lambda: repeats_text(

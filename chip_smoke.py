@@ -143,8 +143,9 @@ printed:
     ``--human-checks build`` stops after ``check_bwt``; ``--only human``
     runs phases 1, 2 and this one alone (the runs made by hand);
 13. alphabets past 256 symbols (after step 11, before step 12): both
-    forms over wavelet rows against their plain versions at 2^22 over 300
-    and 5,000 symbols (the walk's final-rank, verify and harvest forms on
+    forms over wavelet rows (an 8-ary wavelet matrix, three bits a level
+    in 64-byte blocks) against their plain versions at 2^22 over 300,
+    5,000 and 65,536 symbols (3, 5 and 6 levels; the walk's final-rank, verify and harvest forms on
     131,072 lanes; the chain's recording and anchor forms on a merge of
     two halves, whose histogram must be the sort's); then a code-point
     text of ``--alphabet-n`` = 400,000,009 symbols over 5,000 distinct
@@ -268,12 +269,19 @@ WIDE_STEP_OPS = 24
 # bit, popcount and shift, three capped minima, the test; a commit adds
 # the store, the l update and the next position's tests; loads excluded
 KASAI_STEP_OPS = 40
-# a level of a descent over wavelet rows (csrc/focc_rows.cuh::
-# WaveletRows::level and descend): the division by 224 (multiply-high,
-# shift), the offset, the sector address, seven compare-select-popcount-adds
-# over the bit words, the word select, mask, popcount, the bit, the
-# select of the next position and the symbol's shift-or; loads excluded
-WM_LEVEL_OPS = 55
+# a level of a descent over wavelet rows, the least an 8-ary rank needs
+# (csrc/focc_rows.cuh::WaveletRows::level and descend, loads excluded; an
+# indexed read of a block's word or count counts as no operation): the
+# division by 96 (multiply-high, shift) and the offset (4), the block
+# address (3), the word index and bit shift (2), the three plane masks of
+# the digit (6) and the partial mask (2), per plane word index three XORs
+# and two ANDs, the prefix mask (2), AND, popcount and add (3 x 10), the
+# pick of the count before the block or its 96 s complement (2), the
+# digit table's read and add (3): 52.  The walks' access descent adds the
+# digit at i (three shifts, three ANDs, two shift-ors) and the symbol's
+# shift-or (10), the chain's rank descent the wanted digit's shift and
+# mask (2)
+WM_LEVEL_OPS = {"walk": 62, "chain": 54}
 # what a step adds beside its levels: D or start and the visit's or the
 # chain's own bookkeeping (as LF_STEP_OPS / CHAIN_STEP_OPS less the row)
 WM_STEP_OPS = {"walk": 12, "chain": 30}
@@ -389,6 +397,64 @@ def write_utf8(path: str, codes) -> int:
             f.write(data)
             size += len(data)
     return size
+
+
+def wavelet_case_2_22(sigma: int, seed: int, device):
+    """The wavelet kernels' case at 2^22 symbols over ``sigma`` dense
+    symbols, every symbol present (a generator seeded with seed + sigma):
+    (text as uint16, isa, bwt, (ranks, positions, segment lengths) of
+    131,072 lanes that end every n / 131,072 positions, as checkbwt's and
+    bwtcomputessa's seeds do)."""
+    import numpy as np
+    from bwtb3m_tpu_torch.ops.doubling import suffix_array
+    n = 1 << 22
+    rng = np.random.default_rng(seed + sigma)
+    text = rng.integers(0, sigma, n).astype(np.uint16)
+    text[:sigma] = np.arange(sigma)
+    _sa, isa, bwt = suffix_array(text.astype(np.int32), sigma, device)
+    pos = np.arange(0, n, n // 131072, dtype=np.int64)
+    seg = np.diff(np.r_[pos, n])
+    start = (pos + seg) % n
+    return text, isa, bwt, (isa[start], start, seg)
+
+
+def level_lanes(level):
+    """(kid, starts, seeds, lens) of an anchored ``BatchedGapRunner``, as
+    numpy."""
+    import numpy as np
+    return (np.concatenate([np.full(sp.T, sp.k) for sp in level.specs]),
+            np.concatenate([sp.starts for sp in level.specs]),
+            np.concatenate([sp.seeds for sp in level.specs]),
+            np.concatenate([sp.lens for sp in level.specs]))
+
+
+def merge_runner(ms, text16, sigma: int, s: int, m: int, e: int, rate: int,
+                 device):
+    """The merge of [s, m) into [m, e) of a text of dense uint16 ids as the
+    engine runs it, by the tree whose ``engine.merge_scaled`` is ``ms``:
+    the right block sorted, a ``BatchedGapRunner`` of that one merge over
+    its rank rows, anchored.  Returns (runner, its lanes, the block)."""
+    opts = ms.BwtOptions(input_path="x", mem=1 << 40, device="cuda")
+    ctx = ms._Ctx(text16, sigma, rate, opts, None, 1 << 16, device,
+                  ms.Phases(device))
+    right = ms._sort_block(ctx, m, e)
+    level = ms.BatchedGapRunner(
+        ctx.text_dev, ctx.text, sigma, [(s, m, e, right.r_start, right.hist)],
+        [right.packed], 16, lane_bucket=1 << 16, sample_rate=rate)
+    level.anchor_all()
+    return level, level_lanes(level), right
+
+
+def dense_ids(symmap, codes):
+    """``codes`` as the dense uint16 ids of ``BwtResult.load_wavelet``'s
+    symbol map (``symmap[id]`` is the code; None where the codes are
+    dense already)."""
+    import numpy as np
+    if symmap is None:
+        return np.asarray(codes).astype(np.uint16)
+    table = np.zeros(int(symmap.max()) + 1, np.uint16)
+    table[symmap] = np.arange(len(symmap))
+    return table[codes]
 
 
 def numpy_sa(text):
@@ -627,15 +693,16 @@ def main() -> int:
         return isinstance(focc, wr.WaveletRows)
 
     def rows_bytes(focc):
-        """The rank rows' bytes: the wavelet rows' sectors and tables, or
+        """The rank rows' bytes: the wavelet rows' blocks and tables, or
         the fused rows."""
         if is_wavelet(focc):
-            return nbytes(focc.sectors, focc.Z, focc.start, focc.D)
+            return nbytes(focc.blocks, focc.Zc, focc.start, focc.D)
         return nbytes(focc.rows)
 
     def chain_step_ops(focc, layout):
         if is_wavelet(focc):
-            return WM_LEVEL_OPS * focc.levels + WM_STEP_OPS["chain"]
+            return (WM_LEVEL_OPS["chain"] * focc.levels
+                    + WM_STEP_OPS["chain"])
         return CHAIN_STEP_OPS[layout] + (WIDE_STEP_OPS if is_wide(focc)
                                          else 0)
 
@@ -1009,13 +1076,6 @@ def main() -> int:
         return rss
 
     # the gap chain against its plain version on a level's lanes
-    def level_lanes(level):
-        """(kid, starts, seeds, lens) of an anchored level, as numpy."""
-        return (np.concatenate([np.full(sp.T, sp.k) for sp in level.specs]),
-                np.concatenate([sp.starts for sp in level.specs]),
-                np.concatenate([sp.seeds for sp in level.specs]),
-                np.concatenate([sp.lens for sp in level.specs]))
-
     def mk_args(level, focc, kd, st):
         return (focc, level.text_dev, level.gt_dev, level.c_first,
                 level.table, kd, st)
@@ -1344,7 +1404,7 @@ def main() -> int:
         harvest)."""
         n, T = wm.n, len(ranks)
         steps, total = int(seg.max()), int(seg.sum())
-        step_ops = WM_LEVEL_OPS * wm.levels + WM_STEP_OPS["walk"]
+        step_ops = WM_LEVEL_OPS["walk"] * wm.levels + WM_STEP_OPS["walk"]
 
         def lanes_of(rk, ps, sl):
             return [torch.from_numpy(np.asarray(a, np.int64)).to(dev)
@@ -1381,7 +1441,8 @@ def main() -> int:
                                  total)}
         out = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                "bound_by": "operations", "forms": {}, "lanes": T,
-               "levels": wm.levels, "sigma": wm.sigma, "n": n}
+               "levels": wm.levels, "bits_per_level": wr.DIGIT_BITS,
+               "sigma": wm.sigma, "n": n}
         if sample:
             out["plain_on"] = {"lanes": sample[0],
                                "steps_at_most": sample[1]}
@@ -1393,11 +1454,12 @@ def main() -> int:
             err = max_err(k, p)
             nb, nsteps = work[name]
             b_ms, b_by = bound(nb, nsteps * step_ops)
-            say("kernel %-12s %s, wavelet rows (n=%d, sigma=%d, %d levels, "
-                "%d lanes, %d steps max): max_abs_err %d, kernel %.3f ms "
-                "(%.2f G steps/s, %.2f G sectors/s), plain %.3f ms%s, bound "
-                "%.3f ms (%s) [%s]"
-                % (name, label, n, wm.sigma, wm.levels, T, steps, err, k_ms,
+            say("kernel %-12s %s, wavelet rows (n=%d, sigma=%d, %d levels "
+                "of %d bits, %d lanes, %d steps max): max_abs_err %d, kernel "
+                "%.3f ms (%.2f G steps/s, %.2f G blocks/s), plain %.3f ms%s, "
+                "bound %.3f ms (%s) [%s]"
+                % (name, label, n, wm.sigma, wm.levels, wr.DIGIT_BITS,
+                   T, steps, err, k_ms,
                    nsteps / k_ms / 1e6, nsteps * wm.levels / k_ms / 1e6,
                    p_ms, " on %d lanes of %d steps at most" % tuple(sample)
                    if sample else "", b_ms, b_by, smi))
@@ -1416,45 +1478,29 @@ def main() -> int:
 
     def wm_merge(text16_host, sigma, s, m, e, rate, label, sample=None):
         """The merge of [s, m) into [m, e) of a text of dense uint16 ids as
-        the engine runs it (a runner of one merge over the right block's
-        wavelet rows, its own anchors), and ``bwt_gap_chain_mk_wm``
+        the engine runs it (``merge_runner``), and ``bwt_gap_chain_mk_wm``
         against its plain version on its lanes (``level_compare``);
-        returns (record, level)."""
-        opts = BwtOptions(input_path="x", mem=1 << 40, device="cuda")
-        ctx = merge_scaled._Ctx(text16_host, sigma, rate, opts, None,
-                                1 << 16, dev, Phases(dev))
-        right = merge_scaled._sort_block(ctx, m, e)
-        level = gb.BatchedGapRunner(
-            ctx.text_dev, ctx.text, sigma,
-            [(s, m, e, right.r_start, right.hist)], [right.packed], 16,
-            lane_bucket=1 << 16, sample_rate=rate)
-        level.anchor_all()
-        lanes = level_lanes(level)
+        returns (record, level, right block)."""
+        level, lanes, right = merge_runner(merge_scaled, text16_host, sigma,
+                                           s, m, e, rate, dev)
         rec = level_compare(level, {"wavelet": level.focc}, lanes, 3, False,
                             "%s (left %d, right %d ranks, %d lanes):"
                             % (label, m - s, e - m, len(lanes[0])),
                             sample=sample)["wavelet"]
         rec["levels"] = level.focc.levels
+        rec["bits_per_level"] = wr.DIGIT_BITS
         return rec, level, right
 
     def alphabet_2_22(sigma):
         """Both new forms against their plain versions at 2^22 symbols over
-        ``sigma`` dense symbols (every symbol present): the walk's three
+        ``sigma`` dense symbols (``wavelet_case_2_22``): the walk's three
         forms on 131,072 lanes, the chain's recording and anchor forms on
         a merge of two halves, whose histogram must also be the sort's."""
-        n = 1 << 22
-        rng = np.random.default_rng(args.seed + sigma)
-        text = rng.integers(0, sigma, n).astype(np.uint16)
-        text[:sigma] = np.arange(sigma)
-        sa, isa, bwt = suffix_array(text.astype(np.int32), sigma, dev)
+        text, isa, bwt, lanes = wavelet_case_2_22(sigma, args.seed, dev)
+        n = len(text)
         wm = wr.build_wavelet_host(bwt, sigma, dev)
-        rate = n // 131072
-        pos = np.arange(0, n, rate, dtype=np.int64)
-        seg = np.diff(np.r_[pos, n])
-        start = (pos + seg) % n
         t16 = wr.as_u16_bits(torch.from_numpy(text.astype(np.int64)).to(dev))
-        lf = wm_lf_compare(wm, t16, isa[start], start, seg,
-                           "2^22, sigma %d" % sigma)
+        lf = wm_lf_compare(wm, t16, *lanes, "2^22, sigma %d" % sigma)
         del wm, t16
         m = n // 2
         rec, level, _right = wm_merge(text, sigma, 0, m, n, 64,
@@ -1473,7 +1519,7 @@ def main() -> int:
         13); returns its record."""
         out = {"phases": {}}
         with uncounted():
-            out["2^22"] = {s: alphabet_2_22(s) for s in (300, 5000)}
+            out["2^22"] = {s: alphabet_2_22(s) for s in (300, 5000, 65536)}
         shutil.rmtree(WORK, ignore_errors=True)
         os.makedirs(WORK)
         inp = os.path.join(WORK, "corpus.txt")
@@ -1540,16 +1586,16 @@ def main() -> int:
         out["wavelet_bytes"] = wm.nbytes()
         out["occtable_bytes"] = wr.occtable_bytes(n, wm.sigma)
         say("rank rows of the alphabet path: wavelet rows %d bytes (%d "
-            "levels of %d sectors), the reference's OccTable layout would "
+            "levels of %d bits, %d 64-byte blocks each), the reference's "
+            "OccTable "
+            "layout would "
             "need %d bytes (%.1f x) [%s]"
-            % (out["wavelet_bytes"], wm.levels, wm.nsec,
+            % (out["wavelet_bytes"], wm.levels, wr.DIGIT_BITS, wm.nblk,
                out["occtable_bytes"],
                out["occtable_bytes"] / out["wavelet_bytes"], smi))
         # the kernels at the path's shapes: the tools' lanes over the
         # path's own rows, the root merge's chain
-        table = np.zeros(int(symmap.max()) + 1, np.uint16)
-        table[symmap] = np.arange(len(symmap))
-        dense = table[codes]
+        dense = dense_ids(symmap, codes)
         del codes
         ranks, positions, _r = res.load_preisa()
         ranks, positions, seg = seed_segments(ranks, positions, n)
@@ -1632,7 +1678,9 @@ def main() -> int:
                 "plain_on": main.get("plain_on"),
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": None, "layout": "wavelet",
-                "levels": main["levels"], "forms": main["forms"],
+                "levels": main["levels"],
+                "bits_per_level": main["bits_per_level"],
+                "forms": main["forms"],
                 "sigma_2^22": cases})
         return rows
 

@@ -580,8 +580,14 @@ def test_kasai_kernel_refuses_lanes_outside_the_slab(cuda):
 
 
 # ------------------------------------------------ wavelet rows (sigma > 256)
-# 13,000 symbols: D and start past the shared-memory limit, read with __ldg
-WM_SIGMAS = [300, 5000, 13000]
+# 12,240 symbols: the most whose D or start shares the 48 KB of shared
+# memory with the static digit table; 12,288 and 13,000 symbols: D and
+# start past that limit, read with __ldg; 65,536 symbols: 6 levels, the
+# most; n = 96k - 1, 96k and 96k + 1 (the pad block of position n alone,
+# full, and with one digit)
+WM_CASES = [(sigma, (1 << 16) + 37)
+            for sigma in (300, 5000, 12240, 12288, 13000)] + [
+    (sigma, 96_000 + d) for sigma in (5000, 65536) for d in (-1, 0, 1)]
 
 
 def _wm_build(sigma, n, rate, cuda):
@@ -598,12 +604,11 @@ def _wm_build(sigma, n, rate, cuda):
     return text, sa, isa, wm, lanes
 
 
-@pytest.mark.parametrize("sigma", WM_SIGMAS)
-def test_lf_walk_wm_kernel_matches_plain(cuda, sigma):
+@pytest.mark.parametrize("sigma,n", WM_CASES)
+def test_lf_walk_wm_kernel_matches_plain(cuda, sigma, n):
     """bwt_lf_walk_wm's final-rank, verify and harvest forms against the
     plain descent, and the harvest against the sort's SA and ISA."""
     from bwtb3m_tpu_torch.ops.wavelet_rows import as_u16_bits
-    n = (1 << 16) + 37
     text, sa, isa, wm, (r0, p0, seg) = _wm_build(sigma, n, 64, cuda)
     before = dict(lw.LAUNCHES)
     got = lw.lf_walk(wm, r0, 300)
@@ -625,15 +630,14 @@ def test_lf_walk_wm_kernel_matches_plain(cuda, sigma):
     np.testing.assert_array_equal(got[1].cpu().numpy(), isa[::48])
 
 
-@pytest.mark.parametrize("sigma", WM_SIGMAS)
-def test_gap_chain_mk_wm_kernel_matches_plain(cuda, sigma):
+@pytest.mark.parametrize("sigma,n", WM_CASES)
+def test_gap_chain_mk_wm_kernel_matches_plain(cuda, sigma, n):
     """bwt_gap_chain_mk_wm's recording and anchor forms against the plain
     version on a merge of [0, m) into [m, n) over 16-bit regions, and the
     recorded ranks against the sort's."""
     from bwtb3m_tpu_torch.ops import gapbatch as gb
     from bwtb3m_tpu_torch.ops.devzip import pack_region
     from bwtb3m_tpu_torch.ops.wavelet_rows import as_u16_bits
-    n = (1 << 16) + 37
     rng = np.random.default_rng(sigma * 31 + n)
     text = rng.integers(0, sigma, n).astype(np.uint16)
     text[:sigma] = np.arange(sigma)
