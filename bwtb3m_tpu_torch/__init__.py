@@ -16,10 +16,14 @@ Layer map of the ported slice:
             (hwtPreIsaToIsa), select_ssa, compute_sa_device; the scaled
             blockwise merge engine with batched levels and checkpoints
   ops/      prefix-doubling suffix sorts (torch.sort), the rank-row build,
-            plain rank / LF queries, the device zip, the LF-walk and
-            gap-chain kernels (csrc/*.cu, built with nvcc at first use
-            into build/)
-  index/    Huffman wavelet tree writer (.hwt), host numpy
+            plain rank / LF queries and batched backward-search steps, the
+            device zip, the LF-walk (with the FM index's locate and decode
+            visits), gap-chain and Kasai kernels (csrc/*.cu, built with
+            nvcc at first use into build/)
+  index/    the FM index (queries on the device over the rank rows), the
+            bidirectional index; .hwt / .rlhwt, DNR1, sampled SA / ISA,
+            BWA export and the compressed suffix tree, host numpy
+  apps/     probeScanDna and allHamDna over the FM index
   cli/      ``python -m bwtb3m_tpu_torch <tool>`` for the ported tools
 
 Every device computation runs on an explicit ``torch.device``

@@ -13,10 +13,20 @@ The ported tools keep the reference package's argument surface and add
     hwtToLCP        the .ulcp, .lcp and .rmm files of a build's LCP
     checkLCPBit     verify a .lcpbit, prints lcpok=0|1
     bwttestdecodespeed  LF-step throughput of batched walks
+    bwtdecodeblock  decode a text range through the FM index (the LF-walk
+                    kernel's decode visit)
+    probeScanDna    k-mer abundance of probes (occ/hwt/rlhwt: one batched
+                    backward search on the device; words: host)
+    allHamDna       all-mapper under Hamming distance, SAM or BAM (the
+                    search breadth-first on the device, the hits through
+                    the LF-walk kernel's locate visit)
+    bwttohwt, hwtToRlHwt, bwttodnarank, bwttodnarank256, bwtb3mtobwa,
+    bwtb3mdecoderl  index files and the RL decoder (host only)
 
 (the sampled-SA tools live in ``cli/ssa_tools.py``, the LCP tools in
-``cli/lcp_tools.py`` and the speed tool in ``cli/speed.py``, as in the
-reference).
+``cli/lcp_tools.py``, the speed tool in ``cli/speed.py``, the converters
+in ``cli/convert.py``, the decoders in ``cli/check.py`` and the
+applications in ``cli/apps.py``, as in the reference).
 
 Every other tool of the reference package exits 2 with the ROADMAP.md
 item that will port it.
@@ -29,18 +39,16 @@ from typing import List
 
 import numpy as np
 
-from . import lcp_tools, speed, ssa_tools
+from . import apps, check, convert, lcp_tools, speed, ssa_tools
 from ..io.inputtypes import parse_input_type
 from ..util.args import ArgInfo
 from ..util.log import VerboseLog
 
-# reference tools not ported yet -> ROADMAP.md Queue 1 item
+# reference tools not ported yet -> ROADMAP.md Queue 1 item (8c: the
+# compact-file writers, host only)
 NOT_PORTED = {
     name: 8 for name in (
-        "probeScanDna", "allHamDna", "bwtb3mdecoderl", "bwtdecodeblock",
-        "bwttohwt", "hwtToRlHwt", "bwttodnarank", "bwttodnarank256",
-        "bwtb3mtobwa", "arraytocompact", "fa4suffixarraytocompact",
-        "fagzToCompact", "fagzToCompact4", "fagzToCompactUTerm",
+        "arraytocompact", "fa4suffixarraytocompact", "fagzToCompact", "fagzToCompact4", "fagzToCompactUTerm",
         "fagzToCompact4BigBand", "fagzToCompact4BigBandBiDir",
         "digitsToCompact", "decodecompact", "bytestreamToLz4")}
 
@@ -72,7 +80,8 @@ def bwtb3m(argv: List[str]) -> int:
 
 
 TOOLS = {"bwtb3m": bwtb3m, "checkbwt": checkbwt, **ssa_tools.TOOLS,
-         **lcp_tools.TOOLS, **speed.TOOLS}
+         **lcp_tools.TOOLS, **speed.TOOLS, **convert.TOOLS, **check.TOOLS,
+         **apps.TOOLS}
 
 
 def dispatch(argv: List[str]) -> int:

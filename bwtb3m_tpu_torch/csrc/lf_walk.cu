@@ -10,6 +10,12 @@
 //                    steps whose symbol differs from the text read
 //   Visit::kHarvest  bwtb3m_tpu/engine/ssa.py::_harvest_chunk with its host
 //                    loop _harvest_fused: write the SA / ISA samples
+//   Visit::kLocate   bwtb3m_tpu/index/fm.py::FMIndex.locate_batch: walk to the
+//                    first rank that is a multiple of the sampled SA's rate,
+//                    report that rank and the steps taken
+//   Visit::kDecode   bwtb3m_tpu/index/fm.py::FMIndex.extract (bwtdecodeblock):
+//                    the verify visit with its comparison replaced by a
+//                    store of each emitted symbol at its text offset
 //   lf_select        bwtb3m_tpu/engine/ssa.py::_select_chunk: walk until the
 //                    current rank's bit is set in a bitmap of the .preisa
 //                    ranks, report that rank and the steps taken.  Its own
@@ -81,7 +87,18 @@ using bwt_rows::WaveletArgs;
 using bwt_rows::WaveletRows;
 using bwt_rows::WideTerms;
 
-enum class Visit { kNone, kVerify, kHarvest };
+enum class Visit { kNone, kVerify, kHarvest, kLocate, kDecode };
+
+// The locate visit's walk length is not bounded by the rate: the .sa is
+// sampled by rank, so a backward walk meets a sampled rank after about
+// rate steps on average, with a geometric tail that a repetitive text
+// stretches.  Each lane walks to its end; on a BWT whose LF is one cycle
+// of n ranks it meets rank 0 within n - 1 steps, so a lane still walking
+// after n steps (LF of several cycles: not the BWT of a primitive text)
+// stops and reports -1 instead of walking forever.  One thread a lane, as
+// the other visits: lanes end at different steps and the block keeps its
+// SM slot until its longest lane ends (refilling lanes, as bwt_lf_select
+// does, is not done here).
 
 // The lanes and what a step visits.  Lane i starts at rank r0[i] (and, for
 // a visit, at text position p0[i]) and takes seg_len[i] steps.  I is the
@@ -100,6 +117,10 @@ struct Walk {
   I sarate, isarate;     // the 64-bit form: sarate is a power of two
   I* sa;                 // kHarvest: SA[r / sarate] = p
   I* isa;                // kHarvest: ISA[p / isarate] = r
+  I rate;                // kLocate: the sampled SA's rate (any, >= 1)
+  long long* steps;      // kLocate: steps to the sampled rank, -1 after n
+  T* out;                // kDecode: out[(p - base) mod n] = BWT[r] where
+  I base, out_len;       //   that offset is below out_len
 };
 
 // One LF step: sym = BWT[r], returns C[sym] + rank(sym, r); the 64-bit
@@ -114,12 +135,39 @@ __device__ __forceinline__ I lf(const Rows& rows, const WideTerms& wt, I r, uint
   }
 }
 
+// The locate visit: LF steps from r0[i] until the rank is a multiple of
+// the rate (a mask where the rate is a power of two, else a modulo).
+template <class I, class T, class Rows>
+__device__ __forceinline__ void locate_lane(const Rows& rows, const WideTerms& wt,
+                                            const Walk<I, T>& w, int i) {
+  const I rate = w.rate;
+  const bool pow2 = (rate & (rate - 1)) == 0;
+  I r = w.r0[i];
+  long long k = 0;
+  while (pow2 ? (r & (rate - 1)) != 0 : r % rate != 0) {
+    if ((I)k == w.n) {
+      k = -1;
+      break;
+    }
+    uint32_t sym;
+    r = lf<I>(rows, wt, r, &sym);
+    ++k;
+  }
+  w.r_out[i] = r;
+  w.steps[i] = k;
+}
+
 template <Visit V, class I, class T, class Rows>
 __device__ __forceinline__ void walk_lane(const Rows& rows, const WideTerms& wt,
                                           const Walk<I, T>& w, int i) {
+  if constexpr (V == Visit::kLocate) {
+    locate_lane(rows, wt, w, i);
+    return;
+  }
   constexpr bool kWide = sizeof(I) == 8;
+  constexpr bool kPos = V == Visit::kVerify || V == Visit::kHarvest || V == Visit::kDecode;
   I r = w.r0[i];
-  I p = V == Visit::kVerify || V == Visit::kHarvest ? w.p0[i] : 0u;
+  I p = kPos ? w.p0[i] : 0u;
   const int len = w.seg_len[i];
   int32_t bad = 0;
   // the 64-bit harvest keeps p's quotient and remainder by isarate and
@@ -147,7 +195,7 @@ __device__ __forceinline__ void walk_lane(const Rows& rows, const WideTerms& wt,
     }
     uint32_t sym;
     r = lf<I>(rows, wt, r, &sym);  // sym = BWT[r] = text[p - 1]
-    if constexpr (V == Visit::kVerify || V == Visit::kHarvest) {
+    if constexpr (kPos) {
       if constexpr (kWide && V == Visit::kHarvest) {
         if (p == 0) {        // the lane seeded at position 0 wraps
           isa_q = (w.n - 1) / w.isarate;
@@ -162,6 +210,12 @@ __device__ __forceinline__ void walk_lane(const Rows& rows, const WideTerms& wt,
       p = p == 0 ? w.n - 1 : p - 1;
     }
     if constexpr (V == Visit::kVerify) bad += sym != (uint32_t)__ldg(w.text + p);
+    if constexpr (V == Visit::kDecode) {
+      // text[p] = sym; lanes whose walks cover a position twice (a range
+      // of n symbols from a sample past its end) store the same symbol
+      const I o = p >= w.base ? p - w.base : p + (w.n - w.base);
+      if (o < w.out_len) w.out[o] = (T)sym;
+    }
   }
   w.r_out[i] = r;
   if constexpr (V == Visit::kVerify) w.bad[i] = bad;
@@ -362,16 +416,31 @@ __global__ void __launch_bounds__(kThreads) select_byte_kernel(ByteRows rows, Se
 
 // The row width selects the layout: 32 bytes sector rows, 128 bytes
 // bit-plane rows, anything else byte rows (at least 384 bytes wide).  A
-// non-null text selects the verify visit, a
-// non-null sa_out the harvest visit; p0 is read only by the verify and
-// harvest visits.  Ranks, positions and samples are uint32 (int32
-// tensors holding uint32 bits).  Return value: cudaGetLastError() after
-// the launch.
+// non-null steps_out selects the locate visit (to a multiple of rate;
+// seg_len and p0 unread), a non-null dec_out the decode visit (out_len
+// symbols from text position base, uint8), a non-null text the verify
+// visit, a
+// non-null sa_out the harvest visit; p0 is read only by the verify,
+// harvest and decode visits.  Ranks, positions and samples are uint32
+// (int32 tensors holding uint32 bits), steps_out int64.  Return value:
+// cudaGetLastError() after the launch.
+template <class I, class T>
+void set_visits(Walk<I, T>& w, void* steps_out, long long rate, void* dec_out,
+                long long base, long long out_len) {
+  w.rate = (I)rate;
+  w.steps = static_cast<long long*>(steps_out);
+  w.out = static_cast<T*>(dec_out);
+  w.base = (I)base;
+  w.out_len = (I)out_len;
+}
+
 extern "C" int bwt_lf_walk(const void* rows, int roww, const void* C, int sigma,
                            long long n, const void* r0, const void* p0,
                            const void* seg_len, void* r_out, const void* text,
                            void* bad, int sarate, int isarate, void* sa_out,
-                           void* isa_out, int nlanes, void* stream) {
+                           void* isa_out, void* steps_out, long long rate,
+                           void* dec_out, long long base, long long out_len,
+                           int nlanes, void* stream) {
   Walk<uint32_t> w;
   w.r0 = static_cast<const uint32_t*>(r0);
   w.p0 = static_cast<const uint32_t*>(p0);
@@ -384,8 +453,13 @@ extern "C" int bwt_lf_walk(const void* rows, int roww, const void* C, int sigma,
   w.isarate = (uint32_t)isarate;
   w.sa = static_cast<uint32_t*>(sa_out);
   w.isa = static_cast<uint32_t*>(isa_out);
+  set_visits(w, steps_out, rate, dec_out, base, out_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (text) {
+  if (steps_out) {
+    launch<Visit::kLocate>(rows, roww, C, sigma, w, nlanes, nullptr, nullptr, s);
+  } else if (dec_out) {
+    launch<Visit::kDecode>(rows, roww, C, sigma, w, nlanes, nullptr, nullptr, s);
+  } else if (text) {
     launch<Visit::kVerify>(rows, roww, C, sigma, w, nlanes, nullptr, nullptr, s);
   } else if (sa_out) {
     launch<Visit::kHarvest>(rows, roww, C, sigma, w, nlanes, nullptr, nullptr, s);
@@ -398,13 +472,16 @@ extern "C" int bwt_lf_walk(const void* rows, int roww, const void* C, int sigma,
 // The 64-bit form (texts of 2^32 symbols or more, or BWTB3M_FORCE_WIDE):
 // the same rows, plus thr (uint32 [sigma * 8], ops/wideocc.py) and the
 // 64-bit C (C64, [sigma]); ranks, positions and samples are 64-bit (int64
-// tensors).  Final rank, verify and harvest visits (the select visit stays
-// narrow, as in the reference); sarate must be a power of two.
+// tensors).  Final rank, verify, harvest, locate and decode visits (the
+// select visit stays narrow, as in the reference); the harvest's sarate
+// must be a power of two, the locate's rate any.
 extern "C" int bwt_lf_walk_w(const void* rows, int roww, const void* C64, const void* thr,
                              int sigma, long long n, const void* r0, const void* p0,
                              const void* seg_len, void* r_out, const void* text, void* bad,
                              long long sarate, long long isarate, void* sa_out,
-                             void* isa_out, int nlanes, void* stream) {
+                             void* isa_out, void* steps_out, long long rate,
+                             void* dec_out, long long base, long long out_len,
+                             int nlanes, void* stream) {
   using U = unsigned long long;
   Walk<U> w{};
   w.r0 = static_cast<const U*>(r0);
@@ -418,8 +495,13 @@ extern "C" int bwt_lf_walk_w(const void* rows, int roww, const void* C64, const 
   w.isarate = (U)isarate;
   w.sa = static_cast<U*>(sa_out);
   w.isa = static_cast<U*>(isa_out);
+  set_visits(w, steps_out, rate, dec_out, base, out_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (text) {
+  if (steps_out) {
+    launch<Visit::kLocate>(rows, roww, nullptr, sigma, w, nlanes, thr, C64, s);
+  } else if (dec_out) {
+    launch<Visit::kDecode>(rows, roww, nullptr, sigma, w, nlanes, thr, C64, s);
+  } else if (text) {
     launch<Visit::kVerify>(rows, roww, nullptr, sigma, w, nlanes, thr, C64, s);
   } else if (sa_out) {
     launch<Visit::kHarvest>(rows, roww, nullptr, sigma, w, nlanes, thr, C64, s);
@@ -432,14 +514,17 @@ extern "C" int bwt_lf_walk_w(const void* rows, int roww, const void* C64, const 
 // The walk over wavelet rows (sigma > 256, n < 2^31): blocks ([levels]
 // [nblk] x 64 bytes), the digit table zc (uint32 [levels][8]) and D
 // (uint32 [sigma]) of ops/wavelet_rows.py; text (verify) is the densified
-// text as uint16; otherwise as bwt_lf_walk.  D sits in shared memory
-// when smem_bytes (the host's choice, sigma * 4 or 0) is not 0.
+// text as uint16, and so is the decode visit's out; otherwise as
+// bwt_lf_walk.  D sits in shared memory when smem_bytes (the host's
+// choice, sigma * 4 or 0) is not 0.
 extern "C" int bwt_lf_walk_wm(const void* blocks, long long nblk, int levels,
                               const void* zc, const void* D, int sigma,
                               int smem_bytes, long long n, const void* r0,
                               const void* p0, const void* seg_len, void* r_out,
                               const void* text, void* bad, int sarate, int isarate,
-                              void* sa_out, void* isa_out, int nlanes, void* stream) {
+                              void* sa_out, void* isa_out, void* steps_out,
+                              long long rate, void* dec_out, long long base,
+                              long long out_len, int nlanes, void* stream) {
   WaveletArgs a;
   a.blk = static_cast<const uint4*>(blocks);
   a.nblk = (unsigned long long)nblk;
@@ -461,9 +546,14 @@ extern "C" int bwt_lf_walk_wm(const void* blocks, long long nblk, int levels,
   w.isarate = (uint32_t)isarate;
   w.sa = static_cast<uint32_t*>(sa_out);
   w.isa = static_cast<uint32_t*>(isa_out);
+  set_visits(w, steps_out, rate, dec_out, base, out_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = (nlanes + kThreads - 1) / kThreads;
-  if (text) {
+  if (steps_out) {
+    lf_walk_wm_kernel<Visit::kLocate><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
+  } else if (dec_out) {
+    lf_walk_wm_kernel<Visit::kDecode><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
+  } else if (text) {
     lf_walk_wm_kernel<Visit::kVerify><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
   } else if (sa_out) {
     lf_walk_wm_kernel<Visit::kHarvest><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);

@@ -22,10 +22,13 @@ symbols.  From 2^32 (and under ``BWTB3M_FORCE_WIDE``) the walks of
 ``compute_ssa`` and ``compute_isa_from_preisa`` take the wide rank rows
 and the kernel's 64-bit form (the reference's ``_harvest_fused_w``), with
 its rules: a power-of-two SA sampling rate of at least 4 (or one of n or
-more, an ISA-only walk), and fewer than 2^31 SA samples.  ``select_ssa``
-and ``compute_sa_device`` stay narrow, below 2^32 and 2^31 symbols, as
-in the reference; past 2^32 the reference's ``select_ssa`` goes through
-the FM index's locate, which is not ported (ROADMAP.md Queue 1 item 8b).
+more, an ISA-only walk), and fewer than 2^31 SA samples.
+``compute_sa_device`` stays below 2^31 symbols, as in the reference.
+``select_ssa`` walks the narrow select kernel below 2^32 symbols; from
+2^32, and past 256 symbols, it answers as the reference does, through the
+FM index's locate (``index/fm.py::FMIndex.locate_batch``, the LF-walk
+kernel's locate visit over the wide or the wavelet rows), which needs a
+sampled ``.sa``.
 
 Past 256 symbols (the reference's legacy ``_harvest_walk``) the walks of
 ``compute_ssa`` and ``compute_isa_from_preisa`` run over the wavelet
@@ -226,7 +229,9 @@ def select_ssa(bwt_path: str, ranks: np.ndarray,
     backward walk meets one within one sampling interval.  Then
     SA[wanted] = position of the hit rank + steps, resolved on the host
     against the ``.preisa`` pairs.  A lane that walks 2 * (rate + 512)
-    steps without a hit is an error."""
+    steps without a hit is an error.  From 2^32 symbols and past 256
+    symbols: ``FMIndex.locate_batch`` over the sampled ``.sa``, as in the
+    reference."""
     log = log or VerboseLog(0)
     device = resolve_device(device)
     result = BwtResult.load(bwt_path)
@@ -235,13 +240,12 @@ def select_ssa(bwt_path: str, ranks: np.ndarray,
     if (ranks < 0).any() or (ranks >= n).any():
         raise ValueError("ranks out of range")
     if result.sigma > 256 or n >= 1 << 32:
+        from ..index.fm import FMIndex
         if result.sa_path is None:
             raise ValueError("select_ssa past 2^32 (or sigma > 256) "
                              "currently needs a sampled .sa")
-        raise NotImplementedError(
-            "select_ssa for sigma > 256 or n >= 2^32 goes through the "
-            "sampled-SA locate of the FM index, which is not ported yet: "
-            "ROADMAP.md Queue 1 item 8b")
+        fm = FMIndex.from_bwt_result(result, structure="hwt", device=device)
+        return fm.locate_batch(ranks)
     pr_ranks, pr_pos, prate = result.load_preisa()
     focc, _symmap = result.load_focc(device, dense=True, log=log, wide=False)
     words = np.zeros(n // 32 + 1, np.uint32)

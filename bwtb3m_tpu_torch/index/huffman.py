@@ -91,6 +91,13 @@ class HuffmanTree:
                     node = nxt[1]
         self.num_inner = len(self.children)
 
+    def encode_lengths(self) -> Dict[int, int]:
+        return dict(self.length)
+
+    def decode_path(self, sym: int) -> Tuple[int, int]:
+        """(code, length) for a symbol."""
+        return self.code[sym], self.length[sym]
+
     @classmethod
     def from_lengths(cls, lengths: Dict[int, int]) -> "HuffmanTree":
         """Rebuild the canonical tree from code lengths only."""

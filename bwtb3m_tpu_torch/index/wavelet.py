@@ -1,34 +1,44 @@
-"""Huffman-shaped wavelet tree (``.hwt``), the file ``bwtb3m`` writes
-with ``bwtonly=0``.
+"""Huffman-shaped wavelet trees: the ``.hwt`` and ``.rlhwt`` files.
 
-The write side of ``bwtb3m_tpu/index/wavelet.py::HuffmanWaveletTree``
-(host numpy), which cannot be imported without JAX (``bwtb3m_tpu/index``
-imports its device modules); the queries, the reader and the ``.rlhwt``
-variant are not ported yet.  Output is byte-identical to the reference
-package's (tests/test_torch_pipeline.py).
+Port of ``bwtb3m_tpu/index/wavelet.py`` (host numpy), the roles of
+libmaus2's ``wavelet::ImpCompactHuffmanWaveletTree`` (built by upstream
+src/bwttohwt.cpp:35-40) and ``ImpCompactRLHuffmanWaveletTree`` (upstream
+src/hwtToRlHwt.cpp:89-198: one run-length bitvector per inner node).
+``bwtb3m`` writes the ``.hwt`` with ``bwtonly=0``, ``bwttohwt`` and
+``hwtToRlHwt`` write these files; the queries (access, rank,
+inverse-select) serve ``hwtToRlHwt verify=1`` and the tests.  The FM
+index answers its queries on the card over the rank rows
+(``index/fm.py``), not over these trees.  Output is byte-identical to the
+reference package's (tests/test_torch_pipeline.py,
+tests/test_torch_index.py); the build codes the text in chunks,
+scanning it once per node (few nodes) or once per level (many).
 
-File format (FORMATS.md):
+File formats (FORMATS.md):
 
-    HWT1:
-      magic      4B    b"HWT1"
-      n          u64   sequence length
+    HWT1 / RHW1:
+      magic      4B    b"HWT1" (plain) or b"RHW1" (run-length nodes)
+      n          u64
       nsyms      u32
-      (sym u32, codelen u8, count u64) * nsyms   -- canonical Huffman spec
-      node blobs in node-id order (RankBitVector serialization)
+      per symbol (sorted): sym u32, code length u8, count u64
+      node blobs in node-id order (RankBitVector / RLBitVector serialization)
+
+The canonical tree is rebuilt from the code lengths on load, so shape and
+node numbering are deterministic.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple, Type
 
 import numpy as np
 
 from ..util import serial
 
-from .bitvector import RankBitVector
+from .bitvector import RankBitVector, RLBitVector
 from .huffman import HuffmanTree
 
-MAGIC = b"HWT1"
+_MAGIC_PLAIN = b"HWT1"
+_MAGIC_RL = b"RHW1"
 BUILD_CHUNK = 1 << 24     # symbols coded at a time by ``build``
 # up to this many inner nodes ``build`` scans the text once per node
 # (``_node_bits``: DNA has 3); past it once per level (``_level_bits``:
@@ -36,13 +46,23 @@ BUILD_CHUNK = 1 << 24     # symbols coded at a time by ``build``
 PER_NODE_MAX = 16
 
 
-class HuffmanWaveletTree:
-    """Plain-bitvector Huffman wavelet tree (.hwt)."""
+class _WaveletBase:
+    """Shared implementation; subclasses pick the node bitvector class."""
+
+    BV: Type = RankBitVector
+    MAGIC = _MAGIC_PLAIN
 
     def __init__(self, tree: HuffmanTree, n: int, nodes):
         self.tree = tree
         self.n = n
         self.nodes = nodes  # list of bitvectors, index = trie node id
+        counts = np.zeros(len(tree.symbols), dtype=np.int64)
+        self.sym_list = np.array(tree.symbols, dtype=np.int64)
+        for j, s in enumerate(tree.symbols):
+            counts[j] = tree.hist.get(s, 0)
+        # C array over the *present* symbols in sorted order
+        self.counts = counts
+        self.C = np.concatenate([[0], np.cumsum(counts)])
 
     @classmethod
     def build(cls, symbols: np.ndarray, hist: Optional[Dict[int, int]] = None):
@@ -67,13 +87,100 @@ class HuffmanWaveletTree:
         else:
             parts = _level_bits(symbols, sigma, codes, lengths, prefixes,
                                 depths)
-        nodes = [RankBitVector(np.concatenate(p) if p
-                               else np.zeros(0, np.uint8)) for p in parts]
+        nodes = [cls.BV(np.concatenate(p) if p
+                        else np.zeros(0, np.uint8)) for p in parts]
         return cls(tree, len(symbols), nodes)
 
+    # ---- queries --------------------------------------------------------
+    def access(self, i) -> np.ndarray:
+        """Symbol(s) at position(s) i (batch)."""
+        i = np.atleast_1d(np.asarray(i, dtype=np.int64))
+        out = np.zeros(len(i), dtype=np.int64)
+        node = np.zeros(len(i), dtype=np.int64)  # trie node id
+        pos = i.copy()
+        settled = np.zeros(len(i), dtype=bool)
+        for _d in range(self.tree.max_length):
+            for nid in np.unique(node[~settled]):
+                sel = (~settled) & (node == nid)
+                bv = self.nodes[nid]
+                bits = bv.get(pos[sel])
+                r1 = bv.rank1(pos[sel])
+                newpos = np.where(bits == 1, r1, pos[sel] - r1)
+                child0, child1 = self.tree.children[nid]
+                for bit_val, child in ((0, child0), (1, child1)):
+                    bsel = bits == bit_val
+                    if not bsel.any() or child is None:
+                        continue
+                    idx = np.flatnonzero(sel)[bsel]
+                    if child[0] == "leaf":
+                        out[idx] = child[1]
+                        settled[idx] = True
+                    else:
+                        node[idx] = child[1]
+                        pos[idx] = newpos[bsel]
+            if settled.all():
+                break
+        return out
+
+    def rank(self, c: int, i) -> np.ndarray:
+        """rank of symbol c at position(s) i (batch over i)."""
+        i = np.atleast_1d(np.asarray(i, dtype=np.int64))
+        if c not in self.tree.code:
+            return np.zeros(len(i), dtype=np.int64)
+        code, length = self.tree.code[c], self.tree.length[c]
+        pos = i.copy()
+        node = 0
+        for d in range(length):
+            bit = (code >> (length - 1 - d)) & 1
+            bv = self.nodes[node]
+            pos = bv.rank1(pos) if bit else bv.rank0(pos)
+            child = self.tree.children[node][bit]
+            if child is None:
+                return np.zeros(len(i), dtype=np.int64)
+            if child[0] == "leaf":
+                break
+            node = child[1]
+        return pos
+
+    def inverse_select(self, i) -> Tuple[np.ndarray, np.ndarray]:
+        """(symbol, rank-of-symbol-at-i) pairs — the ``extendedLF`` primitive
+        (upstream src/checkbwt.cpp:202 uses sym + new rank)."""
+        i = np.atleast_1d(np.asarray(i, dtype=np.int64))
+        syms = np.zeros(len(i), dtype=np.int64)
+        pos = i.copy()
+        node = np.zeros(len(i), dtype=np.int64)
+        settled = np.zeros(len(i), dtype=bool)
+        for _d in range(self.tree.max_length):
+            for nid in np.unique(node[~settled]):
+                sel = (~settled) & (node == nid)
+                bv = self.nodes[nid]
+                bits = bv.get(pos[sel])
+                r1 = bv.rank1(pos[sel])
+                newpos = np.where(bits == 1, r1, pos[sel] - r1)
+                child0, child1 = self.tree.children[nid]
+                for bit_val, child in ((0, child0), (1, child1)):
+                    bsel = bits == bit_val
+                    if not bsel.any() or child is None:
+                        continue
+                    idx = np.flatnonzero(sel)[bsel]
+                    if child[0] == "leaf":
+                        syms[idx] = child[1]
+                        pos[idx] = newpos[bsel]
+                        settled[idx] = True
+                    else:
+                        node[idx] = child[1]
+                        pos[idx] = newpos[bsel]
+            if settled.all():
+                break
+        return syms, pos
+
+    def decode_all(self) -> np.ndarray:
+        return self.access(np.arange(self.n))
+
+    # ---- serialization --------------------------------------------------
     def write(self, path: str) -> None:
         with open(path, "wb") as f:
-            f.write(MAGIC)
+            f.write(self.MAGIC)
             serial.write_u64(f, self.n)
             serial.write_u32(f, len(self.tree.symbols))
             for s in self.tree.symbols:
@@ -82,6 +189,28 @@ class HuffmanWaveletTree:
                 serial.write_u64(f, int(self.tree.hist.get(s, 0)))
             for bv in self.nodes:
                 bv.write(f)
+
+    @classmethod
+    def read(cls, path: str):
+        with open(path, "rb") as f:
+            magic = f.read(4)
+            if magic != cls.MAGIC:
+                raise ValueError(
+                    "bad wavelet magic %r in %s (expected %r)"
+                    % (magic, path, cls.MAGIC)
+                )
+            n = serial.read_u64(f)
+            nsyms = serial.read_u32(f)
+            lengths = {}
+            hist = {}
+            for _ in range(nsyms):
+                s = serial.read_u32(f)
+                lengths[s] = serial.read_u8(f)
+                hist[s] = serial.read_u64(f)
+            tree = HuffmanTree.from_lengths(lengths)
+            tree.hist = hist
+            nodes = [cls.BV.read(f) for _ in range(tree.num_inner)]
+        return cls(tree, n, nodes)
 
 
 def _node_paths(tree: HuffmanTree):
@@ -174,3 +303,17 @@ def _level_bits(symbols, sigma, codes, lengths, prefixes, depths):
             del b, kept, ch, order, ch_s, rank
         seq = nxt
     return parts
+
+
+class HuffmanWaveletTree(_WaveletBase):
+    """Plain-bitvector Huffman wavelet tree (.hwt)."""
+
+    BV = RankBitVector
+    MAGIC = _MAGIC_PLAIN
+
+
+class RLHuffmanWaveletTree(_WaveletBase):
+    """Run-length-node Huffman wavelet tree (.rlhwt)."""
+
+    BV = RLBitVector
+    MAGIC = _MAGIC_RL

@@ -31,13 +31,16 @@ p_, i_, ll_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # entry points of each kernel library: name -> (argtypes, restype)
 ENTRY_POINTS = {
     "lf_walk": {"bwt_lf_walk": ([p_, i_, p_, i_, ll_, p_, p_, p_, p_, p_, p_,
-                                 i_, i_, p_, p_, i_, p_], i_),
+                                 i_, i_, p_, p_, p_, ll_, p_, ll_, ll_, i_,
+                                 p_], i_),
                 "bwt_lf_select": ([p_, i_, p_, i_] + [p_] * 5
                                   + [i_, i_, i_, p_, i_, p_], i_),
                 "bwt_lf_walk_w": ([p_, i_, p_, p_, i_, ll_, p_, p_, p_, p_, p_,
-                                   p_, ll_, ll_, p_, p_, i_, p_], i_),
+                                   p_, ll_, ll_, p_, p_, p_, ll_, p_, ll_, ll_,
+                                   i_, p_], i_),
                 "bwt_lf_walk_wm": ([p_, ll_, i_, p_, p_, i_, i_, ll_]
-                                   + [p_] * 6 + [i_, i_, p_, p_, i_, p_], i_),
+                                   + [p_] * 6 + [i_, i_, p_, p_, p_, ll_, p_,
+                                                 ll_, ll_, i_, p_], i_),
                 "bwt_l2_fetch_granularity": ([i_], i_)},
     "gap_chain": {"bwt_gap_chain_mk": ([p_, i_] + [p_] * 11 + [i_, i_, p_],
                                        i_),

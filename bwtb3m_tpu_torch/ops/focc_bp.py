@@ -165,3 +165,24 @@ def lf_step(focc: FusedOccBP, r: torch.Tensor):
     r2 = ((focc.C.long() & _U32)[sym] + _occ(focc, words, sym)
           + _inblock(focc, words, sym, off))
     return sym, r2
+
+
+def rank_all_batch_bp(focc: FusedOccBP, i: torch.Tensor) -> torch.Tensor:
+    """[B, sigma] int64: the occurrences of every symbol in bwt[0:i[j])
+    from one row gather.  Port of ``bwtb3m_tpu/ops/focc_bp.py::
+    rank_all_batch_bp``: the checkpoint words carry all sigma counts, and
+    each symbol's in-block count is the popcount of its match word over
+    the same plane words (what the bidirectional index's smaller-symbol
+    sums read)."""
+    words, off = _words(focc, i.long())
+    k = focc.occ_word()
+    occ = words[:, k:k + focc.sigma]                       # [B, sigma]
+    cs = torch.arange(focc.sigma, device=i.device)
+    cbits = (cs[:, None] >> torch.arange(focc.NPLANES, device=i.device)) & 1
+    e = (cbits - 1) & _U32                                 # [sigma, planes]
+    m = _planes(focc, words)[:, None] ^ e[None, :, :, None]
+    match = m[:, :, 0]
+    for p in range(1, focc.NPLANES):
+        match = match & m[:, :, p]                         # [B, sigma, w]
+    mask = prefix_mask(off, focc.plane_words())[:, None]
+    return occ + popcount32(match & mask).sum(2)

@@ -13,6 +13,13 @@ the same source, ``bwt_lf_select``:
                   _select_chunk: to the first rank whose bit is set; a
                   persistent grid whose lanes refill, testing a summary
                   bitmap (``select_summary``) before the exact one
+    locate_walk   the FM index's locate, <- bwtb3m_tpu/index/fm.py::
+                  FMIndex.locate_batch: to the first rank that is a
+                  multiple of the sampled SA's rate (each lane to its
+                  end; the kernel's visit kLocate)
+    decode_walk   the FM index's extract and bwtdecodeblock, <-
+                  bwtb3m_tpu/index/fm.py::FMIndex.extract: the verify
+                  walk with its comparison replaced by a store (kDecode)
 
 Each thread owns one walk lane and runs all of its steps; a step loads
 one rank row and depends on the previous step's rank, so each lane is
@@ -24,9 +31,10 @@ steps gather: one on sector rows (sigma <= 4), four on bit-plane rows
 Past 256 symbols the rank rows are the wavelet rows of
 ``ops/wavelet_rows.py`` and the first three entry points take the
 kernel's form ``bwt_lf_walk_wm`` (narrow, n < 2^31; the text uint16 bits
-in an int16 tensor): the port of the reference's walks over its
-``OccTable``, ``ops/lf.py::lf_walk``, ``engine/verify.py::
-_walk_verify_run`` and ``engine/ssa.py::_harvest_walk``.  A step is one
+in an int16 tensor; so do the locate and decode walks): the port of the
+reference's walks over its ``OccTable``, ``ops/lf.py::lf_walk``,
+``engine/verify.py::_walk_verify_run`` and ``engine/ssa.py::
+_harvest_walk``.  A step is one
 descent, a 64-byte block per level of three bits.
 
 An entry point launches the kernel for CUDA tensors and uses its plain
@@ -36,7 +44,8 @@ and positions are int64 tensors at the interface.  On narrow rank rows
 rank or position there, marks an unvisited sample.  On the wide rows of
 ``ops/wideocc.py`` (n >= 2^32, or ``BWTB3M_FORCE_WIDE``) the entry
 points take the kernel's 64-bit form, ``bwt_lf_walk_w``, with int64
-lanes; the select walk stays narrow, as in the reference.  The four
+lanes (the locate and decode walks too); the select walk stays narrow,
+as in the reference.  The four
 wrappers, ``_launch``, ``_launch_w``, ``_launch_wm`` and
 ``_launch_select``, count every launch in ``lf_walk.launches`` and per
 visit and form in ``LAUNCHES``.
@@ -134,6 +143,51 @@ def select_walk_plain(focc, bitwords: torch.Tensor, r0: torch.Tensor,
         _sym, r2 = lf_step(focc, r)
         r = torch.where(steps < 0, r2, r)
     return r, steps
+
+
+def locate_walk_plain(focc, r0: torch.Tensor, rate: int):
+    """(rank, steps) per lane: LF steps from r0 until the rank is a
+    multiple of ``rate``, the live lanes stepping together as the
+    reference's ``locate_batch`` steps them; a lane still walking after
+    n steps (LF of more than one cycle) ends there with steps -1."""
+    r = r0.long().clone()
+    steps = torch.zeros_like(r)
+    live = torch.nonzero(r % rate != 0).squeeze(1)
+    step = _step_of(focc)
+    k = 0
+    while len(live):
+        if k == focc.n:
+            steps[live] = -1
+            break
+        _sym, r2 = step(focc, r[live])
+        r[live] = r2
+        steps[live] += 1
+        live = live[r2 % rate != 0]
+        k += 1
+    return r, steps
+
+
+def decode_walk_plain(focc, r0: torch.Tensor, p0: torch.Tensor,
+                      seg_len: torch.Tensor, base: int, length: int):
+    """text[base : base + length] (circular) from lanes that start at
+    rank r0 and text position p0 and take seg_len steps: step k emits
+    bwt[r] = text[p] with p = (p0 - 1 - k) mod n, stored at offset
+    (p - base) mod n where that is below ``length``.  uint8 symbols, or
+    int16 (uint16 bits) on wavelet rows; offsets no lane reaches hold 0."""
+    n = focc.n
+    dt = torch.int16 if isinstance(focc, WaveletRows) else torch.uint8
+    out = torch.zeros(length, dtype=dt, device=r0.device)
+    r, p, lens = r0.long(), p0.long(), seg_len.long()
+    step = _step_of(focc)
+    steps = int(lens.max()) if len(lens) else 0
+    for k in range(steps):
+        sym, r = step(focc, r)
+        p = torch.where(p == 0, n - 1, p - 1)
+        o = (p - base) % n
+        put = (k < lens) & (o < length)
+        out[o[put]] = (wr.as_u16_bits(sym[put]) if dt == torch.int16
+                       else sym[put].to(dt))
+    return out
 
 
 def select_summary(bitwords: torch.Tensor,
@@ -244,13 +298,17 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def _launch(focc, r32: torch.Tensor, l32: torch.Tensor, p32=None, text=None,
-            bad=None, sarate=1, isarate=1, sa=None,
-            isa=None) -> torch.Tensor:
+            bad=None, sarate=1, isarate=1, sa=None, isa=None, steps=None,
+            rate=1, dec=None, base=0, out_len=0) -> torch.Tensor:
     """The wrapper of the LF-walk kernel ``bwt_lf_walk``: lane i takes
     ``l32[i]`` LF steps from rank ``r32[i]``; returns the final ranks
     (int32 of uint32 bits).  With ``text`` it also counts each lane's
     mismatches into ``bad`` (verify visit); with ``sa`` / ``isa`` it
-    writes the samples (harvest visit).  Counts its launches in
+    writes the samples (harvest visit); with ``steps`` (int64) each lane
+    walks to the first multiple of ``rate`` instead (locate visit, ``l32``
+    unread); with ``dec`` it
+    stores the symbols of text offsets [0, out_len) from position
+    ``base`` (decode visit).  Counts its launches in
     ``lf_walk.launches``."""
     rows, roww, C, sigma = _rows_args(focc, r32.device)
     r_out = torch.empty_like(r32)
@@ -259,17 +317,19 @@ def _launch(focc, r32: torch.Tensor, l32: torch.Tensor, p32=None, text=None,
     rc = _lib().bwt_lf_walk(rows, roww, C, sigma, focc.n, _ptr(r32),
                             _ptr(p32), _ptr(l32), _ptr(r_out), _ptr(text),
                             _ptr(bad), _u32_arg(sarate), _u32_arg(isarate),
-                            _ptr(sa), _ptr(isa), len(r32),
+                            _ptr(sa), _ptr(isa), _ptr(steps), int(rate),
+                            _ptr(dec), int(base), int(out_len), len(r32),
                             _stream(r32.device))
     lf_walk.launches += 1
-    LAUNCHES[_visit(text, sa)] += 1
+    LAUNCHES[_visit(text, sa, steps, dec)] += 1
     _check(rc)
     return r_out
 
 
-def _visit(text, sa) -> str:
-    return ("verify" if text is not None else "harvest" if sa is not None
-            else "none")
+def _visit(text, sa, steps=None, dec=None) -> str:
+    return ("locate" if steps is not None else "decode" if dec is not None
+            else "verify" if text is not None else "harvest"
+            if sa is not None else "none")
 
 
 def _launch_select(focc, bitwords: torch.Tensor, summary: torch.Tensor,
@@ -308,17 +368,18 @@ def select_blocks(device, nlanes: int) -> int:
 
 
 def _launch_w(w: WideOcc, r64: torch.Tensor, l32: torch.Tensor, p64=None,
-              text=None, bad=None, sarate=1, isarate=1, sa=None,
-              isa=None) -> torch.Tensor:
+              text=None, bad=None, sarate=1, isarate=1, sa=None, isa=None,
+              steps=None, rate=1, dec=None, base=0,
+              out_len=0) -> torch.Tensor:
     """The wrapper of the kernel's 64-bit form ``bwt_lf_walk_w`` on wide
-    rank rows: as ``_launch`` with int64 ranks, positions and samples
-    (``sarate`` a power of two), no select visit.  Counts its launches in
-    ``lf_walk.launches`` and ``LAUNCHES["<visit>64"]``."""
+    rank rows: as ``_launch`` with int64 ranks, positions and samples (the
+    harvest's ``sarate`` a power of two), no select visit.  Counts its
+    launches in ``lf_walk.launches`` and ``LAUNCHES["<visit>64"]``."""
     focc = w.focc
     if focc.rows.device != r64.device:
         raise ValueError("rank rows on %s, lanes on %s"
                          % (focc.rows.device, r64.device))
-    if sarate & (sarate - 1):
+    if sa is not None and sarate & (sarate - 1):
         raise ValueError("the 64-bit form takes a power-of-two sarate")
     thr, C64 = kernel_tables(w)
     r_out = torch.empty_like(r64)
@@ -328,20 +389,23 @@ def _launch_w(w: WideOcc, r64: torch.Tensor, l32: torch.Tensor, p64=None,
         _ptr(focc.rows), kernel_row_width(focc), _ptr(C64), _ptr(thr),
         w.sigma, focc.n, _ptr(r64), _ptr(p64), _ptr(l32), _ptr(r_out),
         _ptr(text), _ptr(bad), int(sarate), int(isarate), _ptr(sa),
-        _ptr(isa), len(r64), _stream(r64.device))
+        _ptr(isa), _ptr(steps), int(rate), _ptr(dec), int(base),
+        int(out_len), len(r64), _stream(r64.device))
     lf_walk.launches += 1
-    LAUNCHES[_visit(text, sa) + "64"] += 1
+    LAUNCHES[_visit(text, sa, steps, dec) + "64"] += 1
     _check(rc)
     return r_out
 
 
 def _launch_wm(wm: WaveletRows, r32: torch.Tensor, l32: torch.Tensor,
                p32=None, text=None, bad=None, sarate=1, isarate=1, sa=None,
-               isa=None) -> torch.Tensor:
+               isa=None, steps=None, rate=1, dec=None, base=0,
+               out_len=0) -> torch.Tensor:
     """The wrapper of the kernel's form over wavelet rows,
     ``bwt_lf_walk_wm``: as ``_launch`` (uint32 bits in int32 lanes), the
-    verify visit's text int16 (uint16 bits).  Counts its launches in
-    ``lf_walk.launches`` and ``LAUNCHES["<visit>_wm"]``."""
+    verify visit's text and the decode visit's output int16 (uint16
+    bits).  Counts its launches in ``lf_walk.launches`` and
+    ``LAUNCHES["<visit>_wm"]``."""
     dev = r32.device
     wr.check_kernel_rows(wm, dev, wm.D)
     r_out = torch.empty_like(r32)
@@ -351,9 +415,10 @@ def _launch_wm(wm: WaveletRows, r32: torch.Tensor, l32: torch.Tensor,
         _ptr(wm.blocks), wm.nblk, wm.levels, _ptr(wm.Zc), _ptr(wm.D),
         wm.sigma, wr.smem_bytes(wm.sigma), wm.n, _ptr(r32), _ptr(p32),
         _ptr(l32), _ptr(r_out), _ptr(text), _ptr(bad), _u32_arg(sarate),
-        _u32_arg(isarate), _ptr(sa), _ptr(isa), len(r32), _stream(dev))
+        _u32_arg(isarate), _ptr(sa), _ptr(isa), _ptr(steps), int(rate),
+        _ptr(dec), int(base), int(out_len), len(r32), _stream(dev))
     lf_walk.launches += 1
-    LAUNCHES[_visit(text, sa) + "_wm"] += 1
+    LAUNCHES[_visit(text, sa, steps, dec) + "_wm"] += 1
     _check(rc)
     return r_out
 
@@ -384,8 +449,11 @@ lf_walk.launches = 0
 # the same launches by what a step visits, and by form ("64":
 # bwt_lf_walk_w, "_wm": bwt_lf_walk_wm)
 LAUNCHES = {"none": 0, "verify": 0, "harvest": 0, "select": 0,
-            "none64": 0, "verify64": 0, "harvest64": 0,
-            "none_wm": 0, "verify_wm": 0, "harvest_wm": 0}
+            "locate": 0, "decode": 0,
+            "none64": 0, "verify64": 0, "harvest64": 0, "locate64": 0,
+            "decode64": 0,
+            "none_wm": 0, "verify_wm": 0, "harvest_wm": 0, "locate_wm": 0,
+            "decode_wm": 0}
 
 
 def verify_walk(focc, text: torch.Tensor, r0: torch.Tensor, p0: torch.Tensor,
@@ -426,6 +494,43 @@ def harvest_walk(focc, r0: torch.Tensor, p0: torch.Tensor,
     if dt == torch.int64:
         return sa, isa
     return _samples(sa), _samples(isa)
+
+
+def locate_walk(focc, r0: torch.Tensor, rate: int):
+    """(rank, steps) as int64 tensors: each lane LF-steps from r0 to the
+    first rank that is a multiple of ``rate`` (any positive integer), as
+    far as that takes; steps is -1 for a lane still walking after n steps,
+    which a lane on a BWT's LF cycle never reaches.  One launch of the
+    kernel's locate visit on the card."""
+    rate = int(rate)
+    if rate < 1:
+        raise ValueError("the locate walk takes a rate >= 1")
+    if not _on_cuda(r0):
+        return locate_walk_plain(focc, r0, rate)
+    _check_range("ranks", r0, focc.n)
+    steps = torch.empty(len(r0), dtype=torch.int64, device=r0.device)
+    # past n only rank 0 is a multiple: the same walk as at rate n
+    r = _go(focc, r0, None, steps=steps, rate=min(rate, max(focc.n, 1)))
+    return r, steps
+
+
+def decode_walk(focc, r0: torch.Tensor, p0: torch.Tensor,
+                seg_len: torch.Tensor, base: int, length: int):
+    """text[base : base + length] (circular) as ``decode_walk_plain``
+    gives it: uint8, int16 (uint16 bits) on wavelet rows.  One launch of
+    the kernel's decode visit on the card."""
+    n = focc.n
+    if not (0 <= int(base) < max(n, 1) and 0 <= int(length) <= n):
+        raise ValueError("decode takes 0 <= base < n and length <= n")
+    if not _on_cuda(r0):
+        return decode_walk_plain(focc, r0, p0, seg_len, base, length)
+    _check_range("ranks", r0, n)
+    _check_range("positions", p0, n)
+    dt = torch.int16 if isinstance(focc, WaveletRows) else torch.uint8
+    out = torch.zeros(int(length), dtype=dt, device=r0.device)
+    _go(focc, r0, _steps_i32(seg_len), p0, dec=out, base=int(base),
+        out_len=int(length))
+    return out
 
 
 def select_walk(focc, bitwords: torch.Tensor, r0: torch.Tensor, cap: int):

@@ -43,9 +43,9 @@ kernels (``csrc/focc_rows.cuh::WaveletRows``, in ``csrc/lf_walk.cu`` and
 ``csrc/gap_chain.cu``) are held against: they read the very blocks the
 kernels read, with the kernels' integer recipe.  Positions and ranks
 stay below 2^31, as the reference's int32 lanes do; ``build_wavelet``
-refuses longer texts.  The reference's ``rank_all_symbols_batch`` and
-``backward_search_step`` have no caller yet (ROADMAP.md, items 8b and
-8c).
+refuses longer texts.  ``backward_search_step`` over these rows is
+``ops/lf.py``'s; the reference's ``rank_all_symbols_batch`` has no caller
+in the reference package (ROADMAP.md, item 8c).
 """
 
 from __future__ import annotations

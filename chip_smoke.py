@@ -6,7 +6,8 @@
                           [--human-n 3200000021] [--human-hostmem 4294967296]
                           [--human-bwtonly 1] [--human-checks full]
                           [--alphabet-n 400000009] [--alphabet-mem 2G]
-                          [--only all|human|alphabet]
+                          [--index-n 100000003]
+                          [--only all|human|alphabet|index]
 
 Phases, in order; any failure exits non-zero and no result line is
 printed:
@@ -15,12 +16,15 @@ printed:
    and the port's native host library (g++), which must have built;
 2. build the three kernel libraries from ``bwtb3m_tpu_torch/csrc`` (one
    nvcc each, in parallel): the LF walk (``bwt_lf_walk``, its 64-bit
-   form ``bwt_lf_walk_w``, its form over wavelet rows ``bwt_lf_walk_wm``
-   and the select kernel ``bwt_lf_select``), the
+   form ``bwt_lf_walk_w``, its form over wavelet rows ``bwt_lf_walk_wm``,
+   each with the FM index's locate and decode visits, and the select
+   kernel ``bwt_lf_select``), the
    gap chain (``bwt_gap_chain_mk``: a single
    pair merge is a level of one; its 64-bit form ``bwt_gap_chain_mk_w``;
    its form over wavelet rows ``bwt_gap_chain_mk_wm``)
-   and the Kasai walk of PLCP (``bwt_kasai_plcp``);
+   and the Kasai walk of PLCP (``bwt_kasai_plcp``); then a process of
+   its own writes the texts of steps 11 and 12 while the card runs the
+   steps before them;
 3. the LF-walk kernel through each of its entry points (final rank,
    verify visit, harvest visit, select visit) against its plain PyTorch
    version on the card, bit-exact, at n = 2^22 with 131,072 lanes, on
@@ -30,9 +34,19 @@ printed:
    symbol's occ count crosses 2^32 (the BWT taken as the tail of a text
    with 2^32 - count/2 earlier occurrences of each symbol), and on
    undoctored wide rows, where it must give the narrow form's ranks;
-   then, kernel only, the walk's step rate on sector and bit-plane rows
-   of 2^24 and 2^28 random symbols at 2^15 to 2^18 lanes (rank rows
-   inside and far past the L2);
+   then (3c) the FM index's locate and decode visits against their plain
+   versions, bit-exact, on every family: sector and bit-plane rows
+   (sigma 4), bit-plane rows (sigma 7), byte rows (sigma 200), those four
+   doctored as wide rows across 2^32 (the 64-bit form) and wavelet rows
+   over 300, 5,000 and 65,536 symbols: the locate on 131,072 seeded
+   ranks at the sample rate 32 and on 16,384 of them at 262,144 (3.6 x
+   10^9 steps), and the decode of the whole text at both rates (at
+   262,144 the locate's plain version on 8,192 lanes that the sort's SA
+   places 1 to 512 steps before a sampled rank, the decode's on its 16
+   lanes cut to 256 steps), each also held to the sort's SA and the
+   text; then, kernel only, the walk's step rate
+   on sector and bit-plane rows of 2^24 and 2^28 random symbols at 2^15
+   to 2^18 lanes (rank rows inside and far past the L2);
 4. the gap-chain kernel (recording form and both anchor bounds) against
    its plain version, bit-exact: a right region of 2^22 ranks, a left
    block of 2^22 symbols, 65,536 lanes, on the same four layouts; the
@@ -90,16 +104,26 @@ printed:
     the 64-bit chain), whose .bwt/.hist/.preisa must equal the narrow
     build's, ``checkbwt`` (gok=1) and ``bwtcomputessa`` (the same
     .sa/.isa bytes) on its wide rows, and the 64-bit LF walk against its
-    plain version at those tools' shapes;
+    plain version at those tools' shapes; then ``FMIndex.locate_batch``
+    of 2^20 seeded ranks on the wide rows (the locate visit's 64-bit
+    form) against the narrow rows' and the .sa (the .meta of a bwtonly=1
+    build names no .sa in either package: the script names the one
+    bwtcomputessa wrote);
 11. the genome path at n = 1,200,000,011 (a vertebrate genome of the
     1.0-1.2 Gbp class; nine blocks at the default mem=2G: levels of 4
     pairs + a carried block, 2 pairs + carry, 1 + carry, root): ``bwtb3m
     bwtonly=0 sasamplingrate=32 isasamplingrate=262144`` (a level of two
     or more pairs is one launch of the chain, the SA/ISA walk takes its
     rank rows from the build's device symbols); ``checkbwt`` in the
-    same process and once more in a fresh process from ``.bwt`` (gok=1);
+    same process and once more in a fresh process from ``.bwt`` (gok=1;
+    beside the ``.lcpbit`` read-back below, both host work);
     ``hwtPreIsaToIsa`` (its .isa equals the build's); ``select_ssa`` of
-    2^20 ranks held against the .sa samples they name.  Then every
+    2^20 ranks held against the .sa samples they name; the FM index over
+    the build's rows (``FMIndex.from_bwt_result``): ``locate_batch`` of
+    2^20 seeded ranks (the locate visit) held to ``select_ssa`` of the
+    same ranks and to the .sa at the sampled ones, and ``bwtdecodeblock
+    ref=<text>`` of 2^24 symbols (the decode visit) at a seeded offset
+    and across the end of the text.  Then every
     kernel of that path against its plain version at the shapes the path
     gave it (the plain version on a sample of lanes, ``PLAIN_SAMPLE`` and
     ``SELECT_CUT``): the select visit, then its persistent grid at 1 to
@@ -153,9 +177,14 @@ printed:
     and CJK, 1,000 mutated repeats) written as UTF-8: ``bwtb3m
     inputtype=utf-8 mem=2G bwtonly=1`` (three blocks, the merge engine on
     16-bit regions, two pair merges through ``bwt_gap_chain_mk_wm``),
-    ``checkbwt`` in a fresh process (gok=1), ``bwtcomputessa`` held to the
+    ``checkbwt`` in a fresh process (gok=1; beside the RLH builds at the
+    end of this step, both host work), ``bwtcomputessa`` held to the
     ``.preisa``, ``hwtPreIsaToIsa`` (the same ``.isa``),
-    ``bwttestdecodespeed``; the wavelet rows' bytes against the
+    ``bwttestdecodespeed``; ``select_ssa`` of 2^20 seeded ranks (the
+    locate visit over the wavelet rows, on the .sa of bwtcomputessa, which
+    the script names in the .meta) held to the .sa and, at their LF
+    ranks, SA[LF(r)] == (SA[r] - 1) mod n; the wavelet rows' bytes against
+    the
     reference's OccTable layout's; the walk's verify and harvest forms on
     the tools' lanes over the path's rows and the root merge's chain
     against their plain versions (sampled); then ``bwtcodec=rlh`` at
@@ -163,7 +192,29 @@ printed:
     against ``engine=doubling``, the same ``.bwt``/``.hist``/``.preisa``
     bytes, and ``checkbwt`` of the RLH1 file.  ``--only alphabet`` runs
     phases 1, 2 and this one alone;
-14. launch counts per path (> 0), kernel times against plain versions
+14. the index path (after step 13): a chromosome-sized reference,
+    ``--index-n`` = 100,000,003 bases from ``--seed`` (``make_text``'s
+    repeats) as a .pac: ``bwtb3m inputtype=pacterm bwtonly=0
+    sasamplingrate=32``; ``bwtb3mtobwa``, its BWA files read back and
+    held to the .bwt less its $ row and to the .sa; ``allHamDna
+    maxmis=2`` on 10,000 reads of 100 bp from seeded positions of either
+    strand with 0-2 seeded substitutions (each read's origin among its
+    lines with NM equal to its substitutions; the size of the
+    breadth-first frontier), and the search's plain version (the
+    depth-first recursion, ``ops/lf.py::hamming_search_plain``) on the 400
+    patterns of 200 of them (the same intervals, in order);
+    ``probeScanDna`` in ``mode=occ`` and
+    ``mode=hwt``, k = 31, on 1,000 probes of 200 bp (equal lines);
+    ``bwtdecodeblock`` of 2^20 symbols; the converters: ``bwttohwt
+    recreate=1`` (the build's own .hwt bytes), ``hwtToRlHwt verify=1`` (on
+    a pacterm build of the first 16,777,259 bases: 72.6 s at 100M on the
+    same machine), and
+    on an ``inputtype=pac bwtonly=1`` build of the same codes
+    ``bwttodnarank`` and ``bwttodnarank256``, read back and held to the
+    BWT's ranks at 2^20 seeded positions; both visits at the path's
+    shapes against their plain versions (sampled).  ``--only index``
+    runs phases 1, 2, 3c and this one alone;
+15. launch counts per path (> 0), kernel times against plain versions
     and bounds, per-phase wall and device time, peak device memory.
 
 The last three lines are the nvidia-smi line, a JSON object of the
@@ -174,12 +225,17 @@ per launch; for the 64-bit forms the forced-wide 400M path's) or, for
 ``gap_chain_mk`` (the same entry at the genome build's first level of
 four merges; ``levels`` has every level) and the select visit, the
 genome path's, on the layout that path runs, for the Kasai kernel
-the genome path's PLCP, and for the forms over wavelet rows
-(``lf_walk_wm``, ``gap_chain_mk_wm``) the alphabet path's; ``launches`` is that path's count and ``layouts`` has the same numbers per layout.  Where
+the genome path's PLCP, for the forms over wavelet rows
+(``lf_walk_wm``, ``gap_chain_mk_wm``) the alphabet path's, and for the
+FM index's visits (``lf_walk_locate``, ``lf_walk_decode``: every form)
+the genome path's (``--only index``: the index path's); ``launches`` is that path's count and ``layouts`` has the same numbers per layout.  Where
 the plain version ran on a sample of lanes, ``plain_on`` says so and
 ``plain_ms`` is that sample's.
 ``bound_ms`` is the larger of the bytes the call must move once (rank
-rows, the text and gt bytes walked, lane arrays, outputs) over 3.35 TB/s
+rows, the text and gt bytes walked, lane arrays, outputs; for the FM
+index's visits, whose walks are sparse, the rows' bytes that their steps
+read: a row or, on wavelet rows, a block of each level per step, no more
+than the rows hold) over 3.35 TB/s
 and its integer operations (steps taken times the operations of one
 step, counted from the kernel source) over 67 T operations/s, the
 card's float32 rate outside the tensor cores, taken for integer
@@ -203,6 +259,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "smoke_out")
+# the genome paths' inputs, made by a process of their own while the card
+# runs the earlier steps
+TEXTS = os.path.join(REPO, "smoke_text")
+STARTED = []                    # every process the run starts
 # name -> (source, what it replaces).  lf_walk is the port of the repo's
 # one pl.pallas_call; checkbwt and bwtcomputessa run it with a verify /
 # harvest visit in place of the reference's XLA walks.  gap_chain ports
@@ -241,6 +301,13 @@ KERNELS = {
                    "bwtb3m_tpu/engine/verify.py:308"),
     "gap_chain_mk_wm": ("bwtb3m_tpu_torch/csrc/gap_chain.cu",
                         "bwtb3m_tpu/ops/gap.py:50"),
+    # the FM index: the locate and decode visits of the LF-walk kernel (all
+    # three forms), in place of the reference's host loops
+    # FMIndex.locate_batch and FMIndex.extract
+    "lf_walk_locate": ("bwtb3m_tpu_torch/csrc/lf_walk.cu",
+                       "bwtb3m_tpu/index/fm.py:111"),
+    "lf_walk_decode": ("bwtb3m_tpu_torch/csrc/lf_walk.cu",
+                       "bwtb3m_tpu/index/fm.py:130"),
 }
 LIBRARIES = ("lf_walk", "gap_chain", "kasai")
 # the path whose launches and shapes a row of the kernels line reports
@@ -249,9 +316,11 @@ ROW_PATH = {"lf_walk": "merge path", "gap_chain": "merge path",
             "lf_walk_w": "forced-wide merge path",
             "gap_chain_mk_w": "forced-wide merge path",
             "kasai": "genome LCP path", "lf_walk_wm": "alphabet path",
-            "gap_chain_mk_wm": "alphabet path"}
+            "gap_chain_mk_wm": "alphabet path",
+            "lf_walk_locate": "genome path", "lf_walk_decode": "genome path"}
 # the kernels each path must launch
-NARROW = ("lf_walk", "gap_chain", "gap_chain_mk", "lf_walk_select")
+NARROW = ("lf_walk", "gap_chain", "gap_chain_mk", "lf_walk_select",
+          "lf_walk_locate", "lf_walk_decode")
 PHASE_PREFIX = "bwtb3m::"
 BLOCKED = ("jax", "jaxlib", "bwtb3m_tpu")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
@@ -285,6 +354,13 @@ WM_LEVEL_OPS = {"walk": 62, "chain": 54}
 # what a step adds beside its levels: D or start and the visit's or the
 # chain's own bookkeeping (as LF_STEP_OPS / CHAIN_STEP_OPS less the row)
 WM_STEP_OPS = {"walk": 12, "chain": 30}
+# what the locate and decode visits add to a step (csrc/lf_walk.cu):
+# the locate's test of the rank (a mask or a modulo's compare), its step
+# count and the cap's compare; the decode's position decrement with its
+# wrap, the text offset with its wrap, the bound's compare and the
+# store's address
+LOCATE_VISIT_OPS = 4
+DECODE_VISIT_OPS = 8
 # the plain versions' share of the genome-scale paths: the recording
 # chain and the verify / harvest walks run plain on PLAIN_SAMPLE[0] lanes
 # spread over the path's lanes, each cut to PLAIN_SAMPLE[1] steps, and the
@@ -293,6 +369,12 @@ WM_STEP_OPS = {"walk": 12, "chain": 30}
 # lane at full length for its time
 PLAIN_SAMPLE = (8192, 1024)
 SELECT_CUT = 2048
+# the FM index's visits at 2^22 and rate 262,144 (walks of 10^5-10^6
+# steps): the kernel on 16,384 seeded lanes (131,072 at rate 32); the
+# locate's plain version on 8,192 lanes a few hundred steps before a
+# sampled rank, the decode's on its lanes cut to 256 steps
+LONG_LANES_2_22 = 16384
+SAMPLE_2_22 = (8192, 256)
 
 
 class _BlockJax(importlib.abc.MetaPathFinder):
@@ -332,6 +414,22 @@ def make_text(n: int, seed: int):
             rng.integers(0, 4, int(mut.sum()))]
         text[dst:dst + ln] = seg
     return text
+
+
+def write_texts(jobs):
+    """``make_text(n, seed)`` into each ``path`` of ``jobs`` in turn, each
+    file complete when it appears under its name."""
+    for path, n, seed in jobs:
+        make_text(n, seed).tofile(path + ".part")
+        os.replace(path + ".part", path)
+
+
+def stop_started():
+    """End whatever process the run started and left running."""
+    for p in STARTED:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def repeats_text(n: int, seed: int, copies: int = 100, length: int = 10_000):
@@ -506,17 +604,23 @@ def main() -> int:
     ap.add_argument("--human-checks", default="full",
                     choices=("full", "build"),
                     help="build: only the build and check_bwt of its "
-                    "result; full: also the SA tools, checkbwt in a fresh "
-                    "process and the kernels against their plain versions")
+                    "result; full: also every level replayed against the "
+                    "plain version, the SA tools, checkbwt in a fresh "
+                    "process (--only human) and the kernels against their "
+                    "plain versions")
     ap.add_argument("--alphabet-n", type=int, default=400_000_009,
                     help="alphabet path text length (code points over "
                     "5,000 symbols; 0 skips the path)")
     ap.add_argument("--alphabet-mem", type=int, default=2 * 1024 ** 3,
                     help="mem= of the alphabet path's build")
+    ap.add_argument("--index-n", type=int, default=100_000_003,
+                    help="index path reference length (a chromosome; 0 "
+                    "skips the path)")
     ap.add_argument("--only", default="all",
-                    choices=("all", "human", "alphabet"),
+                    choices=("all", "human", "alphabet", "index"),
                     help="human / alphabet: the environment, the kernel "
-                    "build and that path alone")
+                    "build and that path alone; index: the locate and "
+                    "decode visits at 2^22 and the index path")
     args = ap.parse_args()
     t_start = time.monotonic()
     sys.meta_path.insert(0, _BlockJax())
@@ -529,12 +633,25 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
+
+    def lap(step):
+        """The time since the start, before each step of the run."""
+        say("elapsed before step %s: %.3f s [%s]"
+            % (step, time.monotonic() - t_start, smi))
+
     say("gpu: %s | torch %s, CUDA %s, %d device(s)"
         % (smi, torch.__version__, torch.version.cuda,
            torch.cuda.device_count()))
 
     from bwtb3m_tpu_torch import native
+    from bwtb3m_tpu_torch.apps import hamdna
     from bwtb3m_tpu_torch.cli import dispatch
+    from bwtb3m_tpu_torch.index.bwa import read_bwa_bwt, read_bwa_sa
+    from bwtb3m_tpu_torch.index.dnarank import DNARank
+    from bwtb3m_tpu_torch.index.fm import FMIndex, decode_lanes
+    from bwtb3m_tpu_torch.index.sampled import SampledISA
+    from bwtb3m_tpu_torch.io import formats
+    from bwtb3m_tpu_torch.io.pac import write_pac
     from bwtb3m_tpu_torch.engine import merge_scaled
     from bwtb3m_tpu_torch.engine.api import compute_bwt
     from bwtb3m_tpu_torch.engine.options import BwtOptions
@@ -548,6 +665,7 @@ def main() -> int:
     from bwtb3m_tpu_torch.ops import gapbatch as gb
     from bwtb3m_tpu_torch.ops import kasai as kas
     from bwtb3m_tpu_torch.ops import lf_walk as lw
+    from bwtb3m_tpu_torch.ops.lf import hamming_search_plain
     from bwtb3m_tpu_torch.ops import wavelet_rows as wr
     from bwtb3m_tpu_torch.ops import wideocc as pw
     from bwtb3m_tpu_torch.ops.devzip import bits_for, rows_from_host_bwt
@@ -589,6 +707,61 @@ def main() -> int:
     for name in LIBRARIES:
         _build.load(name)
 
+    # the genome and human-genome texts, written by a process of their own
+    # (the genome's first) while the card runs the steps before theirs
+    jobs = ([] if args.only != "all" or not args.genome_n else
+            [(os.path.join(TEXTS, "genome.bin"), args.genome_n,
+              args.seed + 11)]) + (
+        [(os.path.join(TEXTS, "human.bin"), args.human_n, args.seed + 13)]
+        if args.only in ("all", "human") and args.human_n else [])
+    if jobs:
+        shutil.rmtree(TEXTS, ignore_errors=True)
+        os.makedirs(TEXTS)
+        STARTED.append(subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, %r); "
+             "import chip_smoke; chip_smoke.write_texts(%r)" % (REPO, jobs)],
+            cwd=REPO))
+
+    def take_text(name, dst):
+        """The text the writer made under ``name``, moved to ``dst``:
+        (text, seconds waited for it)."""
+        src = os.path.join(TEXTS, name)
+        t0 = time.monotonic()
+        while not os.path.exists(src):
+            if STARTED[0].poll() is not None and not os.path.exists(src):
+                raise AssertionError("the text writer ended without %s"
+                                     % name)
+            time.sleep(0.2)
+        os.replace(src, dst)
+        return np.fromfile(dst, np.uint8), time.monotonic() - t0
+
+    def start_checkbwt(inp, bwt_file, inputtype="bytestream"):
+        """checkbwt in a fresh process from .bwt, started: (process, its
+        start)."""
+        p = subprocess.Popen(
+            [sys.executable, "-m", "bwtb3m_tpu_torch", "checkbwt",
+             "inputtype=" + inputtype, "device=cuda", inp, bwt_file],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        STARTED.append(p)
+        return p, time.monotonic()
+
+    def finish_checkbwt(started, label, beside="", needle="decode"):
+        """Wait for a fresh-process checkbwt: gok=1 from the file (its log
+        holding ``needle``), or fail; its wall from its start, with the
+        interpreter's."""
+        p, t0 = started
+        out, err = p.communicate(timeout=900)
+        wall = time.monotonic() - t0
+        sys.stderr.write(err)
+        say("checkbwt (%s, fresh process, from .bwt%s): exit %d, wall %.3f "
+            "s with the interpreter's start | %s [%s]"
+            % (label, beside, p.returncode, wall, out.strip(), smi))
+        if p.returncode != 0 or "gok=1" not in out or needle not in err:
+            raise AssertionError("checkbwt in a fresh process did not "
+                                 "print gok=1 from the file (%s)" % needle)
+        return wall
+
     def reset_counts():
         lw.reset_launch_counts()
         gb.reset_launch_counts()
@@ -608,6 +781,10 @@ def main() -> int:
                 "gap_chain_mk_w": gb.LAUNCHES["chain64"]
                 + gb.LAUNCHES["anchor64"],
                 "kasai": kas.kasai_walk.launches,
+                "lf_walk_locate": L["locate"] + L["locate64"]
+                + L["locate_wm"],
+                "lf_walk_decode": L["decode"] + L["decode64"]
+                + L["decode_wm"],
                 "gap_chain_mk (chain form)": gb.LAUNCHES["chain"],
                 "gap_chain_mk (anchor form)": gb.LAUNCHES["anchor"],
                 "lf_walk (by visit)": dict(L)}
@@ -733,7 +910,9 @@ def main() -> int:
         versions launch 10^5-10^6 small kernels, whose profiler events
         would take minutes to sum); the tool's stderr log is echoed."""
         torch.cuda.synchronize()
-        buf, ebuf = io.StringIO(), io.StringIO()
+        raw, ebuf = io.BytesIO(), io.StringIO()
+        # text and bytes (sys.stdout.buffer: bwtdecodeblock) alike
+        buf = io.TextIOWrapper(raw, encoding="utf-8", write_through=True)
         run_tool.replay_s = 0.0
         with (torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU,
@@ -749,6 +928,7 @@ def main() -> int:
                 sys.stderr.write(ebuf.getvalue())
             wall = time.monotonic() - t0 - run_tool.replay_s
         evs = prof.key_averages() if profile else []
+        prof_s = time.monotonic() - t0 - wall - run_tool.replay_s
         cuda = torch.autograd.DeviceType.CUDA
         busy_us = sum(e.self_device_time_total for e in evs
                       if e.device_type == cuda and not e.is_user_annotation)
@@ -768,13 +948,20 @@ def main() -> int:
                       span_us.get(k, 0) / 1e6)
                   for k in sorted(set(walls) | set(dev_us))}
         tools.append((name, wall, busy_us / 1e6 if profile else None))
-        out = buf.getvalue()
-        say("%s: exit %d, wall %.3f s, device busy %s%s | %s"
+        buf.flush()
+        run_tool.out_bytes = raw.getvalue()
+        buf.detach()
+        out = run_tool.out_bytes.decode("utf-8", "replace")
+        say("%s: exit %d, wall %.3f s, device busy %s%s%s | %s"
             % (name, rc, wall, "%.3f s" % (busy_us / 1e6) if busy_us
                else "not measured", " (less a replay of %.3f s inside the "
                "call)" % run_tool.replay_s if run_tool.replay_s else "",
-               out.strip().replace("\n", " ")))
+               ", the profiler's summary %.3f s" % prof_s if profile
+               else "",
+               out.strip().replace("\n", " ") if len(out) < 2000
+               else "%d bytes on stdout" % len(run_tool.out_bytes)))
         run_tool.log = ebuf.getvalue()
+        run_tool.wall = wall
         return rc, out, phases
 
     def lf_compare(bwt_file, raw_text, label,
@@ -1263,11 +1450,10 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         os.makedirs(WORK)
         inph = os.path.join(WORK, "human.bin")
-        t0 = time.monotonic()
-        text = make_text(n, args.seed + 13)
-        text.tofile(inph)
-        say("input: n=%d ACGT with 1000 mutated repeats, made in %.2f s (host)"
-            % (n, time.monotonic() - t0))
+        text, waited = take_text("human.bin", inph)
+        say("input: n=%d ACGT with 1000 mutated repeats, made by a process "
+            "of its own during the earlier steps (%.2f s waited for it)"
+            % (n, waited))
         bwth = inph + ".bwt"
         label = "human-genome path"
         reset_counts()
@@ -1540,22 +1726,6 @@ def main() -> int:
             raise AssertionError("bwtb3m failed or did not take the merge "
                                  "engine on the alphabet path")
         out["peak_build"] = torch.cuda.max_memory_allocated()
-        torch.cuda.empty_cache()
-        t0 = time.monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "bwtb3m_tpu_torch", "checkbwt",
-             "inputtype=utf-8", "device=cuda", inp, bwt], cwd=REPO,
-            capture_output=True, text=True, timeout=900)
-        sys.stderr.write(proc.stderr)
-        out["fresh_checkbwt_s"] = time.monotonic() - t0
-        say("checkbwt (alphabet path, fresh process, from .bwt): exit %d, "
-            "wall %.3f s with the interpreter's start | %s [%s]"
-            % (proc.returncode, out["fresh_checkbwt_s"], proc.stdout.strip(),
-               smi))
-        if proc.returncode != 0 or "gok=1" not in proc.stdout \
-                or "wavelet rows" not in proc.stderr:
-            raise AssertionError("checkbwt in a fresh process did not print "
-                                 "gok=1 over wavelet rows")
         rc, _, _ = run_tool("bwtcomputessa (alphabet path)", [
             "bwtcomputessa", "sasamplingrate=32", "isasamplingrate=262144",
             "device=cuda", bwt])
@@ -1574,12 +1744,39 @@ def main() -> int:
             "bwttestdecodespeed", "device=cuda", bwt])
         if rc != 0 or run_tool.log.count("LF-steps/s") != 5:
             raise AssertionError("bwttestdecodespeed failed")
+        # select_ssa past 256 symbols: FMIndex.locate_batch, the locate
+        # visit over the wavelet rows, on the .sa of bwtcomputessa
+        register_samples(bwt)
+        _r, sa_a = load_sampled_array(inp + ".sa")
+        want_a = seeded_ranks(n, len(sa_a), args.seed + 18)
+        half = len(want_a) // 2
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = select_ssa(bwt, want_a, device=dev)
+        out["select_s"] = time.monotonic() - t0
+        if not np.array_equal(got[half:], sa_a[want_a[half:] // 32]):
+            raise AssertionError("select_ssa past 256 symbols disagrees with "
+                                 "the .sa")
+        wm, _symmap = BwtResult.load(bwt).load_wavelet(dev)
+        _sym, lf_r = wr.lf_step(wm, torch.from_numpy(want_a).to(dev))
+        del wm
+        t0 = time.monotonic()
+        got_lf = select_ssa(bwt, lf_r.cpu().numpy(), device=dev)
+        out["select_lf_s"] = time.monotonic() - t0
+        if not np.array_equal(got_lf, (got - 1) % n):
+            raise AssertionError("SA[LF(r)] != SA[r] - 1 past 256 symbols")
+        say("select_ssa past 256 symbols (the locate visit over wavelet "
+            "rows): 2^20 ranks in %.3f s, == the .sa at the 2^19 sampled "
+            "ranks; at their LF ranks %.3f s, SA[LF(r)] == (SA[r] - 1) mod n "
+            "for every rank [%s]" % (out["select_s"], out["select_lf_s"],
+                                     smi))
         path_counts["alphabet path"] = counts()
         out["peak"] = torch.cuda.max_memory_allocated()
         say("alphabet path launches: %s" % path_counts["alphabet path"])
         if min(path_counts["alphabet path"][k]
-               for k in ("lf_walk_wm", "gap_chain_mk_wm")) < 1:
-            raise AssertionError("the alphabet path did not launch both "
+               for k in ("lf_walk_wm", "gap_chain_mk_wm",
+                         "lf_walk_locate")) < 1:
+            raise AssertionError("the alphabet path did not launch the "
                                  "kernels over wavelet rows")
         res = BwtResult.load(bwt)
         wm, symmap = res.load_wavelet(dev)
@@ -1604,6 +1801,9 @@ def main() -> int:
             out["lf"] = wm_lf_compare(wm, t16, ranks, positions, seg,
                                       "alphabet path", sample=PLAIN_SAMPLE,
                                       forms=("verify_walk", "harvest_walk"))
+        out["locate"] = locate_record(wm, torch.from_numpy(want_a).to(dev),
+                                      32, "alphabet path",
+                                      PLAIN_SAMPLE[0])
         del t16, wm
         opts = BwtOptions(input_path=inp, mem=mem, device="cuda")
         blocks = merge_scaled._plan_blocks_fixed(n, opts.max_block_symbols)
@@ -1620,6 +1820,9 @@ def main() -> int:
                 sample=PLAIN_SAMPLE)
         del level, _right, dense
         torch.cuda.empty_cache()
+        # checkbwt in a fresh process from .bwt (over wavelet rows), beside
+        # the RLH builds below (both host work)
+        fresh = start_checkbwt(inp, bwt, "utf-8")
         # bwtcodec=rlh, bwtonly=0 at 16,777,259: engine=merge against
         # engine=doubling, every file equal, then checkbwt of the RLH1 file
         n2 = 16_777_259
@@ -1655,6 +1858,9 @@ def main() -> int:
             "(mem=67108864, bwtonly=0: .sa .isa .hwt written, the samples "
             "agree with the .preisa) == engine=doubling, .bwt .hist .preisa "
             "byte-identical; checkbwt gok=1 on the RLH1 file" % n2)
+        out["fresh_checkbwt_s"] = finish_checkbwt(
+            fresh, "alphabet path", ", beside the RLH builds",
+            "wavelet rows")
         shutil.rmtree(WORK, ignore_errors=True)
         return out
 
@@ -1696,6 +1902,580 @@ def main() -> int:
                alpha["wavelet_bytes"] / 2 ** 30,
                alpha["occtable_bytes"] / 2 ** 30, smi))
 
+    # ---- the FM index: the LF-walk kernel's locate and decode visits ---
+    def walk_step_ops(rows):
+        """Integer operations of one LF step over ``rows`` (loads
+        excluded), as the kernels line counts them."""
+        if is_wavelet(rows):
+            return WM_LEVEL_OPS["walk"] * rows.levels + WM_STEP_OPS["walk"]
+        return LF_STEP_OPS[rows.LAYOUT] + (WIDE_STEP_OPS if is_wide(rows)
+                                           else 0)
+
+    def rows_name(rows):
+        return ("wide " if is_wide(rows) else "") + rows.LAYOUT
+
+    def lane_bytes(rows):
+        return 8 if is_wide(rows) else 4
+
+    def step_bytes(rows):
+        """The bytes one LF step reads: a row (32 sector, 128 bit-plane,
+        the byte rows' width), or a 64-byte block on every level of the
+        wavelet rows."""
+        if is_wavelet(rows):
+            return rows.levels * (nbytes(rows.blocks)
+                                  // max(1, rows.levels * rows.nblk))
+        return rows.rows.shape[1]
+
+    def walk_bytes(rows, steps):
+        """What a sparse walk of ``steps`` steps must read of the rows: each
+        step's row or blocks, and no more than the rows hold."""
+        return min(rows_bytes(rows), steps * step_bytes(rows))
+
+    def locate_record(rows, r0, rate, label, sample=None, sa=None,
+                      warm=True, plain_lanes=None):
+        """The locate visit on lanes ``r0`` (a tensor on the card): the
+        kernel timed on every lane to its end (``warm``: after one untimed
+        launch); against its plain version on every lane, on ``sample``
+        lanes spread over them (the kernel's answers there), or on
+        ``plain_lanes`` (lanes that meet a sampled rank within a few
+        steps, launched apart), each walk to its end in both; the SA it
+        gives against ``sa`` (numpy) where given.  Launches not counted."""
+        n, rate = rows.n, int(rate)
+        with uncounted():
+            (r, st), k_ms = timed(lambda: lw.locate_walk(rows, r0, rate),
+                                  reps=1, warm=warm)
+            if int(st.min()) < 0:
+                raise AssertionError("a locate walk met no sampled rank")
+            if sa is not None and not np.array_equal(
+                    (sa[r.cpu().numpy()] + st.cpu().numpy()) % n,
+                    sa[r0.cpu().numpy()]):
+                raise AssertionError("the locate visit disagrees with the "
+                                     "sort on the %s" % label)
+            lanes, kr, ks, on = r0, r, st, ""
+            if sample:
+                pick = torch.from_numpy(np.linspace(
+                    0, len(r0) - 1, sample).astype(np.int64)).to(dev)
+                lanes, kr, ks = r0[pick], r[pick], st[pick]
+                on = " on %d lanes" % sample
+            elif plain_lanes is not None:
+                lanes = plain_lanes
+                kr, ks = lw.locate_walk(rows, lanes, rate)
+            (pr, ps), p_ms = timed(lambda: lw.locate_walk_plain(
+                rows, lanes, rate), warm=False)
+        err = max(max_err(kr, pr), max_err(ks, ps))
+        if plain_lanes is not None:
+            on = " on %d lanes %d steps at most from a sampled rank" % (
+                len(lanes), int(ps.max()))
+        steps, longest = int(st.sum()), int(st.max())
+        b_ms, b_by = bound(
+            walk_bytes(rows, steps) + len(r0) * (2 * lane_bytes(rows) + 8),
+            steps * walk_step_ops(rows) + (steps + len(r0))
+            * LOCATE_VISIT_OPS)
+        say("kernel lf_walk locate visit, %s, %s rows (n=%d, rate %d, %d "
+            "lanes, %d steps, mean %.2f, longest %d): max_abs_err %d, kernel "
+            "%.3f ms (%.2f G steps/s), plain %.3f ms%s, bound %.3f ms (%s) "
+            "[%s]" % (label, rows_name(rows), n, rate, len(r0), steps,
+                      steps / len(r0), longest, err, k_ms,
+                      steps / k_ms / 1e6, p_ms, on, b_ms, b_by, smi))
+        if err:
+            raise AssertionError("the locate visit disagrees with its plain "
+                                 "version on the %s" % label)
+        rec = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "lanes": len(r0),
+               "rate": rate, "steps": steps, "mean_steps": steps / len(r0),
+               "longest": longest, "layout": rows_name(rows)}
+        if on:
+            rec["plain_on"] = {"lanes": len(lanes),
+                               "steps_at_most": int(ps.max())}
+        return rec
+
+    def decode_record(rows, lanes, base, length, label, want=None, cut=None,
+                      warm=True):
+        """The decode visit on ``lanes`` (ranks, positions, segment lengths
+        on the card) of text [base, base + length): the kernel timed, its
+        output against ``want`` (the dense ids as the kernel writes them)
+        where given; against its plain version on the same lanes, each cut
+        to ``cut`` steps where given (kernel and plain version alike).
+        Launches not counted."""
+        r0, p0, seg = lanes
+        with uncounted():
+            out, k_ms = timed(lambda: lw.decode_walk(rows, r0, p0, seg, base,
+                                                     length), reps=1,
+                              warm=warm)
+            if want is not None and not torch.equal(out, want):
+                raise AssertionError("the decode visit does not give the "
+                                     "text on the %s" % label)
+            sl = seg if cut is None else seg.clamp(max=cut)
+            kc = out if cut is None else lw.decode_walk(rows, r0, p0, sl,
+                                                        base, length)
+            pc, p_ms = timed(lambda: lw.decode_walk_plain(
+                rows, r0, p0, sl, base, length), warm=False)
+        err = max_err(kc, pc)
+        steps = int(seg.sum())
+        b_ms, b_by = bound(
+            walk_bytes(rows, steps) + len(r0) * (2 * lane_bytes(rows) + 4)
+            + nbytes(out), steps * (walk_step_ops(rows) + DECODE_VISIT_OPS))
+        say("kernel lf_walk decode visit, %s, %s rows (n=%d, %d symbols from "
+            "%d, %d lanes, %d steps): max_abs_err %d, kernel %.3f ms (%.2f G "
+            "steps/s), plain %.3f ms%s, bound %.3f ms (%s) [%s]"
+            % (label, rows_name(rows), rows.n, length, base, len(r0), steps,
+               err, k_ms, steps / k_ms / 1e6, p_ms,
+               " with every lane cut to %d steps" % cut if cut else "", b_ms,
+               b_by, smi))
+        if err:
+            raise AssertionError("the decode visit disagrees with its plain "
+                                 "version on the %s" % label)
+        rec = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "lanes": len(r0),
+               "symbols": length, "steps": steps, "layout": rows_name(rows)}
+        if cut:
+            rec["plain_on"] = {"lanes": len(r0), "steps_at_most": cut}
+        return rec
+
+    def dev_lanes(arrays):
+        return [torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+                for a in arrays]
+
+    def visits_2_22(rows, sa, isa, text_t, label):
+        """Phase a on one row family at n = 2^22: the locate visit on
+        131,072 seeded ranks at rate 32 and on the first
+        ``LONG_LANES_2_22`` of them at rate 262,144, and the decode visit
+        of the whole text at both rates, against their plain versions bit
+        for bit and against the sort's SA and the text.  At 262,144 (walks
+        of 10^5-10^6 steps) the kernel is timed once without a warm
+        launch; the locate's plain version runs on ``SAMPLE_2_22[0]``
+        lanes that the SA places 1 to 512 steps before one of the 16
+        sampled ranks (ISA[SA[s] + k]), the decode's on its 16 lanes cut
+        to ``SAMPLE_2_22[1]`` steps."""
+        n = rows.n
+        rng = np.random.default_rng(args.seed + 17)
+        r_all = torch.from_numpy(rng.integers(0, n, 131072)).to(dev)
+        rec = {}
+        for rate in (32, 262144):
+            long = rate > 32
+            near = None
+            if long:
+                s_pos = sa[np.arange(0, n, rate)]
+                k = np.arange(1, SAMPLE_2_22[0] // len(s_pos) + 1)
+                near = torch.from_numpy(isa[(s_pos[:, None] + k[None, :])
+                                            .reshape(-1) % n]).to(dev)
+            rec["locate %d" % rate] = locate_record(
+                rows, r_all[:LONG_LANES_2_22] if long else r_all, rate,
+                "%s, 2^22" % label, sa=sa, warm=not long, plain_lanes=near)
+            lanes = dev_lanes(decode_lanes(SampledISA(rate, isa[::rate], n),
+                                           n, 0, n))
+            rec["decode %d" % rate] = decode_record(
+                rows, lanes, 0, n, "%s, 2^22" % label, text_t,
+                SAMPLE_2_22[1] if long else None, warm=not long)
+        return rec
+
+    def index_2_22():
+        """Phase a: both visits on every row family at n = 2^22: sector
+        and bit-plane rows (sigma 4), bit-plane rows (sigma 7), byte rows
+        (sigma 200), those four doctored as wide rows across 2^32 (the
+        64-bit form), and wavelet rows over 300, 5,000 and 65,536
+        symbols."""
+        n = 1 << 22
+        out = {}
+        t_all = time.monotonic()
+        for sigma, layouts in ((4, ("sector", "bitplane")), (7, ("bitplane",)),
+                               (200, ("bytes",))):
+            t0 = time.monotonic()
+            rng = np.random.default_rng(args.seed + sigma)
+            text = rng.integers(0, sigma, n).astype(np.uint8)
+            sa, isa, bwt = suffix_array(text, sigma, dev)
+            t_dev = torch.from_numpy(text).to(dev)
+            bwt_dev = torch.from_numpy(bwt.astype(np.uint8)).to(dev)
+            for layout in layouts:
+                focc = build_focc_host(bwt.astype(np.uint8), sigma, dev,
+                                       layout)
+                out["sigma=%d %s" % (sigma, layout)] = visits_2_22(
+                    focc, sa, isa, t_dev, "sigma %d" % sigma)
+                del focc
+                # every symbol's occ count across 2^32 halfway through
+                cnt = np.bincount(bwt, minlength=sigma)
+                w = pw.doctored(bwt_dev, sigma, layout, torch.from_numpy(
+                    ((1 << 32) - cnt // 2).astype(np.int64)))
+                out["sigma=%d %s doctored wide" % (sigma, layout)] = \
+                    visits_2_22(w, sa, isa, t_dev, "sigma %d across 2^32"
+                                % sigma)
+                del w
+            say("phase 3c, sigma %d: %.3f s" % (sigma, time.monotonic() - t0))
+        for sigma in (300, 5000, 65536):
+            t0 = time.monotonic()
+            text, isa, bwt, _lanes = wavelet_case_2_22(sigma, args.seed, dev)
+            sa = np.empty(n, np.int64)
+            sa[isa] = np.arange(n)
+            wm = wr.build_wavelet_host(bwt, sigma, dev)
+            t16 = wr.as_u16_bits(torch.from_numpy(text.astype(np.int64))
+                                 .to(dev))
+            out["sigma=%d wavelet" % sigma] = visits_2_22(
+                wm, sa, isa, t16, "sigma %d" % sigma)
+            del wm, t16
+            say("phase 3c, sigma %d: %.3f s" % (sigma, time.monotonic() - t0))
+        say("phase 3c (the visits at 2^22): %.3f s" % (time.monotonic()
+                                                       - t_all))
+        return out
+
+    def register_samples(bwt_file):
+        """Name the .sa / .isa that bwtcomputessa wrote beside a bwtonly=1
+        build in its .meta, as a bwtonly=0 build names its own: the FM
+        index (and select_ssa past 256 symbols) reads the sampled SA that
+        the .meta names, in both packages."""
+        base = bwt_file[:-4]
+        meta = formats.read_meta(base + ".meta")
+        meta["files"]["sa"] = base + ".sa"
+        meta["files"]["isa"] = base + ".isa"
+        formats.write_meta(base + ".meta", meta)
+
+    def seeded_ranks(n, nsa, seed):
+        """2^19 ranks at random and 2^19 SA-sampled ranks (rate 32)."""
+        rng = np.random.default_rng(seed)
+        half = 1 << 19
+        return np.concatenate([rng.integers(0, n, half),
+                               32 * rng.integers(0, nsa, half)])
+
+    def genome_index(bwt_file, inp, text, label):
+        """Phase b (main path part): ``FMIndex.from_bwt_result`` over the
+        build's rows, ``locate_batch`` of 2^20 seeded ranks held to
+        ``select_ssa`` of the same ranks (the select kernel over the
+        .preisa bitmap) and to the .sa at the sampled ones, and
+        ``bwtdecodeblock ref=<text>`` of 2^24 symbols at a seeded offset
+        and across the end of the text."""
+        res = BwtResult.load(bwt_file)
+        n = res.n
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fm = FMIndex.from_bwt_result(res, device=dev)
+        t_fm = time.monotonic() - t0
+        _r, sa_s = load_sampled_array(bwt_file[:-4] + ".sa")
+        ranks = seeded_ranks(n, len(sa_s), args.seed + 16)
+        half = len(ranks) // 2
+        t0 = time.monotonic()
+        pos = fm.locate_batch(ranks)
+        t_loc = time.monotonic() - t0
+        stats = dict(fm.last_locate)
+        t0 = time.monotonic()
+        sel = select_ssa(bwt_file, ranks, device=dev)
+        t_sel = time.monotonic() - t0
+        if not (np.array_equal(pos, sel) and np.array_equal(
+                pos[half:], sa_s[ranks[half:] // 32])):
+            raise AssertionError("locate_batch disagrees with select_ssa or "
+                                 "the .sa on the %s" % label)
+        say("FMIndex on the %s: from_bwt_result %.3f s, locate_batch of 2^20 "
+            "ranks %.3f s wall (mean %.2f steps, longest %d) == select_ssa "
+            "(%.3f s) and the .sa at the 2^19 sampled ranks [%s]"
+            % (label, t_fm, t_loc, stats["steps"] / stats["lanes"],
+               stats["longest"], t_sel, smi))
+        L = 1 << 24
+        rng = np.random.default_rng(args.seed + 19)
+        decodes = []
+        for off in (int(rng.integers(0, n - L)), n - L // 2):
+            rc, _o, _p = run_tool("bwtdecodeblock (%s, 2^24 symbols from "
+                                  "%d)" % (label, off), [
+                "bwtdecodeblock", "ref=" + inp, "device=cuda", bwt_file,
+                str(off), str(L)])
+            want = np.take(text, (off + np.arange(L)) % n)
+            if rc != 0 or run_tool.out_bytes != want.tobytes():
+                raise AssertionError("bwtdecodeblock at %d failed on the %s"
+                                     % (off, label))
+            decodes.append({"offset": off, "wall_s": run_tool.wall})
+        return {"fm": fm, "ranks": ranks, "locate_stats": stats,
+                "locate_wall_s": t_loc, "select_wall_s": t_sel,
+                "from_bwt_result_s": t_fm, "decodes": decodes, "text": text}
+
+    def index_compare(idx, label):
+        """Phase b (after the path's counts): both visits at the path's
+        shapes, timed, against their plain versions on a sample."""
+        fm = idx.pop("fm")
+        text = idx.pop("text")
+        L = 1 << 24
+        r_all = torch.from_numpy(idx.pop("ranks")).to(dev)
+        idx["locate"] = locate_record(fm.rows, r_all, fm.sa.rate, label,
+                                      PLAIN_SAMPLE[0])
+        off = idx["decodes"][0]["offset"]
+        want = fm.dense_ids(np.take(text, off + np.arange(L))).to(
+            torch.uint8)
+        idx["decode"] = decode_record(
+            fm.rows, dev_lanes(decode_lanes(fm.isa, fm.n, off, L)), off, L,
+            label, want, PLAIN_SAMPLE[1])
+        del fm
+        return idx
+
+    def index_path(n):
+        """Phase d: a chromosome-sized reference (``make_text``'s repeats),
+        as a .pac: ``bwtb3m inputtype=pacterm bwtonly=0 sasamplingrate=32``;
+        ``bwtb3mtobwa`` held to the .bwt and the .sa; ``allHamDna
+        maxmis=2`` on 10,000 reads of 100 bp (seeded positions, either
+        strand, 0-2 seeded substitutions), each read's origin among its
+        lines with NM equal to its substitutions, and the search's plain
+        version on 200 of them giving the same intervals in the same
+        order; ``probeScanDna`` occ against
+        hwt, k = 31, on 1,000 probes of 200 bp; ``bwtdecodeblock`` of 2^20
+        symbols; the converters (``bwttohwt`` against the build's .hwt,
+        ``hwtToRlHwt verify=1`` on the first 16,777,259 bases; on an
+        ``inputtype=pac bwtonly=1`` build
+        of the same codes ``bwttodnarank`` and ``bwttodnarank256``, read
+        back and held to the BWT's ranks at 2^20 seeded positions)."""
+        shutil.rmtree(WORK, ignore_errors=True)
+        os.makedirs(WORK)
+        out = {"n": n}
+        t0 = time.monotonic()
+        table = np.zeros(256, np.uint8)
+        table[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+        codes = table[make_text(n, args.seed + 20)]
+        pac = os.path.join(WORK, "chrom.pac")
+        write_pac(pac, codes)
+        say("input: %d bases (ACGT with 1000 mutated repeats) as a .pac, "
+            "made in %.2f s (host)" % (n, time.monotonic() - t0))
+        bwt = pac + ".bwt"
+        reset_counts()
+        hamdna.FRONTIER.update(max=0, stepped=0)
+        rc, _, _ = run_tool("bwtb3m inputtype=pacterm (index path)", [
+            "bwtb3m", "inputtype=pacterm", "bwtonly=0", "sasamplingrate=32",
+            "device=cuda", pac])
+        if rc != 0:
+            raise AssertionError("bwtb3m inputtype=pacterm failed")
+        res = BwtResult.load(bwt)
+        lap("14, bwtb3mtobwa")
+        # BWA export: bases = the .bwt less its $ row, SA = the build's .sa
+        rc, _, _ = run_tool("bwtb3mtobwa (index path)", [
+            "bwtb3mtobwa", bwt, pac + ".bwa.bwt", pac + ".bwa.sa"])
+        primary, _L2, bases = read_bwa_bwt(pac + ".bwa.bwt")
+        p2, _L2b, intv, seq_len, vals = read_bwa_sa(pac + ".bwa.sa")
+        full = res.load_bwt()
+        _r, sa_s = load_sampled_array(res.sa_path)
+        if rc != 0 or full[primary] != 0 or p2 != primary \
+                or seq_len != n or intv != 32 \
+                or not np.array_equal(bases, np.delete(full, primary) - 1) \
+                or not np.array_equal(vals, sa_s[1:]):
+            raise AssertionError("bwtb3mtobwa's files disagree with the "
+                                 "build's .bwt and .sa")
+        del full, bases, vals
+        say("bwtb3mtobwa: BWA .bwt == the .bwt less its $ row (primary %d), "
+            "BWA .sa == the build's .sa at rate 32" % primary)
+        lap("14, allHamDna")
+        # allHamDna on 10,000 reads of 100 bp
+        rng = np.random.default_rng(args.seed + 21)
+        nreads, m = 10_000, 100
+        starts = rng.integers(0, n - m, nreads)
+        strand = rng.integers(0, 2, nreads)
+        nsub = rng.integers(0, 3, nreads)
+        fa = os.path.join(WORK, "reads.fa")
+        pats200 = []                   # the first 200 reads, both strands
+        with open(fa, "w") as f:
+            for i in range(nreads):
+                seg = codes[starts[i]:starts[i] + m].astype(np.int64)
+                at = rng.choice(m, nsub[i], replace=False)
+                seg[at] = (seg[at] + rng.integers(1, 4, len(at))) % 4
+                read = (3 - seg)[::-1] if strand[i] else seg
+                f.write(">r%d\n%s\n" % (i, "".join("ACGT"[c] for c in read)))
+                if i < 200:
+                    pats200 += [read, (3 - read)[::-1]]
+        # no profiler: the summary of the search's 10^5 small kernels
+        # took 76 s on the host of an H100 machine, for 5.6 s of tool
+        rc, sam, _ = run_tool("allHamDna maxmis=2 (index path, 10,000 reads "
+                              "of 100 bp)", ["allHamDna", "maxmis=2",
+                                             "device=cuda", bwt, fa],
+                              profile=False)
+        out["allhamdna_s"] = run_tool.wall
+        by_read = {}
+        for ln in sam.splitlines():
+            if not ln.startswith("@"):
+                by_read.setdefault(ln.split("\t", 1)[0], []).append(ln)
+        missing = [i for i in range(nreads) if not any(
+            x.split("\t")[1] == str(16 * strand[i])
+            and x.split("\t")[3] == str(starts[i] + 1)
+            and "\tNM:i:%d\t" % nsub[i] in x
+            for x in by_read.get("r%d" % i, []))]
+        nlines = sum(len(v) for v in by_read.values())
+        out["frontier"] = dict(hamdna.FRONTIER)
+        say("allHamDna: %d reads, %d SAM lines, %.3f s wall (%.1f reads/s); "
+            "largest frontier %d states, %d states stepped; reads whose "
+            "origin is missing: %d [%s]"
+            % (nreads, nlines, out["allhamdna_s"],
+               nreads / out["allhamdna_s"], out["frontier"]["max"],
+               out["frontier"]["stepped"], len(missing), smi))
+        if rc != 0 or missing:
+            raise AssertionError("allHamDna missed the origin of reads %s"
+                                 % missing[:10])
+        lap("14, probeScanDna")
+        # probeScanDna, occ against hwt
+        pstarts = rng.integers(0, n - 200, 1000)
+        pfa = os.path.join(WORK, "probes.fa")
+        with open(pfa, "w") as f:
+            for i, a in enumerate(pstarts):
+                seg = codes[a:a + 200].astype(np.int64)
+                if i % 2:
+                    seg[100] = (seg[100] + 1) % 4
+                f.write(">p%d\n%s\n" % (i, "".join("ACGT"[c] for c in seg)))
+        lines = {}
+        for mode in ("occ", "hwt"):
+            rc, o, _ = run_tool("probeScanDna mode=%s k=31 (index path, 1,000 "
+                                "probes of 200 bp)" % mode, [
+                "probeScanDna", "mode=" + mode, "k=31", "device=cuda", bwt,
+                pfa], profile=False)
+            lines[mode] = o
+            out["probescan_%s_s" % mode] = run_tool.wall
+            if rc != 0:
+                raise AssertionError("probeScanDna mode=%s failed" % mode)
+        if lines["occ"] != lines["hwt"] or len(lines["occ"].splitlines()) \
+                != 1000:
+            raise AssertionError("probeScanDna's occ and hwt lines differ")
+        say("probeScanDna k=31: occ == hwt on 1,000 probes (170,000 k-mers): "
+            "%.3f / %.3f s wall (%.0f / %.0f k-mers/s) [%s]"
+            % (out["probescan_occ_s"], out["probescan_hwt_s"],
+               170_000 / out["probescan_occ_s"],
+               170_000 / out["probescan_hwt_s"], smi))
+        lap("14, bwtdecodeblock")
+        # bwtdecodeblock on the pacterm build (symbols 1..4)
+        off = int(rng.integers(0, n - (1 << 20)))
+        rc, _o, _p = run_tool("bwtdecodeblock (index path, 2^20 symbols)", [
+            "bwtdecodeblock", "inputtype=pacterm", "ref=" + pac,
+            "device=cuda", bwt, str(off), str(1 << 20)])
+        if rc != 0 or run_tool.out_bytes != (codes[off:off + (1 << 20)]
+                                             + 1).tobytes():
+            raise AssertionError("bwtdecodeblock failed on the index path")
+        path_counts["index path"] = counts()
+        say("index path launches: %s" % path_counts["index path"])
+        if min(path_counts["index path"][k] for k in (
+                "lf_walk_locate", "lf_walk_decode")) < 1:
+            raise AssertionError("the index path did not launch the LF "
+                                 "walk's locate and decode visits")
+        lap("14, the search's plain version")
+        # the search's plain version (the recursion over the plain rank)
+        # on the 400 patterns of 200 reads: the same intervals, in order
+        with uncounted():
+            fm = FMIndex.from_bwt_result(res, device=dev)
+            pid, lo, hi, nm = hamdna.hamming_search_batch(fm, pats200, 2)
+            t0 = time.monotonic()
+            want = hamming_search_plain(fm.rows, fm.dense_ids(np.arange(4)
+                                                              + 1), pats200, 2)
+            out["hamming_plain_200_s"] = time.monotonic() - t0
+        got = [[] for _ in pats200]
+        for k, a, b, c in zip(pid.tolist(), lo.tolist(), hi.tolist(),
+                              nm.tolist()):
+            got[k].append((a, b, c))
+        say("allHamDna's search, its plain version (the depth-first "
+            "recursion) on the 400 patterns of 200 reads: %.3f s, %d "
+            "intervals, %s the breadth-first search's, in order"
+            % (out["hamming_plain_200_s"], sum(map(len, want)),
+               "equal to" if got == want else "DIFFERENT from"))
+        if got != want:
+            raise AssertionError("the Hamming search's plain version gives "
+                                 "other intervals")
+        lap("14, the converters")
+        # the converters on the pacterm build
+        other = os.path.join(WORK, "other.hwt")
+        rc, _, _ = run_tool("bwttohwt recreate=1 (index path)", [
+            "bwttohwt", "recreate=1", "outputfilename=" + other, bwt])
+        out["bwttohwt_s"] = run_tool.wall
+        if rc != 0 or open(other, "rb").read() != open(pac + ".hwt",
+                                                       "rb").read():
+            raise AssertionError("bwttohwt's .hwt differs from the build's")
+        # hwtToRlHwt verify=1 took 72.6 s at 100M on the host of an H100
+        # machine (the host decode of the whole tree): it runs on the
+        # first 16,777,259 bases
+        n16 = 16_777_259
+        pac16 = os.path.join(WORK, "chrom16m.pac")
+        write_pac(pac16, codes[:n16])
+        rc, _, _ = run_tool("bwtb3m inputtype=pacterm bwtonly=1 n=%d (index "
+                            "path)" % n16, [
+            "bwtb3m", "inputtype=pacterm", "bwtonly=1", "device=cuda",
+            pac16])
+        rc2, _, _ = run_tool("hwtToRlHwt verify=1 (index path, n=%d)" % n16,
+                             ["hwtToRlHwt", "verify=1", pac16 + ".bwt"])
+        out["hwttorlhwt_s"] = run_tool.wall
+        if rc or rc2 or "verification ok" not in run_tool.log:
+            raise AssertionError("hwtToRlHwt verify=1 failed")
+        lap("14, the DNR1 converters")
+        # DNR1 needs four symbols: a pac build of the same codes
+        bwt4 = os.path.join(WORK, "chrom4.bwt")
+        rc, _, _ = run_tool("bwtb3m inputtype=pac bwtonly=1 (index path)", [
+            "bwtb3m", "inputtype=pac", "bwtonly=1", "device=cuda",
+            "outputfilename=" + bwt4, pac])
+        bwt4_syms = BwtResult.load(bwt4).load_bwt()
+        pos = rng.integers(0, n + 1, 1 << 20)
+        want4 = []                     # the BWT's ranks of each symbol
+        for c in range(4):
+            cs = np.cumsum(bwt4_syms == c, dtype=np.int64)
+            want4.append(np.where(pos > 0, cs[np.maximum(pos - 1, 0)], 0))
+            del cs
+        for tool, block in (("bwttodnarank", 64), ("bwttodnarank256", 256)):
+            dst = os.path.join(WORK, "chrom4.%d.dnarank" % block)
+            rc, _, _ = run_tool("%s (index path)" % tool, [
+                tool, "outputfilename=" + dst, bwt4])
+            out[tool + "_s"] = run_tool.wall
+            dr = DNARank.read(dst)
+            for c in range(4):
+                if rc != 0 or dr.block != block \
+                        or not np.array_equal(dr.rank(c, pos), want4[c]):
+                    raise AssertionError("%s: ranks of symbol %d differ from "
+                                         "the BWT's" % (tool, c))
+        say("converters (index path, n=%d): bwttohwt %.3f s (== the build's "
+            ".hwt), hwtToRlHwt verify=1 %.3f s at n=%d, bwttodnarank %.3f "
+            "s, bwttodnarank256 %.3f s (ranks at 2^20 positions == the "
+            "BWT's) [%s]" % (n, out["bwttohwt_s"], out["hwttorlhwt_s"], n16,
+                             out["bwttodnarank_s"], out["bwttodnarank256_s"],
+                             smi))
+        lap("14, the visits")
+        # the visits at this path's shapes: the hits' locate, the decode
+        r_all = torch.from_numpy(seeded_ranks(res.n, len(sa_s),
+                                              args.seed + 22)).to(dev)
+        out["locate"] = locate_record(fm.rows, r_all, 32, "index path",
+                                      PLAIN_SAMPLE[0])
+        want = torch.from_numpy(codes[off:off + (1 << 20)] + 1).to(dev)
+        out["decode"] = decode_record(
+            fm.rows, dev_lanes(decode_lanes(fm.isa, fm.n, off, 1 << 20)), off,
+            1 << 20, "index path", want, PLAIN_SAMPLE[1])
+        del fm, codes, bwt4_syms
+        shutil.rmtree(WORK, ignore_errors=True)
+        return out
+
+    def index_kernels(main, cases, extra):
+        """The kernels line's rows of the two visits: ``main`` = {"locate":
+        rec, "decode": rec} at the main path's shapes, ``cases`` every other
+        comparison (their max_abs_err count too)."""
+        rows = []
+        for name, visit in (("lf_walk_locate", "locate"),
+                            ("lf_walk_decode", "decode")):
+            rec = main[visit]
+            path = ROW_PATH[name] if ROW_PATH[name] in path_counts \
+                else "index path"
+            rows.append({
+                "name": name, "route": "cuda", "source": KERNELS[name][0],
+                "replaces": KERNELS[name][1],
+                "launches": path_counts[path][name], "shapes_of": path,
+                "launches_by_path": {p: c[name]
+                                     for p, c in path_counts.items()},
+                "max_abs_err": max(errors_in([main, cases])),
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "plain_on": rec.get("plain_on"), "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None,
+                "layout": rec["layout"], "main": rec, **extra})
+        return rows
+
+    if args.only == "index":
+        idx22 = index_2_22()
+        ipath = index_path(args.index_n)
+        for name, wall, busy in tools:
+            say("tool %-36s wall %.3f s, device busy %s [%s]"
+                % (name, wall, "not measured" if busy is None
+                   else "%.3f s" % busy, smi))
+        loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        if loaded:
+            raise AssertionError("JAX or the JAX package was imported: %s"
+                                 % loaded)
+        say("chip_smoke.py: %.3f s from its start to the report [%s]"
+            % (time.monotonic() - t_start, smi))
+        say(smi)
+        say(json.dumps({"kernels": index_kernels(
+            ipath, idx22, {"cases_2^22": idx22})}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if args.only == "alphabet":
         alpha = alphabet_path(args.alphabet_n, args.alphabet_mem)
         for name, wall, busy in tools:
@@ -1720,6 +2500,7 @@ def main() -> int:
         human = human_path(args.human_n, args.human_mem, args.human_hostmem,
                            args.human_bwtonly, args.human_checks)
         shutil.rmtree(WORK, ignore_errors=True)
+        shutil.rmtree(TEXTS, ignore_errors=True)
         for name, wall, busy in tools:
             say("tool %-36s wall %.3f s, device busy %s [%s]"
                 % (name, wall, "not measured" if busy is None
@@ -1742,6 +2523,7 @@ def main() -> int:
     LAYOUTS_OF = {4: ("sector", "bitplane"), 7: ("bitplane",),
                   200: ("bytes",)}
 
+    lap("3")
     # ---- 3. LF-walk kernel against its plain version at 2^22 -----------
     def lanes_for(isa, n, nlanes):
         rate = n // nlanes
@@ -1880,6 +2662,11 @@ def main() -> int:
             wide_lf_2_22(sigma, layout, bwt, sa, isa, t_dev, r0, p0, seg,
                          focc, checks)
 
+    lap("3c")
+    # ---- 3c. the locate and decode visits at 2^22 (phase a) -------------
+    idx22 = index_2_22()
+
+    lap("3b")
     # ---- 3b. what the walk's step rate follows: table size and lanes ---
     # kernel only (no plain version: the LF step of any symbol sequence is
     # a bijection, so random symbols walk like a BWT), rank rows inside
@@ -1909,6 +2696,7 @@ def main() -> int:
                    lanes * steps / ms["bitplane"] / 1e6, smi))
         del foccs
 
+    lap("4")
     # ---- 4. gap-chain kernel against its plain version at 2^22 ---------
     def one_merge(text_dev, text_host, sigma, s, m, e, r_start, hist, packed,
                   rate, layouts, lane_bucket=1 << 16, wide=False):
@@ -2048,6 +2836,7 @@ def main() -> int:
             del doc
         del level, foccs, wlevel, wfoccs, sa, isa, R, rbwt_dev
 
+    lap("4b")
     # ---- 4b. the Kasai walk against its plain version at 2^22 ----------
     def kasai_bound(words, npos, steps):
         """(ms, which) of a walk over ``npos`` positions: the text words
@@ -2135,6 +2924,7 @@ def main() -> int:
                        else "", rec["bound_ms"], rec["bound_by"], smi))
         del words, phi_all, sa, want, plcp
 
+    lap("5")
     # ---- 5. single-block path -------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -2193,6 +2983,7 @@ def main() -> int:
         raise AssertionError("the single-block path never launched the "
                              "LF-walk kernel")
 
+    lap("5b")
     # ---- 5b. the single-block path's PLCP -------------------------------
     def moved_bit_copy(lcpbit, bad):
         """A copy of a .lcpbit with the first set bit after the first that
@@ -2223,6 +3014,7 @@ def main() -> int:
     if path_counts["single-block LCP path"]["kasai"] < 1:
         raise AssertionError("lcpbit never launched the Kasai kernel")
 
+    lap("6")
     # ---- 6. independent SA check ---------------------------------------
     rng = np.random.default_rng(args.seed + 5)
     t_term = np.r_[rng.integers(1, 5, n_small - 1), 0].astype(np.uint8)
@@ -2236,12 +3028,14 @@ def main() -> int:
     say("SA cross-check at n=2^22 (unique smallest terminator, numpy "
         "lexsort doubling %.2f s on the host): ok" % t_np)
 
+    lap("7")
     # ---- 7. LF-walk kernel at the single-block path's shapes -------------
     lf_single = lf_compare(bwt_path, text, "single-block path")
     del text
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
+    lap("8")
     # ---- 8. merge engine against the doubling engine at 2^24 + 43 ------
     n8 = 16_777_259
     inp8 = os.path.join(WORK, "mid.bin")
@@ -2294,6 +3088,7 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
+    lap("9")
     # ---- 9. the merge path at 400M --------------------------------------
     nm = args.merge_n
     inpm = os.path.join(WORK, "big.bin")
@@ -2333,6 +3128,7 @@ def main() -> int:
     # memo that checkbwt and bwtcomputessa filled)
     lf_merge = lf_compare(bwtm, text, "merge path")
 
+    lap("10")
     # ---- 10. gap-chain kernel at the root merge's shapes -----------------
     # with three blocks the root merges [0, m) with the carried last
     # block [m, n): sort that block again, as the engine did
@@ -2454,6 +3250,7 @@ def main() -> int:
         l2(g0)
     del ctx, level, foccs, right, dense, gap, samp, gap_ref
 
+    lap("10b")
     # ---- 10b. the forced-wide merge path -------------------------------
     # the 400M build once more with every merge wide; its files, checkbwt
     # and bwtcomputessa (wide rows, the LF walk's 64-bit form) against the
@@ -2506,20 +3303,51 @@ def main() -> int:
                 "form %.3f ms, narrow form %.3f ms: %.3f x [%s]"
                 % (nm, lay, o["ms"], lf_merge[lay]["ms"],
                    o["ms"] / lf_merge[lay]["ms"], smi))
+        # the FM index's locate on the wide rows (the 64-bit form) against
+        # the narrow rows' (below), on the .sa of bwtcomputessa
+        register_samples(bwtw)
+        _r, sa_w = load_sampled_array(bwtw[:-4] + ".sa")
+        want_w = seeded_ranks(nm, len(sa_w), args.seed + 23)
+        with uncounted():
+            fm_w = FMIndex.from_bwt_result(BwtResult.load(bwtw), device=dev)
+            if not is_wide(fm_w.rows):
+                raise AssertionError("the FM index did not take wide rows")
+            loc_wide = fm_w.locate_batch(want_w)
+            fw_locate = locate_record(fm_w.rows, torch.from_numpy(want_w)
+                                      .to(dev), 32,
+                                      "forced-wide merge path",
+                                      PLAIN_SAMPLE[0])
+        del fm_w
     finally:
         del os.environ["BWTB3M_FORCE_WIDE"]
+    with uncounted():
+        fm_n = FMIndex.from_bwt_result(BwtResult.load(bwtw), device=dev)
+        loc_narrow = fm_n.locate_batch(want_w)
+        fw_locate["narrow"] = locate_record(
+            fm_n.rows, torch.from_numpy(want_w).to(dev), 32,
+            "merge path, narrow rows", PLAIN_SAMPLE[0])
+    del fm_n
+    half = len(want_w) // 2
+    if not (np.array_equal(loc_wide, loc_narrow) and np.array_equal(
+            loc_wide[half:], sa_w[want_w[half:] // 32])):
+        raise AssertionError("locate_batch on wide rows disagrees with the "
+                             "narrow rows or the .sa at n=%d" % nm)
+    say("locate_batch of 2^20 ranks at n=%d: wide rows (the 64-bit form) == "
+        "narrow rows == the .sa at the sampled ranks; kernel %.3f ms against "
+        "%.3f ms narrow [%s]" % (nm, fw_locate["ms"],
+                                 fw_locate["narrow"]["ms"], smi))
 
+    lap("11")
     # ---- 11. the genome path ---------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     ng = args.genome_n
     wide = ng >= 1 << 32      # the tools' walks take the 64-bit form
     inpg = os.path.join(WORK, "genome.bin")
-    t0 = time.monotonic()
-    text = make_text(ng, args.seed + 11)
-    text.tofile(inpg)
-    say("input: n=%d ACGT with 1000 mutated repeats, made in %.2f s (host)"
-        % (ng, time.monotonic() - t0))
+    text, waited = take_text("genome.bin", inpg)
+    say("input: n=%d ACGT with 1000 mutated repeats, made by a process of "
+        "its own during the earlier steps (%.2f s waited for it)"
+        % (ng, waited))
     bwtg = inpg + ".bwt"
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -2557,19 +3385,10 @@ def main() -> int:
     if rc != 0 or "gok=1" not in out or "decode" in run_tool.log:
         raise AssertionError("checkbwt through the hand-off did not print "
                              "gok=1, or decoded the file")
-    t0 = time.monotonic()
-    proc = subprocess.run(
-        [sys.executable, "-m", "bwtb3m_tpu_torch", "checkbwt",
-         "inputtype=bytestream", "device=cuda", inpg, bwtg], cwd=REPO,
-        capture_output=True, text=True, timeout=900)
-    sys.stderr.write(proc.stderr)
-    say("checkbwt (genome path, fresh process, from .bwt): exit %d, wall "
-        "%.3f s with the interpreter's start | %s [%s]"
-        % (proc.returncode, time.monotonic() - t0, proc.stdout.strip(), smi))
-    if proc.returncode != 0 or "gok=1" not in proc.stdout \
-            or "decode" not in proc.stderr:
-        raise AssertionError("checkbwt in a fresh process did not print "
-                             "gok=1 from the file")
+    # checkbwt in a fresh process from .bwt: beside the .lcpbit read-back
+    # in step 11c (both host work), here where the path has no PLCP
+    if ng >= 1 << 31:
+        finish_checkbwt(start_checkbwt(inpg, bwtg), "genome path")
     isa_build = open(inpg + ".isa", "rb").read()
     rc, _, _ = run_tool("hwtPreIsaToIsa (genome path)", [
         "hwtPreIsaToIsa", "isasamplingrate=262144", "device=cuda", bwtg])
@@ -2577,6 +3396,8 @@ def main() -> int:
         raise AssertionError("hwtPreIsaToIsa's .isa differs from the build's")
     # select_ssa stops at 2^32 symbols (ROADMAP.md item 8)
     want_ranks = None if wide else select_agrees_with_sa(bwtg, args.seed + 12)
+    # the FM index on the build: locate_batch and bwtdecodeblock
+    gidx = None if wide else genome_index(bwtg, inpg, text, "genome path")
     peak_genome = torch.cuda.max_memory_allocated()
     path_counts["genome path"] = counts()
     say("genome path launches: %s" % path_counts["genome path"])
@@ -2597,7 +3418,10 @@ def main() -> int:
                            ("verify_walk", "harvest_walk"), wide=wide,
                            sample=PLAIN_SAMPLE)
     lf_genome_w = lf_genome.pop("sector_w", None)
+    if gidx:
+        gidx = index_compare(gidx, "genome path")
 
+    lap("11c")
     # ---- 11c. the genome path's PLCP ------------------------------------
     # compute_sa_device (the LF-walk kernel's harvest visit at rate 1 over
     # the build's rows), compute_plcp_device (one launch of the Kasai
@@ -2680,9 +3504,12 @@ def main() -> int:
         bad += int((mm[(ps[end] + ls[end]) % ng]
                     == mm[(qs[end] + ls[end]) % ng]).sum())
         t_check = time.monotonic() - t0
+        fresh = start_checkbwt(inpg, bwtg)
         t0 = time.monotonic()
         dec_vals = lp.PLCPBitDecoder(lcpbit_g, n=ng).get(ps)
         t_dec = time.monotonic() - t0
+        finish_checkbwt(fresh, "genome path", ", beside the .lcpbit "
+                        "read-back")
         say("genome PLCP: %d positions against the text (max l %d, %.3f s "
             "on the host): %d wrong; the .lcpbit read back at them (%.3f s): "
             "%s" % (len(ps), int(ls.max()), t_check, bad, t_dec,
@@ -2847,12 +3674,18 @@ def main() -> int:
                                  "measured peak of a level")
     gmk = {"sector": dict(replay[0], levels=replay)}
 
+    lap("13")
     # ---- 13. alphabets past 256 symbols ---------------------------------
     text = None
     alpha = None
     if args.alphabet_n:
         alpha = alphabet_path(args.alphabet_n, args.alphabet_mem)
 
+    lap("14")
+    # ---- 14. the index path ----------------------------------------------
+    ipath = index_path(args.index_n) if args.index_n else None
+
+    lap("11b")
     # ---- 11b. the human-genome path --------------------------------------
     human = {"phases": {}}
     if args.human_n:
@@ -2862,6 +3695,7 @@ def main() -> int:
         say("human-genome path: n >= 2^31, no PLCP (compute_sa_device and "
             "compute_plcp take n < 2^31, as in the reference)")
 
+    lap("12")
     # ---- 12. report -----------------------------------------------------
     for name, wall, busy in tools:
         say("tool %-36s wall %.3f s, device busy %s [%s]"
@@ -2893,6 +3727,7 @@ def main() -> int:
     if alpha:
         alphabet_report(alpha)
     shutil.rmtree(WORK, ignore_errors=True)
+    shutil.rmtree(TEXTS, ignore_errors=True)
     loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     if loaded:
         raise AssertionError("JAX or the JAX package was imported: %s"
@@ -2962,6 +3797,12 @@ def main() -> int:
             "cases_2^22": kasai_22})
     if alpha:
         kernels.extend(alphabet_kernels(alpha))
+    if gidx or ipath:
+        others = {"cases_2^22": idx22, "index_path": ipath,
+                  "alphabet_path_locate": (alpha or {}).get("locate"),
+                  "forced_wide_400M_locate": fw_locate}
+        kernels.extend(index_kernels(gidx or ipath, others, {
+            "genome_path": gidx, **others}))
     say("chip_smoke.py: %.3f s from its start to the report [%s]"
         % (time.monotonic() - t_start, smi))
     say(smi)
@@ -2973,4 +3814,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_started()

@@ -7,7 +7,7 @@
 - paths that are not ported yet raise ``NotImplementedError`` (or, on
   the CLI, exit 2 naming their ROADMAP.md item), and the ones this
   refusal once covered run (``bwtcodec=rlh``, the tools past 256
-  symbols);
+  symbols, the index tools and applications);
 - a kernel build without ``nvcc`` raises.
 """
 
@@ -67,6 +67,24 @@ assert dispatch(["checkbwt", "device=cpu", "verbose=0", "inputtype=utf-8",
                  u, u + ".bwt"]) == 0
 assert dispatch(["bwttestdecodespeed", "device=cpu", "verbose=0", "steps=8",
                  "maxstreams=8", u + ".bwt"]) == 0
+from bwtb3m_tpu_torch.engine import select_ssa
+assert len(select_ssa(u + ".bwt", np.arange(5), device="cpu")) == 5
+from bwtb3m_tpu_torch.io.pac import write_pac
+pac = inp + ".pac"
+write_pac(pac, rng.integers(0, 4, 3000))
+assert dispatch(["bwtb3m", "device=cpu", "verbose=0", "inputtype=pacterm",
+                 "sasamplingrate=8", "isasamplingrate=8", pac]) == 0
+assert dispatch(["bwtdecodeblock", "device=cpu", pac + ".bwt", "10",
+                 "20"]) == 0
+fa = inp + ".fa"
+open(fa, "w").write(">r\nACGTACGTTGCAACGT\n")
+assert dispatch(["allHamDna", "device=cpu", "maxmis=1", pac + ".bwt",
+                 fa]) == 0
+assert dispatch(["probeScanDna", "device=cpu", "mode=occ", "k=8",
+                 pac + ".bwt", fa]) == 0
+assert dispatch(["hwtToRlHwt", "verify=1", "verbose=0", pac + ".bwt"]) == 0
+assert dispatch(["bwtb3mtobwa", "verbose=0", pac + ".bwt", pac + ".b.bwt",
+                 pac + ".b.sa"]) == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "bwtb3m_tpu"))
 assert not loaded, loaded
@@ -222,10 +240,23 @@ def test_sigma_above_256_checks_raise(tmp_path):
 
 
 def test_cli_refuses_unported_tools(capsys):
-    assert dispatch(["probeScanDna", "x"]) == 2
+    """The ten compact-file tools of item 8c exit 2; the index tools and
+    applications (ported with the FM index) print their usage."""
+    from bwtb3m_tpu_torch.cli import NOT_PORTED, TOOLS
+    assert sorted(NOT_PORTED) == sorted([
+        "arraytocompact", "fa4suffixarraytocompact", "fagzToCompact",
+        "fagzToCompact4", "fagzToCompactUTerm", "fagzToCompact4BigBand",
+        "fagzToCompact4BigBandBiDir", "digitsToCompact", "decodecompact",
+        "bytestreamToLz4"])
+    assert len(TOOLS) + len(NOT_PORTED) == 29
+    assert dispatch(["fagzToCompact", "x"]) == 2
     assert "ROADMAP.md Queue 1 item 8" in capsys.readouterr().err
-    assert dispatch(["bwtb3mdecoderl", "x"]) == 2
-    assert dispatch(["bwttohwt", "x"]) == 2
+    assert dispatch(["arraytocompact", "x"]) == 2
+    for name in ("probeScanDna", "allHamDna", "bwtb3mdecoderl",
+                 "bwtdecodeblock", "bwttohwt", "hwtToRlHwt", "bwttodnarank",
+                 "bwttodnarank256", "bwtb3mtobwa"):
+        assert dispatch([name]) == 1, name
+        assert "usage" in capsys.readouterr().err
     assert dispatch(["no-such-tool"]) == 1
 
 
@@ -258,14 +289,21 @@ def test_public_entry_points_default_to_the_card():
     import inspect
 
     from bwtb3m_tpu_torch import engine
+    from bwtb3m_tpu_torch.apps import hamdna, probescan
     from bwtb3m_tpu_torch.engine.merge_scaled import blockwise_bwt_scaled
+    from bwtb3m_tpu_torch.index import bidir, fm
     from bwtb3m_tpu_torch.lcp import plcp
     entry_points = [engine.compute_bwt, engine.check_bwt, engine.compute_ssa,
                     blockwise_bwt_scaled, engine.select_ssa,
                     engine.compute_sa_device, engine.compute_isa_from_preisa,
                     plcp.compute_plcp, plcp.compute_plcp_device,
                     plcp.compute_plcp_scaled, plcp.compute_plcp_file,
-                    plcp.verify_plcp_file]
+                    plcp.verify_plcp_file, fm.FMIndex,
+                    fm.FMIndex.from_bwt_result, fm.fm_from_jax,
+                    bidir.BidirectionalFMIndex,
+                    bidir.BidirectionalFMIndex.from_text,
+                    bidir.bidir_from_jax, probescan.probe_scan,
+                    hamdna.all_ham_dna]
     with_device = 0
     for fn in entry_points:
         param = inspect.signature(fn).parameters.get("device")

@@ -686,3 +686,98 @@ def test_gap_chain_mk_wm_kernel_matches_plain(cuda, sigma, n):
     np.testing.assert_array_equal(
         runner.gap.cpu().numpy(),
         np.bincount(R[:m], minlength=runner.focc.n + 1))
+
+
+# ------------------------------------- the locate and decode visits (FM index)
+
+LOCATE_ROWS = ([("narrow", s, lay) for s, lay in ROWS]
+               + [("wide", 4, "sector"), ("wide", 7, "bitplane"),
+                  ("wide", 200, "bytes")]
+               + [("wavelet", s, "wavelet") for s in (300, 5000, 65536)])
+
+
+def _index_rows(kind, sigma, layout, cuda):
+    """(text, sa, isa, rows) at n = 2^16 + 37 of each family: narrow rows,
+    wide rows doctored across 2^32, wavelet rows."""
+    n = (1 << 16) + 37
+    if kind == "wavelet":
+        text, sa, isa, wm, _lanes = _wm_build(sigma, n, 64, cuda)
+        return text, sa, isa, wm
+    text, sa, isa, focc, _lanes = _build(sigma, n, 64, cuda, layout)
+    if kind == "wide":
+        return text, sa, isa, _doctored(focc, text[(sa - 1) % n], sigma,
+                                        layout, cuda)
+    return text, sa, isa, focc
+
+
+@pytest.mark.parametrize("kind,sigma,layout", LOCATE_ROWS)
+@pytest.mark.parametrize("rate", [32, 7, 1])
+def test_locate_kernel_matches_plain(cuda, kind, sigma, layout, rate):
+    """The locate visit (``locate_walk``) in each kernel form against its
+    plain version, rank and steps, at a power-of-two rate, another rate
+    and rate 1 (no step); the SA it gives against the sort's."""
+    text, sa, isa, rows = _index_rows(kind, sigma, layout, cuda)
+    n = len(text)
+    rng = np.random.default_rng(rate + sigma)
+    r0 = torch.from_numpy(np.r_[0, n - 1, rng.integers(0, n, 20000)]).to(
+        cuda)
+    key = {"narrow": "locate", "wide": "locate64",
+           "wavelet": "locate_wm"}[kind]
+    before = lw.LAUNCHES[key]
+    r, steps = lw.locate_walk(rows, r0, rate)
+    assert lw.LAUNCHES[key] == before + 1
+    pr, psteps = lw.locate_walk_plain(rows, r0, rate)
+    assert torch.equal(r, pr) and torch.equal(steps, psteps)
+    assert int(steps.min()) >= 0 and bool((r % rate == 0).all())
+    got = (sa[r.cpu().numpy()] + steps.cpu().numpy()) % n
+    np.testing.assert_array_equal(got, sa[r0.cpu().numpy()])
+    # the BWT of a square u.u is BWT(u) with each symbol doubled: its LF
+    # keeps even and odd ranks apart, so at rate 4 the even lanes walk to
+    # a multiple of 4 and the odd ones meet none and end after n steps
+    # with -1, in both
+    m, sig = 301, min(sigma, 300)
+    u = np.random.default_rng(sigma).integers(0, sig, m)
+    u[:sig] = np.arange(sig)
+    _sa, _isa, bwt_u = suffix_array(u.astype(np.int32), sig, cuda)
+    bwt2 = np.repeat(np.asarray(bwt_u), 2)
+    if kind == "wavelet":
+        from bwtb3m_tpu_torch.ops.wavelet_rows import build_wavelet_host
+        sq = build_wavelet_host(bwt2.astype(np.int32), sig, cuda)
+    else:
+        sq = build_focc_host(bwt2.astype(np.uint8), sig, cuda, layout)
+        if kind == "wide":
+            sq = _doctored(sq, bwt2.astype(np.uint8), sig, layout, cuda)
+    r0 = torch.arange(2 * m, device=cuda)
+    r, steps = lw.locate_walk(sq, r0, 4)
+    pr, psteps = lw.locate_walk_plain(sq, r0, 4)
+    assert torch.equal(r, pr) and torch.equal(steps, psteps)
+    assert torch.equal(steps < 0, r0 % 2 == 1)
+
+
+@pytest.mark.parametrize("kind,sigma,layout", LOCATE_ROWS)
+def test_decode_kernel_matches_plain(cuda, kind, sigma, layout):
+    """The decode visit (``decode_walk``) in each kernel form against its
+    plain version on the FM index's lanes of several ranges (one across
+    the end of the text, one of n symbols), and ``FMIndex.extract`` and
+    ``locate_batch`` on the card against the text and the SA."""
+    from bwtb3m_tpu_torch.index.fm import FMIndex, decode_lanes
+    from bwtb3m_tpu_torch.index.sampled import SampledISA, SampledSA
+    text, sa, isa, rows = _index_rows(kind, sigma, layout, cuda)
+    n = len(text)
+    fm = FMIndex(None, sigma, n, SampledSA(32, sa[::32], n),
+                 SampledISA(1000, isa[::1000], n), device=cuda, rows=rows)
+    key = {"narrow": "decode", "wide": "decode64",
+           "wavelet": "decode_wm"}[kind]
+    for start, length in ((0, 5000), (n - 700, 2000), (12345, n), (17, 1)):
+        r0, p0, seg = (torch.from_numpy(a).to(cuda)
+                       for a in decode_lanes(fm.isa, n, start, length))
+        before = lw.LAUNCHES[key]
+        got = lw.decode_walk(rows, r0, p0, seg, start, length)
+        assert lw.LAUNCHES[key] == before + 1
+        assert torch.equal(got, lw.decode_walk_plain(rows, r0, p0, seg,
+                                                     start, length))
+        np.testing.assert_array_equal(
+            fm.extract(start, length),
+            np.take(text, (start + np.arange(length)) % n))
+    ranks = np.random.default_rng(sigma).integers(0, n, 5000)
+    np.testing.assert_array_equal(fm.locate_batch(ranks), sa[ranks])

@@ -12,7 +12,8 @@ and ``.isa`` bytes of ``compute_ssa`` and ``compute_isa_from_preisa`` at
 several rates, and ``bwttestdecodespeed``.  The gates: texts of 2^31
 symbols or more raise ``ValueError`` on these paths, ``compute_sa_device``
 raises the reference's ``ValueError``, and so does ``select_ssa`` without
-a sampled ``.sa``.  Exact equality.
+a sampled ``.sa``; with one it answers the reference's SA values through
+the FM index's locate walk.  Exact equality.
 """
 
 import json
@@ -32,6 +33,7 @@ from bwtb3m_tpu.engine.result import BwtResult as JaxResult
 from bwtb3m_tpu.engine.ssa import compute_isa_from_preisa as jax_isa
 from bwtb3m_tpu.engine.ssa import compute_ssa as jax_ssa
 from bwtb3m_tpu.engine.verify import _check_bwt_legacy
+from bwtb3m_tpu.io import formats as jformats
 from bwtb3m_tpu.io.inputtypes import parse_input_type as jax_input_type
 from bwtb3m_tpu.ops.lf import lf_walk as jax_lf_walk
 from bwtb3m_tpu.util.log import VerboseLog as JaxLog
@@ -183,11 +185,9 @@ def test_bwttestdecodespeed_runs(build, capsys):
     assert err.count("LF-steps/s") == 3          # 1, 8 and 64 streams
 
 
-def _fake(tmp_path, n, sigma, sa=False):
+def _fake(tmp_path, n, sigma):
     base = str(tmp_path / ("f%d" % sigma))
     files = {"bwt": base + ".bwt", "preisa": base + ".preisa"}
-    if sa:
-        files["sa"] = base + ".sa"
     with open(base + ".meta", "w") as f:
         json.dump({"format": "bwtb3m_tpu/v1", "n": n, "sigma": sigma,
                    "files": files}, f)
@@ -223,9 +223,10 @@ def test_compute_sa_device_raises_value_error_past_256(build):
 
 
 def test_select_ssa_past_256_without_sa_raises_value_error(build, tmp_path):
-    """No sampled .sa: ValueError in both packages.  With one the
-    reference answers through FMIndex.locate_batch, which the port does
-    not have yet (NotImplementedError naming ROADMAP.md item 8b)."""
+    """No sampled .sa: ValueError in both packages.  With one both answer
+    through FMIndex.locate_batch (the port: the locate walk over the
+    wavelet rows): the same SA values, those of the .sa where it samples
+    them."""
     _inp, bwt_path, _text = build
     from bwtb3m_tpu.engine.ssa import select_ssa as jax_select
     ref = _copy(bwt_path, str(tmp_path))
@@ -234,6 +235,12 @@ def test_select_ssa_past_256_without_sa_raises_value_error(build, tmp_path):
         jax_select(ref, ranks)
     with pytest.raises(ValueError, match="needs a sampled .sa"):
         select_ssa(ref, ranks, device="cpu")
-    path = _fake(tmp_path, 1000, 300, sa=True)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        select_ssa(path, ranks, device="cpu")
+    res = JaxResult.load(bwt_path)
+    rate, sa = jformats.read_sampled_array(res.sa_path)
+    rng = np.random.default_rng(res.n)
+    ranks = np.concatenate([[0, res.n - 1], rng.integers(0, res.n, 300),
+                            rate * rng.integers(0, len(sa), 50)])
+    got = select_ssa(bwt_path, ranks, device="cpu")
+    np.testing.assert_array_equal(got, jax_select(bwt_path, ranks))
+    np.testing.assert_array_equal(got[-50:], sa[ranks[-50:] // rate])
+    assert lw.lf_walk.launches == 0

@@ -207,8 +207,9 @@ def test_sort_preisa_and_sasubsample_match_reference_tools(tmp_path):
 
 def test_tools_are_listed_as_ported():
     for name in ("hwtPreIsaToIsa", "sortPreIsa", "sasubsample",
-                 "bwtcomputessa"):
+                 "bwtcomputessa", "bwtdecodeblock", "bwtb3mtobwa"):
         assert name in TOOLS and name not in NOT_PORTED
+    assert len(NOT_PORTED) == 10
 
 
 def _bitmap(marks, n):

@@ -9,8 +9,8 @@ occ words of the rank rows, the ``.sa``/``.isa``/``.preisa`` writers
 against the reference's), with a rank base of 2^31 + 2^20 where a base
 is needed, as tests/test_torch_gapbatch.py's level test has; the memo
 key of the rank rows, which must keep narrow and wide rows apart; and
-where the gates now sit: ``select_ssa`` at 2^32 (past it the reference
-answers through the FM index's locate, ROADMAP.md item 8),
+where the gates now sit: ``select_ssa`` at 2^32 (past it the port answers
+as the reference does, through the FM index's locate),
 ``compute_sa_device`` at 2^31 (as the reference's); the build's gate at
 2^35 is tests/test_torch_gapwide.py's.
 """
@@ -211,13 +211,15 @@ def _fake_result(tmp_path, n):
     return base + ".bwt"
 
 
-def test_select_gate_at_2_32(tmp_path):
+def test_select_gate_at_2_32(tmp_path, monkeypatch):
     """select_ssa from n = 2^32 raises ValueError without a sampled .sa,
-    as the reference does; with one the reference locates through the FM
-    index, which the port refuses (NotImplementedError naming ROADMAP.md
-    item 8b).  It no longer refuses the band from 2^31: there it goes on
-    to read the .preisa (missing here)."""
+    as the reference does; with one it answers, as the reference does,
+    through FMIndex.locate_batch over the result's rows (the wide rows
+    there: the locate walk's 64-bit form), which takes the ranks as they
+    are.  It no longer refuses the band from 2^31: there it goes on to
+    read the .preisa (missing here)."""
     from bwtb3m_tpu_torch.engine.ssa import select_ssa
+    from bwtb3m_tpu_torch.index import fm as fm_mod
     path = _fake_result(tmp_path, TWO32)
     with pytest.raises(ValueError, match="needs a sampled .sa"):
         select_ssa(path, np.zeros(1, np.int64), device="cpu")
@@ -225,8 +227,24 @@ def test_select_gate_at_2_32(tmp_path):
     meta["files"]["sa"] = path[:-4] + ".sa"
     with open(path[:-4] + ".meta", "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        select_ssa(path, np.zeros(1, np.int64), device="cpu")
+    seen = []
+
+    class Located:
+        def locate_batch(self, ranks):
+            return np.asarray(ranks) + 7
+
+    def from_bwt_result(result, structure="hwt", device="cuda"):
+        seen.append((result.n, structure, str(device)))
+        return Located()
+
+    monkeypatch.setattr(fm_mod.FMIndex, "from_bwt_result",
+                        staticmethod(from_bwt_result))
+    want = np.array([0, TWO32 - 1, TWO32 // 3], np.int64)
+    np.testing.assert_array_equal(select_ssa(path, want, device="cpu"),
+                                  want + 7)
+    assert seen == [(TWO32, "hwt", "cpu")]
+    with pytest.raises(ValueError, match="out of range"):
+        select_ssa(path, np.array([TWO32]), device="cpu")
     with pytest.raises(FileNotFoundError):
         select_ssa(_fake_result(tmp_path, BASE), np.zeros(1, np.int64),
                    device="cpu")
