@@ -22,14 +22,18 @@ The ported tools keep the reference package's argument surface and add
                     the LF-walk kernel's locate visit)
     bwttohwt, hwtToRlHwt, bwttodnarank, bwttodnarank256, bwtb3mtobwa,
     bwtb3mdecoderl  index files and the RL decoder (host only)
+    arraytocompact, fa4suffixarraytocompact  sampled arrays and SA
+                    coordinates as compact arrays (host only)
+    fagzToCompact, fagzToCompact4, fagzToCompactUTerm,
+    fagzToCompact4BigBand, fagzToCompact4BigBandBiDir, digitsToCompact,
+    decodecompact, bytestreamToLz4  input preparation (host only)
 
 (the sampled-SA tools live in ``cli/ssa_tools.py``, the LCP tools in
 ``cli/lcp_tools.py``, the speed tool in ``cli/speed.py``, the converters
-in ``cli/convert.py``, the decoders in ``cli/check.py`` and the
-applications in ``cli/apps.py``, as in the reference).
-
-Every other tool of the reference package exits 2 with the ROADMAP.md
-item that will port it.
+in ``cli/convert.py``, the decoders in ``cli/check.py``, the
+applications in ``cli/apps.py`` and the input-preparation tools in
+``cli/prep.py``, as in the reference).  These are all 29 tools of the
+reference package.
 """
 
 from __future__ import annotations
@@ -39,18 +43,10 @@ from typing import List
 
 import numpy as np
 
-from . import apps, check, convert, lcp_tools, speed, ssa_tools
+from . import apps, check, convert, lcp_tools, prep, speed, ssa_tools
 from ..io.inputtypes import parse_input_type
 from ..util.args import ArgInfo
 from ..util.log import VerboseLog
-
-# reference tools not ported yet -> ROADMAP.md Queue 1 item (8c: the
-# compact-file writers, host only)
-NOT_PORTED = {
-    name: 8 for name in (
-        "arraytocompact", "fa4suffixarraytocompact", "fagzToCompact", "fagzToCompact4", "fagzToCompactUTerm",
-        "fagzToCompact4BigBand", "fagzToCompact4BigBandBiDir",
-        "digitsToCompact", "decodecompact", "bytestreamToLz4")}
 
 
 def checkbwt(argv: List[str]) -> int:
@@ -81,7 +77,7 @@ def bwtb3m(argv: List[str]) -> int:
 
 TOOLS = {"bwtb3m": bwtb3m, "checkbwt": checkbwt, **ssa_tools.TOOLS,
          **lcp_tools.TOOLS, **speed.TOOLS, **convert.TOOLS, **check.TOOLS,
-         **apps.TOOLS}
+         **apps.TOOLS, **prep.TOOLS}
 
 
 def dispatch(argv: List[str]) -> int:
@@ -91,10 +87,6 @@ def dispatch(argv: List[str]) -> int:
             + "\n  ".join(sorted(TOOLS)) + "\n")
         return 1
     name = argv[0]
-    if name in NOT_PORTED:
-        sys.stderr.write("%s: not yet ported (ROADMAP.md Queue 1 item %d)\n"
-                         % (name, NOT_PORTED[name]))
-        return 2
     if name not in TOOLS:
         sys.stderr.write("unknown tool %r; try 'help'\n" % name)
         return 1

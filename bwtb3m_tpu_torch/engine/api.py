@@ -5,12 +5,13 @@ the BWT on the device, then write ``.bwt`` (RL codec), ``.hist``,
 ``.preisa``, ``.meta`` and, unless ``bwtonly=1``, ``.sa``, ``.isa`` and
 ``.hwt``.  Texts of up to ``max_block_symbols`` take the single-block
 prefix-doubling sort (``ops/doubling.py``); longer ones (``engine=auto``),
-and every text with ``engine=merge``, take the scaled blockwise merge
-engine (``engine/merge_scaled.py``), after the reference's alphabet
-compaction.  With ``hostmem=`` the text never fully materializes in host
-memory: it is a read-only memory map (the input file itself for a
-bytestream, else a chunk-decoded spill file under ``tmpprefix``) that the
-host reads page by page and that goes to the device in chunks.  After a
+and every text with ``engine=merge`` or ``engine=merge-legacy``, take
+the scaled blockwise merge engine (``engine/merge_scaled.py``), after the
+reference's alphabet compaction.  With ``hostmem=`` the text never fully
+materializes in host memory: it is a read-only memory map (the input
+file itself for a bytestream, else a chunk-decoded spill file under
+``tmpprefix``) that the host reads page by page and that goes to the
+device in chunks.  After a
 merge-engine build the final region's device bytes are bound to the
 returned ``BwtResult`` (``engine/result.py::BwtResult.bind_device_rows``),
 so a ``check_bwt`` of that result, or the build's own SA/ISA walk, builds
@@ -30,13 +31,36 @@ regions and wavelet rank rows, pair by pair, with no checkpoints
 65,536 distinct symbols raise ``NotImplementedError`` (ROADMAP.md Queue 1
 item 11).
 
-Not ported yet (they raise ``NotImplementedError`` naming their
-ROADMAP.md item): ``engine=merge-legacy`` and the sharded engine.
+``engine=merge-legacy`` is mapped onto the scaled engine, not ported:
+the reference sends it to its round-1 engine
+(``bwtb3m_tpu/engine/merge.py`` over ``ops/gap.py`` and
+``ops/rank_packed.py``: a full SA and ISA per block, no alphabet
+compaction), whose ``.bwt``, ``.hist``, ``.preisa``, ``.sa``, ``.isa``
+and ``.hwt`` are byte for byte the scaled engine's
+(``tests/test_torch_merge_legacy.py`` holds the port to it), so a second
+engine would compute the same files more slowly.  The
+exception is a text whose rotations come in equal copies (a power of a
+shorter string, poly-A): there the legacy engine's ``.sa`` orders equal
+rotations by position, as the single-block sort does, and the scaled
+engine's SA walk does not (in both packages), so with ``bwtonly=0``
+``merge-legacy`` writes that text's samples from one sort of its root
+(``_power_samples``).  Only ``merge-legacy`` takes that path because
+each engine name writes its own reference engine's files: the
+reference's ``engine=merge`` is the scaled engine, whose samples of
+such a text ``engine=merge`` keeps as they are (ROADMAP.md Queue 3).
+The root is sorted in one block, so a root of more than
+``max_block_symbols`` raises ``NotImplementedError`` before the build
+(Queue 3).  One difference stays: past 65,536 distinct symbols the
+reference's legacy engine runs and the port raises (item 11).
+
+Not ported yet (it raises ``NotImplementedError`` naming its ROADMAP.md
+item): the sharded engine.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import sys
 from typing import Optional
@@ -58,10 +82,6 @@ def _refuse_unported(options: BwtOptions) -> None:
     if options.engine == "sharded":
         raise NotImplementedError(
             "engine=sharded is not ported yet: ROADMAP.md Queue 1 item 9")
-    if options.engine == "merge-legacy":
-        raise NotImplementedError(
-            "engine=merge-legacy is not ported (it becomes an alias of the "
-            "scaled engine): ROADMAP.md Queue 1 item 10")
 
 
 def _remove(path: Optional[str]) -> None:
@@ -118,13 +138,23 @@ def compute_bwt(options: BwtOptions,
         prate = min(prate, max(32, options.isa_sampling_rate))
     prate = max(1, min(prate, n))
 
+    period = n
+    if options.engine == "merge-legacy" and not options.bwt_only:
+        period = _rotation_period(symbols)
+        if options.max_block_symbols < period < n:
+            raise NotImplementedError(
+                "engine=merge-legacy bwtonly=0 on a power of a %d-symbol "
+                "root: the root's sort is single-block, up to "
+                "max_block_symbols=%d (ROADMAP.md Queue 3)"
+                % (period, options.max_block_symbols))
+
     # ---- phase 2+3: suffix sort (device) -------------------------------
     phase = Phases(device)
     sa = isa = None
     rows_out: list = []     # the merge engine's device-rows hand-off
     symmap = None           # dense id -> file symbol (alphabet compaction)
-    if options.engine == "merge" or (options.engine == "auto"
-                                     and n > options.max_block_symbols):
+    if options.engine in ("merge", "merge-legacy") or (
+            options.engine == "auto" and n > options.max_block_symbols):
         bwt, spos, srank, symmap = _merge_engine(
             symbols, sigma, prate, options, device, log, phase, rows_out,
             bounded_spill)
@@ -191,6 +221,13 @@ def compute_bwt(options: BwtOptions,
         if sa is not None:
             formats.write_sampled_array(base + ".sa", srate, sa[::srate])
             formats.write_sampled_array(base + ".isa", irate, isa[::irate])
+        elif period < n:
+            with log.span("sampled SA/ISA of a power of a %d-symbol root"
+                          % period):
+                ssa, sisa = _power_samples(symbols, period, sigma, srate,
+                                           irate, device, log)
+            formats.write_sampled_array(base + ".sa", srate, ssa)
+            formats.write_sampled_array(base + ".isa", irate, sisa)
         else:
             # the merge engine keeps no full SA/ISA: the bwtcomputessa
             # walk derives the samples from .bwt + .preisa (the
@@ -212,6 +249,44 @@ def compute_bwt(options: BwtOptions,
     log.v("phases (wall s): %s" % json.dumps(phase.wall))
     log.v("%s runtime %.3fs" % (mem_usage_string(), rtc.elapsed()))
     return result_of(meta)
+
+
+def _rotation_period(symbols) -> int:
+    """The least p dividing n with text[i] == text[(i + p) mod n] for
+    every i: n, unless the text is a power u^(n/p) of a shorter root u,
+    whose rotations then come in n/p equal copies.  The divisors are
+    tried in increasing order, each on a 4,096-symbol prefix before the
+    whole text."""
+    n = len(symbols)
+    divs = set()
+    for d in range(1, math.isqrt(n) + 1):
+        if n % d == 0:
+            divs.update((d, n // d))
+    for p in sorted(divs - {n}):
+        head = min(n - p, 4096)
+        if np.array_equal(symbols[:head], symbols[p:p + head]) \
+                and np.array_equal(symbols[:n - p], symbols[p:]):
+            return p
+    return n
+
+
+def _power_samples(symbols, p: int, sigma: int, srate: int, irate: int,
+                   device, log):
+    """Sampled SA and ISA of a text u^k (k = n / p > 1, u primitive) as
+    the reference's legacy engine writes them, equal rotations in
+    position order: the k copies of u's s-th smallest rotation hold the
+    ranks s k .. s k + k - 1, at positions SA_u[s] + j p.  (The scaled
+    engine's SA walk orders equal rotations otherwise, or misses some, in
+    both packages: ROADMAP.md Queue 3.)  One single-block sort of the
+    root, on ``device``; ``compute_bwt`` refuses a root of more than
+    ``max_block_symbols`` before the build."""
+    n = len(symbols)
+    k = n // p
+    sa_u, isa_u, _bwt = suffix_array(np.asarray(symbols[:p]), sigma, device,
+                                     log)
+    r = np.arange(0, n, srate, dtype=np.int64)
+    q = np.arange(0, n, irate, dtype=np.int64)
+    return sa_u[r // k] + (r % k) * p, isa_u[q % p] * k + q // p
 
 
 def _merge_engine(symbols, sigma: int, prate: int, options: BwtOptions,

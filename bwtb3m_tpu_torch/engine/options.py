@@ -7,9 +7,9 @@ drives both packages.  ``mem`` keeps its meaning: blocks of ``mem / 16``
 symbols, at most 2^27, so every output is byte-identical between the
 packages; what fits the device is decided where it is needed, from the
 device's own report (``util/devices.py::device_budget``), not from
-these options.  The options whose paths are not ported yet
-(``engine=sharded`` and ``merge-legacy``, ``bwtcodec=rlh``) raise
-``NotImplementedError`` in ``engine/api.py``.
+these options.  ``engine=merge-legacy`` runs the scaled merge engine,
+whose files are the reference's legacy engine's; ``engine=sharded``, not
+ported yet, raises ``NotImplementedError`` in ``engine/api.py``.
 """
 
 from __future__ import annotations

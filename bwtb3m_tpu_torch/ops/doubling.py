@@ -16,6 +16,13 @@ that signed order is unsigned order.  The loop syncs once per round (the
 all-distinct test) and stops when every rank is distinct or k >= n;
 periodic texts keep equal rotations tied, ordered by position, exactly as
 the reference does.
+
+``BWTB3M_SORT=ls`` selects the reference's tie-compacted variant
+(``suffix_array_ls``: rounds over the still-tied rotations only, at
+host-chosen bucket sizes, to cut a TPU's per-dispatch cost).  It gives
+the same SA, ranks and BWT as the plain doubling, so here it is accepted
+and runs this sort (``tests/test_torch_merge_legacy.py`` holds both to
+the reference under ``ls``).
 """
 
 from __future__ import annotations

@@ -44,8 +44,10 @@ kernels (``csrc/focc_rows.cuh::WaveletRows``, in ``csrc/lf_walk.cu`` and
 kernels read, with the kernels' integer recipe.  Positions and ranks
 stay below 2^31, as the reference's int32 lanes do; ``build_wavelet``
 refuses longer texts.  ``backward_search_step`` over these rows is
-``ops/lf.py``'s; the reference's ``rank_all_symbols_batch`` has no caller
-in the reference package (ROADMAP.md, item 8c).
+``ops/lf.py``'s; ``rank_all`` (every symbol's rank at a batch of
+positions, the reference's ``rank_all_symbols_batch``) is a level walk
+that splits each node's position eight ways, reached through
+``ops/rank.py``.
 """
 
 from __future__ import annotations
@@ -308,6 +310,59 @@ def rank(wm: WaveletRows, c: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     c = c.long()
     _sym, f = _descend(wm, i, c)
     return f - wm.start.long()[c]
+
+
+def _level_all(wm: WaveletRows, l: int, i: torch.Tensor) -> torch.Tensor:
+    """[M, 8] int64: rank_d(i) on level l for every digit d, from one
+    block read per position."""
+    blk = i // BLOCK_DIGITS
+    off = i - blk * BLOCK_DIGITS
+    row = wm.blocks[l][blk].long() & _U32                # [M, 16]
+    counts = row[:, :COUNT_WORDS]
+    planes = row[:, COUNT_WORDS:].view(-1, DIGIT_BITS,
+                                       PLANE_WORDS).transpose(1, 2)
+    keep = (off[:, None] - 32 * torch.arange(PLANE_WORDS,
+                                             device=i.device)).clamp(0, 32)
+    before = torch.cat([counts, (BLOCK_DIGITS * blk
+                                 - counts.sum(1))[:, None]], 1)
+    inblk = torch.stack([
+        digit_rank(planes, torch.full_like(keep, d), keep).sum(1)
+        for d in range(RADIX)], 1)
+    return before + inblk
+
+
+def rank_all(wm: WaveletRows, i: torch.Tensor,
+             chunk: int = 1 << 22) -> torch.Tensor:
+    """[B, sigma] int64: the occurrences of every symbol in BWT[0 : i[j]).
+
+    A level walk, not a descent per symbol: the symbols that share their
+    first l digits share the descent's position on level l, so each
+    position of level l is read once and split eight ways (``_level_all``)
+    into the positions of its children on level l + 1, ``Zc[l][d] +
+    rank_d``; only the nodes that prefix a symbol below sigma go on.
+    Where the walk ends, f - start[c] is c's rank, as in ``rank``.  A
+    query position reads sum over l of ceil(sigma / 8^(levels - l))
+    64-byte blocks, about sigma / 7 (9,363 at 65,536 symbols, 717 at
+    5,000), where a descent per symbol reads sigma x levels (393,216 and
+    25,000).  Positions go through in groups whose node positions on the
+    last level stay within ``chunk``; the result is the caller's
+    B x sigma x 8 bytes."""
+    L, sigma = wm.levels, wm.sigma
+    Zc = wm.Zc.long()
+    start = wm.start.long()
+    i = i.long()
+    last = -(-sigma // RADIX)
+    step = max(1, chunk // last)
+    out = []
+    for a in range(0, max(1, i.shape[0]), step):
+        pos = i[a:a + step, None]                        # [b, nodes]
+        for l in range(L):
+            b, m = pos.shape
+            nxt = Zc[l] + _level_all(wm, l, pos.reshape(-1))
+            keep = -(-sigma // RADIX ** (L - 1 - l))
+            pos = nxt.view(b, m * RADIX)[:, :keep]
+        out.append(pos - start)
+    return torch.cat(out) if len(out) > 1 else out[0]
 
 
 def lf_step(wm: WaveletRows, r: torch.Tensor):

@@ -25,6 +25,9 @@ go through two stable sorts, least significant first: word 3, then words
 1 and 2 packed into one int64 (word 1 shifted down by 2^31 so that signed
 order is unsigned order).  Doubling keys pack (rank, r2 + 1) into one
 int64: the +1 keeps ``pad_rank`` = -1 non-negative.
+
+The reference's ``_window_order_flag`` (a jitted entry with the
+lookahead static) has no caller there and is not carried over.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@
                           [--human-bwtonly 1] [--human-checks full]
                           [--alphabet-n 400000009] [--alphabet-mem 2G]
                           [--index-n 100000003]
-                          [--only all|human|alphabet|index]
+                          [--only all|human|alphabet|index|fasta]
 
 Phases, in order; any failure exits non-zero and no result line is
 printed:
@@ -44,7 +44,10 @@ printed:
    262,144 the locate's plain version on 8,192 lanes that the sort's SA
    places 1 to 512 steps before a sampled rank, the decode's on its 16
    lanes cut to 256 steps), each also held to the sort's SA and the
-   text; then, kernel only, the walk's step rate
+   text; on the wavelet rows over 5,000 and 65,536 symbols also
+   ``ops/rank.py::rank_all_symbols_batch`` (torch, no hand kernel) at
+   4,096 positions (0, n, block edges, random) against the per-symbol
+   ``rank`` on the same rows; then, kernel only, the walk's step rate
    on sector and bit-plane rows of 2^24 and 2^28 random symbols at 2^15
    to 2^18 lanes (rank rows inside and far past the L2);
 4. the gap-chain kernel (recording form and both anchor bounds) against
@@ -78,10 +81,18 @@ printed:
 7. the LF-walk kernel against its plain version at step 5's shapes, on
    sector rows (what the tools run) and, in turns within the same run,
    on bit-plane rows built from the same BWT;
-8. engine against engine at 16,777,259 symbols: ``bwtb3m engine=merge
-   mem=67108864`` (five blocks, three levels, a carried region) gives
-   the same .bwt/.hist/.preisa bytes as ``engine=doubling``; then
-   ``hwtToLCP checklcp=1`` on that build, its ``lcpbit``, ``checkLCPBit``
+8. the FASTA path, engine against engine at 16,777,259 symbols: the
+   text as a gzipped FASTA of 16 records (one lowercase, two N runs),
+   ``fagzToCompact4 rc=0 seed=42`` (its ``.meta`` must hold the N runs,
+   its compact the text's codes elsewhere); from that compact ``bwtb3m
+   inputtype=compactstream engine=merge mem=67108864`` (five blocks,
+   three levels, a carried region), ``engine=merge-legacy`` (mapped onto
+   the same engine) and ``engine=doubling`` give the same
+   .bwt/.hist/.preisa bytes; ``checkbwt`` (gok=1) of the merge-legacy
+   build, ``bwtcomputessa`` of the doubling build and
+   ``fa4suffixarraytocompact`` with the ``.meta``, whose (record, offset)
+   coordinates must decode to the ``.sa``'s positions; then ``hwtToLCP
+   checklcp=1`` on the doubling build, its ``lcpbit``, ``checkLCPBit``
    (lcpok=1) and ``checkLCPBit`` on a copy with one bit moved (lcpok=0,
    exit 1): the host oracle runs at this size, not at step 5's;
 9. the merge path at n = 400,000,009 (three blocks of the default
@@ -214,6 +225,12 @@ printed:
     BWT's ranks at 2^20 seeded positions; both visits at the path's
     shapes against their plain versions (sampled).  ``--only index``
     runs phases 1, 2, 3c and this one alone;
+    by hand, ``--only fasta`` runs phases 1, 2 and the FASTA path at the
+    genome path's size (``--genome-n`` 1,200,000,011, ``--genome-mem``
+    2G): the genome path's text as a gzipped FASTA of 24 records,
+    ``fagzToCompact4`` and ``fagzToCompact rc=1`` (host), ``bwtb3m
+    inputtype=compactstream bwtonly=1`` from the 2-bit compact and its
+    ``checkbwt`` (gok=1), with the tools' walls and the build's busy time;
 15. launch counts per path (> 0), kernel times against plain versions
     and bounds, per-phase wall and device time, peak device memory.
 
@@ -414,6 +431,35 @@ def make_text(n: int, seed: int):
             rng.integers(0, 4, int(mut.sum()))]
         text[dst:dst + ln] = seg
     return text
+
+
+def write_fasta(path, codes, nrec, lower):
+    """``codes`` (ACGT bytes) as a gzipped FASTA (level 1) of ``nrec``
+    records of 60-base lines, record ``lower`` in lowercase, an N run at
+    the start of record 3 and one inside record 10 of those records'
+    lengths / 1,000 and / 200.  Returns (record bounds, {record: N run as
+    (start, end) inside it})."""
+    import gzip
+    import numpy as np
+    n = len(codes)
+    bounds = np.linspace(0, n, nrec + 1).astype(np.int64)
+    r = int(bounds[1] - bounds[0])
+    runs = {2: (0, r // 1000), 9: (r // 3, r // 3 + r // 200)}
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        for k in range(nrec):
+            seq = codes[bounds[k]:bounds[k + 1]].copy()
+            if k in runs:
+                seq[runs[k][0]:runs[k][1]] = ord("N")
+            if k == lower:
+                seq += 32
+            full = len(seq) // 60
+            f.write(b">chr%d\n" % (k + 1))
+            f.write(np.concatenate([seq[:60 * full].reshape(full, 60),
+                                    np.full((full, 1), 10, np.uint8)],
+                                   1).tobytes())
+            if len(seq) > 60 * full:
+                f.write(seq[60 * full:].tobytes() + b"\n")
+    return bounds, runs
 
 
 def write_texts(jobs):
@@ -617,10 +663,14 @@ def main() -> int:
                     help="index path reference length (a chromosome; 0 "
                     "skips the path)")
     ap.add_argument("--only", default="all",
-                    choices=("all", "human", "alphabet", "index"),
+                    choices=("all", "human", "alphabet", "index", "fasta"),
                     help="human / alphabet: the environment, the kernel "
                     "build and that path alone; index: the locate and "
-                    "decode visits at 2^22 and the index path")
+                    "decode visits at 2^22 and the index path; fasta (by "
+                    "hand): the genome text as a gzipped FASTA through "
+                    "fagzToCompact4 and fagzToCompact rc=1, a build from "
+                    "the first and its checkbwt, at --genome-n and "
+                    "--genome-mem")
     args = ap.parse_args()
     t_start = time.monotonic()
     sys.meta_path.insert(0, _BlockJax())
@@ -646,11 +696,12 @@ def main() -> int:
     from bwtb3m_tpu_torch import native
     from bwtb3m_tpu_torch.apps import hamdna
     from bwtb3m_tpu_torch.cli import dispatch
+    from bwtb3m_tpu_torch.cli.prep import read_compact4_meta
     from bwtb3m_tpu_torch.index.bwa import read_bwa_bwt, read_bwa_sa
     from bwtb3m_tpu_torch.index.dnarank import DNARank
     from bwtb3m_tpu_torch.index.fm import FMIndex, decode_lanes
     from bwtb3m_tpu_torch.index.sampled import SampledISA
-    from bwtb3m_tpu_torch.io import formats
+    from bwtb3m_tpu_torch.io import compact, formats
     from bwtb3m_tpu_torch.io.pac import write_pac
     from bwtb3m_tpu_torch.engine import merge_scaled
     from bwtb3m_tpu_torch.engine.api import compute_bwt
@@ -671,6 +722,7 @@ def main() -> int:
     from bwtb3m_tpu_torch.ops.devzip import bits_for, rows_from_host_bwt
     from bwtb3m_tpu_torch.ops.doubling import suffix_array
     from bwtb3m_tpu_torch.ops.focc import access
+    from bwtb3m_tpu_torch.ops.rank import rank_all_symbols_batch
     from bwtb3m_tpu_torch.ops.focc_build import (build_focc_concat,
                                                  build_focc_device,
                                                  build_focc_from_packed,
@@ -2069,6 +2121,45 @@ def main() -> int:
                 SAMPLE_2_22[1] if long else None, warm=not long)
         return rec
 
+    RANK_ALL = {}
+
+    def rank_all_2_22(wm):
+        """``rank_all_symbols_batch`` (torch on the card, the level walk
+        over the wavelet rows) at 4,096 positions: 0, n, 3,000 at and
+        beside the 96-digit block edges, the rest random; against the
+        per-symbol ``rank`` (a descent per symbol and position, 2^24 pairs
+        a call) on the same rows, every pair."""
+        n, sigma = wm.n, wm.sigma
+        rng = np.random.default_rng(args.seed + 19)
+        edges = (96 * rng.integers(1, n // 96, 1000))[:, None] + [-1, 0, 1]
+        pos = np.concatenate([[0, n], edges.reshape(-1),
+                              rng.integers(0, n + 1, 4096 - 3002)])
+        i = torch.from_numpy(pos).to(dev)
+        got, ms = timed(lambda: rank_all_symbols_batch(wm, i))
+        cs = max(1, (1 << 24) // len(pos))
+
+        def per_symbol():
+            return torch.cat([wr.rank(wm, torch.arange(
+                a, min(a + cs, sigma), device=dev).repeat(len(pos)),
+                i.repeat_interleave(min(a + cs, sigma) - a)).view(
+                    len(pos), -1) for a in range(0, sigma, cs)], 1)
+
+        want, plain_ms = timed(per_symbol, warm=False)
+        err = max_err(got, want)
+        reads = sum(-(-sigma // wr.RADIX ** (wm.levels - l))
+                    for l in range(wm.levels))
+        say("rank_all_symbols_batch (torch, level walk), wavelet rows "
+            "n=2^22 sigma=%d, %d positions: max_abs_err %d, %.3f ms; the "
+            "per-symbol rank %.3f ms; %d block reads a position (a descent "
+            "per symbol: %d) [%s]" % (sigma, len(pos), err, ms, plain_ms,
+                                      reads, sigma * wm.levels, smi))
+        if err or tuple(got.shape) != (len(pos), sigma):
+            raise AssertionError("rank_all_symbols_batch disagrees with "
+                                 "the per-symbol rank at sigma %d" % sigma)
+        del got, want
+        return {"max_abs_err": err, "ms": ms, "per_symbol_rank_ms": plain_ms,
+                "positions": len(pos), "reads_per_position": reads}
+
     def index_2_22():
         """Phase a: both visits on every row family at n = 2^22: sector
         and bit-plane rows (sigma 4), bit-plane rows (sigma 7), byte rows
@@ -2111,6 +2202,8 @@ def main() -> int:
                                  .to(dev))
             out["sigma=%d wavelet" % sigma] = visits_2_22(
                 wm, sa, isa, t16, "sigma %d" % sigma)
+            if sigma > 300:
+                RANK_ALL[sigma] = rank_all_2_22(wm)
             del wm, t16
             say("phase 3c, sigma %d: %.3f s" % (sigma, time.monotonic() - t0))
         say("phase 3c (the visits at 2^22): %.3f s" % (time.monotonic()
@@ -2455,13 +2548,16 @@ def main() -> int:
                 "layout": rec["layout"], "main": rec, **extra})
         return rows
 
-    if args.only == "index":
-        idx22 = index_2_22()
-        ipath = index_path(args.index_n)
+    def say_tools():
         for name, wall, busy in tools:
             say("tool %-36s wall %.3f s, device busy %s [%s]"
                 % (name, wall, "not measured" if busy is None
                    else "%.3f s" % busy, smi))
+
+    def finish(kernels=None):
+        """The report's tail in every mode: no module of JAX or of the
+        JAX package loaded, the time to the report, the nvidia-smi line,
+        the kernels line (where given) and the result line."""
         loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         if loaded:
             raise AssertionError("JAX or the JAX package was imported: %s"
@@ -2469,42 +2565,99 @@ def main() -> int:
         say("chip_smoke.py: %.3f s from its start to the report [%s]"
             % (time.monotonic() - t_start, smi))
         say(smi)
-        say(json.dumps({"kernels": index_kernels(
-            ipath, idx22, {"cases_2^22": idx22})}))
+        if kernels is not None:
+            say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if args.only == "index":
+        idx22 = index_2_22()
+        ipath = index_path(args.index_n)
+        say_tools()
+        return finish(index_kernels(ipath, idx22, {"cases_2^22": idx22}))
+
     if args.only == "alphabet":
         alpha = alphabet_path(args.alphabet_n, args.alphabet_mem)
-        for name, wall, busy in tools:
-            say("tool %-36s wall %.3f s, device busy %s [%s]"
-                % (name, wall, "not measured" if busy is None
-                   else "%.3f s" % busy, smi))
+        say_tools()
         alphabet_report(alpha)
-        loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
-        if loaded:
-            raise AssertionError("JAX or the JAX package was imported: %s"
-                                 % loaded)
-        say("chip_smoke.py: %.3f s from its start to the report [%s]"
-            % (time.monotonic() - t_start, smi))
-        say(smi)
-        say(json.dumps({"kernels": alphabet_kernels(alpha)}))
-        say(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
+        return finish(alphabet_kernels(alpha))
+
+    def fasta_path(n, mem):
+        """By hand (``--only fasta``): the genome path's text
+        (``make_text(n, seed + 11)``) as a gzipped FASTA of 24 records
+        (``write_fasta``), ``fagzToCompact4`` (its ``.meta`` held to the
+        records and N runs written) and ``fagzToCompact rc=1`` (its
+        length held to 2 (n + 24)) on the host, then ``bwtb3m
+        inputtype=compactstream bwtonly=1 mem=<mem>`` from the 2-bit
+        compact and ``checkbwt`` of that build in the same process
+        (gok=1); the tools' walls, the build's busy time."""
+        os.makedirs(WORK, exist_ok=True)
+        t0 = time.monotonic()
+        codes = make_text(n, args.seed + 11)
+        say("genome text: n=%d made in %.3f s (host)"
+            % (n, time.monotonic() - t0))
+        fa = os.path.join(WORK, "genome.fa.gz")
+        t0 = time.monotonic()
+        bounds, runs = write_fasta(fa, codes, 24, lower=5)
+        del codes
+        say("FASTA: 24 records (record 6 lowercase, N runs %s), %d bytes "
+            "at gzip level 1, written in %.3f s (host) [%s]"
+            % (runs, os.path.getsize(fa), time.monotonic() - t0, smi))
+        c4 = os.path.join(WORK, "genome.c4")
+        rc, _, _ = run_tool("fagzToCompact4 rc=0 seed=42 n=%d" % n, [
+            "fagzToCompact4", "verbose=0", "outputfilename=" + c4, fa],
+            profile=False)
+        lens = np.diff(bounds)
+        if rc != 0 or read_compact4_meta(c4 + ".meta") != [
+                (int(lens[k]), [runs[k]] if k in runs else [])
+                for k in range(24)]:
+            raise AssertionError("fagzToCompact4 failed or its .meta does "
+                                 "not hold the records and N runs")
+        c3 = os.path.join(WORK, "genome.c3")
+        rc, _, _ = run_tool("fagzToCompact rc=1 n=%d" % n, [
+            "fagzToCompact", "rc=1", "verbose=0", "outputfilename=" + c3,
+            fa], profile=False)
+        if rc != 0 or compact.compact_length(c3) != 2 * (n + 24):
+            raise AssertionError("fagzToCompact rc=1 failed or wrote a "
+                                 "compact of the wrong length")
+        os.remove(c3)
+        bwt = os.path.join(WORK, "genome.bwt")
+        torch.cuda.reset_peak_memory_stats()
+        rc, _, phases = run_tool(
+            "bwtb3m inputtype=compactstream bwtonly=1 mem=%d n=%d"
+            % (mem, n), ["bwtb3m", "inputtype=compactstream", "bwtonly=1",
+                         "mem=%d" % mem, "device=cuda",
+                         "outputfilename=" + bwt, c4])
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise AssertionError("bwtb3m from the compact failed")
+        rc, out, _ = run_tool("checkbwt inputtype=compactstream n=%d" % n, [
+            "checkbwt", "inputtype=compactstream", "device=cuda", c4, bwt])
+        if rc != 0 or "gok=1" not in out:
+            raise AssertionError("checkbwt of the FASTA build did not print "
+                                 "gok=1")
+        for name, (wall, dev_s, _span) in sorted(phases.items(),
+                                                  key=lambda kv: -kv[1][0]):
+            say("FASTA build phase %-18s wall %.3f s, device busy %s [%s]"
+                % (name, wall, "%.3f s" % dev_s if dev_s
+                   else "not measured", smi))
+        say("peak device memory: FASTA build %.3f GiB [%s]"
+            % (peak / 2 ** 30, smi))
+
+    if args.only == "fasta":
+        fasta_path(args.genome_n, args.genome_mem)
+        shutil.rmtree(WORK, ignore_errors=True)
+        say_tools()
+        return finish()
 
     if args.only == "human":
         human = human_path(args.human_n, args.human_mem, args.human_hostmem,
                            args.human_bwtonly, args.human_checks)
         shutil.rmtree(WORK, ignore_errors=True)
         shutil.rmtree(TEXTS, ignore_errors=True)
-        for name, wall, busy in tools:
-            say("tool %-36s wall %.3f s, device busy %s [%s]"
-                % (name, wall, "not measured" if busy is None
-                   else "%.3f s" % busy, smi))
+        say_tools()
         for name, (wall, dev_s, _span) in sorted(human["phases"].items(),
                                                   key=lambda kv: -kv[1][0]):
             say("human-genome build phase %-18s wall %.3f s, device busy %s "
@@ -2513,13 +2666,7 @@ def main() -> int:
         say("peak device memory: human-genome build %.3f GiB, path %.3f GiB "
             "[%s]" % (human["peak_build"] / 2 ** 30,
                       human.get("peak", 0) / 2 ** 30, smi))
-        say("chip_smoke.py: %.3f s from its start to the report [%s]"
-            % (time.monotonic() - t_start, smi))
-        say(smi)
-        say(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
+        return finish()
     LAYOUTS_OF = {4: ("sector", "bitplane"), 7: ("bitplane",),
                   200: ("bytes",)}
 
@@ -3036,32 +3183,94 @@ def main() -> int:
     os.makedirs(WORK)
 
     lap("8")
-    # ---- 8. merge engine against the doubling engine at 2^24 + 43 ------
+    # ---- 8. the FASTA path: three engines at 2^24 + 43 -------------------
     n8 = 16_777_259
-    inp8 = os.path.join(WORK, "mid.bin")
-    make_text(n8, args.seed + 8).tofile(inp8)
+    codes8 = make_text(n8, args.seed + 8)
+    fa8 = os.path.join(WORK, "mid.fa.gz")
+    t0 = time.monotonic()
+    bounds8, runs8 = write_fasta(fa8, codes8, 16, lower=5)
+    say("FASTA: n=%d in 16 records (record 6 lowercase, N runs %s), "
+        "gzip level 1, written in %.3f s (host)"
+        % (n8, runs8, time.monotonic() - t0))
+    c4 = os.path.join(WORK, "mid.c4")
+    rc, _, _ = run_tool("fagzToCompact4 rc=0 seed=42 n=%d" % n8, [
+        "fagzToCompact4", "rc=0", "seed=42", "verbose=0",
+        "outputfilename=" + c4, fa8], profile=False)
+    lens8 = np.diff(bounds8)
+    meta4 = read_compact4_meta(c4 + ".meta")
+    if rc != 0 or meta4 != [(int(lens8[k]), [runs8[k]] if k in runs8
+                             else []) for k in range(16)]:
+        raise AssertionError("fagzToCompact4's .meta does not hold the "
+                             "records and N runs written")
+    t0 = time.monotonic()
+    sym8, bits8 = compact.read_compact(c4)
+    keep8 = np.ones(n8, bool)
+    for k, (a, b) in runs8.items():
+        keep8[bounds8[k] + a:bounds8[k] + b] = False
+    if bits8 != 2 or not np.array_equal(
+            sym8[keep8], np.searchsorted(np.frombuffer(b"ACGT", np.uint8),
+                                         codes8[keep8])):
+        raise AssertionError("the compact does not hold the text's codes "
+                             "outside the N runs")
+    del sym8, keep8, codes8
+    say("fagzToCompact4: .meta holds the 16 records and both N runs, the "
+        "compact the text's codes elsewhere (checked in %.3f s)"
+        % (time.monotonic() - t0))
     outs = {}
-    for eng, extra in (("merge", ["mem=67108864"]), ("doubling", [])):
+    reset_counts()
+    for eng, extra in (("merge", ["mem=67108864"]), ("doubling", []),
+                       ("merge-legacy", ["mem=67108864"])):
         outs[eng] = os.path.join(WORK, "mid_%s.bwt" % eng)
-        rc, _, _ = run_tool("bwtb3m engine=%s n=%d" % (eng, n8), [
-            "bwtb3m", "inputtype=bytestream", "bwtonly=1", "device=cuda",
-            "engine=" + eng, "outputfilename=" + outs[eng], *extra, inp8])
+        rc, _, _ = run_tool("bwtb3m inputtype=compactstream engine=%s n=%d"
+                            % (eng, n8), [
+            "bwtb3m", "inputtype=compactstream", "bwtonly=1", "device=cuda",
+            "engine=" + eng, "outputfilename=" + outs[eng], *extra, c4],
+            profile=eng != "merge-legacy")
         if rc != 0:
             raise AssertionError("bwtb3m engine=%s failed" % eng)
     for ext in ("bwt", "hist", "preisa"):
-        a, b = (open(outs[e][:-4] + "." + ext, "rb").read()
-                for e in ("merge", "doubling"))
-        if a != b:
-            raise AssertionError(".%s of engine=merge differs from "
-                                 "engine=doubling" % ext)
+        a, b, c = (open(outs[e][:-4] + "." + ext, "rb").read()
+                   for e in ("merge", "doubling", "merge-legacy"))
+        if not a == b == c:
+            raise AssertionError(".%s of engine=merge, doubling and "
+                                 "merge-legacy differ" % ext)
     say("engine=merge (mem=67108864: 5 blocks, 3 levels) == engine=doubling "
-        "at n=%d: .bwt .hist .preisa byte-identical" % n8)
+        "== engine=merge-legacy at n=%d from fagzToCompact4's compact: "
+        ".bwt .hist .preisa byte-identical" % n8)
+    rc, out, _ = run_tool("checkbwt inputtype=compactstream n=%d" % n8, [
+        "checkbwt", "inputtype=compactstream", "device=cuda", c4,
+        outs["merge-legacy"]], profile=False)
+    if rc != 0 or "gok=1" not in out:
+        raise AssertionError("checkbwt of the compact did not print gok=1")
+    base8 = outs["doubling"][:-4]
+    rc, _, _ = run_tool("bwtcomputessa (FASTA path) n=%d" % n8, [
+        "bwtcomputessa", "sasamplingrate=32", "isasamplingrate=262144",
+        "device=cuda", outs["doubling"]], profile=False)
+    path_counts["FASTA path"] = counts()
+    say("FASTA path launches: %s" % path_counts["FASTA path"])
+    if rc != 0 or path_counts["FASTA path"]["lf_walk"] < 1 \
+            or path_counts["FASTA path"]["gap_chain_mk"] < 1:
+        raise AssertionError("the FASTA path failed or never launched the "
+                             "LF-walk and gap-chain kernels")
+    rc, _, _ = run_tool("fa4suffixarraytocompact n=%d" % n8, [
+        "fa4suffixarraytocompact", "verbose=0",
+        "outputfilename=" + base8 + ".fa4c", base8 + ".sa", c4 + ".meta"],
+        profile=False)
+    coords, _bits = compact.read_compact(base8 + ".fa4c")
+    obits = max(1, int(lens8.max() - 1).bit_length())
+    _rate, sa8 = formats.read_sampled_array(base8 + ".sa")
+    if rc != 0 or not np.array_equal(
+            bounds8[coords >> obits] + (coords & ((1 << obits) - 1)), sa8):
+        raise AssertionError("fa4suffixarraytocompact's coordinates do not "
+                             "decode to the .sa's positions")
+    say("fa4suffixarraytocompact: %d (record, offset) coordinates of %d "
+        "offset bits decode to the .sa's positions" % (len(coords), obits))
+    del coords, sa8
     # hwtToLCP on that build: .ulcp, .lcp, .rmm and checklcp=1 (the host
     # oracle over the same SA, and the .lcp read back)
     reset_counts()
     rc, _, _ = run_tool("hwtToLCP checklcp=1 n=%d" % n8, [
         "hwtToLCP", "checklcp=1", "device=cuda", outs["doubling"]])
-    base8 = outs["doubling"][:-4]
     if rc != 0 or "checklcp ok" not in run_tool.log or not all(
             os.path.getsize(base8 + ext) for ext in (".ulcp", ".lcp", ".rmm")):
         raise AssertionError("hwtToLCP checklcp=1 failed")
@@ -3697,10 +3906,7 @@ def main() -> int:
 
     lap("12")
     # ---- 12. report -----------------------------------------------------
-    for name, wall, busy in tools:
-        say("tool %-36s wall %.3f s, device busy %s [%s]"
-            % (name, wall, "not measured" if busy is None
-               else "%.3f s" % busy, smi))
+    say_tools()
     for name, (wall, dev_s, span_s) in sorted(merge_phases.items(),
                                               key=lambda kv: -kv[1][0]):
         say("merge build phase %-18s wall %.3f s, device busy %s, device "
@@ -3724,14 +3930,13 @@ def main() -> int:
            (glcp or {}).get("peak_device_bytes", 0) / 2 ** 30,
            human.get("peak_build", 0) / 2 ** 30,
            human.get("peak", 0) / 2 ** 30, smi))
+    for sigma, rec in sorted(RANK_ALL.items()):
+        say("rank_all_symbols_batch (torch, no hand kernel), wavelet rows "
+            "n=2^22 sigma=%d: %s [%s]" % (sigma, json.dumps(rec), smi))
     if alpha:
         alphabet_report(alpha)
     shutil.rmtree(WORK, ignore_errors=True)
     shutil.rmtree(TEXTS, ignore_errors=True)
-    loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
-    if loaded:
-        raise AssertionError("JAX or the JAX package was imported: %s"
-                             % loaded)
     kernels = []
     for name, per_layout, extra in (
             ("lf_walk", lf_merge,
@@ -3803,14 +4008,7 @@ def main() -> int:
                   "forced_wide_400M_locate": fw_locate}
         kernels.extend(index_kernels(gidx or ipath, others, {
             "genome_path": gidx, **others}))
-    say("chip_smoke.py: %.3f s from its start to the report [%s]"
-        % (time.monotonic() - t_start, smi))
-    say(smi)
-    say(json.dumps({"kernels": kernels}))
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return finish(kernels)
 
 
 if __name__ == "__main__":

@@ -4,10 +4,11 @@
   JAX package ``bwtb3m_tpu`` made to fail, and no file of the port
   imports any of them;
 - ``device=cuda`` without CUDA raises instead of running on the CPU;
-- paths that are not ported yet raise ``NotImplementedError`` (or, on
-  the CLI, exit 2 naming their ROADMAP.md item), and the ones this
-  refusal once covered run (``bwtcodec=rlh``, the tools past 256
-  symbols, the index tools and applications);
+- paths that are not ported yet raise ``NotImplementedError`` naming
+  their ROADMAP.md item, and the ones this refusal once covered run
+  (``bwtcodec=rlh``, the tools past 256 symbols, the index tools and
+  applications, the compact-file tools, ``engine=merge-legacy`` up to
+  65,536 distinct symbols);
 - a kernel build without ``nvcc`` raises.
 """
 
@@ -85,6 +86,14 @@ assert dispatch(["probeScanDna", "device=cpu", "mode=occ", "k=8",
 assert dispatch(["hwtToRlHwt", "verify=1", "verbose=0", pac + ".bwt"]) == 0
 assert dispatch(["bwtb3mtobwa", "verbose=0", pac + ".bwt", pac + ".b.bwt",
                  pac + ".b.sa"]) == 0
+gfa = inp + ".g.fa"
+open(gfa, "w").write(">a\nACGTNNacgtTTGA\n>b\nGGCATN\n")
+assert dispatch(["fagzToCompact4", "verbose=0", gfa]) == 0
+assert dispatch(["bwtb3m", "device=cpu", "verbose=0", "engine=merge-legacy",
+                 "inputtype=compactstream", "outputfilename=" + gfa + ".bwt",
+                 gfa + ".compact4"]) == 0
+assert dispatch(["fa4suffixarraytocompact", "verbose=0", gfa + ".sa",
+                 gfa + ".compact4.meta"]) == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "bwtb3m_tpu"))
 assert not loaded, loaded
@@ -140,15 +149,24 @@ def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"engine": "merge-legacy"}, "item 10"),
+    ({"engine": "merge-legacy", "input_type": "utf-8"}, "item 11"),
     ({"engine": "sharded"}, "item 9"),
 ])
 def test_unported_build_paths_raise(tmp_path, monkeypatch, kw, match):
+    """``engine=sharded`` raises naming item 9; ``engine=merge-legacy``,
+    which runs the scaled engine, raises naming item 11 on 65,537
+    distinct code points, where the reference's legacy engine runs."""
     kw = dict(kw)
     if "env" in kw:
         monkeypatch.setenv(kw.pop("env"), "1")
-    opts = BwtOptions(input_path=_dna(tmp_path), device="cpu", verbose=0,
-                      **kw)
+    if kw.get("input_type") == "utf-8":
+        p = tmp_path / "wide.txt"
+        p.write_text("".join(map(chr, range(0x10000, 0x10000 + 65537))),
+                     encoding="utf-8")
+        inp = str(p)
+    else:
+        inp = _dna(tmp_path)
+    opts = BwtOptions(input_path=inp, device="cpu", verbose=0, **kw)
     with pytest.raises(NotImplementedError, match=match):
         compute_bwt(opts)
 
@@ -240,24 +258,23 @@ def test_sigma_above_256_checks_raise(tmp_path):
 
 
 def test_cli_refuses_unported_tools(capsys):
-    """The ten compact-file tools of item 8c exit 2; the index tools and
-    applications (ported with the FM index) print their usage."""
-    from bwtb3m_tpu_torch.cli import NOT_PORTED, TOOLS
-    assert sorted(NOT_PORTED) == sorted([
-        "arraytocompact", "fa4suffixarraytocompact", "fagzToCompact",
-        "fagzToCompact4", "fagzToCompactUTerm", "fagzToCompact4BigBand",
-        "fagzToCompact4BigBandBiDir", "digitsToCompact", "decodecompact",
-        "bytestreamToLz4"])
-    assert len(TOOLS) + len(NOT_PORTED) == 29
-    assert dispatch(["fagzToCompact", "x"]) == 2
-    assert "ROADMAP.md Queue 1 item 8" in capsys.readouterr().err
-    assert dispatch(["arraytocompact", "x"]) == 2
-    for name in ("probeScanDna", "allHamDna", "bwtb3mdecoderl",
-                 "bwtdecodeblock", "bwttohwt", "hwtToRlHwt", "bwttodnarank",
-                 "bwttodnarank256", "bwtb3mtobwa"):
+    """Every one of the reference package's 29 tools is ported (the ten
+    compact-file tools of item 8c were the last); each prints its usage
+    without arguments, and an unknown tool exits 1."""
+    from bwtb3m_tpu.cli import TOOLS as JAX_TOOLS, load_all
+    from bwtb3m_tpu_torch import cli
+    load_all()
+    assert len(JAX_TOOLS) == 29
+    assert sorted(cli.TOOLS) == sorted(JAX_TOOLS)
+    assert not hasattr(cli, "NOT_PORTED")
+    for name in ("fagzToCompact", "arraytocompact", "probeScanDna",
+                 "allHamDna", "bwtb3mdecoderl", "bwtdecodeblock", "bwttohwt",
+                 "hwtToRlHwt", "bwttodnarank", "bwttodnarank256",
+                 "bwtb3mtobwa"):
         assert dispatch([name]) == 1, name
         assert "usage" in capsys.readouterr().err
     assert dispatch(["no-such-tool"]) == 1
+    assert "unknown tool" in capsys.readouterr().err
 
 
 def test_build_without_nvcc_raises(monkeypatch):

@@ -781,3 +781,71 @@ def test_decode_kernel_matches_plain(cuda, kind, sigma, layout):
             np.take(text, (start + np.arange(length)) % n))
     ranks = np.random.default_rng(sigma).integers(0, n, 5000)
     np.testing.assert_array_equal(fm.locate_batch(ranks), sa[ranks])
+
+
+@pytest.mark.parametrize("sigma", [300, 5000, 65536])
+def test_rank_all_symbols_batch_on_card(cuda, sigma):
+    """``ops/rank.py::rank_all_symbols_batch`` (torch, the level walk over
+    wavelet rows) on the card: every column the per-symbol ``rank`` of
+    the same rows, and the CPU's result."""
+    from bwtb3m_tpu_torch.ops import wavelet_rows as wr
+    from bwtb3m_tpu_torch.ops.rank import rank_all_symbols_batch
+    n = 20011
+    rng = np.random.default_rng(sigma)
+    bwt = rng.integers(0, sigma, n).astype(np.int32)
+    pos = np.r_[0, n, 95, 96, 97, rng.integers(0, n + 1, 59)]
+    wm = wr.build_wavelet_host(bwt, sigma, cuda)
+    got = rank_all_symbols_batch(wm, torch.from_numpy(pos).to(cuda))
+    assert got.is_cuda
+    i = torch.from_numpy(pos).to(cuda).repeat_interleave(sigma)
+    c = torch.arange(sigma, device=cuda).repeat(len(pos))
+    assert torch.equal(got, wr.rank(wm, c, i).view(len(pos), sigma))
+    cpu = rank_all_symbols_batch(wr.build_wavelet_host(bwt, sigma, "cpu"),
+                                 torch.from_numpy(pos))
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_fasta_pipeline_and_merge_legacy_on_card(cuda, tmp_path):
+    """fagzToCompact4, then ``bwtb3m inputtype=compactstream`` on the card
+    with ``engine=merge-legacy``, ``merge`` and ``doubling`` (the same
+    .bwt/.hist/.preisa bytes), ``bwtcomputessa`` and
+    ``fa4suffixarraytocompact``, whose coordinates decode to the .sa."""
+    import gzip
+    from bwtb3m_tpu_torch.cli import dispatch
+    from bwtb3m_tpu_torch.cli.prep import read_compact4_meta
+    from bwtb3m_tpu_torch.io import compact, formats
+    rng = np.random.default_rng(8)
+    seqs = [rng.choice(np.frombuffer(b"ACGTN", np.uint8), 20000,
+                       p=[.24, .24, .24, .24, .04]).tobytes()
+            for _ in range(3)]
+    fa = str(tmp_path / "g.fa.gz")
+    with gzip.open(fa, "wb") as f:
+        for k, s in enumerate(seqs):
+            f.write(b">r%d\n%s\n" % (k, s))
+    c4 = str(tmp_path / "g.c4")
+    assert dispatch(["fagzToCompact4", "verbose=0", "outputfilename=" + c4,
+                     fa]) == 0
+    bwts = {}
+    for eng in ("merge-legacy", "merge", "doubling"):
+        bwts[eng] = str(tmp_path / ("%s.bwt" % eng))
+        assert dispatch(["bwtb3m", "inputtype=compactstream", "bwtonly=1",
+                         "verbose=0", "device=cuda", "engine=" + eng,
+                         "mem=65536", "outputfilename=" + bwts[eng],
+                         c4]) == 0
+    for ext in (".bwt", ".hist", ".preisa"):
+        got = {open(b[:-4] + ext, "rb").read() for b in bwts.values()}
+        assert len(got) == 1, ext
+    bwt = bwts["merge-legacy"]
+    assert dispatch(["bwtcomputessa", "sasamplingrate=8", "verbose=0",
+                     "device=cuda", bwt]) == 0
+    out = str(tmp_path / "g.fa4c")
+    assert dispatch(["fa4suffixarraytocompact", "verbose=0",
+                     "outputfilename=" + out, bwt[:-4] + ".sa",
+                     c4 + ".meta"]) == 0
+    lens = np.array([s for s, _ in read_compact4_meta(c4 + ".meta")])
+    coords, _bits = compact.read_compact(out)
+    obits = max(1, int(lens.max() - 1).bit_length())
+    _rate, sa = formats.read_sampled_array(bwt[:-4] + ".sa")
+    np.testing.assert_array_equal(
+        np.r_[0, np.cumsum(lens)][coords >> obits]
+        + (coords & ((1 << obits) - 1)), sa)

@@ -29,7 +29,7 @@ from bwtb3m_tpu.engine.ssa import _select_chunk
 from bwtb3m_tpu.engine.ssa import select_ssa as jax_select_ssa
 from bwtb3m_tpu.ops.doubling import suffix_array as jax_suffix_array
 from bwtb3m_tpu.ops.focc_build import build_focc_host as jax_build_focc
-from bwtb3m_tpu_torch.cli import NOT_PORTED, TOOLS, dispatch
+from bwtb3m_tpu_torch.cli import TOOLS, dispatch
 from bwtb3m_tpu_torch.engine import (BwtOptions, compute_bwt,
                                      compute_isa_from_preisa,
                                      compute_sa_device, select_ssa)
@@ -206,10 +206,16 @@ def test_sort_preisa_and_sasubsample_match_reference_tools(tmp_path):
 
 
 def test_tools_are_listed_as_ported():
-    for name in ("hwtPreIsaToIsa", "sortPreIsa", "sasubsample",
-                 "bwtcomputessa", "bwtdecodeblock", "bwtb3mtobwa"):
-        assert name in TOOLS and name not in NOT_PORTED
-    assert len(NOT_PORTED) == 10
+    assert sorted(TOOLS) == sorted([
+        "bwtb3m", "checkbwt", "bwtcomputessa", "hwtPreIsaToIsa",
+        "sortPreIsa", "sasubsample", "lcpbit", "hwtToLCP", "checkLCPBit",
+        "bwttestdecodespeed", "bwtdecodeblock", "bwtb3mdecoderl",
+        "probeScanDna", "allHamDna", "bwttohwt", "hwtToRlHwt",
+        "bwttodnarank", "bwttodnarank256", "bwtb3mtobwa", "arraytocompact",
+        "fa4suffixarraytocompact", "fagzToCompact", "fagzToCompact4",
+        "fagzToCompactUTerm", "fagzToCompact4BigBand",
+        "fagzToCompact4BigBandBiDir", "digitsToCompact", "decodecompact",
+        "bytestreamToLz4"])
 
 
 def _bitmap(marks, n):
