@@ -15,7 +15,9 @@
 //                    report that rank and the steps taken
 //   Visit::kDecode   bwtb3m_tpu/index/fm.py::FMIndex.extract (bwtdecodeblock):
 //                    the verify visit with its comparison replaced by a
-//                    store of each emitted symbol at its text offset
+//                    store of each emitted symbol at its text offset, on
+//                    a lane at every ISA and .sa sample of the range
+//                    (index/fm.py::decode_lanes_sa)
 //   lf_select        bwtb3m_tpu/engine/ssa.py::_select_chunk: walk until the
 //                    current rank's bit is set in a bitmap of the .preisa
 //                    ranks, report that rank and the steps taken.  Its own
@@ -95,10 +97,29 @@ enum class Visit { kNone, kVerify, kHarvest, kLocate, kDecode };
 // stretches.  Each lane walks to its end; on a BWT whose LF is one cycle
 // of n ranks it meets rank 0 within n - 1 steps, so a lane still walking
 // after n steps (LF of several cycles: not the BWT of a primitive text)
-// stops and reports -1 instead of walking forever.  One thread a lane, as
-// the other visits: lanes end at different steps and the block keeps its
-// SM slot until its longest lane ends (refilling lanes, as bwt_lf_select
-// does, is not done here).
+// stops and reports -1 instead of walking forever.
+//
+// The locate and decode visits run one thread a lane, as the others:
+// lanes end at different steps and a block keeps its SM slot until its
+// longest lane ends.  A persistent grid whose threads take the next lane
+// from a counter as theirs ends (bwt_lf_select's loop) was measured in
+// turns against it, in four forms (the select loop; with the lane after
+// a thread's own taken and loaded ahead; with each lane walked in a loop
+// of its own; lanes in a fixed order, no counter) at 1, 2, 4 and 8
+// blocks per SM (chip_ab.py --only fm, PERF.md; NVIDIA H100 80GB HBM3,
+// 700 W).  None won: at 1.2 G symbols 2^20 locate lanes took 1.11-1.43
+// ms against 1.02-1.03 ms, the decode's 524,356 lanes 1.15-1.48 ms
+// against 1.19-1.22 ms, and at 2^22 16,384 locate lanes of 10^5-10^6
+// steps 282-520 ms against 262 ms.  Past the L2 one thread a lane
+// already keeps the card at its rate of random sector reads, and a loop
+// that takes lanes adds to every step (the counter's atomics, each new
+// lane's start loads, the convergence barriers around a warp-synchronous
+// take: cuobjdump -sass).  What held the decode visit back was its lanes:
+// one per ISA sample, 65 lanes of up to 262,144 steps for 2^24 symbols
+// at 1.2 G, each at its step latency (193 ms).  Its lanes now start at
+// the .sa samples too: 524,356 lanes of 32 steps on average and 405 at
+// most, 1.2-1.5 ms; its scattered byte stores take 13% of that (0.94 ms
+// with them masked), so the row reads set its pace.
 
 // The lanes and what a step visits.  Lane i starts at rank r0[i] (and, for
 // a visit, at text position p0[i]) and takes seg_len[i] steps.  I is the

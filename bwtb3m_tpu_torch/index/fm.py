@@ -18,8 +18,10 @@ wavelet rows past 256 symbols), taken from ``BwtResult.load_focc`` /
 constructed from a ranker, built from its symbols.  ``rank``, ``step``,
 ``extended_lf``, ``backward_search`` and ``count`` are batched torch
 (``ops/lf.py``); ``locate_batch`` is one launch of the LF-walk kernel's
-locate visit and ``extract`` one of its decode visit
-(``ops/lf_walk.py``; their plain versions on the CPU).  Symbols in and
+locate visit and ``extract`` one of its decode visit (``ops/lf_walk.py``;
+their plain versions on the CPU), on lanes that start at the sampled ISA
+and, where the index has one, at every sampled SA position in the range
+(``decode_lanes_sa``).  Symbols in and
 out are the ``.bwt`` file's (``load_bwt()``'s): the rows hold dense ids
 and map back through their symbol map.  Answers are numpy arrays, as the
 reference's.
@@ -84,6 +86,41 @@ def decode_lanes(isa: SampledISA, n: int, start: int, length: int):
     seg = np.diff(np.concatenate([[start], x]))
     p0 = x % n
     return isa.values[p0 // rate], p0, seg
+
+
+def decode_lanes_sa(isa: SampledISA, sa_values: torch.Tensor, sa_rate: int,
+                    n: int, start: int, length: int):
+    """(ranks, positions, segment lengths) as int64 tensors on
+    ``sa_values``' device: the decode walk of text [start, start +
+    length) as ``decode_lanes`` plans it, with a lane more at every .sa
+    sample whose position lies in (start, A] (unwrapped, A the last lane
+    of ``decode_lanes``; a position in it twice where the range takes n
+    symbols): sample i is rank i * sa_rate at position sa_values[i].  A
+    position held by an ISA and an SA sample keeps one lane; each lane
+    walks back to the previous lane's position or to start.  Built with
+    torch on the samples' device, one masked compaction of the samples
+    and one sort of the survivors: at rate 32 a range of L symbols gets
+    about L / 32 lanes of 32 steps on average."""
+    r_isa, _p, seg_isa = decode_lanes(isa, n, start, length)
+    dev = sa_values.device
+    x = start + np.cumsum(seg_isa)               # unwrapped positions
+    span = int(x[-1]) - start                    # A - start, below 2n
+    # sample i lies at unwrapped start + 1 + d[i] and, a lap on, + n
+    d = (sa_values - (start + 1)).remainder_(n)
+    xs = [torch.from_numpy(x).to(dev)]
+    rs = [torch.from_numpy(r_isa).to(dev)]
+    for lap in (0, n):
+        if span > lap:
+            i = torch.nonzero(d < span - lap).squeeze(1)
+            xs.append(d[i] + (start + 1 + lap))
+            rs.append(i * sa_rate)
+    del d
+    x, order = torch.sort(torch.cat(xs), stable=True)
+    r = torch.cat(rs)[order]
+    keep = torch.ones_like(x, dtype=torch.bool)
+    keep[1:] = x[1:] != x[:-1]
+    x, r = x[keep], r[keep]
+    return r, x % n, torch.diff(x, prepend=x.new_tensor([start]))
 
 
 class FMIndex:
@@ -246,9 +283,7 @@ class FMIndex:
         if int(steps.min()) < 0:
             raise AssertionError("a locate walk met no sampled rank within "
                                  "n steps: the LF map is not one cycle")
-        if self._sa_dev is None:
-            self._sa_dev = torch.from_numpy(self.sa.values).to(self.device)
-        pos = (self._sa_dev[r_end // rate] + steps) % self.n
+        pos = (self._sa_values()[r_end // rate] + steps) % self.n
         self.last_locate = {"lanes": len(r), "steps": int(steps.sum()),
                             "longest": longest}
         return pos.cpu().numpy()
@@ -256,11 +291,31 @@ class FMIndex:
     def locate_range(self, lo: int, hi: int) -> np.ndarray:
         return np.sort(self.locate_batch(np.arange(lo, hi)))
 
+    def _sa_values(self) -> torch.Tensor:
+        """The sampled SA on the index's device, kept after the first
+        call (locate and decode share it)."""
+        if self._sa_dev is None:
+            self._sa_dev = torch.from_numpy(self.sa.values).to(self.device)
+        return self._sa_dev
+
+    def decode_plan(self, start: int, length: int):
+        """The decode walk's lanes (ranks, positions, segment lengths as
+        tensors on the index's device) of text [start, start + length),
+        0 <= start < n, 0 < length <= n: ``decode_lanes_sa`` where the
+        index holds a sampled SA, else ``decode_lanes``, the same kernel
+        on fewer and longer lanes (one per ISA sample)."""
+        if self.sa is None:
+            return tuple(self._lanes(a) for a in decode_lanes(
+                self.isa, self.n, start, length))
+        return decode_lanes_sa(self.isa, self._sa_values(),
+                               int(self.sa.rate), self.n, start, length)
+
     def extract(self, start: int, length: int) -> np.ndarray:
         """Decode text[start : start+length] (circular) from the index:
-        the bwtdecodeblock role.  Lanes start at the sampled ISA
-        positions that the range needs (``decode_lanes``) and walk back
-        together, one launch of the LF-walk kernel's decode visit."""
+        the bwtdecodeblock role.  Lanes start at the sampled ISA positions
+        that the range needs and at every SA sample inside it
+        (``decode_plan``) and walk back together, one launch of the
+        LF-walk kernel's decode visit."""
         if self.isa is None:
             raise ValueError("no sampled ISA attached")
         length = int(length)
@@ -268,8 +323,7 @@ class FMIndex:
             return np.zeros(max(length, 0), dtype=np.int64)
         m = min(length, self.n)
         start = int(start) % self.n
-        r0, p0, seg = (self._lanes(a)
-                       for a in decode_lanes(self.isa, self.n, start, m))
+        r0, p0, seg = self.decode_plan(start, m)
         out = lf_walk.decode_walk(self.rows, r0, p0, seg, start, m)
         dense = out.cpu().numpy()
         if dense.dtype == np.int16:

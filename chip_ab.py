@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Times the select walk, the Kasai walk and the two kernel forms over
-wavelet rows of this tree against those of other trees of the port, on
-one GPU, in turns.
+"""Times the select walk, the Kasai walk, the two kernel forms over
+wavelet rows and the FM index's locate and decode visits of this tree
+against those of other trees of the port, on one GPU, in turns.
 
     python3 chip_ab.py --other DIR [--other DIR ...]
-                       [--only kasai|select|wavelet] [--seed 0]
+                       [--only kasai|select|wavelet|fm] [--seed 0]
                        [--genome-n 1200000011] [--human-n 3200000021]
                        [--alphabet-n 400000009] [--alphabet-mem 2G]
 
@@ -47,7 +47,25 @@ steps: it reads as many sectors a step as the chain's rank descent, so
 the chain's time less the walk's is what the chain's own work (the
 histogram's atomic, text and gt reads) costs.
 
-No ``--only`` runs all three.  Each line carries the card's name and
+FM (``--only fm`` or all): at 2^22 symbols on sector rows (as
+``chip_smoke.py``'s step 3c) every tree's locate on 16,384 random ranks
+at rate 262,144 (walks of 10^5-10^6 steps, each at its step latency) and
+on 131,072 at rate 32, and its decode of the whole text on the ISA lanes
+at rate 32.  Then the build of ``make_text`` of ``--genome-n`` symbols
+with its samples (``bwtonly=0``: SA rate 32, ISA rate 262,144), every
+tree's ``FMIndex`` over the same rank rows and samples: ``extract`` of
+2^24 symbols at a seeded offset (each tree's own lane plan and decode
+launch, the host copy and the symbol map included), the decode visit
+alone on each tree's own plan and on this tree's, and ``locate_walk`` of
+2^20 ranks (2^19 at random, 2^19 sampled ones, as ``chip_smoke.py``'s
+genome path) at rate 32, outputs equal.  A tree whose two visits take a
+persistent grid (its ``_launch`` a ``blocks`` argument: a variant with
+lanes that refill) runs both at 1, 2, 4 and 8 blocks per SM.  This tree
+alone: its lane plan timed by itself, and its decode launch with the
+stores masked (``out_len`` 0) beside the same launch storing, which says
+whether the stores or the row reads set the pace.
+
+No ``--only`` runs all four.  Each line carries the card's name and
 power limit; the last line is a JSON object of every time.  Imports
 nothing of JAX.
 """
@@ -67,7 +85,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "smoke_out")
 # the modules the comparisons call, of every tree
 MODULES = ("ops.lf_walk", "ops.kasai", "ops.focc_bp", "ops.wavelet_rows",
-           "ops.gapbatch", "engine.merge_scaled")
+           "ops.gapbatch", "engine.merge_scaled", "index.fm")
 
 
 def load_tree(root: str, i: int):
@@ -87,7 +105,7 @@ def load_tree(root: str, i: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", required=True)
-    ap.add_argument("--only", choices=("kasai", "select", "wavelet"))
+    ap.add_argument("--only", choices=("kasai", "select", "wavelet", "fm"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--genome-n", type=int, default=1_200_000_011)
     ap.add_argument("--human-n", type=int, default=3_200_000_021)
@@ -120,7 +138,7 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     report = {"card": smi, "trees": names, "kasai": {}, "select": {},
-              "wavelet": {}}
+              "wavelet": {}, "fm": {}}
 
     def say(msg):
         print("%s [%s]" % (msg, smi), flush=True)
@@ -170,17 +188,18 @@ def main() -> int:
             for k, v in times.items())))
         return times, outs["this"]
 
-    def build(text, n, hostmem=0):
+    def build(text, n, hostmem=0, bwt_only=True):
         shutil.rmtree(WORK, ignore_errors=True)
         os.makedirs(WORK)
         inp = os.path.join(WORK, "ab%d.bin" % n)
         text.tofile(inp)
         t0 = time.monotonic()
-        compute_bwt(BwtOptions(input_path=inp, bwt_only=True, verbose=0,
+        compute_bwt(BwtOptions(input_path=inp, bwt_only=bwt_only, verbose=0,
                                device="cuda", checkpoint=False,
                                host_mem=hostmem or None))
         torch.cuda.synchronize()
-        say("n=%d: compute_bwt bwtonly=1 %.3f s" % (n, time.monotonic() - t0))
+        say("n=%d: compute_bwt bwtonly=%d %.3f s"
+            % (n, bwt_only, time.monotonic() - t0))
         return inp + ".bwt"
 
     # ---- the Kasai walk ----------------------------------------------------
@@ -396,6 +415,140 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         return out
 
+    # ---- the FM index's locate and decode visits ----------------------------
+    def fm_case(n, seed):
+        from bwtb3m_tpu_torch.index.sampled import SampledISA, SampledSA
+        bwt = build(make_text(n, seed), n, bwt_only=False)
+        res = BwtResult.load(bwt)
+        focc, symmap = res.load_focc(dev)
+        ssa = SampledSA.load(res.sa_path, n)
+        sisa = SampledISA.load(res.isa_path, n)
+        fms = {k: t["index.fm"].FMIndex(
+            None, res.sigma, n, ssa, sisa, dev,
+            rows=t["ops.focc_bp"].FusedOccSector(focc.rows, focc.C, focc.n,
+                                                 focc.sigma),
+            symmap=symmap) for k, t in trees.items()}
+        rng = np.random.default_rng(seed)
+        L = 1 << 24
+        off = int(rng.integers(0, n - L))
+        ranks = torch.from_numpy(np.concatenate([
+            rng.integers(0, n, 1 << 19),
+            32 * rng.integers(0, len(ssa.values), 1 << 19)])).to(dev)
+        rec = {"n": n, "symbols": L, "offset": off, "ranks": 1 << 20}
+        rec["extract"], _out = in_turns(
+            "fm n=%d: FMIndex.extract of 2^24 symbols (plan, decode launch, "
+            "host copy)" % n, lambda who: fms[who].extract(off, L),
+            np.array_equal)
+
+        def plan(who):
+            fm = fms[who]
+            if hasattr(fm, "decode_plan"):
+                return fm.decode_plan(off, L)
+            return [torch.from_numpy(a).to(dev) for a in
+                    trees[who]["index.fm"].decode_lanes(fm.isa, n, off, L)]
+
+        plans = {who: plan(who) for who in names}
+        rec["lanes"] = {who: len(p[0]) for who, p in plans.items()}
+        rec["longest"] = {who: int(p[2].max()) for who, p in plans.items()}
+        rec["decode"], _out = in_turns(
+            "fm n=%d: decode visit alone on each tree's plan (lanes %s, "
+            "longest %s)" % (n, rec["lanes"], rec["longest"]),
+            lambda who: trees[who]["ops.lf_walk"].decode_walk(
+                fms[who].rows, *plans[who], off, L), torch.equal)
+        rec["decode_on_this_plan"], _out = in_turns(
+            "fm n=%d: decode visit of every tree on this tree's lanes" % n,
+            lambda who: trees[who]["ops.lf_walk"].decode_walk(
+                fms[who].rows, *plans["this"], off, L), torch.equal)
+        rec["locate"], _out = in_turns(
+            "fm n=%d: locate_walk of 2^20 ranks at rate 32" % n,
+            lambda who: trees[who]["ops.lf_walk"].locate_walk(
+                fms[who].rows, ranks, 32),
+            lambda a, b: torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+        r0, p0, seg = plans["this"]
+        out = torch.zeros(L, dtype=torch.uint8, device=dev)
+        steps = torch.empty(len(ranks), dtype=torch.int64, device=dev)
+        # a tree whose two visits take a persistent grid (its launches a
+        # ``blocks`` argument): the grid at 1, 2, 4 and 8 blocks per SM
+        rec["sweep"] = {}
+        for who in names:
+            lw = trees[who]["ops.lf_walk"]
+            if "blocks" not in inspect.signature(lw._launch).parameters:
+                continue
+            rec["sweep"][who] = {}
+            for per_sm in (1, 2, 4, 8):
+                blocks = {v: lw.persistent_grid(dev, len(x), per_sm)
+                          for v, x in (("locate", ranks), ("decode", r0))}
+                _r, loc_ms = timed(lambda: lw._go(
+                    fms[who].rows, ranks, None, steps=steps, rate=32,
+                    blocks=blocks["locate"]))
+                _r, dec_ms = timed(lambda: lw._go(
+                    fms[who].rows, r0, lw._steps_i32(seg), p0, dec=out,
+                    base=off, out_len=L, blocks=blocks["decode"]))
+                rec["sweep"][who][per_sm] = {
+                    "blocks": blocks, "locate_ms": loc_ms,
+                    "decode_ms": dec_ms}
+                say("fm n=%d: %s, %d blocks per SM (locate %d, decode %d "
+                    "blocks): locate %.3f ms, decode %.3f ms" % (
+                        n, who, per_sm, blocks["locate"], blocks["decode"],
+                        loc_ms, dec_ms))
+        # this tree alone: its plan, and its decode launch with the stores
+        # masked (out_len 0) beside the same launch storing
+        lw = trees["this"]["ops.lf_walk"]
+        fm = fms["this"]
+        _p, rec["plan_ms"] = timed(lambda: fm.decode_plan(off, L))
+        l32 = lw._steps_i32(seg)
+        ms = {}
+        for label, out_len in (("storing", L), ("stores masked", 0),
+                               ("storing again", L)):
+            _r, ms[label] = timed(lambda: lw._go(
+                fm.rows, r0, l32, p0, dec=out, base=off, out_len=out_len))
+        rec["decode_stores"] = ms
+        say("fm n=%d: lane plan %.3f ms; decode visit %s (%d lanes, %d "
+            "steps)" % (n, rec["plan_ms"], ", ".join(
+                "%s %.3f ms" % kv for kv in ms.items()), len(r0),
+                int(seg.sum())))
+        report["fm"]["genome make_text"] = rec
+        del fms, plans, focc
+        clear_caches()
+        torch.cuda.empty_cache()
+
+    def fm_2_22(seed):
+        """The visits at 2^22 on sector rows, as chip_smoke.py's step 3c:
+        the locate on 16,384 random ranks at rate 262,144 (walks of 10^5-
+        10^6 steps, each lane at its step latency) and on 131,072 at rate
+        32, the decode of the whole text on the ISA lanes at rate 32."""
+        from bwtb3m_tpu_torch.index.fm import decode_lanes
+        from bwtb3m_tpu_torch.index.sampled import SampledISA
+        from bwtb3m_tpu_torch.ops.focc_build import build_focc_host
+        n = 1 << 22
+        rng = np.random.default_rng(seed)
+        text = rng.integers(0, 4, n).astype(np.uint8)
+        _sa, isa, bwt = suffix_array(text, 4, dev)
+        focc = build_focc_host(bwt.astype(np.uint8), 4, dev, "sector")
+        rows = {k: t["ops.focc_bp"].FusedOccSector(focc.rows, focc.C, focc.n,
+                                                   focc.sigma)
+                for k, t in trees.items()}
+        r_all = torch.from_numpy(rng.integers(0, n, 131072)).to(dev)
+        rec = {}
+        for rate, r0 in ((262144, r_all[:16384]), (32, r_all)):
+            rec["locate %d" % rate], _out = in_turns(
+                "fm 2^22 sector rows: locate_walk of %d ranks at rate %d"
+                % (len(r0), rate),
+                lambda who: trees[who]["ops.lf_walk"].locate_walk(
+                    rows[who], r0, rate),
+                lambda a, b: torch.equal(a[0], b[0])
+                and torch.equal(a[1], b[1]))
+        lanes = [torch.from_numpy(a).to(dev) for a in decode_lanes(
+            SampledISA(32, isa[::32], n), n, 0, n)]
+        rec["decode 32"], _out = in_turns(
+            "fm 2^22 sector rows: decode of the text on %d lanes"
+            % len(lanes[0]), lambda who: trees[who]["ops.lf_walk"]
+            .decode_walk(rows[who], *lanes, 0, n), torch.equal)
+        report["fm"]["2^22 sector rows"] = rec
+
+    if args.only in (None, "fm"):
+        fm_2_22(args.seed + 12)
+        fm_case(args.genome_n, args.seed + 11)
     kasai_on = args.only in (None, "kasai")
     select_on = args.only in (None, "select")
     if args.only in (None, "wavelet"):

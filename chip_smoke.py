@@ -133,8 +133,11 @@ printed:
     the build's rows (``FMIndex.from_bwt_result``): ``locate_batch`` of
     2^20 seeded ranks (the locate visit) held to ``select_ssa`` of the
     same ranks and to the .sa at the sampled ones, and ``bwtdecodeblock
-    ref=<text>`` of 2^24 symbols (the decode visit) at a seeded offset
-    and across the end of the text.  Then every
+    ref=<text>`` of 2^24 symbols (the decode visit, on a lane at every ISA
+    and .sa sample of the range, ``FMIndex.decode_plan``) at a seeded
+    offset and across the end of the text (the locate and decode lines
+    print their grids, one thread a lane; the decode line its lanes, its
+    longest lane and the plan's ms beside the kernel's).  Then every
     kernel of that path against its plain version at the shapes the path
     gave it (the plain version on a sample of lanes, ``PLAIN_SAMPLE`` and
     ``SELECT_CUT``): the select visit, then its persistent grid at 1 to
@@ -2023,37 +2026,50 @@ def main() -> int:
             walk_bytes(rows, steps) + len(r0) * (2 * lane_bytes(rows) + 8),
             steps * walk_step_ops(rows) + (steps + len(r0))
             * LOCATE_VISIT_OPS)
+        grid = -(-len(r0) // 256)
         say("kernel lf_walk locate visit, %s, %s rows (n=%d, rate %d, %d "
-            "lanes, %d steps, mean %.2f, longest %d): max_abs_err %d, kernel "
-            "%.3f ms (%.2f G steps/s), plain %.3f ms%s, bound %.3f ms (%s) "
-            "[%s]" % (label, rows_name(rows), n, rate, len(r0), steps,
-                      steps / len(r0), longest, err, k_ms,
-                      steps / k_ms / 1e6, p_ms, on, b_ms, b_by, smi))
+            "lanes, %d steps, mean %.2f, longest %d; grid of %d blocks x 256 "
+            "threads, one a lane): max_abs_err %d, kernel %.3f ms (%.2f G "
+            "steps/s), plain %.3f ms%s, bound %.3f ms (%s) [%s]"
+            % (label, rows_name(rows), n, rate, len(r0), steps,
+               steps / len(r0), longest, grid, err, k_ms, steps / k_ms / 1e6,
+               p_ms, on, b_ms, b_by, smi))
         if err:
             raise AssertionError("the locate visit disagrees with its plain "
                                  "version on the %s" % label)
         rec = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                "bound_ms": b_ms, "bound_by": b_by, "lanes": len(r0),
                "rate": rate, "steps": steps, "mean_steps": steps / len(r0),
-               "longest": longest, "layout": rows_name(rows)}
+               "longest": longest, "grid_blocks": grid,
+               "layout": rows_name(rows)}
         if on:
             rec["plain_on"] = {"lanes": len(lanes),
                                "steps_at_most": int(ps.max())}
         return rec
 
-    def decode_record(rows, lanes, base, length, label, want=None, cut=None,
+    def decode_record(rows, plan, base, length, label, want=None, cut=None,
                       warm=True):
-        """The decode visit on ``lanes`` (ranks, positions, segment lengths
-        on the card) of text [base, base + length): the kernel timed, its
+        """The decode visit of text [base, base + length) on the lanes
+        (ranks, positions, segment lengths on the card) that ``plan``
+        holds or, a callable, builds (``FMIndex.decode_plan``): then the
+        plan and the kernel are timed together, and each alone.  The
         output against ``want`` (the dense ids as the kernel writes them)
         where given; against its plain version on the same lanes, each cut
         to ``cut`` steps where given (kernel and plain version alike).
         Launches not counted."""
-        r0, p0, seg = lanes
         with uncounted():
-            out, k_ms = timed(lambda: lw.decode_walk(rows, r0, p0, seg, base,
-                                                     length), reps=1,
-                              warm=warm)
+            if callable(plan):
+                out, ms = timed(lambda: lw.decode_walk(rows, *plan(), base,
+                                                       length), reps=1,
+                                warm=warm)
+                (r0, p0, seg), plan_ms = timed(plan, reps=1, warm=warm)
+                _out, k_ms = timed(lambda: lw.decode_walk(
+                    rows, r0, p0, seg, base, length), reps=1, warm=warm)
+            else:
+                r0, p0, seg = plan
+                out, k_ms = timed(lambda: lw.decode_walk(
+                    rows, r0, p0, seg, base, length), reps=1, warm=warm)
+                ms, plan_ms = k_ms, 0.0
             if want is not None and not torch.equal(out, want):
                 raise AssertionError("the decode visit does not give the "
                                      "text on the %s" % label)
@@ -2063,23 +2079,29 @@ def main() -> int:
             pc, p_ms = timed(lambda: lw.decode_walk_plain(
                 rows, r0, p0, sl, base, length), warm=False)
         err = max_err(kc, pc)
-        steps = int(seg.sum())
+        steps, longest = int(seg.sum()), int(seg.max())
+        grid = -(-len(r0) // 256)
         b_ms, b_by = bound(
             walk_bytes(rows, steps) + len(r0) * (2 * lane_bytes(rows) + 4)
             + nbytes(out), steps * (walk_step_ops(rows) + DECODE_VISIT_OPS))
         say("kernel lf_walk decode visit, %s, %s rows (n=%d, %d symbols from "
-            "%d, %d lanes, %d steps): max_abs_err %d, kernel %.3f ms (%.2f G "
-            "steps/s), plain %.3f ms%s, bound %.3f ms (%s) [%s]"
-            % (label, rows_name(rows), rows.n, length, base, len(r0), steps,
-               err, k_ms, steps / k_ms / 1e6, p_ms,
+            "%d, %d lanes, longest %d, %d steps; grid of %d blocks x 256 "
+            "threads): max_abs_err %d, plan + kernel %.3f ms (plan %.3f ms, "
+            "kernel %.3f ms, %.2f G steps/s), plain %.3f ms%s, bound %.3f ms "
+            "(%s) [%s]"
+            % (label, rows_name(rows), rows.n, length, base, len(r0),
+               longest, steps, grid, err, ms, plan_ms, k_ms,
+               steps / k_ms / 1e6, p_ms,
                " with every lane cut to %d steps" % cut if cut else "", b_ms,
                b_by, smi))
         if err:
             raise AssertionError("the decode visit disagrees with its plain "
                                  "version on the %s" % label)
-        rec = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "lanes": len(r0),
-               "symbols": length, "steps": steps, "layout": rows_name(rows)}
+        rec = {"max_abs_err": err, "ms": ms, "plan_ms": plan_ms,
+               "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "lanes": len(r0), "longest": longest,
+               "grid_blocks": grid, "symbols": length, "steps": steps,
+               "layout": rows_name(rows)}
         if cut:
             rec["plain_on"] = {"lanes": len(r0), "steps_at_most": cut}
         return rec
@@ -2290,8 +2312,8 @@ def main() -> int:
         want = fm.dense_ids(np.take(text, off + np.arange(L))).to(
             torch.uint8)
         idx["decode"] = decode_record(
-            fm.rows, dev_lanes(decode_lanes(fm.isa, fm.n, off, L)), off, L,
-            label, want, PLAIN_SAMPLE[1])
+            fm.rows, lambda: fm.decode_plan(off, L), off, L, label, want,
+            PLAIN_SAMPLE[1])
         del fm
         return idx
 
@@ -2519,8 +2541,8 @@ def main() -> int:
                                       PLAIN_SAMPLE[0])
         want = torch.from_numpy(codes[off:off + (1 << 20)] + 1).to(dev)
         out["decode"] = decode_record(
-            fm.rows, dev_lanes(decode_lanes(fm.isa, fm.n, off, 1 << 20)), off,
-            1 << 20, "index path", want, PLAIN_SAMPLE[1])
+            fm.rows, lambda: fm.decode_plan(off, 1 << 20), off, 1 << 20,
+            "index path", want, PLAIN_SAMPLE[1])
         del fm, codes, bwt4_syms
         shutil.rmtree(WORK, ignore_errors=True)
         return out

@@ -9,7 +9,8 @@
   (``bwtcodec=rlh``, the tools past 256 symbols, the index tools and
   applications, the compact-file tools, ``engine=merge-legacy`` up to
   65,536 distinct symbols);
-- a kernel build without ``nvcc`` raises.
+- a kernel build without ``nvcc`` raises, and the ctypes types of every
+  kernel entry point follow its C signature.
 """
 
 import os
@@ -283,6 +284,28 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+@pytest.mark.parametrize("name", sorted(_build.ENTRY_POINTS))
+def test_entry_point_types_match_the_c_signatures(name):
+    """The ctypes types ``_build.load`` declares for each entry point of
+    ``csrc/<name>.cu`` follow its ``extern "C"`` signature, parameter by
+    parameter (a pointer, an ``int``, a ``long long``): ctypes would
+    otherwise pass a wrong-sized argument to a kernel that no CPU test
+    runs."""
+    import ctypes
+    src = open(os.path.join(_build.CSRC, name + ".cu")).read()
+    sigs = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
+
+    def ctype(param):
+        if "*" in param:
+            return ctypes.c_void_p
+        return ctypes.c_longlong if "long long" in param else ctypes.c_int
+
+    for fn, (argtypes, restype) in _build.ENTRY_POINTS[name].items():
+        params = [p.strip() for p in sigs[fn].split(",")]
+        assert [ctype(p) for p in params] == list(argtypes), fn
+        assert restype is ctypes.c_int
 
 
 def test_wrapper_refuses_other_devices():

@@ -48,7 +48,7 @@ from bwtb3m_tpu_torch.index.bidir import BidirectionalFMIndex, bidir_from_jax
 from bwtb3m_tpu_torch.index.bwa import rewrite
 from bwtb3m_tpu_torch.index.cst import CompressedSuffixTree
 from bwtb3m_tpu_torch.index.dnarank import DNARank
-from bwtb3m_tpu_torch.index.fm import FMIndex, fm_from_jax
+from bwtb3m_tpu_torch.index.fm import FMIndex, decode_lanes, fm_from_jax
 from bwtb3m_tpu_torch.index.huffman import HuffmanTree
 from bwtb3m_tpu_torch.index.sampled import SampledISA, SampledSA
 from bwtb3m_tpu_torch.ops import lf_walk as lw
@@ -367,14 +367,11 @@ FAMILIES = [("sector", 4), ("bitplane", 4), ("bitplane", 7),
             ("bytes", 20), ("wide", 4), ("wavelet", 260)]
 
 
-@pytest.mark.parametrize("family,sigma", FAMILIES)
-@pytest.mark.parametrize("sarate,isarate", [(8, 16), (5, 300)])
-def test_locate_and_decode_walks_match_the_reference(family, sigma, sarate,
-                                                     isarate):
-    """The locate and decode walks (plain versions) over each row family
-    give the reference FMIndex's ``locate_batch`` and ``extract`` over a
-    wavelet tree of the same BWT, at power-of-two and other rates (an
-    ISA rate past n / 2: one range's lanes wrap past n)."""
+def _index_case(family, sigma, sarate, isarate, with_sa=True):
+    """(text, sa, isa, reference FMIndex over a wavelet tree, the port's
+    FMIndex over ``family`` rows, the generator that drew the text) of
+    one seeded text of 333 + sigma symbols, the sampled SA left out of
+    both where not ``with_sa``."""
     n = 333 + sigma
     rng = np.random.default_rng(sigma + sarate)
     text = rng.integers(0, sigma, n)
@@ -384,11 +381,26 @@ def test_locate_and_decode_walks_match_the_reference(family, sigma, sarate,
     isa = np.empty(n, np.int64)
     isa[sa] = np.arange(n)
     ref = JaxFM(jwt.HuffmanWaveletTree.build(bwt), sigma, n,
-                JaxSSA(sarate, sa[::sarate], n),
+                JaxSSA(sarate, sa[::sarate], n) if with_sa else None,
                 JaxSISA(isarate, isa[::isarate], n))
-    fm = FMIndex(None, sigma, n, SampledSA(sarate, sa[::sarate], n),
+    fm = FMIndex(None, sigma, n,
+                 SampledSA(sarate, sa[::sarate], n) if with_sa else None,
                  SampledISA(isarate, isa[::isarate], n), device="cpu",
                  rows=_rows(family, bwt, sigma))
+    return text, sa, isa, ref, fm, rng
+
+
+@pytest.mark.parametrize("family,sigma", FAMILIES)
+@pytest.mark.parametrize("sarate,isarate", [(8, 16), (5, 300)])
+def test_locate_and_decode_walks_match_the_reference(family, sigma, sarate,
+                                                     isarate):
+    """The locate and decode walks (plain versions) over each row family
+    give the reference FMIndex's ``locate_batch`` and ``extract`` over a
+    wavelet tree of the same BWT, at power-of-two and other rates (an
+    ISA rate past n / 2: one range's lanes wrap past n)."""
+    text, sa, isa, ref, fm, rng = _index_case(family, sigma, sarate,
+                                              isarate)
+    n = len(text)
     ranks = rng.integers(0, n, 150)
     np.testing.assert_array_equal(fm.locate_batch(ranks),
                                   ref.locate_batch(ranks))
@@ -400,6 +412,51 @@ def test_locate_and_decode_walks_match_the_reference(family, sigma, sarate,
     for start, length in [(0, 100), (n - 40, 90), (123, n), (17, 1)]:
         np.testing.assert_array_equal(fm.extract(start, length),
                                       ref.extract(start, length))
+    assert lw.lf_walk.launches == 0
+
+
+@pytest.mark.parametrize("family,sigma", FAMILIES)
+@pytest.mark.parametrize("sarate,isarate", [(8, 16), (5, 300)])
+@pytest.mark.parametrize("with_sa", [True, False])
+def test_extract_from_sa_sample_lanes(family, sigma, sarate, isarate,
+                                      with_sa):
+    """``FMIndex.extract`` over each row family through its lane plan,
+    ``decode_lanes_sa`` where the index holds a sampled SA and
+    ``decode_lanes`` where it holds none, gives the reference's
+    ``extract`` and the text, on ranges across the end of the text and of
+    n symbols.  The SA-sample plan: positions strictly increasing in
+    unwrapped coordinates and the rank of each position, segments
+    that sum to A - start (A the last lane of ``decode_lanes``), every
+    lane of ``decode_lanes`` present, the SA samples in (start, A] added,
+    and no segment longer than the longest of ``decode_lanes``."""
+    text, sa, _isa, ref, fm, _rng = _index_case(family, sigma, sarate,
+                                                isarate, with_sa)
+    n = len(text)
+    rank_of = np.empty(n, np.int64)
+    rank_of[sa] = np.arange(n)
+    for start, length in [(0, 100), (n - 40, 90), (123, n), (17, 1),
+                          (n - 1, n)]:
+        got = fm.extract(start, length)
+        np.testing.assert_array_equal(got, ref.extract(start, length))
+        np.testing.assert_array_equal(
+            got, np.take(text, (start + np.arange(length)) % n))
+        r, p, seg = (t.numpy() for t in fm.decode_plan(start, length))
+        r_i, p_i, seg_i = decode_lanes(fm.isa, n, start, length)
+        if not with_sa:
+            for a, b in ((r, r_i), (p, p_i), (seg, seg_i)):
+                np.testing.assert_array_equal(a, b)
+            continue
+        x, x_i = start + np.cumsum(seg), start + np.cumsum(seg_i)
+        assert (seg > 0).all() and x[-1] == x_i[-1]
+        np.testing.assert_array_equal(p, x % n)
+        np.testing.assert_array_equal(r, rank_of[p])
+        assert np.isin(x_i, x).all()
+        # every SA sample's unwrapped positions in (start, A]
+        u = sa[::sarate][:, None] + np.array([0, n, 2 * n])[None, :]
+        u = np.unique(u[(u > start) & (u <= x[-1])])
+        np.testing.assert_array_equal(np.setdiff1d(x, x_i),
+                                      np.setdiff1d(u, x_i))
+        assert seg.max() <= seg_i.max()
     assert lw.lf_walk.launches == 0
 
 

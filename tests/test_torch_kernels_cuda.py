@@ -715,22 +715,24 @@ def _index_rows(kind, sigma, layout, cuda):
 def test_locate_kernel_matches_plain(cuda, kind, sigma, layout, rate):
     """The locate visit (``locate_walk``) in each kernel form against its
     plain version, rank and steps, at a power-of-two rate, another rate
-    and rate 1 (no step); the SA it gives against the sort's."""
+    and rate 1 (no step), on 20,002 lanes and on 2^19, more than the
+    card holds at once; the SA it gives against the sort's."""
     text, sa, isa, rows = _index_rows(kind, sigma, layout, cuda)
     n = len(text)
     rng = np.random.default_rng(rate + sigma)
-    r0 = torch.from_numpy(np.r_[0, n - 1, rng.integers(0, n, 20000)]).to(
-        cuda)
     key = {"narrow": "locate", "wide": "locate64",
            "wavelet": "locate_wm"}[kind]
-    before = lw.LAUNCHES[key]
-    r, steps = lw.locate_walk(rows, r0, rate)
-    assert lw.LAUNCHES[key] == before + 1
-    pr, psteps = lw.locate_walk_plain(rows, r0, rate)
-    assert torch.equal(r, pr) and torch.equal(steps, psteps)
-    assert int(steps.min()) >= 0 and bool((r % rate == 0).all())
-    got = (sa[r.cpu().numpy()] + steps.cpu().numpy()) % n
-    np.testing.assert_array_equal(got, sa[r0.cpu().numpy()])
+    for nl in (20000, 1 << 19):
+        r0 = torch.from_numpy(np.r_[0, n - 1, rng.integers(0, n, nl)]).to(
+            cuda)
+        before = lw.LAUNCHES[key]
+        r, steps = lw.locate_walk(rows, r0, rate)
+        assert lw.LAUNCHES[key] == before + 1
+        pr, psteps = lw.locate_walk_plain(rows, r0, rate)
+        assert torch.equal(r, pr) and torch.equal(steps, psteps)
+        assert int(steps.min()) >= 0 and bool((r % rate == 0).all())
+        got = (sa[r.cpu().numpy()] + steps.cpu().numpy()) % n
+        np.testing.assert_array_equal(got, sa[r0.cpu().numpy()])
     # the BWT of a square u.u is BWT(u) with each symbol doubled: its LF
     # keeps even and odd ranks apart, so at rate 4 the even lanes walk to
     # a multiple of 4 and the odd ones meet none and end after n steps
@@ -747,19 +749,24 @@ def test_locate_kernel_matches_plain(cuda, kind, sigma, layout, rate):
         sq = build_focc_host(bwt2.astype(np.uint8), sig, cuda, layout)
         if kind == "wide":
             sq = _doctored(sq, bwt2.astype(np.uint8), sig, layout, cuda)
-    r0 = torch.arange(2 * m, device=cuda)
-    r, steps = lw.locate_walk(sq, r0, 4)
-    pr, psteps = lw.locate_walk_plain(sq, r0, 4)
-    assert torch.equal(r, pr) and torch.equal(steps, psteps)
-    assert torch.equal(steps < 0, r0 % 2 == 1)
+    # every rank, then 2^19 seeded ones: lanes of -1 among lanes that
+    # meet a sampled rank, in every block
+    for r0 in (torch.arange(2 * m, device=cuda),
+               torch.from_numpy(rng.integers(0, 2 * m, 1 << 19)).to(cuda)):
+        r, steps = lw.locate_walk(sq, r0, 4)
+        pr, psteps = lw.locate_walk_plain(sq, r0, 4)
+        assert torch.equal(r, pr) and torch.equal(steps, psteps)
+        assert torch.equal(steps < 0, r0 % 2 == 1)
 
 
 @pytest.mark.parametrize("kind,sigma,layout", LOCATE_ROWS)
 def test_decode_kernel_matches_plain(cuda, kind, sigma, layout):
     """The decode visit (``decode_walk``) in each kernel form against its
     plain version on the FM index's lanes of several ranges (one across
-    the end of the text, one of n symbols), and ``FMIndex.extract`` and
-    ``locate_batch`` on the card against the text and the SA."""
+    the end of the text, one of n symbols): the ISA samples' lanes
+    (``decode_lanes``) and the SA samples' (``decode_lanes_sa``, built on
+    the card, thousands of lanes); and ``FMIndex.extract`` (one launch)
+    and ``locate_batch`` on the card against the text and the SA."""
     from bwtb3m_tpu_torch.index.fm import FMIndex, decode_lanes
     from bwtb3m_tpu_torch.index.sampled import SampledISA, SampledSA
     text, sa, isa, rows = _index_rows(kind, sigma, layout, cuda)
@@ -769,16 +776,21 @@ def test_decode_kernel_matches_plain(cuda, kind, sigma, layout):
     key = {"narrow": "decode", "wide": "decode64",
            "wavelet": "decode_wm"}[kind]
     for start, length in ((0, 5000), (n - 700, 2000), (12345, n), (17, 1)):
-        r0, p0, seg = (torch.from_numpy(a).to(cuda)
-                       for a in decode_lanes(fm.isa, n, start, length))
+        isa_lanes = [torch.from_numpy(a).to(cuda)
+                     for a in decode_lanes(fm.isa, n, start, length)]
+        sa_lanes = fm.decode_plan(start, length)
+        assert sa_lanes[0].is_cuda and len(sa_lanes[0]) > len(isa_lanes[0])
+        for r0, p0, seg in (isa_lanes, sa_lanes):
+            before = lw.LAUNCHES[key]
+            got = lw.decode_walk(rows, r0, p0, seg, start, length)
+            assert lw.LAUNCHES[key] == before + 1
+            assert torch.equal(got, lw.decode_walk_plain(rows, r0, p0, seg,
+                                                         start, length))
         before = lw.LAUNCHES[key]
-        got = lw.decode_walk(rows, r0, p0, seg, start, length)
-        assert lw.LAUNCHES[key] == before + 1
-        assert torch.equal(got, lw.decode_walk_plain(rows, r0, p0, seg,
-                                                     start, length))
         np.testing.assert_array_equal(
             fm.extract(start, length),
             np.take(text, (start + np.arange(length)) % n))
+        assert lw.LAUNCHES[key] == before + 1
     ranks = np.random.default_rng(sigma).integers(0, n, 5000)
     np.testing.assert_array_equal(fm.locate_batch(ranks), sa[ranks])
 
