@@ -53,8 +53,13 @@ The root is sorted in one block, so a root of more than
 (Queue 3).  One difference stays: past 65,536 distinct symbols the
 reference's legacy engine runs and the port raises (item 11).
 
-Not ported yet (it raises ``NotImplementedError`` naming its ROADMAP.md
-item): the sharded engine.
+``engine=sharded`` runs the sharded suffix sort (``parallel/``) over the
+ranks of a process group: torchrun's (``torchrun --nproc_per_node=N -m
+bwtb3m_tpu_torch bwtb3m engine=sharded ...``), or a group of one.  Every
+rank loads the text and sorts its shard; rank 0 writes the files that
+``engine=doubling`` writes, and the other ranks return a result without
+files.  ``hostmem=`` does not bound that engine: every rank holds the
+whole text.
 """
 
 from __future__ import annotations
@@ -76,12 +81,6 @@ from ..util.log import RealTimeClock, VerboseLog, mem_usage_string
 from ..util.phases import Phases
 from .options import BwtOptions
 from .result import BwtResult, write_bwt
-
-
-def _refuse_unported(options: BwtOptions) -> None:
-    if options.engine == "sharded":
-        raise NotImplementedError(
-            "engine=sharded is not ported yet: ROADMAP.md Queue 1 item 9")
 
 
 def _remove(path: Optional[str]) -> None:
@@ -113,14 +112,15 @@ def compute_bwt(options: BwtOptions,
                 log: Optional[VerboseLog] = None) -> BwtResult:
     log = log or VerboseLog(options.verbose)
     rtc = RealTimeClock()
-    _refuse_unported(options)
     device = resolve_device(options.device)
 
     # ---- phase 1: load input (host) -------------------------------------
     itype = parse_input_type(options.input_type)
     bounded_spill = None
     with log.span("load input (%s)" % itype.name):
-        if options.host_mem:
+        # engine=sharded: every rank holds the text (the sort takes an
+        # int32 copy), and ranks on one host would share one spill file
+        if options.host_mem and options.engine != "sharded":
             symbols, sigma, bounded_spill = itype.load_bounded(
                 options.input_path, options.tmp_prefix + "_text.u8")
         else:
@@ -153,7 +153,14 @@ def compute_bwt(options: BwtOptions,
     sa = isa = None
     rows_out: list = []     # the merge engine's device-rows hand-off
     symmap = None           # dense id -> file symbol (alphabet compaction)
-    if options.engine in ("merge", "merge-legacy") or (
+    if options.engine == "sharded":
+        sa, isa, bwt = _sharded_engine(symbols, sigma, device, log)
+        if sa is None:          # a rank other than 0: it writes no files
+            return BwtResult({"format": "bwtb3m_tpu/v1", "n": n,
+                              "sigma": sigma, "files": {}})
+        spos = np.arange(0, n, prate, dtype=np.int64)
+        srank = isa[spos]
+    elif options.engine in ("merge", "merge-legacy") or (
             options.engine == "auto" and n > options.max_block_symbols):
         bwt, spos, srank, symmap = _merge_engine(
             symbols, sigma, prate, options, device, log, phase, rows_out,
@@ -287,6 +294,23 @@ def _power_samples(symbols, p: int, sigma: int, srate: int, irate: int,
     r = np.arange(0, n, srate, dtype=np.int64)
     q = np.arange(0, n, irate, dtype=np.int64)
     return sa_u[r // k] + (r % k) * p, isa_u[q % p] * k + q // p
+
+
+def _sharded_engine(symbols, sigma: int, device, log: VerboseLog):
+    """(sa, isa, bwt) of the sharded suffix sort (``parallel/``) over the
+    ranks of the group (``parallel/dist.py::initialize``: torchrun's, or
+    a group of one), on rank 0; (None, None, None) on the others."""
+    from ..parallel import dist as pdist
+    from ..parallel.doubling import sharded_bwt
+    with pdist.session(device, log=log) as mesh:
+        with log.span("device suffix sort (sharded, %d ranks, %s)"
+                      % (mesh.world, mesh.backend)):
+            sa, _rank, bwt = sharded_bwt(symbols, sigma, mesh)
+        if mesh.rank != 0:
+            return None, None, None
+    isa = np.zeros(len(sa), dtype=np.int64)
+    isa[sa] = np.arange(len(sa), dtype=np.int64)
+    return sa, isa, bwt
 
 
 def _merge_engine(symbols, sigma: int, prate: int, options: BwtOptions,

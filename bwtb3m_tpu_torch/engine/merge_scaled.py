@@ -21,6 +21,12 @@ resuming and the level's state fits the device budget
 (``util/devices.py::device_budget``); otherwise pair by pair, each pair
 a batch of one through the same runner.  Both ways give the same regions.
 
+Under a mesh (``parallel/``: one process per rank, every rank running
+the same build) the merges' walks are sharded: a level's lanes are cut
+over the ranks (``ops/gapbatch.py``), or a pair merge's rank rows and
+histogram by rank range (``parallel/shocc.py``) when they pass the
+device budget (``_mesh_wants_occ_sharding``).
+
 Sample ranks update in O(#samples): a left position p gains R(p) from
 the chains, a right rank r gains cnt_le[r].  Completed regions are checkpointed (``engine/checkpoint.py``)
 and a build stopped by ``<output>.stop`` or a crash resumes from them.
@@ -71,6 +77,8 @@ from ..ops.gapbatch import BatchedGapRunner
 from ..ops.gapdev import cmp_rot
 from ..ops.wavelet_rows import symbol_values
 from ..ops.windowsort import block_suffix_order
+from ..parallel.mesh import any_rank
+from ..parallel.shocc import ShardedOccGapRunner
 from ..util.devices import device_budget
 from ..util.log import VerboseLog
 from ..util.phases import Phases
@@ -132,7 +140,8 @@ class _Ctx:
     def __init__(self, text: np.ndarray, sigma: int, rate: int,
                  options: BwtOptions, log: Optional[VerboseLog],
                  lane_bucket: int, device: torch.device, phase: Phases,
-                 nthreads: int = 4, budget: Optional[int] = None):
+                 nthreads: int = 4, budget: Optional[int] = None,
+                 mesh=None):
         # a memory-mapped text (hostmem=) stays a memmap: the host reads
         # it page by page.  Past 256 symbols the dense ids are uint16
         dt = np.uint16 if sigma > 256 else np.uint8
@@ -151,6 +160,7 @@ class _Ctx:
         self.bits = bits_for(sigma)
         self.ckpt_key = None
         self._budget = budget
+        self.mesh = mesh
         with phase("text upload"):
             # uint16 ids travel as the int16 of their bits
             tdt = torch.int16 if dt == np.uint16 else torch.uint8
@@ -498,15 +508,37 @@ def _level_fits_batched(ctx: _Ctx, pairs) -> bool:
         [r.e - r.s for _l, r in pairs], ctx.sigma)
     if (total_rows << cls.SHIFT) + 256 >= 1 << 32:
         return False
-    return level_bytes_estimate(pairs, ctx.sigma, ctx.bits) <= ctx.budget()
+    budget = int(os.environ.get("BWTB3M_BATCH_HBM", 0)) or ctx.budget()
+    fits = level_bytes_estimate(pairs, ctx.sigma, ctx.bits) <= budget
+    if ctx.mesh is not None:
+        # ranks sharing a card see each other's memory: one decision
+        fits = not any_rank(ctx.mesh, not fits)
+    return fits
 
 
-def _merge_pairs(ctx: _Ctx, pairs) -> List[Region]:
-    """Merge the adjacent regions (left, right) of every pair: shared
-    rank rows, anchors, chains and histogram (``ops/gapbatch.py``), then
-    each pair's zip.  A single pair merge is a batch of one; a merge that
-    needs the wide path (``_is_wide``) is always alone, through the
-    runner's wide mode."""
+def _mesh_wants_occ_sharding(ctx: _Ctx, runner) -> bool:
+    """Under a mesh, whether a pair merge takes rank-range-sharded rows
+    (``parallel/shocc.py``: memory scaling) over lane-sharded chains
+    (compute scaling), by the reference's arithmetic: the lane path keeps
+    the right region's rank rows, an int32 histogram and the text on
+    every rank; past the device budget, the rows shard.
+    ``BWTB3M_SHARD_OCC=1/0`` forces either way.  Every rank takes the
+    same decision (``parallel/mesh.py::any_rank``)."""
+    env = os.environ.get("BWTB3M_SHARD_OCC")
+    if env is not None:
+        return env != "0"
+    budget = int(os.environ.get("BWTB3M_DEV_HBM", 0)) or ctx.budget()
+    need = (runner.focc.rows.numel() + 4 * (runner.focc.n + 1)
+            + ctx.text_dev.numel() * ctx.text_dev.element_size())
+    return any_rank(ctx.mesh, need > budget)
+
+
+def _level_runner(ctx: _Ctx, pairs) -> BatchedGapRunner:
+    """The runner of a batch of merges, not yet computed: shared rank
+    rows of the right regions (``ops/gapbatch.py``).  A single pair merge
+    is a batch of one; a merge that needs the wide path (``_is_wide``) is
+    always alone, through the runner's wide mode.  Under a mesh the lanes
+    are sharded, or a pair merge's rows (``_mesh_wants_occ_sharding``)."""
     wide = any(_is_wide(l, r) for l, r in pairs)
     for l, r in pairs:
         assert r.s == l.e
@@ -521,7 +553,23 @@ def _merge_pairs(ctx: _Ctx, pairs) -> List[Region]:
         [(l.s, l.e, r.e, r.r_start, r.hist) for l, r in pairs],
         [_region_packed(ctx, r) for _l, r in pairs], ctx.bits,
         lane_bucket=ctx.lane_bucket, sample_rate=ctx.rate,
-        nthreads=ctx.nthreads, log=ctx.log, phase=phase, wide=wide)
+        nthreads=ctx.nthreads, log=ctx.log, phase=phase, wide=wide,
+        mesh=ctx.mesh)
+    if (ctx.mesh is not None and len(pairs) == 1 and not wide
+            and ctx.sigma <= 256 and _mesh_wants_occ_sharding(ctx, runner)):
+        ShardedOccGapRunner(ctx.mesh, runner)
+        ctx.log.v("pair merge: rank rows and histogram sharded by rank "
+                  "range over %d ranks" % ctx.mesh.world)
+    return runner
+
+
+def _merge_pairs(ctx: _Ctx, pairs) -> List[Region]:
+    """Merge the adjacent regions (left, right) of every pair: anchors,
+    chains and histogram of the level's runner (``_level_runner``), then
+    each pair's zip."""
+    runner = _level_runner(ctx, pairs)
+    wide = runner.wide
+    phase = ctx.phase
     runner.compute(ANCHOR_LOOKBACK)
     ctx.log.v("%s: %d lanes (%s), rank space %d, histogram %d bytes, chain "
               "walk of %d steps %.3f ms (%.2f G steps/s, %s)"
@@ -560,6 +608,7 @@ def blockwise_bwt_scaled(
     log: Optional[VerboseLog] = None, sample_rate: int = 1024,
     lane_bucket: int = 1 << 16, device="cuda", phase: Phases = None,
     rows_out: Optional[list] = None, budget: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """(bwt uint8, preisa positions, preisa ranks, symbol hist) of the
     circular text ``symbols`` over [0, sigma), every device step on
@@ -569,9 +618,19 @@ def blockwise_bwt_scaled(
     with every symbol present (no dense remap would apply), so the caller
     can bind it to the ``.bwt`` it is about to write.  ``budget``: the
     device bytes the gates plan with, instead of what the device reports
-    free (``util/devices.py::device_budget``)."""
+    free (``util/devices.py::device_budget``).
+
+    ``mesh`` (``parallel/mesh.py``): every rank of the group calls this
+    with the same text and options and runs the same build on its mesh
+    device (block sorts, gt bits, the tree); the merges' walks are
+    sharded over the ranks, by lanes (every batched level, and pair
+    merges) or, for a pair merge past the device budget or under
+    ``BWTB3M_SHARD_OCC=1``, by rank range (``_mesh_wants_occ_sharding``).
+    Every rank returns the same result.  Under a mesh there are no
+    checkpoints (their files would be every rank's), and a stop file
+    stops every rank."""
     log = log or VerboseLog(1)
-    device = torch.device(device)
+    device = mesh.device if mesh is not None else torch.device(device)
     phase = phase or Phases(device)
     text = symbols if isinstance(symbols, np.memmap) else np.asarray(symbols)
     n = len(text)
@@ -581,8 +640,11 @@ def blockwise_bwt_scaled(
                          "symbols; rank-compact the alphabet first "
                          "(engine/api.py does)")
     _validate_scale(n)
+    if mesh is not None and lane_bucket % mesh.world:
+        raise ValueError("lane_bucket %d does not divide by %d ranks"
+                         % (lane_bucket, mesh.world))
     ctx = _Ctx(text, sigma, sample_rate, options, log, lane_bucket, device,
-               phase, budget=budget)
+               phase, budget=budget, mesh=mesh)
     blocks = _plan_blocks_fixed(n, options.max_block_symbols)
     log.v("scaled blockwise engine: %d blocks, rate=%d, lanes<=%d, %s"
           % (len(blocks), sample_rate, lane_bucket, device))
@@ -592,7 +654,7 @@ def blockwise_bwt_scaled(
     ckpt = None
     avail = {}
     if (options.checkpoint and options.tmp_prefix and len(blocks) > 1
-            and sigma <= 256):
+            and sigma <= 256 and mesh is None):
         ctx.ckpt_key = build_key(ctx.text, sigma, sample_rate,
                                  blocks[0][1] - blocks[0][0])
         ckpt = MergeCheckpointer(options.tmp_prefix, ctx.ckpt_key, ctx.bits,
@@ -620,6 +682,11 @@ def blockwise_bwt_scaled(
           % (len(blocks), phase.wall.get("block sorts", 0.0)))
 
     stop_file = options.output_filename + ".stop"
+
+    def stop_requested() -> bool:
+        stop = os.path.exists(stop_file)
+        return stop if mesh is None else any_rank(mesh, stop)
+
     total = len(regions) - 1
     done = 0
     level = regions
@@ -628,7 +695,7 @@ def blockwise_bwt_scaled(
         nxt: List[object] = []
         i = 0
         while i + 1 < len(level):
-            if os.path.exists(stop_file):
+            if stop_requested():
                 raise RuntimeError("stop requested via %s after %d/%d "
                                    "merges" % (stop_file, done, total))
             l, r = level[i], level[i + 1]
@@ -669,7 +736,7 @@ def blockwise_bwt_scaled(
                     and _level_fits_batched(ctx, pairs)):
                 # the level as one batch; an odd trailing region is
                 # carried unchanged
-                if os.path.exists(stop_file):
+                if stop_requested():
                     raise RuntimeError("stop requested via %s after %d/%d "
                                        "merges" % (stop_file, done, total))
                 merged = _merge_pairs(ctx, pairs)

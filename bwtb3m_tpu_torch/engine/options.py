@@ -8,8 +8,9 @@ symbols, at most 2^27, so every output is byte-identical between the
 packages; what fits the device is decided where it is needed, from the
 device's own report (``util/devices.py::device_budget``), not from
 these options.  ``engine=merge-legacy`` runs the scaled merge engine,
-whose files are the reference's legacy engine's; ``engine=sharded``, not
-ported yet, raises ``NotImplementedError`` in ``engine/api.py``.
+whose files are the reference's legacy engine's; ``engine=sharded`` runs
+the sharded suffix sort over the ranks of a process group
+(``engine/api.py``, ``parallel/``).
 """
 
 from __future__ import annotations

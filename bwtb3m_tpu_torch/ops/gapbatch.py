@@ -40,6 +40,11 @@ the ``[rows, 256]`` uint16 histogram with its wrap rerun, the compressed
 fetch, the 256-column phase alignment of all lanes, the ``[lanes,
 sigma]`` constant tables and the lane padding.
 
+Under a mesh of ranks (``parallel/mesh.py``) each rank walks a
+contiguous part of the lanes, and the parts' results meet in one
+collective each (``BatchedGapRunner``); ``parallel/shocc.py`` puts its
+rank-range-sharded walks in the runner's place.
+
 A wide merge (its rank space or left block reaches 2^32, its positions
 pass 2^32, or ``BWTB3M_FORCE_WIDE``) is a runner of one merge with
 ``wide=True``, the port of ``bwtb3m_tpu/ops/gapwide.py::
@@ -67,7 +72,7 @@ import numpy as np
 import torch
 
 from . import wavelet_rows as wr
-from .focc import from_u32_bits, kernel_row_width, rank
+from .focc import as_u32_bits, from_u32_bits, kernel_row_width, rank
 from .focc_build import build_focc_concat, build_focc_from_packed
 from .gapdev import TEXT_BLOCK, wrap_bits
 from .pack import unpack_bits
@@ -111,17 +116,27 @@ def gap_chain_mk_plain(focc, text: torch.Tensor, gt: torch.Tensor,
                        seeds: torch.Tensor, lens: torch.Tensor,
                        gap: Optional[torch.Tensor] = None,
                        samp: Optional[torch.Tensor] = None,
-                       rate: int = 1) -> torch.Tensor:
+                       rate: int = 1, rank_fn=None,
+                       gap_base: Optional[int] = None) -> torch.Tensor:
     """Final global rank (int64) of every lane; with ``gap`` also records
     every R into it and R(p) into the lane's merge's samples where p is a
     multiple of ``rate``.  Arithmetic is modulo 2^32 on narrow rows (the
     uint32 words travel as int32 bits), as in the kernel; on wide rows
     (``ops/wideocc.py``) every word is int64.  A Python loop over steps,
-    vectorized over lanes."""
+    vectorized over lanes.
+
+    ``rank_fn(c, r)``, when given, answers the rank queries in place of
+    the rows' own ``rank``; with ``gap_base`` the histogram ``gap`` holds
+    only the cells [gap_base, gap_base + len(gap)) and the others are not
+    recorded (``parallel/shocc.py``: rows and histogram sharded by rank
+    range)."""
     wide = isinstance(focc, WideOcc)
     mask = -1 if wide else _U32                   # x & -1 == x
     rank_of = (rank_w if wide else wr.rank if isinstance(focc, WaveletRows)
                else rank)
+    if rank_fn is not None:
+        def rank_of(_focc, c, r):
+            return rank_fn(c, r)
     m = word_values(focc, table)[kid.long()]      # [T, MERGE_WORDS]
     cf = word_values(focc, c_first)
     r, st, ln = word_values(focc, seeds), starts.long(), lens.long()
@@ -139,6 +154,9 @@ def gap_chain_mk_plain(focc, text: torch.Tensor, gt: torch.Tensor,
         r = torch.where(act, r_new, r)
         if gap is not None:
             ra = r[act]
+            if gap_base is not None:
+                ra = ra - gap_base
+                ra = ra[(ra >= 0) & (ra < len(gap))]
             gap.index_add_(0, ra, torch.ones_like(ra, dtype=gap.dtype))
             hit = act & (p % rate == 0)
             slot = m[:, M_SAMPBASE] + (p - m[:, M_SAMPP0]) // rate
@@ -325,15 +343,33 @@ class BatchedGapRunner:
     ``chain_ms`` the recording walk's time (CUDA events on the card).
     With ``wide`` (one merge only) the rank rows are wide rows and every
     rank, constant, sample and histogram cell is int64 (module
-    docstring)."""
+    docstring).
+
+    Under a ``mesh`` (``parallel/mesh.py``; every rank builds the same
+    runner) the lane axis is cut into ``mesh.world`` contiguous equal
+    parts, which gives whole merges to ranks, and each rank walks its
+    part alone: the anchors' and the chains' final ranks come together in
+    one ``all_gather`` each, the chains' histograms in one
+    ``all_reduce(SUM)`` and their samples (-1 where unwritten, each slot
+    written by one lane) in one ``all_reduce(MAX)``.  The anchor/chain
+    check and everything downstream then run unchanged on every rank.
+    ``lane_bucket`` must divide by the world size.  ``walks`` is the
+    object whose ``anchor_bounds`` and ``run_chains`` walk the lanes: the
+    runner itself, or a ``parallel/shocc.py::ShardedOccGapRunner``
+    wrapped around it."""
 
     def __init__(self, text_dev: torch.Tensor, text_host: np.ndarray,
                  sigma: int, merges, right_packed, bits: int,
                  lane_bucket: int = 1 << 16, sample_rate: int = 1,
                  nthreads: int = 4, log=None, phase=None,
-                 layout: str = "auto", wide: bool = False):
+                 layout: str = "auto", wide: bool = False, mesh=None):
         if sample_rate < 1:
             raise ValueError("sample_rate must be >= 1")
+        if mesh is not None and lane_bucket % mesh.world:
+            raise ValueError("lane_bucket %d does not divide by %d ranks"
+                             % (lane_bucket, mesh.world))
+        self.mesh = mesh
+        self._walks = None
         self.text_dev = text_dev
         self.text = text_host
         self.n = len(text_host)
@@ -397,6 +433,18 @@ class BatchedGapRunner:
         self._samp = None
         self.chain_ms = self.chain_steps = 0
 
+    @property
+    def walks(self):
+        """What walks the lanes: this runner, or the walker set here.  No
+        attribute of the runner refers to the runner itself: a reference
+        cycle would keep a level's rows and histogram on the device until
+        the cyclic collector ran."""
+        return self if self._walks is None else self._walks
+
+    @walks.setter
+    def walks(self, walker) -> None:
+        self._walks = walker
+
     def _words(self, a) -> np.ndarray:
         """Host values as the kernel's words: uint32 bits in int32, or
         int64 on wide rows."""
@@ -441,15 +489,85 @@ class BatchedGapRunner:
         np.maximum.at(caps, kid, walk_start + 1)
         return caps.tolist()
 
-    def _anchor_pass(self, kid, starts, lbs, r0_global) -> np.ndarray:
+    def _anchor_pass(self, kid, starts, lbs, lo_seeds, hi_seeds):
         """Lane j walks positions starts[j] + lbs[j] down to starts[j] + 1
-        from the global seed r0_global[j]; returns the final ranks."""
+        from each of the global seeds lo_seeds[j] and hi_seeds[j]; returns
+        the two arrays of final ranks."""
         walk_start = starts + lbs
         self._ensure_gt(self._caps(kid, walk_start))
-        kd, st, sd, ln = self._lanes(kid, walk_start, r0_global, lbs)
-        return anchor_walk_mk(self.focc, self.text_dev, self.gt_dev,
-                              self.c_first, self.table, kd, st, sd,
-                              ln).cpu().numpy()
+        return self.walks.anchor_bounds(kid, walk_start, lbs, lo_seeds,
+                                        hi_seeds)
+
+    def anchor_bounds(self, kid, starts, lens, lo_seeds, hi_seeds):
+        """The anchor walk from both bounds of every lane: one launch
+        each."""
+        return (self.anchor(kid, starts, lo_seeds, lens),
+                self.anchor(kid, starts, hi_seeds, lens))
+
+    def _part(self, lanes: int) -> slice:
+        """This rank's contiguous part of ``lanes`` lanes cut into equal
+        parts (the last ones short or empty); all lanes without a mesh."""
+        if self.mesh is None:
+            return slice(0, lanes)
+        per = -(-lanes // self.mesh.world)
+        a = min(lanes, self.mesh.rank * per)
+        return slice(a, min(lanes, a + per))
+
+    def _gather(self, part: np.ndarray, lanes: int) -> np.ndarray:
+        """Every rank's part of the lanes' final ranks, in lane order."""
+        if self.mesh is None:
+            return part
+        from ..parallel.mesh import all_gather
+        per = -(-lanes // self.mesh.world)
+        t = torch.zeros(per, dtype=torch.int64, device=self.mesh.device)
+        t[:len(part)] = torch.from_numpy(part)
+        return all_gather(self.mesh, t).reshape(-1)[:lanes].cpu().numpy()
+
+    def anchor(self, kid, starts, seeds, lens) -> np.ndarray:
+        """The anchor walk of the lanes (``anchor_walk_mk``; under a mesh
+        this rank's part): their final global ranks."""
+        p = self._part(len(kid))
+        kd, st, sd, ln = self._lanes(kid[p], starts[p], seeds[p], lens[p])
+        return self._gather(anchor_walk_mk(
+            self.focc, self.text_dev, self.gt_dev, self.c_first, self.table,
+            kd, st, sd, ln).cpu().numpy(), len(kid))
+
+    def run_chains(self, kid, starts, seeds, lens) -> np.ndarray:
+        """The recording walk of the lanes (``chain_walk_mk``; under a mesh
+        this rank's part, then the reductions of the class docstring):
+        leaves the histogram in ``gap`` and the samples in ``_samp``,
+        returns the final global ranks."""
+        dev = self.text_dev.device
+        word = torch.int64 if self.wide else torch.int32
+        self.gap = torch.zeros(self.focc.n + 1, dtype=word, device=dev)
+        self._samp = torch.full((self._nsamp,), -1, dtype=word, device=dev)
+        p = self._part(len(kid))
+        kd, st, sd, ln = self._lanes(kid[p], starts[p], seeds[p], lens[p])
+        # the walk alone: device time between two events on the card, the
+        # host clock around the plain version on the CPU
+        on_card = dev.type == "cuda"
+        if on_card:
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+        else:
+            t0 = time.monotonic()
+        final = chain_walk_mk(self.focc, self.text_dev, self.gt_dev,
+                              self.c_first, self.table, kd, st, sd, ln,
+                              self.gap, self._samp, self.sample_rate)
+        if on_card:
+            t1.record()
+        final = final.cpu().numpy()          # on the card: ends the walk
+        self.chain_ms = (t0.elapsed_time(t1) if on_card
+                         else (time.monotonic() - t0) * 1e3)
+        self.chain_steps = int(lens[p].sum())
+        if self.mesh is not None:
+            from ..parallel.mesh import all_reduce
+            self.gap = all_reduce(self.mesh, self.gap, "sum")
+            vals = torch.where(self._samp == -1, -1,
+                               word_values(self.focc, self._samp))
+            vals = all_reduce(self.mesh, vals, "max")
+            self._samp = vals if self.wide else as_u32_bits(vals)
+        return self._gather(final, len(kid))
 
     def _lane_budget(self, spec: _MergeSpec) -> int:
         """Lanes of one merge: its left block's share of the level."""
@@ -487,10 +605,8 @@ class BatchedGapRunner:
             lbs = np.minimum(min(lb, self.n), (e_arr[todo] - 2)
                              - starts[todo])
             lbs = np.maximum(lbs, 1)
-            lo = self._anchor_pass(kid[todo], starts[todo], lbs,
-                                   rbase[todo])
-            hi = self._anchor_pass(kid[todo], starts[todo], lbs,
-                                   rbase[todo] + gapsz[todo])
+            lo, hi = self._anchor_pass(kid[todo], starts[todo], lbs,
+                                       rbase[todo], rbase[todo] + gapsz[todo])
             ok = lo == hi
             seeds[todo[ok]] = lo[ok]
             todo = todo[~ok]
@@ -523,31 +639,8 @@ class BatchedGapRunner:
         lens = np.concatenate([sp.lens for sp in self.specs])
         seeds = np.concatenate([sp.seeds for sp in self.specs])
         self._ensure_gt(self._caps(kid, starts))
-        dev = self.text_dev.device
         with self.phase("chains"):
-            word = torch.int64 if self.wide else torch.int32
-            self.gap = torch.zeros(self.focc.n + 1, dtype=word, device=dev)
-            self._samp = torch.full((self._nsamp,), -1, dtype=word,
-                                    device=dev)
-            kd, st, sd, ln = self._lanes(kid, starts, seeds, lens)
-            # the walk alone: device time between two events on the card,
-            # the host clock around the plain version on the CPU
-            on_card = dev.type == "cuda"
-            if on_card:
-                t0, t1 = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-                t0.record()
-            else:
-                t0 = time.monotonic()
-            final = chain_walk_mk(self.focc, self.text_dev, self.gt_dev,
-                                  self.c_first, self.table, kd, st, sd, ln,
-                                  self.gap, self._samp, self.sample_rate)
-            if on_card:
-                t1.record()
-            final = final.cpu().numpy()      # on the card: ends the walk
-            self.chain_ms = (t0.elapsed_time(t1) if on_card
-                             else (time.monotonic() - t0) * 1e3)
-            self.chain_steps = int(lens.sum())
+            final = self.walks.run_chains(kid, starts, seeds, lens)
         lane0 = 0
         for sp in self.specs:
             sp.final_rs = final[lane0:lane0 + sp.T] - sp.rbase

@@ -234,7 +234,34 @@ printed:
     ``fagzToCompact4`` and ``fagzToCompact rc=1`` (host), ``bwtb3m
     inputtype=compactstream bwtonly=1`` from the 2-bit compact and its
     ``checkbwt`` (gok=1), with the tools' walls and the build's busy time;
-15. launch counts per path (> 0), kernel times against plain versions
+15. the sharded paths (``parallel/``, after step 11b), on the one card:
+    (a) a group of one over NCCL: ``all_reduce``, ``all_gather``,
+    ``broadcast`` and a self ``exchange`` on card tensors, then ``bwtb3m
+    engine=sharded`` through the CLI on step 5's text (its ``.bwt``
+    ``.hist`` ``.preisa`` ``.sa`` ``.isa`` byte for byte step 5's build)
+    and ``checkbwt`` of it (gok=1, the LF-walk kernel); (b) two ranks
+    sharing the card over gloo (``run_ranks``), on step 8's 16,777,259
+    symbols: ``sharded_bwt`` (the pad slots: n is odd) against the
+    single-card sort, which equals step 8's ``engine=doubling`` build;
+    ``blockwise_bwt_scaled(mesh=)`` at mem=67108864 (five blocks, a
+    batched level of two pairs with its lanes cut over the ranks), and
+    the same under ``BWTB3M_SHARD_OCC=1`` (the pair merges' rows sharded
+    by rank range), each equal to the single-card build on every rank;
+    on rank 1 ``bwt_gap_chain_mk`` against ``gap_chain_mk_plain`` on
+    every 8th lane of its part of that level; each rank's launch counts
+    (``parallel/dryrun.py::run_jobs``) and imported modules (none of
+    JAX); (c) three ranks (the odd-even merge-split rounds):
+    ``sharded_bwt`` of 4,194,305 symbols against the single-card sort,
+    and the time of one staged exchange of 128 MiB.  The ranks of (b)
+    and (c) start first, each world from a thread of its own (a process
+    takes about 7 s to reach the card, one after the other), and (a) and
+    the single-card references run meanwhile, so their times are taken
+    beside the ranks' work.
+    Step 5's and step 8's files are kept for it as hard links in
+    ``smoke_keep/``.  Scaling across cards is not measured (one card).
+    ``--only sharded`` runs phases 1, 2 and this one, on a text of
+    ``--n`` built there and ``make_text(16,777,259)``;
+16. launch counts per path (> 0), kernel times against plain versions
     and bounds, per-phase wall and device time, peak device memory.
 
 The last three lines are the nvidia-smi line, a JSON object of the
@@ -282,6 +309,8 @@ WORK = os.path.join(REPO, "smoke_out")
 # the genome paths' inputs, made by a process of their own while the card
 # runs the earlier steps
 TEXTS = os.path.join(REPO, "smoke_text")
+# step 5's and step 8's inputs and builds, kept for the sharded step
+KEEP = os.path.join(REPO, "smoke_keep")
 STARTED = []                    # every process the run starts
 # name -> (source, what it replaces).  lf_walk is the port of the repo's
 # one pl.pallas_call; checkbwt and bwtcomputessa run it with a verify /
@@ -666,14 +695,17 @@ def main() -> int:
                     help="index path reference length (a chromosome; 0 "
                     "skips the path)")
     ap.add_argument("--only", default="all",
-                    choices=("all", "human", "alphabet", "index", "fasta"),
+                    choices=("all", "human", "alphabet", "index", "fasta",
+                             "sharded"),
                     help="human / alphabet: the environment, the kernel "
                     "build and that path alone; index: the locate and "
                     "decode visits at 2^22 and the index path; fasta (by "
                     "hand): the genome text as a gzipped FASTA through "
                     "fagzToCompact4 and fagzToCompact rc=1, a build from "
                     "the first and its checkbwt, at --genome-n and "
-                    "--genome-mem")
+                    "--genome-mem; sharded: step 15 alone, on a text of "
+                    "--n built here with the default engine and on "
+                    "make_text(16,777,259) in place of step 8's FASTA")
     args = ap.parse_args()
     t_start = time.monotonic()
     sys.meta_path.insert(0, _BlockJax())
@@ -790,6 +822,18 @@ def main() -> int:
         os.replace(src, dst)
         return np.fromfile(dst, np.uint8), time.monotonic() - t0
 
+    def keep_files(name, paths):
+        """Hard links in KEEP to a step's files, for the sharded step at
+        the end of the run: {key: kept path}."""
+        os.makedirs(KEEP, exist_ok=True)
+        kept = {}
+        for key, path in paths.items():
+            kept[key] = os.path.join(KEEP, "%s.%s" % (name, key))
+            if os.path.exists(kept[key]):
+                os.remove(kept[key])
+            os.link(path, kept[key])
+        return kept
+
     def start_checkbwt(inp, bwt_file, inputtype="bytestream"):
         """checkbwt in a fresh process from .bwt, started: (process, its
         start)."""
@@ -822,26 +866,27 @@ def main() -> int:
         gb.reset_launch_counts()
         kas.kasai_walk.launches = 0
 
-    def counts():
-        chain = gb.LAUNCHES["chain"] + gb.LAUNCHES["anchor"]
-        L = lw.LAUNCHES
+    def counts(launches=None):
+        """This process's launch counts by kernel; or those a rank of the
+        sharded step reported (``parallel/dryrun.py::run_jobs``)."""
+        G = launches["gap_chain"] if launches else gb.LAUNCHES
+        L = launches["lf_walk"] if launches else lw.LAUNCHES
+        chain = G["chain"] + G["anchor"]
         return {"lf_walk": L["none"] + L["verify"] + L["harvest"],
                 "lf_walk_wm": L["none_wm"] + L["verify_wm"]
                 + L["harvest_wm"],
-                "gap_chain_mk_wm": gb.LAUNCHES["chain_wm"]
-                + gb.LAUNCHES["anchor_wm"],
+                "gap_chain_mk_wm": G["chain_wm"] + G["anchor_wm"],
                 "lf_walk_select": L["select"],
                 "lf_walk_w": L["none64"] + L["verify64"] + L["harvest64"],
                 "gap_chain": chain, "gap_chain_mk": chain,
-                "gap_chain_mk_w": gb.LAUNCHES["chain64"]
-                + gb.LAUNCHES["anchor64"],
-                "kasai": kas.kasai_walk.launches,
+                "gap_chain_mk_w": G["chain64"] + G["anchor64"],
+                "kasai": 0 if launches else kas.kasai_walk.launches,
                 "lf_walk_locate": L["locate"] + L["locate64"]
                 + L["locate_wm"],
                 "lf_walk_decode": L["decode"] + L["decode64"]
                 + L["decode_wm"],
-                "gap_chain_mk (chain form)": gb.LAUNCHES["chain"],
-                "gap_chain_mk (anchor form)": gb.LAUNCHES["anchor"],
+                "gap_chain_mk (chain form)": G["chain"],
+                "gap_chain_mk (anchor form)": G["anchor"],
                 "lf_walk (by visit)": dict(L)}
 
     def timed(fn, reps=1, warm=True, setup=None):
@@ -2594,6 +2639,214 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    def jobs_seconds(ranks, spawned):
+        """Per rank of ``parallel/dryrun.py::run_jobs``: the seconds from
+        the spawn to its first job, then each job's."""
+        return [[round(r[0]["start"] - spawned, 3)]
+                + [round(j["seconds"], 3) for j in r] for r in ranks]
+
+    def sharded_a(rec, keep5):
+        """Step 15 (a): a group of one over NCCL, its collectives on card
+        tensors, then ``bwtb3m engine=sharded`` through the CLI on step
+        5's text and checkbwt of it."""
+        from bwtb3m_tpu_torch.parallel import dist as pdist
+        from bwtb3m_tpu_torch.parallel import mesh as pm
+        from bwtb3m_tpu_torch.parallel.blocksort import exchange
+        t0 = time.monotonic()
+        with pdist.session("cuda") as mesh:
+            t = torch.arange(1 << 20, dtype=torch.int64, device=mesh.device)
+            ok = {"backend": (mesh.backend, mesh.world) == ("nccl", 1),
+                  "all_reduce": torch.equal(
+                      pm.all_reduce(mesh, t.clone(), "sum"), t),
+                  "all_gather": torch.equal(pm.all_gather(mesh, t), t[None]),
+                  "broadcast": torch.equal(pm.broadcast(mesh, t.clone(), 0),
+                                           t),
+                  "exchange": torch.equal(exchange(mesh, [t], [(0, 0)])[0],
+                                          t)}
+        say("sharded (a): a group of one over %s on %s: %s in %.3f s [%s]"
+            % (mesh.backend, mesh.device, ok, time.monotonic() - t0, smi))
+        if not all(ok.values()):
+            raise AssertionError("the NCCL group of one failed a check")
+        n5 = os.path.getsize(keep5["text"])
+        out = os.path.join(WORK, "sharded.bwt")
+        reset_counts()
+        rc, _, _ = run_tool("bwtb3m engine=sharded (group of one, NCCL) "
+                            "n=%d" % n5, [
+                                "bwtb3m", "engine=sharded",
+                                "inputtype=bytestream", "device=cuda",
+                                "outputfilename=" + out, keep5["text"]])
+        if rc != 0 or "sharded, 1 ranks, nccl" not in run_tool.log:
+            raise AssertionError("bwtb3m engine=sharded failed or did not "
+                                 "run on a group of one over NCCL")
+        rec["a_build_s"] = run_tool.wall
+        for ext in ("bwt", "hist", "preisa", "sa", "isa"):
+            if open(out[:-4] + "." + ext, "rb").read() != \
+                    open(keep5[ext], "rb").read():
+                raise AssertionError(".%s of engine=sharded differs from "
+                                     "step 5's build" % ext)
+        rc, stdout, _ = run_tool("checkbwt (engine=sharded build) n=%d" % n5,
+                                 ["checkbwt", "inputtype=bytestream",
+                                  "device=cuda", keep5["text"], out])
+        if rc != 0 or "gok=1" not in stdout:
+            raise AssertionError("checkbwt of the sharded build did not "
+                                 "print gok=1")
+        rec["a_checkbwt_s"] = run_tool.wall
+        path_counts["sharded path (group of one)"] = counts()
+        if path_counts["sharded path (group of one)"]["lf_walk"] < 1:
+            raise AssertionError("checkbwt of the sharded build never "
+                                 "launched the LF-walk kernel")
+        say("sharded (a): engine=sharded .bwt .hist .preisa .sa .isa == step "
+            "5's engine=doubling build at n=%d, checkbwt gok=1; build %.3f "
+            "s, checkbwt %.3f s [%s]" % (n5, rec["a_build_s"],
+                                         rec["a_checkbwt_s"], smi))
+        shutil.rmtree(WORK, ignore_errors=True)
+
+    def sharded_path(keep5, sym8, keep8):
+        """Step 15 (module docstring): the sharded paths on the one card.
+        ``keep5``: step 5's text and build; ``sym8``: step 8's text (its
+        codes), ``keep8`` its engine=doubling build or None.  The ranks of
+        (b) and (c) start first, each world in a thread of its own (every
+        process takes about 7 s to reach the card, one after the other),
+        and this process runs (a) and the references meanwhile.  Returns
+        the step's record."""
+        import concurrent.futures
+        from bwtb3m_tpu_torch.parallel import dist as pdist
+        from bwtb3m_tpu_torch.parallel import dryrun
+        rec = {}
+        t_step = time.monotonic()
+        os.makedirs(WORK, exist_ok=True)
+        torch.cuda.empty_cache()       # the ranks share the card
+        n8 = len(sym8)
+        block, lanes = 67108864 // 16, 1 << 16
+        rate = 1 << max(5, (max(1, n8 >> 17) - 1).bit_length())
+        calls_b = [("sharded_bwt_cases", ([(sym8, 4)],)),
+                   ("scaled_cases", (sym8, 4, block, rate, lanes,
+                                     [{}, {"BWTB3M_SHARD_OCC": "1"}])),
+                   ("level_on_lane_parts", (sym8, 4, block, rate, lanes, 8,
+                                            1)),
+                   ("imported_reference", ())]
+        n4 = 4_194_305
+        t4 = np.searchsorted(np.frombuffer(b"ACGT", np.uint8), make_text(
+            n4, args.seed + 15)).astype(np.int32)
+        calls_c = [("sharded_bwt_cases", ([(t4, 4)],)),
+                   ("exchange_seconds", (1 << 24, 3))]
+        t_spawn, spawned = time.monotonic(), time.time()
+
+        def world(w, calls):
+            """The ranks' results and the seconds from the spawn."""
+            out = pdist.run_ranks(dryrun.run_jobs, w, (calls,), "cuda", 600)
+            return out, time.monotonic() - t_spawn
+
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            runs = {w: pool.submit(world, w, calls)
+                    for w, calls in ((2, calls_b), (3, calls_c))}
+            sharded_a(rec, keep5)
+            with uncounted():
+                sa1, _isa1, bwt1 = suffix_array(sym8, 4, dev)
+                del _isa1
+                want = merge_scaled.blockwise_bwt_scaled(
+                    sym8, 4, BwtOptions(input_path="<mem>",
+                                        output_filename=os.devnull,
+                                        max_block_symbols=block, verbose=0),
+                    VerboseLog(0), sample_rate=rate, lane_bucket=lanes,
+                    device=dev)
+                sa4, _i4, bwt4 = suffix_array(t4, 4, dev)
+            if keep8 is not None:
+                _r, sa8 = formats.read_sampled_array(keep8["sa"])
+                bwt8 = BwtResult({"files": {"bwt": keep8["bwt"]}}).load_bwt()
+                if not (np.array_equal(sa1[::32], sa8)
+                        and np.array_equal(bwt1, bwt8)):
+                    raise AssertionError("the single-card sort differs from "
+                                         "step 8's engine=doubling build")
+            ranks, rec["b_ranks_s"] = runs[2].result()
+            ranks_c, rec["c_ranks_s"] = runs[3].result()
+
+        # (b) two ranks sharing the card over gloo, on step 8's text
+        rec["b_jobs_s"] = jobs_seconds(ranks, spawned)
+        (sa, _rank, bwt), = ranks[0][0]["result"]
+        if not (np.array_equal(sa, sa1) and np.array_equal(bwt, bwt1)):
+            raise AssertionError("sharded_bwt on 2 ranks differs from the "
+                                 "single-card sort")
+        for r, (_s, scaled, level_job, mods_job) in enumerate(ranks):
+            builds, launches = scaled["result"], scaled["launches"]
+            level, mods = level_job["result"], mods_job["result"]
+            if mods:
+                raise AssertionError("rank %d imported %s" % (r, mods))
+            rec["b_phases_rank%d" % r] = [w for _g, _m, w in builds]
+            for (got, msgs, _w), kind in zip(builds,
+                                             ("lanes", "rank range")):
+                if kind == "rank range" and not any(
+                        "by rank range" in m for m in msgs):
+                    raise AssertionError("BWTB3M_SHARD_OCC=1 did not shard "
+                                         "the rows")
+                for a, b in zip(got, want):
+                    if not np.array_equal(a, b):
+                        raise AssertionError(
+                            "blockwise_bwt_scaled(mesh=) (%s) on rank %d "
+                            "differs from the single-card build" % (kind, r))
+            path_counts["sharded merges, rank %d" % r] = counts(launches)
+            if counts(launches)["gap_chain_mk"] < 1:
+                raise AssertionError("rank %d never launched the gap-chain "
+                                     "kernel" % r)
+            if r == 1:
+                compared, _k, same = level[1]
+                rec["b_kernel_lanes"] = compared
+                if not same or compared < 1:
+                    raise AssertionError("bwt_gap_chain_mk differs from its "
+                                         "plain version on rank 1's lanes")
+        say("sharded (b): 2 ranks sharing the card over gloo, n=%d: "
+            "sharded_bwt == single-card sort%s; blockwise_bwt_scaled(mesh=) "
+            "mem=67108864 lane-sharded and BWTB3M_SHARD_OCC=1 == single-card "
+            "build (bwt, samples, hist); bwt_gap_chain_mk == plain on %d of "
+            "rank 1's %d level lanes; %.3f s from the spawn to the results, "
+            "by rank the spawn to the first job, then each job %s, the "
+            "scaled builds' phases %s; launches %s [%s]"
+            % (n8, " == step 8's engine=doubling" if keep8 else "",
+               rec["b_kernel_lanes"], level[0], rec["b_ranks_s"],
+               json.dumps(rec["b_jobs_s"]),
+               json.dumps(rec["b_phases_rank0"]),
+               [counts(r[1]["launches"])["gap_chain_mk"] for r in ranks],
+               smi))
+
+        # (c) three ranks: the odd-even merge-split rounds
+        rec["c_jobs_s"] = jobs_seconds(ranks_c, spawned)
+        (sa, _rank, bwt), = ranks_c[0][0]["result"]
+        if not (np.array_equal(sa, sa4) and np.array_equal(bwt, bwt4)):
+            raise AssertionError("sharded_bwt on 3 ranks differs from the "
+                                 "single-card sort")
+        if any(r[0]["result"] for r in ranks_c[1:]):
+            raise AssertionError("ranks imported %s"
+                                 % ranks_c[1][0]["result"])
+        ex_s, ex_b = ranks_c[0][1]["result"]
+        rec["c_exchange"] = {"bytes": ex_b, "s": ex_s}
+        say("sharded (c): 3 ranks sharing the card over gloo, n=%d: "
+            "sharded_bwt == single-card sort; %.3f s from the spawn to the "
+            "results, by rank %s; an exchange of %d bytes between two ranks "
+            "staged through the host %.4f s (%.3f GB/s) [%s]"
+            % (n4, rec["c_ranks_s"], json.dumps(rec["c_jobs_s"]), ex_b, ex_s,
+               ex_b / ex_s / 1e9, smi))
+        shutil.rmtree(KEEP, ignore_errors=True)
+        rec["step_s"] = time.monotonic() - t_step
+        return rec
+
+    if args.only == "sharded":
+        os.makedirs(WORK, exist_ok=True)
+        inp5 = os.path.join(WORK, "chr.bin")
+        make_text(args.n, args.seed).tofile(inp5)
+        rc, _, _ = run_tool("bwtb3m n=%d" % args.n, [
+            "bwtb3m", "inputtype=bytestream", "device=cuda", inp5])
+        if rc != 0:
+            raise AssertionError("bwtb3m failed")
+        keep5 = keep_files("chr", {e: inp5 + "." + e for e in
+                                   ("bwt", "hist", "preisa", "sa", "isa")})
+        keep5.update(keep_files("chr", {"text": inp5}))
+        shutil.rmtree(WORK, ignore_errors=True)
+        sym8 = np.searchsorted(np.frombuffer(b"ACGT", np.uint8), make_text(
+            16_777_259, args.seed + 8)).astype(np.uint8)
+        sharded_path(keep5, sym8, None)
+        say_tools()
+        return finish()
+
     if args.only == "index":
         idx22 = index_2_22()
         ipath = index_path(args.index_n)
@@ -3147,6 +3400,10 @@ def main() -> int:
         raise AssertionError("bwtcomputessa failed")
     path_counts["single-block path"] = counts()
     peak_single = torch.cuda.max_memory_allocated()
+    keep5 = keep_files("chr", {"text": inp, "bwt": bwt_path,
+                               "hist": inp + ".hist",
+                               "preisa": inp + ".preisa", "sa": ref_sa,
+                               "isa": ref_isa})
     say("single-block path launches: %s" % path_counts["single-block path"])
     if path_counts["single-block path"]["lf_walk"] < 1:
         raise AssertionError("the single-block path never launched the "
@@ -3269,6 +3526,8 @@ def main() -> int:
         "bwtcomputessa", "sasamplingrate=32", "isasamplingrate=262144",
         "device=cuda", outs["doubling"]], profile=False)
     path_counts["FASTA path"] = counts()
+    keep8 = keep_files("mid", {"compact": c4, "bwt": outs["doubling"],
+                               "sa": base8 + ".sa"})
     say("FASTA path launches: %s" % path_counts["FASTA path"])
     if rc != 0 or path_counts["FASTA path"]["lf_walk"] < 1 \
             or path_counts["FASTA path"]["gap_chain_mk"] < 1:
@@ -3926,9 +4185,20 @@ def main() -> int:
         say("human-genome path: n >= 2^31, no PLCP (compute_sa_device and "
             "compute_plcp take n < 2^31, as in the reference)")
 
+    lap("15")
+    # ---- 15. the sharded paths -------------------------------------------
+    sym8, _bits8 = compact.read_compact(keep8["compact"])
+    sharded = sharded_path(keep5, np.asarray(sym8, np.uint8), keep8)
+    del sym8
+
     lap("12")
     # ---- 12. report -----------------------------------------------------
     say_tools()
+    say("sharded step: %.3f s; (a) engine=sharded build %.3f s, its "
+        "checkbwt %.3f s; from the spawn to the results (b) 2 ranks %.3f s, "
+        "(c) 3 ranks %.3f s, beside (a) [%s]"
+        % (sharded["step_s"], sharded["a_build_s"], sharded["a_checkbwt_s"],
+           sharded["b_ranks_s"], sharded["c_ranks_s"], smi))
     for name, (wall, dev_s, span_s) in sorted(merge_phases.items(),
                                               key=lambda kv: -kv[1][0]):
         say("merge build phase %-18s wall %.3f s, device busy %s, device "

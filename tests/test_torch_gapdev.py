@@ -97,12 +97,10 @@ def test_anchors_match_reference(kind, s, m, e, layout):
     kid = np.zeros(len(st), np.int64)
     for lb in (64, 1024):
         lbs = np.maximum(np.minimum(lb, (e - 2) - st), 1)
-        bounds = []
-        for r0 in (0, e - m):
-            bounds.append(pr._anchor_pass(kid, st, lbs,
-                                          np.full(len(st), r0)))
-            np.testing.assert_array_equal(bounds[-1],
-                                          jr._run_anchor(st, lbs, r0))
+        bounds = pr._anchor_pass(kid, st, lbs, np.full(len(st), 0),
+                                 np.full(len(st), e - m))
+        for got, r0 in zip(bounds, (0, e - m)):
+            np.testing.assert_array_equal(got, jr._run_anchor(st, lbs, r0))
         lo_j, ok_j = jr.anchor(st, lb)
         np.testing.assert_array_equal(bounds[0], lo_j)
         np.testing.assert_array_equal(bounds[0] == bounds[1], ok_j)

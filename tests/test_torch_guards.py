@@ -4,6 +4,8 @@
   JAX package ``bwtb3m_tpu`` made to fail, and no file of the port
   imports any of them;
 - ``device=cuda`` without CUDA raises instead of running on the CPU;
+- the multi-rank path (``parallel/``: a group of one and ``run_ranks``'s
+  spawned ranks) runs with the same imports refused, in every process;
 - paths that are not ported yet raise ``NotImplementedError`` naming
   their ROADMAP.md item, and the ones this refusal once covered run
   (``bwtcodec=rlh``, the tools past 256 symbols, the index tools and
@@ -112,6 +114,77 @@ def test_slice_runs_with_jax_blocked(tmp_path):
     assert "gok=1" in proc.stdout and "lcpok=1" in proc.stdout
 
 
+# installed as sitecustomize in front of PYTHONPATH, so that every
+# interpreter started below, run_ranks's spawned ranks too, refuses JAX
+# and the reference package and leaves a mark that it did
+BLOCKED_SITE = r'''
+import importlib.abc, os, sys
+
+class BlockJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "bwtb3m_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, BlockJax())
+open(os.path.join(os.environ["BLOCK_MARKS"], str(os.getpid())), "w").close()
+'''
+
+BLOCKED_PARALLEL = r'''
+import numpy as np
+try:
+    import jax
+except ImportError:
+    pass
+else:
+    raise SystemExit("jax is not refused")
+from bwtb3m_tpu_torch.parallel import dist, dryrun, make_mesh, sharded_bwt
+text = np.random.default_rng(2).integers(0, 4, 1001).astype(np.int32)
+with dist.session("cpu") as mesh:
+    assert make_mesh().world == 1
+    one = sharded_bwt(text, 4, mesh)
+(two,), mods = dist.run_ranks(dryrun.sharded_bwt_cases, 2, ([(text, 4)],),
+                              device="cpu", timeout=120)
+assert mods == [], mods
+for a, b in zip(one, two):
+    assert np.array_equal(a, b)
+assert dryrun.reference_modules() == []
+print("OK")
+'''
+
+
+def test_parallel_runs_with_jax_blocked(tmp_path):
+    """``make_mesh``, ``sharded_bwt`` in a group of one and ``run_ranks``
+    children (two gloo ranks) with JAX and the reference package refused
+    in this interpreter and in each child."""
+    site = tmp_path / "site"
+    marks = tmp_path / "marks"
+    site.mkdir()
+    marks.mkdir()
+    (site / "sitecustomize.py").write_text(BLOCKED_SITE)
+    env = dict(os.environ, PYTHONPATH=str(site) + os.pathsep + REPO,
+               BLOCK_MARKS=str(marks))
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_PARALLEL], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+    assert len(os.listdir(marks)) >= 3       # this interpreter and 2 ranks
+
+
+def test_sharded_engine_on_the_card_without_cuda_raises(tmp_path,
+                                                        monkeypatch):
+    from bwtb3m_tpu_torch.parallel import dist
+    inp = _dna(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=cuda"):
+        compute_bwt(BwtOptions(input_path=inp, engine="sharded",
+                               device="cuda", verbose=0))
+    with pytest.raises(RuntimeError, match="device=cuda"):
+        dist.initialize("cuda")
+    assert not torch.distributed.is_initialized()
+
+
 def test_no_jax_import_in_port():
     pat = re.compile(r"^\s*(import jax|from jax|import bwtb3m_tpu(\.|\s|$)"
                      r"|from bwtb3m_tpu[. ])", re.M)
@@ -151,12 +224,11 @@ def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kw,match", [
     ({"engine": "merge-legacy", "input_type": "utf-8"}, "item 11"),
-    ({"engine": "sharded"}, "item 9"),
 ])
 def test_unported_build_paths_raise(tmp_path, monkeypatch, kw, match):
-    """``engine=sharded`` raises naming item 9; ``engine=merge-legacy``,
-    which runs the scaled engine, raises naming item 11 on 65,537
-    distinct code points, where the reference's legacy engine runs."""
+    """``engine=merge-legacy``, which runs the scaled engine, raises
+    naming item 11 on 65,537 distinct code points, where the reference's
+    legacy engine runs."""
     kw = dict(kw)
     if "env" in kw:
         monkeypatch.setenv(kw.pop("env"), "1")

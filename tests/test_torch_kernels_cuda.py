@@ -5,7 +5,9 @@ the select walk with its summary bitmap and lanes that refill;
 and on each rank-row layout (sector, bit-plane, bytes), and the Kasai
 walk ``bwt_kasai_plcp`` (nibble and byte windows, slabs, step caps,
 ragged lanes, p0 inside a lane and at its edge), against the plain
-PyTorch versions, on the card.  Skipped without a CUDA device; on
+PyTorch versions, on the card; and the multi-rank path on the one card:
+NCCL in a group of one, and two ranks sharing the card over gloo
+(``parallel/``).  Skipped without a CUDA device; on
 one, run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
 (the suite's conftest imports JAX, which the card's machine need not
@@ -861,3 +863,60 @@ def test_fasta_pipeline_and_merge_legacy_on_card(cuda, tmp_path):
     np.testing.assert_array_equal(
         np.r_[0, np.cumsum(lens)][coords >> obits]
         + (coords & ((1 << obits) - 1)), sa)
+
+
+def test_nccl_group_of_one(cuda):
+    """A group of one on the card runs over NCCL: its collectives and a
+    self exchange on card tensors, and the sharded sort against the
+    single-card sort."""
+    from bwtb3m_tpu_torch.parallel import dist, sharded_bwt
+    from bwtb3m_tpu_torch.parallel import mesh as pm
+    from bwtb3m_tpu_torch.parallel.blocksort import exchange
+    text = np.random.default_rng(9).integers(0, 4, 100_003).astype(np.int32)
+    with dist.session("cuda") as mesh:
+        assert (mesh.world, mesh.backend) == (1, "nccl")
+        assert mesh.device.type == "cuda" and not mesh.staged
+        t = torch.arange(1 << 16, device=mesh.device)
+        assert torch.equal(pm.all_reduce(mesh, t.clone(), "sum"), t)
+        assert torch.equal(pm.all_gather(mesh, t), t[None])
+        assert torch.equal(pm.broadcast(mesh, t.clone(), 0), t)
+        got, = exchange(mesh, [t], [(0, 0)])
+        assert torch.equal(got, t)
+        sa, _rank, bwt = sharded_bwt(text, 4, mesh)
+    assert not torch.distributed.is_initialized()
+    sa1, _isa, bwt1 = suffix_array(text, 4, cuda)
+    assert np.array_equal(sa, sa1) and np.array_equal(bwt, bwt1)
+
+
+def test_lane_sharded_level_on_two_ranks_sharing_the_card(cuda):
+    """Two ranks on the one card (gloo, collectives staged through the
+    host): the scaled build with its first level's lanes cut over the
+    ranks and with its pair merges' rows sharded by rank range, against
+    the single-card build; each rank launches the gap-chain kernel on its
+    lanes, and on rank 1 the kernel equals its plain version there."""
+    from bwtb3m_tpu_torch.engine.merge_scaled import blockwise_bwt_scaled
+    from bwtb3m_tpu_torch.engine.options import BwtOptions
+    from bwtb3m_tpu_torch.parallel import dist, dryrun
+    n = (1 << 18) + 37
+    text = np.random.default_rng(10).integers(0, 4, n, dtype=np.uint8)
+    block, rate, lanes = n // 5 + 1, 512, 1024
+    calls = [("scaled_cases", (text, 4, block, rate, lanes,
+                               [{}, {"BWTB3M_SHARD_OCC": "1"}])),
+             ("level_on_lane_parts", (text, 4, block, rate, lanes, 1, 1))]
+    ranks = dist.run_ranks(dryrun.run_jobs, 2, (calls,), device="cuda",
+                           timeout=300)
+    want = blockwise_bwt_scaled(
+        text, 4, BwtOptions(input_path="<mem>", output_filename="x",
+                            max_block_symbols=block, verbose=0),
+        sample_rate=rate, lane_bucket=lanes, device=cuda)
+    for rank, (builds, level) in enumerate(ranks):
+        launches = builds["launches"]
+        for got, _msgs, _walls in builds["result"]:
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+        assert launches["gap_chain"]["chain"] >= 1
+        assert launches["gap_chain"]["anchor"] >= 1
+        n_lanes, check = level["result"]
+        if rank == 1:
+            compared, kernel_launches, same = check
+            assert compared > 0 and kernel_launches == 1 and same
