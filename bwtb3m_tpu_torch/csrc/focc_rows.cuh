@@ -25,7 +25,7 @@
 //   byte rows (sigma <= 256), roww bytes per block (multiple of 128):
 //     bytes 0..255                 the block's symbols
 //     bytes 256 + 4c .. +3         occ checkpoint of symbol c, little endian
-//   wavelet rows (256 < sigma <= 65536, n < 2^31; ops/wavelet_rows.py),
+//   wavelet rows (256 < sigma <= 2^21, n < 2^31; ops/wavelet_rows.py),
 //   a fourth family with the same three calls but no block rows: an 8-ary
 //   wavelet matrix of `levels` levels of base-8 digits, each level nblk
 //   64-byte blocks, 64-byte aligned
@@ -251,7 +251,8 @@ struct ByteRows {
 // level l the block of i, the digit d there and k, the d digits before i,
 // and goes on at zc[l][d] + k, zc[l][d] being the level's digits below d;
 // the levels' blocks depend on each other, so a step is `levels`
-// dependent 64-byte reads (four 16-byte loads each): 5 at 5,000 symbols.
+// dependent 64-byte reads (four 16-byte loads each): 5 at 5,000 symbols,
+// 6 at 100,000, 7 at 2^21 (every Unicode code point).
 // Past the L2 the walks are bound by the card's rate of dependent random
 // reads, and a random 64 bytes costs little more than a random 32 (the
 // 4-ary matrix of 32-byte sectors, 7 reads a step, was 1.32x slower;
@@ -262,7 +263,9 @@ struct ByteRows {
 // are read from shared memory where a kernel staged them
 // (stage_wavelet), else with __ldg.  Ranks are uint32 (the callers keep
 // n below 2^31); the division by 96 is by a constant (multiply-high).
-constexpr int kWmMaxLevels = 6;
+// Symbols are uint32 here whatever the text's width (uint16 up to 65,536
+// symbols, uint32 past them: the kernels' T).
+constexpr int kWmMaxLevels = 7;
 constexpr int kWmRadix = 8;
 constexpr uint32_t kWmBlockDigits = 96;
 
@@ -282,7 +285,7 @@ struct WaveletArgs {
 
 struct WaveletRows {
   static constexpr int kShift = 0;
-  static constexpr int kMaxSigma = 65536;
+  static constexpr int kMaxSigma = 1 << 21;
   const uint4* blk;
   unsigned long long nblk;
   int levels;

@@ -2,7 +2,8 @@
 //
 // Alphabets past 256 distinct symbols: bwt_gap_chain_mk_wm runs the
 // recording and anchor forms over the wavelet rows of the right region
-// (focc_rows.cuh::WaveletRows), one merge per launch, with a uint16 text;
+// (focc_rows.cuh::WaveletRows), one merge per launch, with a uint16 text
+// up to 65,536 symbols and a uint32 one past them (up to 2^21, 7 levels);
 // it replaces the reference's legacy engine's chain and anchor walks
 // (bwtb3m_tpu/ops/gap.py::_chain_steps, _anchor_steps), which the port
 // maps onto its scaled engine.
@@ -108,7 +109,7 @@ struct Merge {
 
 // I: ranks, positions and samples (uint32_t narrow, unsigned long long in
 // the 64-bit form); Cell: the histogram's cells (uint32_t, unsigned long
-// long); T: the text's symbols (uint16_t on the wavelet rows).
+// long); T: the text's symbols (uint16_t or uint32_t on the wavelet rows).
 template <class I, class Cell, class T = uint8_t>
 struct Chain {
   const T* text;            // dense text, n symbols
@@ -229,10 +230,10 @@ Chain<I, Cell, T> make_chain(const void* text, const void* gt, const void* c_fir
 }
 
 // The wavelet rows (one merge, narrow): start staged in shared memory
-// where the host gave the bytes for it, the text uint16.
-template <bool kRecord>
+// where the host gave the bytes for it, the text of T (uint16 or uint32).
+template <bool kRecord, class T>
 __global__ void chain_wm_kernel(bwt_rows::WaveletArgs a,
-                                Chain<uint32_t, uint32_t, uint16_t> ch, int nlanes) {
+                                Chain<uint32_t, uint32_t, T> ch, int nlanes) {
   extern __shared__ uint32_t s_tab[];
   const bwt_rows::WaveletRows rows = bwt_rows::stage_wavelet(a, s_tab);
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -278,16 +279,34 @@ extern "C" int bwt_gap_chain_mk_w(const void* rows, int roww, const void* thr, i
 // One pair merge over wavelet rows (more than 256 distinct symbols, n <
 // 2^31; ops/wavelet_rows.py): the right region's blocks ([levels][nblk]
 // x 64 bytes), the digit table zc (uint32 [levels][8]) and start (uint32
-// [sigma]); text is the dense text as uint16; the rest as
-// bwt_gap_chain_mk with one merge.  start sits in shared memory when
-// smem_bytes is not 0.
+// [sigma]); text is the dense text, symbytes (2 or 4) bytes a symbol:
+// uint16 up to 65,536 symbols, uint32 past them (up to 2^21, 7 levels);
+// the rest as bwt_gap_chain_mk with one merge.  start sits in shared
+// memory when smem_bytes is not 0.  Another symbytes returns
+// cudaErrorInvalidValue without a launch.
+template <class T>
+static void launch_wm(const bwt_rows::WaveletArgs& a, int smem_bytes, const void* text,
+                      const void* gt, const void* c_first, const void* table,
+                      const void* kid, const void* starts, const void* seeds,
+                      const void* lens, void* r_out, void* gap, void* samp, int rate,
+                      int nlanes, cudaStream_t s) {
+  const auto ch = make_chain<uint32_t, uint32_t, T>(text, gt, c_first, table, kid, starts,
+                                                    seeds, lens, r_out, gap, samp, rate);
+  const int grid = (nlanes + kThreads - 1) / kThreads;
+  if (gap != nullptr) {
+    chain_wm_kernel<true, T><<<grid, kThreads, smem_bytes, s>>>(a, ch, nlanes);
+  } else {
+    chain_wm_kernel<false, T><<<grid, kThreads, smem_bytes, s>>>(a, ch, nlanes);
+  }
+}
+
 extern "C" int bwt_gap_chain_mk_wm(const void* blocks, long long nblk, int levels,
                                    const void* zc, const void* start, int sigma,
-                                   int smem_bytes, const void* text, const void* gt,
-                                   const void* c_first, const void* table, const void* kid,
-                                   const void* starts, const void* seeds, const void* lens,
-                                   void* r_out, void* gap, void* samp, int rate, int nlanes,
-                                   void* stream) {
+                                   int smem_bytes, int symbytes, const void* text,
+                                   const void* gt, const void* c_first, const void* table,
+                                   const void* kid, const void* starts, const void* seeds,
+                                   const void* lens, void* r_out, void* gap, void* samp,
+                                   int rate, int nlanes, void* stream) {
   bwt_rows::WaveletArgs a;
   a.blk = static_cast<const uint4*>(blocks);
   a.nblk = (unsigned long long)nblk;
@@ -297,14 +316,15 @@ extern "C" int bwt_gap_chain_mk_wm(const void* blocks, long long nblk, int level
   a.D = nullptr;
   a.start = static_cast<const uint32_t*>(start);
   a.stage = smem_bytes ? 2 : 0;
-  const auto ch = make_chain<uint32_t, uint32_t, uint16_t>(
-      text, gt, c_first, table, kid, starts, seeds, lens, r_out, gap, samp, rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (nlanes + kThreads - 1) / kThreads;
-  if (gap != nullptr) {
-    chain_wm_kernel<true><<<grid, kThreads, smem_bytes, s>>>(a, ch, nlanes);
+  if (symbytes == 2) {
+    launch_wm<uint16_t>(a, smem_bytes, text, gt, c_first, table, kid, starts, seeds, lens,
+                        r_out, gap, samp, rate, nlanes, s);
+  } else if (symbytes == 4) {
+    launch_wm<uint32_t>(a, smem_bytes, text, gt, c_first, table, kid, starts, seeds, lens,
+                        r_out, gap, samp, rate, nlanes, s);
   } else {
-    chain_wm_kernel<false><<<grid, kThreads, smem_bytes, s>>>(a, ch, nlanes);
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -60,10 +60,13 @@
 // (focc_rows.cuh::WaveletRows, ops/wavelet_rows.py) and replaces the
 // reference's legacy walks over its OccTable: ops/lf.py::lf_walk,
 // engine/verify.py::_walk_verify_run and engine/ssa.py::_harvest_walk.
-// Its text is uint16 (the dense symbol ids).  A step is one descent, a
-// dependent 64-byte block read per level of three bits (5 for 5,000
-// symbols), where the other families read one row: a miss costing 64
-// bytes whatever is asked (above), the block is as cheap as a sector.
+// Its text is the dense symbol ids, uint16 up to 65,536 symbols and uint32
+// past them (up to 2^21, 7 levels): one template instance per width,
+// picked by the entry's symbytes.  A step is one descent, a dependent
+// 64-byte block read per level of three bits (5 for 5,000 symbols, 6 for
+// 100,000, 7 past 262,144), where the other families read one row: a
+// miss costing 64 bytes whatever is asked (above), the block is as cheap
+// as a sector.
 //
 // The entry point launches on the caller's stream, does not synchronise
 // and returns cudaGetLastError() right after the launch.
@@ -124,8 +127,8 @@ enum class Visit { kNone, kVerify, kHarvest, kLocate, kDecode };
 // The lanes and what a step visits.  Lane i starts at rank r0[i] (and, for
 // a visit, at text position p0[i]) and takes seg_len[i] steps.  I is the
 // rank and position type: uint32_t in the narrow form (n < 2^32), unsigned
-// long long in the 64-bit form; T the text's symbol type (uint16_t on the
-// wavelet rows).
+// long long in the 64-bit form; T the text's symbol type (uint16_t or
+// uint32_t on the wavelet rows).
 template <class I, class T = uint8_t>
 struct Walk {
   const I* r0;
@@ -295,9 +298,9 @@ __global__ void lf_walk_byte_kernel(ByteRows rows, int sigma, Walk<I> w, int nla
 }
 
 // The wavelet rows: D staged in shared memory where sigma words fit
-// (the host passes the bytes), the text uint16.
-template <Visit V>
-__global__ void lf_walk_wm_kernel(WaveletArgs a, Walk<uint32_t, uint16_t> w, int nlanes) {
+// (the host passes the bytes), the text of T (uint16 or uint32).
+template <Visit V, class T>
+__global__ void lf_walk_wm_kernel(WaveletArgs a, Walk<uint32_t, T> w, int nlanes) {
   extern __shared__ uint32_t s_tab[];
   const WaveletRows rows = bwt_rows::stage_wavelet(a, s_tab);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -535,15 +538,50 @@ extern "C" int bwt_lf_walk_w(const void* rows, int roww, const void* C64, const 
 // The walk over wavelet rows (sigma > 256, n < 2^31): blocks ([levels]
 // [nblk] x 64 bytes), the digit table zc (uint32 [levels][8]) and D
 // (uint32 [sigma]) of ops/wavelet_rows.py; text (verify) is the densified
-// text as uint16, and so is the decode visit's out; otherwise as
-// bwt_lf_walk.  D sits in shared memory when smem_bytes (the host's
-// choice, sigma * 4 or 0) is not 0.
+// text and the decode visit's out its symbols, symbytes (2 or 4) bytes a
+// symbol: uint16 up to 65,536 symbols, uint32 past them (up to 2^21, 7
+// levels); otherwise as bwt_lf_walk.  D sits in shared memory when
+// smem_bytes (the host's choice, sigma * 4 or 0) is not 0.  Another
+// symbytes returns cudaErrorInvalidValue without a launch.
+template <class T>
+static void launch_wm(const WaveletArgs& a, int smem_bytes, const void* r0, const void* p0,
+                      const void* seg_len, void* r_out, long long n, const void* text,
+                      void* bad, int sarate, int isarate, void* sa_out, void* isa_out,
+                      void* steps_out, long long rate, void* dec_out, long long base,
+                      long long out_len, int nlanes, cudaStream_t s) {
+  Walk<uint32_t, T> w;
+  w.r0 = static_cast<const uint32_t*>(r0);
+  w.p0 = static_cast<const uint32_t*>(p0);
+  w.seg_len = static_cast<const int32_t*>(seg_len);
+  w.r_out = static_cast<uint32_t*>(r_out);
+  w.n = (uint32_t)n;
+  w.text = static_cast<const T*>(text);
+  w.bad = static_cast<int32_t*>(bad);
+  w.sarate = (uint32_t)sarate;
+  w.isarate = (uint32_t)isarate;
+  w.sa = static_cast<uint32_t*>(sa_out);
+  w.isa = static_cast<uint32_t*>(isa_out);
+  set_visits(w, steps_out, rate, dec_out, base, out_len);
+  const int grid = (nlanes + kThreads - 1) / kThreads;
+  if (steps_out) {
+    lf_walk_wm_kernel<Visit::kLocate, T><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
+  } else if (dec_out) {
+    lf_walk_wm_kernel<Visit::kDecode, T><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
+  } else if (text) {
+    lf_walk_wm_kernel<Visit::kVerify, T><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
+  } else if (sa_out) {
+    lf_walk_wm_kernel<Visit::kHarvest, T><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
+  } else {
+    lf_walk_wm_kernel<Visit::kNone, T><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
+  }
+}
+
 extern "C" int bwt_lf_walk_wm(const void* blocks, long long nblk, int levels,
                               const void* zc, const void* D, int sigma,
-                              int smem_bytes, long long n, const void* r0,
-                              const void* p0, const void* seg_len, void* r_out,
-                              const void* text, void* bad, int sarate, int isarate,
-                              void* sa_out, void* isa_out, void* steps_out,
+                              int smem_bytes, int symbytes, long long n,
+                              const void* r0, const void* p0, const void* seg_len,
+                              void* r_out, const void* text, void* bad, int sarate,
+                              int isarate, void* sa_out, void* isa_out, void* steps_out,
                               long long rate, void* dec_out, long long base,
                               long long out_len, int nlanes, void* stream) {
   WaveletArgs a;
@@ -555,31 +593,17 @@ extern "C" int bwt_lf_walk_wm(const void* blocks, long long nblk, int levels,
   a.D = static_cast<const uint32_t*>(D);
   a.start = nullptr;
   a.stage = smem_bytes ? 1 : 0;
-  Walk<uint32_t, uint16_t> w;
-  w.r0 = static_cast<const uint32_t*>(r0);
-  w.p0 = static_cast<const uint32_t*>(p0);
-  w.seg_len = static_cast<const int32_t*>(seg_len);
-  w.r_out = static_cast<uint32_t*>(r_out);
-  w.n = (uint32_t)n;
-  w.text = static_cast<const uint16_t*>(text);
-  w.bad = static_cast<int32_t*>(bad);
-  w.sarate = (uint32_t)sarate;
-  w.isarate = (uint32_t)isarate;
-  w.sa = static_cast<uint32_t*>(sa_out);
-  w.isa = static_cast<uint32_t*>(isa_out);
-  set_visits(w, steps_out, rate, dec_out, base, out_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (nlanes + kThreads - 1) / kThreads;
-  if (steps_out) {
-    lf_walk_wm_kernel<Visit::kLocate><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
-  } else if (dec_out) {
-    lf_walk_wm_kernel<Visit::kDecode><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
-  } else if (text) {
-    lf_walk_wm_kernel<Visit::kVerify><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
-  } else if (sa_out) {
-    lf_walk_wm_kernel<Visit::kHarvest><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
+  if (symbytes == 2) {
+    launch_wm<uint16_t>(a, smem_bytes, r0, p0, seg_len, r_out, n, text, bad, sarate,
+                        isarate, sa_out, isa_out, steps_out, rate, dec_out, base,
+                        out_len, nlanes, s);
+  } else if (symbytes == 4) {
+    launch_wm<uint32_t>(a, smem_bytes, r0, p0, seg_len, r_out, n, text, bad, sarate,
+                        isarate, sa_out, isa_out, steps_out, rate, dec_out, base,
+                        out_len, nlanes, s);
   } else {
-    lf_walk_wm_kernel<Visit::kNone><<<grid, kThreads, smem_bytes, s>>>(a, w, nlanes);
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -25,11 +25,13 @@ the file format.  ``bwtcodec=rlh`` writes the Huffman-coded RLH1 ``.bwt``
 
 An alphabet of more than 256 distinct symbols (a UTF-8 text) takes the
 scaled engine too, where the reference takes its legacy full-SA engine:
-the text is compacted to dense uint16 ids, and the engine runs on 16-bit
-regions and wavelet rank rows, pair by pair, with no checkpoints
-(``engine/merge_scaled.py``); the files are the reference's.  More than
-65,536 distinct symbols raise ``NotImplementedError`` (ROADMAP.md Queue 1
-item 11).
+the text is compacted to dense ids, uint16 up to 65,536 distinct symbols
+and uint32 past them, and the engine runs on 16- or 32-bit regions and
+wavelet rank rows (up to 2^21 distinct symbols, 7 levels: every Unicode
+code point), pair by pair, with no checkpoints
+(``engine/merge_scaled.py``); the files are the reference's.  Past 256
+distinct symbols the text stays below 2^31 symbols, as the reference's
+int32 lanes do.
 
 ``engine=merge-legacy`` is mapped onto the scaled engine, not ported:
 the reference sends it to its round-1 engine
@@ -50,8 +52,7 @@ reference's ``engine=merge`` is the scaled engine, whose samples of
 such a text ``engine=merge`` keeps as they are (ROADMAP.md Queue 3).
 The root is sorted in one block, so a root of more than
 ``max_block_symbols`` raises ``NotImplementedError`` before the build
-(Queue 3).  One difference stays: past 65,536 distinct symbols the
-reference's legacy engine runs and the port raises (item 11).
+(Queue 3).
 
 ``engine=sharded`` runs the sharded suffix sort (``parallel/``) over the
 ranks of a process group: torchrun's (``torchrun --nproc_per_node=N -m
@@ -76,6 +77,7 @@ from .. import native
 from ..io import formats
 from ..io.inputtypes import parse_input_type
 from ..ops.doubling import suffix_array
+from ..ops.wavelet_rows import MAX_SYMBOLS
 from ..util.devices import resolve_device
 from ..util.log import RealTimeClock, VerboseLog, mem_usage_string
 from ..util.phases import Phases
@@ -101,7 +103,9 @@ def _spill_text(symbols: np.ndarray, options: BwtOptions, log: VerboseLog):
     if not options.host_mem or 2 * n <= options.host_mem:
         return symbols, None
     path = options.tmp_prefix + "_text.u8"
-    dt = np.uint16 if np.asarray(symbols).dtype == np.uint16 else np.uint8
+    dt = np.asarray(symbols).dtype
+    if dt not in (np.uint16, np.uint32):
+        dt = np.uint8
     np.asarray(symbols, dt).tofile(path)
     log.v("hostmem=%d: text (%d bytes) spilled to memmap %s"
           % (options.host_mem, n * np.dtype(dt).itemsize, path))
@@ -318,14 +322,15 @@ def _merge_engine(symbols, sigma: int, prate: int, options: BwtOptions,
                   bounded_spill: Optional[str]):
     """The scaled engine after the reference's alphabet compaction: a
     sigma > 256 alphabet with <= 256 distinct symbols compacts to bytes
-    and one with more to dense uint16 ids (up to 65,536), a byte alphabet
+    and one with more to dense uint16 ids (up to 65,536) or uint32 ids
+    (up to 2^21; more raise ``ValueError``), a byte alphabet
     with <= 16 distinct symbols to nibbles (a strictly monotonic remap
     keeps rotation order, so the BWT maps back through the same table).
     A memory-mapped text (``hostmem=``) is compacted
     chunk by chunk into a second map; ``bounded_spill`` and every spill
     made here are removed when the engine returns.  Returns (bwt, preisa
     positions, preisa ranks, symmap or None)."""
-    from .merge_scaled import blockwise_bwt_scaled
+    from .merge_scaled import blockwise_bwt_scaled, host_symbol_dtype
 
     symmap = None
     if sigma > 256:
@@ -333,12 +338,11 @@ def _merge_engine(symbols, sigma: int, prate: int, options: BwtOptions,
             syms_np = np.asarray(symbols)
             # the distinct symbols (np.unique's) from one counting pass
             uniq = np.flatnonzero(np.bincount(syms_np, minlength=sigma))
-            if len(uniq) > 1 << 16:
-                raise NotImplementedError(
-                    "the merge engine for more than 65,536 distinct symbols "
-                    "is not ported: ROADMAP.md Queue 1 item 11")
-            table = np.zeros(sigma, np.uint8 if len(uniq) <= 256
-                             else np.uint16)
+            if len(uniq) > MAX_SYMBOLS:
+                raise ValueError(
+                    "the merge engine takes at most 2,097,152 (2^21) "
+                    "distinct symbols, not %d" % len(uniq))
+            table = np.zeros(sigma, host_symbol_dtype(len(uniq)))
             table[uniq] = np.arange(len(uniq))
             symmap = uniq.astype(np.int64)
             symbols = table[syms_np]

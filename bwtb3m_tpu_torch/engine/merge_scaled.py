@@ -34,11 +34,14 @@ The BWT crosses to the host once, at the end.
 
 More than 256 distinct symbols (the reference sends such a text to its
 legacy full-SA engine, ``engine/merge.py::blockwise_bwt``): the text is
-dense uint16 ids, on the device as int16 of the same bits; regions pack
-at 16 bits; the block sorts take 16-bit symbols; the gt bits come from
-the native comparator's uint16 form; each merge's right region gets its
-own wavelet rank rows (``ops/wavelet_rows.py``) and the chains run
-through ``bwt_gap_chain_mk_wm``, so the merges run pair by pair
+dense ids, uint16 up to 65,536 symbols (on the device as int16 of the
+same bits) and uint32 past them, up to 2^21 (int32 on the device);
+regions pack at 16 or 32 bits; the block sorts take those symbols; the
+gt bits come from the native comparator's uint16 or uint32 form; each
+merge's right region gets its own wavelet rank rows
+(``ops/wavelet_rows.py``, up to 7 levels) and the chains run through
+``bwt_gap_chain_mk_wm`` (its uint16 or uint32 form), so the merges run
+pair by pair
 (``_level_fits_batched`` refuses such a level) and texts stay below 2^31
 symbols.  As in the reference's legacy engine there are no checkpoints;
 ``<output>.stop`` still stops the build.  The final region is not handed
@@ -75,7 +78,7 @@ from ..ops.devzip import (bits_for, cnt_le_at_ranks, device_interleave,
 from ..ops.focc_build import concat_layout
 from ..ops.gapbatch import BatchedGapRunner
 from ..ops.gapdev import cmp_rot
-from ..ops.wavelet_rows import symbol_values
+from ..ops.wavelet_rows import MAX_SYMBOLS, U16_SYMBOLS, symbol_values
 from ..ops.windowsort import block_suffix_order
 from ..parallel.mesh import any_rank
 from ..parallel.shocc import ShardedOccGapRunner
@@ -96,6 +99,13 @@ TEXT_CHUNK = 1 << 26      # bytes of a memory-mapped text uploaded at a time
 # of every block sort of its genome build (80-92 bytes per symbol on an
 # NVIDIA H100 80GB HBM3)
 SORT_BYTES_PER_SYMBOL = 96
+
+
+def host_symbol_dtype(sigma: int):
+    """The host dtype of the engine's dense text over ``sigma`` symbols:
+    uint8, uint16 past 256 symbols, uint32 past 65,536."""
+    return (np.uint8 if sigma <= 256 else np.uint16
+            if sigma <= U16_SYMBOLS else np.uint32)
 
 
 @dataclasses.dataclass
@@ -143,8 +153,9 @@ class _Ctx:
                  nthreads: int = 4, budget: Optional[int] = None,
                  mesh=None):
         # a memory-mapped text (hostmem=) stays a memmap: the host reads
-        # it page by page.  Past 256 symbols the dense ids are uint16
-        dt = np.uint16 if sigma > 256 else np.uint8
+        # it page by page.  Past 256 symbols the dense ids are uint16, past
+        # 65,536 uint32
+        dt = host_symbol_dtype(sigma)
         mapped = isinstance(text, np.memmap) and text.dtype == dt
         self.text = (text if mapped
                      else np.ascontiguousarray(text, dtype=dt))
@@ -162,9 +173,11 @@ class _Ctx:
         self._budget = budget
         self.mesh = mesh
         with phase("text upload"):
-            # uint16 ids travel as the int16 of their bits
-            tdt = torch.int16 if dt == np.uint16 else torch.uint8
-            vdt = np.int16 if dt == np.uint16 else np.uint8
+            # uint16 ids travel as the int16 of their bits, uint32 ids
+            # (below 2^21) as int32
+            vdt, tdt = {np.uint8: (np.uint8, torch.uint8),
+                        np.uint16: (np.int16, torch.int16),
+                        np.uint32: (np.int32, torch.int32)}[dt]
             if mapped:
                 # in chunks: never one host copy of n bytes
                 self.text_dev = torch.empty(self.n, dtype=tdt,
@@ -634,10 +647,10 @@ def blockwise_bwt_scaled(
     phase = phase or Phases(device)
     text = symbols if isinstance(symbols, np.memmap) else np.asarray(symbols)
     n = len(text)
-    if sigma > 1 << 16 or (sigma > 256 and n >= 1 << 31):
-        raise ValueError("the scaled merge engine takes at most 65,536 "
-                         "dense symbols, and past 256 fewer than 2^31 "
-                         "symbols; rank-compact the alphabet first "
+    if sigma > MAX_SYMBOLS or (sigma > 256 and n >= 1 << 31):
+        raise ValueError("the scaled merge engine takes at most 2,097,152 "
+                         "(2^21) dense symbols, and past 256 fewer than "
+                         "2^31 symbols; rank-compact the alphabet first "
                          "(engine/api.py does)")
     _validate_scale(n)
     if mesh is not None and lane_bucket % mesh.world:

@@ -14,8 +14,9 @@ form (the reference's ``_verify_chunk_w``), exact to 2^35 symbols.
 
 Alphabets past 256 symbols (the reference's ``_check_bwt_legacy``): the
 rank rows are the wavelet rows of ``ops/wavelet_rows.py``, the text is
-densified through the same symbol map and held as uint16 on the device,
-and the walk is the kernel's form ``bwt_lf_walk_wm``; texts of 2^31
+densified through the same symbol map and held on the device as uint16
+ids up to 65,536 symbols and int32 ids past them (up to 2^21), and the
+walk is the kernel's form ``bwt_lf_walk_wm``; texts of 2^31
 symbols or more raise ``ValueError`` there, as the reference's int32
 lanes stop there.
 """
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from ..ops.lf_walk import verify_walk
-from ..ops.wavelet_rows import as_u16_bits
+from ..ops.wavelet_rows import as_symbols
 from ..ops.wideocc import WideOcc
 from ..util.devices import resolve_device
 from ..util.log import VerboseLog
@@ -86,7 +87,8 @@ def _check_bwt_wavelet(result: BwtResult, text: np.ndarray, device,
     """checkbwt past 256 symbols, the reference's ``_check_bwt_legacy``:
     the text densified through the rows' symbol map (a symbol the BWT
     does not hold fails before the ``.checkinfo`` is written, as there),
-    uint16 on the device, one launch of the wavelet walk."""
+    on the device as ``wavelet_rows.symbol_dtype`` gives it (uint16 bits
+    or int32), one launch of the wavelet walk."""
     n = len(text)
     if n >= 1 << 31:
         raise ValueError("checkbwt past 256 symbols takes n < 2^31, as the "
@@ -108,7 +110,7 @@ def _check_bwt_wavelet(result: BwtResult, text: np.ndarray, device,
     _write_checkinfo(result, seg_len, positions, ranks)
     if int(t.max()) >= wm.sigma:
         return False          # such a symbol is never emitted
-    text_dev = as_u16_bits(t)
+    text_dev = as_symbols(t, wm.sigma)
     del t
 
     def lanes(a):

@@ -13,9 +13,9 @@ at the sizes a GPU run has.
 
 Only the entry points the port calls are here; ``sais``,
 ``gap_interleave``, ``gt0`` and ``pack_bits_u8`` come with the slices
-that need them (ROADMAP.md).  ``cmp_rot`` also takes a uint16 text (the
-merge engine's dense ids past 256 distinct symbols), which the
-reference's does not.
+that need them (ROADMAP.md).  ``cmp_rot`` also takes a uint16 or uint32
+text (the merge engine's dense ids past 256 and past 65,536 distinct
+symbols), which the reference's does not.
 """
 
 from __future__ import annotations
@@ -96,6 +96,8 @@ def get_lib():
         lib.c_cmp_rot_u16.argtypes = [pu16, i64, i64, p64, i64, i64, pi8]
         lib.c_cmp_rot_u16.restype = None
         pu32 = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+        lib.c_cmp_rot_u32.argtypes = [pu32, i64, i64, p64, i64, i64, pi8]
+        lib.c_cmp_rot_u32.restype = None
         p32i = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         lib.c_rlh_decode.argtypes = [pu8, i64, i64, pu32, pu8, i64, p32i,
                                      p64]
@@ -181,18 +183,19 @@ def rl_decode_u8(path: str, n: int):
 def cmp_rot(text: np.ndarray, n: int, e: int, xs: np.ndarray,
             nthreads: int = 4) -> Optional[np.ndarray]:
     """Three-way circular compare sign(rot(x) - rot(e)) for each x in xs.
-    text: the plain uint8 text, or a uint16 one (n symbols; spans wrap
-    modularly in C).  Returns int8 [len(xs)] or None without the native
-    lib."""
+    text: the plain uint8 text, or a uint16 or uint32 one (n symbols;
+    spans wrap modularly in C).  Returns int8 [len(xs)] or None without
+    the native lib."""
     lib = get_lib()
     if lib is None:
         return None
     xs = np.ascontiguousarray(xs, dtype=np.int64)
     out = np.zeros(max(1, len(xs)), dtype=np.int8)
     if len(xs):
-        if np.asarray(text).dtype == np.uint16:
-            lib.c_cmp_rot_u16(np.ascontiguousarray(text), n, e, xs, len(xs),
-                              nthreads, out)
+        dt = np.asarray(text).dtype
+        if dt in (np.uint16, np.uint32):
+            fn = lib.c_cmp_rot_u16 if dt == np.uint16 else lib.c_cmp_rot_u32
+            fn(np.ascontiguousarray(text), n, e, xs, len(xs), nthreads, out)
         else:
             lib.c_cmp_rot(np.ascontiguousarray(text, np.uint8), n, e,
                           xs, len(xs), nthreads, out)

@@ -167,9 +167,10 @@ int64_t c_gamma_decode(const uint8_t* bytes, int64_t nbits, int64_t count,
 // `text` is the plain n-byte text: spans compare through chunks clipped
 // at each side's wrap point (a doubled copy of the text would cost 2n
 // extra host bytes).
-// T is the symbol type: uint8_t, or uint16_t for the dense ids of an
-// alphabet of more than 256 distinct symbols (the merge engine's 16-bit
-// text); memcmp tests equality, the symbols' own compare orders them.
+// T is the symbol type: uint8_t, or uint16_t / uint32_t for the dense ids
+// of an alphabet of more than 256 / 65,536 distinct symbols (the merge
+// engine's 16- and 32-bit texts); memcmp tests equality, the symbols' own
+// compare orders them.
 // (Templates take C++ linkage inside this extern "C" block.)
 extern "C++" {
 template <class T>
@@ -257,6 +258,11 @@ void c_cmp_rot(const uint8_t* text, int64_t n, int64_t e, const int64_t* xs,
 void c_cmp_rot_u16(const uint16_t* text, int64_t n, int64_t e, const int64_t* xs,
                    int64_t nx, int64_t nthreads, int8_t* out) {
   cmp_rot_threads<uint16_t>(text, n, e, xs, nx, nthreads, out);
+}
+
+void c_cmp_rot_u32(const uint32_t* text, int64_t n, int64_t e, const int64_t* xs,
+                   int64_t nx, int64_t nthreads, int8_t* out) {
+  cmp_rot_threads<uint32_t>(text, n, e, xs, nx, nthreads, out);
 }
 
 // Decode `nruns` (huffman(sym), gamma(len)) pairs from an LSB-first bit

@@ -38,7 +38,7 @@ ENTRY_POINTS = {
                 "bwt_lf_walk_w": ([p_, i_, p_, p_, i_, ll_, p_, p_, p_, p_, p_,
                                    p_, ll_, ll_, p_, p_, p_, ll_, p_, ll_, ll_,
                                    i_, p_], i_),
-                "bwt_lf_walk_wm": ([p_, ll_, i_, p_, p_, i_, i_, ll_]
+                "bwt_lf_walk_wm": ([p_, ll_, i_, p_, p_, i_, i_, i_, ll_]
                                    + [p_] * 6 + [i_, i_, p_, p_, p_, ll_, p_,
                                                  ll_, ll_, i_, p_], i_),
                 "bwt_l2_fetch_granularity": ([i_], i_)},
@@ -46,7 +46,7 @@ ENTRY_POINTS = {
                                        i_),
                   "bwt_gap_chain_mk_w": ([p_, i_, p_, i_] + [p_] * 11
                                          + [ll_, i_, p_], i_),
-                  "bwt_gap_chain_mk_wm": ([p_, ll_, i_, p_, p_, i_, i_]
+                  "bwt_gap_chain_mk_wm": ([p_, ll_, i_, p_, p_, i_, i_, i_]
                                           + [p_] * 11 + [i_, i_, p_], i_)},
     "kasai": {"bwt_kasai_plcp": ([p_, p_, ll_] + [p_] * 5
                                  + [i_, ll_, ll_, ll_, i_, ll_, p_], i_)},

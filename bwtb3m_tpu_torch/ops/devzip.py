@@ -4,9 +4,10 @@ device, plus the region byte storage and the sample-rank helpers.
 Port of ``bwtb3m_tpu/ops/devzip.py`` (narrow variants).  A region's BWT
 lives on the device as flat packed bytes: LSB-first nibbles for
 ``bits=4`` (sigma <= 16), raw bytes for ``bits=8`` — the byte order of
-``engine/checkpoint.py``'s region files — and little-endian uint16 for
-``bits=16`` (more than 256 distinct symbols; those builds write no
-checkpoints).  The reference's 2-D
+``engine/checkpoint.py``'s region files — little-endian uint16 for
+``bits=16`` (more than 256 distinct symbols) and little-endian uint32 for
+``bits=32`` (more than 65,536, up to 2^21); builds past 256 symbols write
+no checkpoints.  The reference's 2-D
 [rows, 256] layout and its shape buckets were XLA:TPU limits.
 
 Interleave semantics (the reference's gap-guided merge of two BWT
@@ -29,19 +30,21 @@ import numpy as np
 import torch
 
 from .pack import pack_bits, unpack_bits
+from .wavelet_rows import U16_SYMBOLS
 
 ZIP_CHUNK = 1 << 26
 
 
 def bits_for(sigma: int) -> int:
-    return 4 if sigma <= 16 else 8 if sigma <= 256 else 16
+    return (4 if sigma <= 16 else 8 if sigma <= 256
+            else 16 if sigma <= U16_SYMBOLS else 32)
 
 
 def pack_region(bwt: torch.Tensor, bits: int) -> torch.Tensor:
-    """uint8 symbols (int16 for ``bits=16``) -> region bytes (padded
-    with 0 to whole bytes)."""
-    if bits == 16:
-        return pack_bits(bwt, 16)
+    """uint8 symbols (int16 for ``bits=16``, int32 for ``bits=32``) ->
+    region bytes (padded with 0 to whole bytes)."""
+    if bits >= 16:
+        return pack_bits(bwt, bits)
     pad = (-bwt.shape[0]) % (8 // bits)
     if pad:
         bwt = torch.cat([bwt, torch.zeros(pad, dtype=bwt.dtype,
@@ -56,10 +59,11 @@ def rows_from_host_bwt(bwt: np.ndarray, sigma: int, device) -> torch.Tensor:
 
 
 def rows_to_host_bwt(packed: torch.Tensor, n: int, bits: int) -> np.ndarray:
-    """Region bytes -> host uint8 [n] (uint16 for ``bits=16``; one packed
-    download)."""
+    """Region bytes -> host uint8 [n] (uint16 for ``bits=16``, uint32 for
+    ``bits=32``; one packed download)."""
     out = unpack_bits(packed.cpu(), bits, n).numpy()
-    return out.view(np.uint16) if bits == 16 else out
+    return out.view({16: np.uint16, 32: np.uint32}[bits]) if bits >= 16 \
+        else out
 
 
 def gap_cum(gap: torch.Tensor) -> torch.Tensor:

@@ -53,11 +53,13 @@ its ranks, constants, samples and histogram cells are int64, and the
 walks take the kernel's 64-bit form, ``bwt_gap_chain_mk_w``.  The
 reference never batches a wide level, and neither does the engine.
 
-Past 256 distinct symbols (``bits=16``) the runner holds one merge too:
-its right region's rank rows are the wavelet rows of
-``ops/wavelet_rows.py``, the text is the int16 of the dense uint16 ids,
-and the walks take the entry ``bwt_gap_chain_mk_wm`` (narrow words),
-in place of the reference's legacy ``ops/gap.py::_chain_steps`` and
+Past 256 distinct symbols (``bits=16``, or ``bits=32`` past 65,536) the
+runner holds one merge too: its right region's rank rows are the
+wavelet rows of ``ops/wavelet_rows.py``, the text is the dense ids
+(``wavelet_rows.symbol_dtype``: the int16 of uint16 ids, int32 past
+65,536 symbols, up to 2^21), and the walks take the entry
+``bwt_gap_chain_mk_wm`` (narrow words; its uint16 or uint32 form), in
+place of the reference's legacy ``ops/gap.py::_chain_steps`` and
 ``_anchor_steps``.
 """
 
@@ -86,9 +88,10 @@ MERGE_WORDS = 8
 (M_CFIRST, M_K0, M_K1, M_K2, M_LO0, M_GTBASE, M_SAMPBASE,
  M_SAMPP0) = range(MERGE_WORDS)
 # launches per form ("64": the 64-bit form, bwt_gap_chain_mk_w; "_wm":
-# bwt_gap_chain_mk_wm over wavelet rows)
+# bwt_gap_chain_mk_wm over wavelet rows with uint16 symbols, "_wm32" with
+# uint32 symbols)
 LAUNCHES = {"chain": 0, "anchor": 0, "chain64": 0, "anchor64": 0,
-            "chain_wm": 0, "anchor_wm": 0}
+            "chain_wm": 0, "anchor_wm": 0, "chain_wm32": 0, "anchor_wm32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -185,7 +188,8 @@ def _check_args(focc, text, gt, c_first, table, kid, starts, seeds, lens):
     wavelet = isinstance(focc, WaveletRows)
     word = torch.int64 if wide else torch.int32
     for name, t, dt in (("text", text,
-                         torch.int16 if wavelet else torch.uint8),
+                         wr.symbol_dtype(focc.sigma) if wavelet
+                         else torch.uint8),
                         ("gt", gt, torch.uint8),
                         ("c_first", c_first, word), ("table", table, word),
                         ("kid", kid, torch.int32),
@@ -263,22 +267,24 @@ def _launch(focc, text, gt, c_first, table, kid, starts, seeds, lens,
     lanes = (_ptr(text), _ptr(gt), _ptr(c_first), _ptr(table), _ptr(kid),
              _ptr(starts), _ptr(seeds), _ptr(lens), _ptr(r_out), _ptr(gap),
              _ptr(samp))
-    wavelet = isinstance(focc, WaveletRows)
     if wide:
         thr, _C = kernel_tables(focc)
         rc = lib.bwt_gap_chain_mk_w(
             _ptr(focc.rows), focc.rows.shape[1], _ptr(thr), focc.sigma,
             *lanes, int(rate), len(seeds), stream)
-    elif wavelet:
+        form = "64"
+    elif isinstance(focc, WaveletRows):
+        width = wr.symbol_dtype(focc.sigma).itemsize
         rc = lib.bwt_gap_chain_mk_wm(
             _ptr(focc.blocks), focc.nblk, focc.levels, _ptr(focc.Zc),
-            _ptr(focc.start), focc.sigma, wr.smem_bytes(focc.sigma), *lanes,
-            int(rate), len(seeds), stream)
+            _ptr(focc.start), focc.sigma, wr.smem_bytes(focc.sigma), width,
+            *lanes, int(rate), len(seeds), stream)
+        form = "_wm" if width == 2 else "_wm32"
     else:
         rc = lib.bwt_gap_chain_mk(_ptr(focc.rows), focc.rows.shape[1],
                                   *lanes, int(rate), len(seeds), stream)
-    LAUNCHES[("chain" if gap is not None else "anchor")
-             + ("64" if wide else "_wm" if wavelet else "")] += 1
+        form = ""
+    LAUNCHES[("chain" if gap is not None else "anchor") + form] += 1
     if rc != 0:
         raise RuntimeError("CUDA kernel launch failed: %s (%d)"
                            % (lib.bwt_error_string(rc).decode(), rc))
@@ -382,13 +388,13 @@ class BatchedGapRunner:
         dev = text_dev.device
         self.wide = wide
         with self.phase("rank rows"):
-            if bits == 16:
+            if bits >= 16:
                 if len(merges) != 1 or wide:
                     raise ValueError("a runner over wavelet rows holds one "
                                      "narrow merge")
                 (_s, m, e, _i, _h), = merges
                 self.focc = wr.build_wavelet(
-                    unpack_bits(right_packed[0], 16, e - m), self.sigma)
+                    unpack_bits(right_packed[0], bits, e - m), self.sigma)
                 rbases = np.zeros(1, np.int64)
             elif wide:
                 if len(merges) != 1:

@@ -30,8 +30,11 @@ steps gather: one on sector rows (sigma <= 4), four on bit-plane rows
 
 Past 256 symbols the rank rows are the wavelet rows of
 ``ops/wavelet_rows.py`` and the first three entry points take the
-kernel's form ``bwt_lf_walk_wm`` (narrow, n < 2^31; the text uint16 bits
-in an int16 tensor; so do the locate and decode walks): the port of the
+kernel's form ``bwt_lf_walk_wm`` (narrow, n < 2^31; so do the locate and
+decode walks): the text and the decoded symbols are the int16 of uint16
+ids up to 65,536 symbols and int32 past them (up to 2^21, 7 levels;
+``wavelet_rows.symbol_dtype``), the kernel's uint16 and uint32 forms,
+picked by the symbol width it is passed.  It is the port of the
 reference's walks over its ``OccTable``, ``ops/lf.py::lf_walk``,
 ``engine/verify.py::_walk_verify_run`` and ``engine/ssa.py::
 _harvest_walk``.  A step is one
@@ -74,6 +77,15 @@ def _step_of(focc):
     if isinstance(focc, WaveletRows):
         return wr.lf_step
     return lf_step_w if isinstance(focc, WideOcc) else lf_step
+
+
+def _symbols_dtype(focc) -> torch.dtype:
+    """The dtype of a walk's text and decoded symbols: uint8, or the
+    dense symbols' of wavelet rows."""
+    if isinstance(focc, WaveletRows):
+        return wr.symbol_dtype(focc.sigma)
+    return torch.uint8
+
 
 # ------------------------------------------------------------ plain versions
 
@@ -173,9 +185,10 @@ def decode_walk_plain(focc, r0: torch.Tensor, p0: torch.Tensor,
     rank r0 and text position p0 and take seg_len steps: step k emits
     bwt[r] = text[p] with p = (p0 - 1 - k) mod n, stored at offset
     (p - base) mod n where that is below ``length``.  uint8 symbols, or
-    int16 (uint16 bits) on wavelet rows; offsets no lane reaches hold 0."""
+    on wavelet rows ``wavelet_rows.symbol_dtype(sigma)`` (int16 of uint16
+    bits, int32 past 65,536 symbols); offsets no lane reaches hold 0."""
     n = focc.n
-    dt = torch.int16 if isinstance(focc, WaveletRows) else torch.uint8
+    dt = _symbols_dtype(focc)
     out = torch.zeros(length, dtype=dt, device=r0.device)
     r, p, lens = r0.long(), p0.long(), seg_len.long()
     step = _step_of(focc)
@@ -185,9 +198,10 @@ def decode_walk_plain(focc, r0: torch.Tensor, p0: torch.Tensor,
         p = torch.where(p == 0, n - 1, p - 1)
         o = (p - base) % n
         put = (k < lens) & (o < length)
-        out[o[put]] = (wr.as_u16_bits(sym[put]) if dt == torch.int16
-                       else sym[put].to(dt))
+        out[o[put]] = wr.as_symbols(sym[put], focc.sigma) \
+            if isinstance(focc, WaveletRows) else sym[put].to(dt)
     return out
+
 
 
 def select_summary(bitwords: torch.Tensor,
@@ -403,22 +417,27 @@ def _launch_wm(wm: WaveletRows, r32: torch.Tensor, l32: torch.Tensor,
                out_len=0) -> torch.Tensor:
     """The wrapper of the kernel's form over wavelet rows,
     ``bwt_lf_walk_wm``: as ``_launch`` (uint32 bits in int32 lanes), the
-    verify visit's text and the decode visit's output int16 (uint16
-    bits).  Counts its launches in ``lf_walk.launches`` and
-    ``LAUNCHES["<visit>_wm"]``."""
+    verify visit's text and the decode visit's output of
+    ``wavelet_rows.symbol_dtype(sigma)``: int16 (uint16 bits, the uint16
+    form) up to 65,536 symbols, int32 (the uint32 form) past them.  Counts
+    its launches in ``lf_walk.launches`` and ``LAUNCHES["<visit>_wm"]``
+    (``"<visit>_wm32"`` for the uint32 form)."""
     dev = r32.device
     wr.check_kernel_rows(wm, dev, wm.D)
     r_out = torch.empty_like(r32)
     if len(r32) == 0:
         return r_out
+    width = wr.symbol_dtype(wm.sigma).itemsize
     rc = _lib().bwt_lf_walk_wm(
         _ptr(wm.blocks), wm.nblk, wm.levels, _ptr(wm.Zc), _ptr(wm.D),
-        wm.sigma, wr.smem_bytes(wm.sigma), wm.n, _ptr(r32), _ptr(p32),
-        _ptr(l32), _ptr(r_out), _ptr(text), _ptr(bad), _u32_arg(sarate),
-        _u32_arg(isarate), _ptr(sa), _ptr(isa), _ptr(steps), int(rate),
-        _ptr(dec), int(base), int(out_len), len(r32), _stream(dev))
+        wm.sigma, wr.smem_bytes(wm.sigma), width, wm.n, _ptr(r32),
+        _ptr(p32), _ptr(l32), _ptr(r_out), _ptr(text), _ptr(bad),
+        _u32_arg(sarate), _u32_arg(isarate), _ptr(sa), _ptr(isa),
+        _ptr(steps), int(rate), _ptr(dec), int(base), int(out_len),
+        len(r32), _stream(dev))
     lf_walk.launches += 1
-    LAUNCHES[_visit(text, sa, steps, dec) + "_wm"] += 1
+    LAUNCHES[_visit(text, sa, steps, dec) + ("_wm" if width == 2
+                                             else "_wm32")] += 1
     _check(rc)
     return r_out
 
@@ -447,23 +466,27 @@ def lf_walk(focc, r0: torch.Tensor, steps: int) -> torch.Tensor:
 
 lf_walk.launches = 0
 # the same launches by what a step visits, and by form ("64":
-# bwt_lf_walk_w, "_wm": bwt_lf_walk_wm)
+# bwt_lf_walk_w, "_wm": bwt_lf_walk_wm with uint16 symbols, "_wm32" with
+# uint32 symbols)
 LAUNCHES = {"none": 0, "verify": 0, "harvest": 0, "select": 0,
             "locate": 0, "decode": 0,
             "none64": 0, "verify64": 0, "harvest64": 0, "locate64": 0,
             "decode64": 0,
             "none_wm": 0, "verify_wm": 0, "harvest_wm": 0, "locate_wm": 0,
-            "decode_wm": 0}
+            "decode_wm": 0,
+            "none_wm32": 0, "verify_wm32": 0, "harvest_wm32": 0,
+            "locate_wm32": 0, "decode_wm32": 0}
 
 
 def verify_walk(focc, text: torch.Tensor, r0: torch.Tensor, p0: torch.Tensor,
                 seg_len: torch.Tensor) -> torch.Tensor:
     """Per-lane mismatch counts (int64) of the checkbwt walk; ``text`` is
-    the densified text as a flat uint8 tensor on the lanes' device (int16
-    of uint16 bits on wavelet rows)."""
+    the densified text as a flat uint8 tensor on the lanes' device (on
+    wavelet rows of ``wavelet_rows.symbol_dtype(sigma)``: int16 of uint16
+    bits, int32 past 65,536 symbols)."""
     if not _on_cuda(r0):
         return verify_walk_plain(focc, text, r0, p0, seg_len)
-    tdt = torch.int16 if isinstance(focc, WaveletRows) else torch.uint8
+    tdt = _symbols_dtype(focc)
     if text.dtype != tdt or text.device != r0.device \
             or not text.is_contiguous() or text.shape[0] != focc.n:
         raise TypeError("text must be a contiguous %s tensor of n=%d "
@@ -517,8 +540,9 @@ def locate_walk(focc, r0: torch.Tensor, rate: int):
 def decode_walk(focc, r0: torch.Tensor, p0: torch.Tensor,
                 seg_len: torch.Tensor, base: int, length: int):
     """text[base : base + length] (circular) as ``decode_walk_plain``
-    gives it: uint8, int16 (uint16 bits) on wavelet rows.  One launch of
-    the kernel's decode visit on the card."""
+    gives it: uint8, on wavelet rows int16 (uint16 bits) or, past 65,536
+    symbols, int32.  One launch of the kernel's decode visit on the
+    card."""
     n = focc.n
     if not (0 <= int(base) < max(n, 1) and 0 <= int(length) <= n):
         raise ValueError("decode takes 0 <= base < n and length <= n")
@@ -526,8 +550,8 @@ def decode_walk(focc, r0: torch.Tensor, p0: torch.Tensor,
         return decode_walk_plain(focc, r0, p0, seg_len, base, length)
     _check_range("ranks", r0, n)
     _check_range("positions", p0, n)
-    dt = torch.int16 if isinstance(focc, WaveletRows) else torch.uint8
-    out = torch.zeros(int(length), dtype=dt, device=r0.device)
+    out = torch.zeros(int(length), dtype=_symbols_dtype(focc),
+                      device=r0.device)
     _go(focc, r0, _steps_i32(seg_len), p0, dec=out, base=int(base),
         out_len=int(length))
     return out

@@ -8,7 +8,9 @@ symbol: 62.5 GB of counts for 400 M symbols over 5,000 symbols.  The C++
 tool it stands for answers these ranks with a wavelet tree; here an
 8-ary wavelet matrix of ``levels`` = ceil(bits(sigma - 1) / 3) levels,
 three bits of the symbol per level, computes the same functions: access,
-rank and LF.
+rank and LF.  Up to 2^21 symbols (7 levels), which covers every Unicode
+code point; past 65,536 symbols a symbol tensor is int32, below it the
+int16 of its uint16 bits (``symbol_dtype``).
 
 A symbol's base-8 digits go one to a level, the most significant at
 level 0, which holds them in BWT order.  The sequence of level l + 1 is
@@ -66,15 +68,16 @@ BLOCK_DIGITS = 96             # digits of a 64-byte block
 BLOCK_WORDS = 16              # 7 digit counts + 3 planes of 3 words
 COUNT_WORDS = RADIX - 1
 PLANE_WORDS = 3
-MAX_SYMBOLS = 1 << 16         # 6 levels at most
-MAX_LEVELS = 6
+MAX_SYMBOLS = 1 << 21         # 7 levels at most: every code point
+MAX_LEVELS = 7
+U16_SYMBOLS = 1 << 16         # up to here symbols travel as int16
 _U32 = 0xFFFFFFFF
 
 
 # D or start, one uint32 per symbol, go to shared memory up to the 48 KB
 # a block takes without opting in, less the digit table that
 # csrc/focc_rows.cuh::stage_wavelet holds there statically (RADIX words a
-# level): 12,240 symbols
+# level): 12,232 symbols
 SMEM_LIMIT = 48 * 1024 - 4 * RADIX * MAX_LEVELS
 
 
@@ -121,20 +124,28 @@ class WaveletRows:
                              self.C))
 
 
+def symbol_dtype(sigma: int) -> torch.dtype:
+    """The dtype of a dense symbol tensor over ``sigma`` symbols past 256:
+    int16 holding uint16 bits up to 65,536 symbols (torch has little
+    uint16 arithmetic), int32 past them."""
+    return torch.int16 if int(sigma) <= U16_SYMBOLS else torch.int32
+
+
 def symbol_values(t: torch.Tensor) -> torch.Tensor:
-    """int64 symbols of a symbol tensor; int16 tensors hold uint16 bits
-    (the dense text and region symbols past 256 symbols travel so: torch
-    has little uint16 arithmetic)."""
+    """int64 symbols of a symbol tensor; int16 tensors hold uint16 bits."""
     v = t.long()
     return v & 0xFFFF if t.dtype == torch.int16 else v
 
 
-def as_u16_bits(t: torch.Tensor) -> torch.Tensor:
-    """Symbols in [0, 2^16) as the int16 tensor of their uint16 bits."""
-    if t.dtype == torch.int16:
+def as_symbols(t: torch.Tensor, sigma: int) -> torch.Tensor:
+    """Symbols in [0, sigma) as a tensor of ``symbol_dtype(sigma)``."""
+    dt = symbol_dtype(sigma)
+    if t.dtype == dt:
         return t
-    v = t.long()
-    return torch.where(v >= 1 << 15, v - (1 << 16), v).to(torch.int16)
+    v = symbol_values(t)
+    if dt == torch.int16:
+        v = torch.where(v >= 1 << 15, v - (1 << 16), v)
+    return v.to(dt)
 
 
 def digit_rank(w: torch.Tensor, d: torch.Tensor,
@@ -188,7 +199,8 @@ def build_wavelet(bwt: torch.Tensor, sigma: int) -> WaveletRows:
     """The wavelet rows of a BWT of dense symbols in [0, sigma), built
     on the tensor's device with torch: per level a 3-bit extraction, the
     block packing with its seven counts and one stable 8-way partition.
-    ``bwt`` is any integer tensor; int16 holds uint16 bits."""
+    ``bwt`` is any integer tensor; int16 holds uint16 bits.  Up to 2^21
+    symbols in 7 levels."""
     n = int(bwt.shape[0])
     sigma = int(sigma)
     if n >= 1 << 31:
@@ -232,6 +244,8 @@ def build_wavelet_host(bwt: np.ndarray, sigma: int, device) -> WaveletRows:
     arr = np.asarray(bwt)
     if arr.dtype == np.uint16:
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+    elif arr.dtype == np.uint32:        # dense ids stay below 2^21
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32))
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr, np.int32))
     return build_wavelet(t.to(device), sigma)

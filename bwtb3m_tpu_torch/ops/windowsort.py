@@ -12,7 +12,8 @@ window.
 Semantics kept exactly:
 
 - symbols are shifted to 1..sigma; pad is 0 (low) or sigma+1 (high)
-  (an int16 window holds the uint16 bits of dense ids past 256 symbols);
+  (an int16 window holds the uint16 bits of dense ids past 256 symbols,
+  an int32 one the ids past 65,536: one symbol a word from there);
 - the first sort takes three packed words of ``w = 32 // bits`` symbols
   each, position last (ties stay in position order);
 - doubling rounds sort (rank, rank at +k) with ``pad_rank`` -1 (low) or

@@ -5,7 +5,8 @@
                           [--genome-n 1200000011] [--genome-hostmem 0]
                           [--human-n 3200000021] [--human-hostmem 4294967296]
                           [--human-bwtonly 1] [--human-checks full]
-                          [--alphabet-n 400000009] [--alphabet-mem 2G]
+                          [--alphabet-n 100000007] [--alphabet-mem 640M]
+                          [--alphabet32-n 400000009] [--alphabet32-mem 2G]
                           [--index-n 100000003]
                           [--only all|human|alphabet|index|fasta]
 
@@ -183,29 +184,39 @@ printed:
 13. alphabets past 256 symbols (after step 11, before step 12): both
     forms over wavelet rows (an 8-ary wavelet matrix, three bits a level
     in 64-byte blocks) against their plain versions at 2^22 over 300,
-    5,000 and 65,536 symbols (3, 5 and 6 levels; the walk's final-rank, verify and harvest forms on
-    131,072 lanes; the chain's recording and anchor forms on a merge of
-    two halves, whose histogram must be the sort's); then a code-point
-    text of ``--alphabet-n`` = 400,000,009 symbols over 5,000 distinct
-    code points (``utf8_corpus``: Zipf over ASCII, Latin, Greek, Cyrillic
-    and CJK, 1,000 mutated repeats) written as UTF-8: ``bwtb3m
-    inputtype=utf-8 mem=2G bwtonly=1`` (three blocks, the merge engine on
-    16-bit regions, two pair merges through ``bwt_gap_chain_mk_wm``),
-    ``checkbwt`` in a fresh process (gok=1; beside the RLH builds at the
-    end of this step, both host work), ``bwtcomputessa`` held to the
-    ``.preisa``, ``hwtPreIsaToIsa`` (the same ``.isa``),
-    ``bwttestdecodespeed``; ``select_ssa`` of 2^20 seeded ranks (the
-    locate visit over the wavelet rows, on the .sa of bwtcomputessa, which
-    the script names in the .meta) held to the .sa and, at their LF
-    ranks, SA[LF(r)] == (SA[r] - 1) mod n; the wavelet rows' bytes against
-    the
-    reference's OccTable layout's; the walk's verify and harvest forms on
-    the tools' lanes over the path's rows and the root merge's chain
-    against their plain versions (sampled); then ``bwtcodec=rlh`` at
-    16,777,259 symbols of the same kind: ``engine=merge bwtonly=0``
-    against ``engine=doubling``, the same ``.bwt``/``.hist``/``.preisa``
-    bytes, and ``checkbwt`` of the RLH1 file.  ``--only alphabet`` runs
-    phases 1, 2 and this one alone;
+    5,000 and 65,536 symbols (3, 5 and 6 levels, the uint16 forms) and
+    over 150,000 and 1,112,064 (6 and 7 levels, the uint32 forms; D and
+    start read from device memory), max_abs_err 0 (the walk's
+    final-rank, verify and harvest forms on 131,072 lanes; the chain's
+    recording and anchor forms on a merge of two halves, whose histogram
+    must be the sort's; past 65,536 symbols also the locate and decode
+    visits at rate 32); then two code-point texts as UTF-8, each through
+    the same tools (``code_point_path``): ``bwtb3m inputtype=utf-8
+    bwtonly=1`` (three blocks, the merge engine, two pair merges through
+    ``bwt_gap_chain_mk_wm``), ``bwtcomputessa`` held to the ``.preisa``,
+    ``hwtPreIsaToIsa`` (the same ``.isa``), ``bwttestdecodespeed``,
+    ``select_ssa`` of 2^20 seeded ranks (the locate visit over the
+    wavelet rows, on the .sa of bwtcomputessa, which the script names in
+    the .meta) held to the .sa and, at their LF ranks, SA[LF(r)] ==
+    (SA[r] - 1) mod n, ``bwtdecodeblock`` of 2^20 symbols held to the
+    text (its ``ref=``), the wavelet rows' bytes against the reference's
+    OccTable layout's, the walk's verify and harvest forms on the tools'
+    lanes over the build's rows, the select's locate visit and the root
+    merge's chain against their plain versions (sampled), and
+    ``checkbwt`` in a fresh process (gok=1).  First ``--alphabet32-n`` =
+    400,000,009 code points over 104,100 (``cjk_corpus``: Zipf over the
+    CJK Unified Ideographs, Hangul syllables and CJK Extensions A-G,
+    every one present, 1,000 mutated repeats; made by the text writer)
+    at ``mem=2G``: dense uint32 ids, 32-bit regions, 6 levels, the
+    uint32 forms; its fresh checkbwt runs beside the next build.  Then
+    ``--alphabet-n`` = 100,000,007 over 5,000 (``utf8_corpus``: Zipf over
+    ASCII, Latin, Greek, Cyrillic and CJK, 1,000 mutated repeats) at
+    ``mem=640M``: 16-bit regions, 5 levels, the uint16 forms; its fresh
+    checkbwt runs beside ``bwtcodec=rlh`` at 16,777,259 symbols of the
+    same kind: ``engine=merge bwtonly=0`` against ``engine=doubling``,
+    the same ``.bwt``/``.hist``/``.preisa`` bytes, and ``checkbwt`` of
+    the RLH1 file.  ``--only alphabet`` runs phases 1, 2 and this one
+    alone;
 14. the index path (after step 13): a chromosome-sized reference,
     ``--index-n`` = 100,000,003 bases from ``--seed`` (``make_text``'s
     repeats) as a .pac: ``bwtb3m inputtype=pacterm bwtonly=0
@@ -273,7 +284,9 @@ per launch; for the 64-bit forms the forced-wide 400M path's) or, for
 four merges; ``levels`` has every level) and the select visit, the
 genome path's, on the layout that path runs, for the Kasai kernel
 the genome path's PLCP, for the forms over wavelet rows
-(``lf_walk_wm``, ``gap_chain_mk_wm``) the alphabet path's, and for the
+(``lf_walk_wm``, ``gap_chain_mk_wm``) the 5,000-symbol alphabet path's
+and for their uint32 forms (``lf_walk_wm32``, ``gap_chain_mk_wm32``)
+that past 65,536 symbols, and for the
 FM index's visits (``lf_walk_locate``, ``lf_walk_decode``: every form)
 the genome path's (``--only index``: the index path's); ``launches`` is that path's count and ``layouts`` has the same numbers per layout.  Where
 the plain version ran on a sample of lanes, ``plain_on`` says so and
@@ -350,6 +363,12 @@ KERNELS = {
                    "bwtb3m_tpu/engine/verify.py:308"),
     "gap_chain_mk_wm": ("bwtb3m_tpu_torch/csrc/gap_chain.cu",
                         "bwtb3m_tpu/ops/gap.py:50"),
+    # their uint32 forms past 65,536 symbols (up to 2^21, 7 levels): the
+    # same entries with a symbol width of 4 bytes
+    "lf_walk_wm32": ("bwtb3m_tpu_torch/csrc/lf_walk.cu",
+                     "bwtb3m_tpu/engine/verify.py:308"),
+    "gap_chain_mk_wm32": ("bwtb3m_tpu_torch/csrc/gap_chain.cu",
+                          "bwtb3m_tpu/ops/gap.py:50"),
     # the FM index: the locate and decode visits of the LF-walk kernel (all
     # three forms), in place of the reference's host loops
     # FMIndex.locate_batch and FMIndex.extract
@@ -366,6 +385,8 @@ ROW_PATH = {"lf_walk": "merge path", "gap_chain": "merge path",
             "gap_chain_mk_w": "forced-wide merge path",
             "kasai": "genome LCP path", "lf_walk_wm": "alphabet path",
             "gap_chain_mk_wm": "alphabet path",
+            "lf_walk_wm32": "alphabet32 path",
+            "gap_chain_mk_wm32": "alphabet32 path",
             "lf_walk_locate": "genome path", "lf_walk_decode": "genome path"}
 # the kernels each path must launch
 NARROW = ("lf_walk", "gap_chain", "gap_chain_mk", "lf_walk_select",
@@ -415,14 +436,20 @@ DECODE_VISIT_OPS = 8
 # spread over the path's lanes, each cut to PLAIN_SAMPLE[1] steps, and the
 # select visit on every 64th lane with its cap cut to SELECT_CUT steps;
 # the kernel runs on the same cut lanes for the comparison, and on every
-# lane at full length for its time
-PLAIN_SAMPLE = (8192, 1024)
+# lane at full length for its time.  256 steps keep the run within its
+# time: at 1,024 the sampled plain walks took 100 s of a run (NVIDIA
+# H100 80GB HBM3, 700 W)
+PLAIN_SAMPLE = (8192, 256)
 SELECT_CUT = 2048
 # the FM index's visits at 2^22 and rate 262,144 (walks of 10^5-10^6
 # steps): the kernel on 16,384 seeded lanes (131,072 at rate 32); the
 # locate's plain version on 8,192 lanes a few hundred steps before a
 # sampled rank, the decode's on its lanes cut to 256 steps
 LONG_LANES_2_22 = 16384
+# step 13's alphabets at 2^22: 3, 5 and 6 levels of the uint16 forms, 6
+# and 7 levels of the uint32 forms (past 12,232 symbols D and start are
+# read from device memory)
+ALPHABET_2_22 = (300, 5000, 65536, 150_000, 1_112_064)
 SAMPLE_2_22 = (8192, 256)
 
 
@@ -496,8 +523,17 @@ def write_fasta(path, codes, nrec, lower):
 
 def write_texts(jobs):
     """``make_text(n, seed)`` into each ``path`` of ``jobs`` in turn, each
-    file complete when it appears under its name."""
-    for path, n, seed in jobs:
+    file complete when it appears under its name; a job ``(path, n, seed,
+    "cjk")`` writes ``cjk_corpus(n, seed)`` as UTF-8 there and its code
+    points as little-endian uint32 under ``path + ".u32"``, that file
+    last."""
+    for path, n, seed, *kind in jobs:
+        if kind == ["cjk"]:
+            codes = cjk_corpus(n, seed)
+            write_utf8(path, codes)
+            codes.astype("<u4").tofile(path + ".u32.part")
+            os.replace(path + ".u32.part", path + ".u32")
+            continue
         make_text(n, seed).tofile(path + ".part")
         os.replace(path + ".part", path)
 
@@ -563,6 +599,49 @@ def utf8_corpus(n: int, seed: int, nsym: int = 5000, copies: int = 1000,
     return codes
 
 
+def cjk_pool():
+    """The code points of the alphabet past 65,536 symbols, 104,100 of
+    them, most common first: the CJK Unified Ideographs (U+4E00-U+9FFF),
+    the Hangul syllables (U+AC00-U+D7A3), CJK Extension A (U+3400-U+4DBF),
+    Extensions B-F (U+20000-U+2EBEF) and Extension G (U+30000-U+3134F)."""
+    import numpy as np
+    return np.concatenate([np.arange(0x4e00, 0xa000),
+                           np.arange(0xac00, 0xd7a4),
+                           np.arange(0x3400, 0x4dc0),
+                           np.arange(0x20000, 0x2ebf0),
+                           np.arange(0x30000, 0x31350)]).astype(np.uint32)
+
+
+def cjk_corpus(n: int, seed: int, copies: int = 1000):
+    """Code points (uint32) over ``cjk_pool``'s 104,100 at Zipf
+    frequencies (s = 1.0, in the pool's order), every one planted at a
+    seeded place, with ``copies`` copies of 1,000-10,000-symbol segments
+    of the text itself with 1% point changes, as ``utf8_corpus`` makes
+    them; on the host (numpy, a generator seeded with ``seed``): the text
+    writer's process makes it while the card runs the earlier steps."""
+    import numpy as np
+    pool = cjk_pool()
+    nsym = len(pool)
+    p = 1.0 / np.arange(1, nsym + 1)
+    cdf = np.cumsum(p / p.sum())
+    rng = np.random.default_rng(seed)
+    codes = np.empty(n, np.uint32)
+    for a in range(0, n, 1 << 25):
+        b = min(n, a + (1 << 25))
+        idx = np.searchsorted(cdf, rng.random(b - a))
+        codes[a:b] = pool[np.minimum(idx, nsym - 1)]
+    for _ in range(copies):
+        ln = int(rng.integers(1000, 10001))
+        src, dst = rng.integers(0, n - ln, 2)
+        seg = codes[src:src + ln].copy()
+        mut = rng.random(ln) < 0.01
+        seg[mut] = pool[rng.integers(0, nsym, int(mut.sum()))]
+        codes[dst:dst + ln] = seg
+    stride = n // nsym                 # one planted code point a stride
+    codes[np.arange(nsym) * stride + rng.integers(0, stride, nsym)] = pool
+    return codes
+
+
 def write_utf8(path: str, codes) -> int:
     """Write code points as UTF-8, in chunks; returns the bytes written."""
     size = 0
@@ -578,14 +657,16 @@ def write_utf8(path: str, codes) -> int:
 def wavelet_case_2_22(sigma: int, seed: int, device):
     """The wavelet kernels' case at 2^22 symbols over ``sigma`` dense
     symbols, every symbol present (a generator seeded with seed + sigma):
-    (text as uint16, isa, bwt, (ranks, positions, segment lengths) of
-    131,072 lanes that end every n / 131,072 positions, as checkbwt's and
+    (text as the engine's dense ids, uint16 or, past 65,536 symbols,
+    uint32, isa, bwt, (ranks, positions, segment lengths) of 131,072
+    lanes that end every n / 131,072 positions, as checkbwt's and
     bwtcomputessa's seeds do)."""
     import numpy as np
+    from bwtb3m_tpu_torch.engine.merge_scaled import host_symbol_dtype
     from bwtb3m_tpu_torch.ops.doubling import suffix_array
     n = 1 << 22
     rng = np.random.default_rng(seed + sigma)
-    text = rng.integers(0, sigma, n).astype(np.uint16)
+    text = rng.integers(0, sigma, n).astype(host_symbol_dtype(sigma))
     text[:sigma] = np.arange(sigma)
     _sa, isa, bwt = suffix_array(text.astype(np.int32), sigma, device)
     pos = np.arange(0, n, n // 131072, dtype=np.int64)
@@ -604,31 +685,34 @@ def level_lanes(level):
             np.concatenate([sp.lens for sp in level.specs]))
 
 
-def merge_runner(ms, text16, sigma: int, s: int, m: int, e: int, rate: int,
-                 device):
-    """The merge of [s, m) into [m, e) of a text of dense uint16 ids as the
-    engine runs it, by the tree whose ``engine.merge_scaled`` is ``ms``:
-    the right block sorted, a ``BatchedGapRunner`` of that one merge over
-    its rank rows, anchored.  Returns (runner, its lanes, the block)."""
+def merge_runner(ms, text_ids, sigma: int, s: int, m: int, e: int,
+                 rate: int, device):
+    """The merge of [s, m) into [m, e) of a text of dense ids (uint16, or
+    uint32 past 65,536 symbols) as the engine runs it, by the tree whose
+    ``engine.merge_scaled`` is ``ms``: the right block sorted, a
+    ``BatchedGapRunner`` of that one merge over its rank rows, anchored.
+    Returns (runner, its lanes, the block)."""
     opts = ms.BwtOptions(input_path="x", mem=1 << 40, device="cuda")
-    ctx = ms._Ctx(text16, sigma, rate, opts, None, 1 << 16, device,
+    ctx = ms._Ctx(text_ids, sigma, rate, opts, None, 1 << 16, device,
                   ms.Phases(device))
     right = ms._sort_block(ctx, m, e)
     level = ms.BatchedGapRunner(
         ctx.text_dev, ctx.text, sigma, [(s, m, e, right.r_start, right.hist)],
-        [right.packed], 16, lane_bucket=1 << 16, sample_rate=rate)
+        [right.packed], ctx.bits, lane_bucket=1 << 16, sample_rate=rate)
     level.anchor_all()
     return level, level_lanes(level), right
 
 
 def dense_ids(symmap, codes):
-    """``codes`` as the dense uint16 ids of ``BwtResult.load_wavelet``'s
-    symbol map (``symmap[id]`` is the code; None where the codes are
-    dense already)."""
+    """``codes`` as the dense ids (uint16, uint32 past 65,536 symbols) of
+    ``BwtResult.load_wavelet``'s symbol map (``symmap[id]`` is the code;
+    None where the codes are dense already)."""
     import numpy as np
+    dt = np.uint16 if symmap is None or len(symmap) <= 1 << 16 \
+        else np.uint32
     if symmap is None:
-        return np.asarray(codes).astype(np.uint16)
-    table = np.zeros(int(symmap.max()) + 1, np.uint16)
+        return np.asarray(codes).astype(dt)
+    table = np.zeros(int(symmap.max()) + 1, dt)
     table[symmap] = np.arange(len(symmap))
     return table[codes]
 
@@ -686,11 +770,17 @@ def main() -> int:
                     "plain version, the SA tools, checkbwt in a fresh "
                     "process (--only human) and the kernels against their "
                     "plain versions")
-    ap.add_argument("--alphabet-n", type=int, default=400_000_009,
+    ap.add_argument("--alphabet-n", type=int, default=100_000_007,
                     help="alphabet path text length (code points over "
                     "5,000 symbols; 0 skips the path)")
-    ap.add_argument("--alphabet-mem", type=int, default=2 * 1024 ** 3,
+    ap.add_argument("--alphabet-mem", type=int, default=640 * 1024 ** 2,
                     help="mem= of the alphabet path's build")
+    ap.add_argument("--alphabet32-n", type=int, default=400_000_009,
+                    help="length of the alphabet path's text past 65,536 "
+                    "symbols (code points over 104,100 symbols; 0 skips "
+                    "it)")
+    ap.add_argument("--alphabet32-mem", type=int, default=2 * 1024 ** 3,
+                    help="mem= of that text's build")
     ap.add_argument("--index-n", type=int, default=100_000_003,
                     help="index path reference length (a chromosome; 0 "
                     "skips the path)")
@@ -796,9 +886,13 @@ def main() -> int:
 
     # the genome and human-genome texts, written by a process of their own
     # (the genome's first) while the card runs the steps before theirs
+    # and the alphabet path's text past 65,536 symbols
     jobs = ([] if args.only != "all" or not args.genome_n else
             [(os.path.join(TEXTS, "genome.bin"), args.genome_n,
               args.seed + 11)]) + (
+        [(os.path.join(TEXTS, "cjk.txt"), args.alphabet32_n, args.seed + 21,
+          "cjk")] if args.only in ("all", "alphabet") and args.alphabet_n
+        and args.alphabet32_n else []) + (
         [(os.path.join(TEXTS, "human.bin"), args.human_n, args.seed + 13)]
         if args.only in ("all", "human") and args.human_n else [])
     if jobs:
@@ -809,9 +903,9 @@ def main() -> int:
              "import chip_smoke; chip_smoke.write_texts(%r)" % (REPO, jobs)],
             cwd=REPO))
 
-    def take_text(name, dst):
+    def take_text(name, dst, dtype=np.uint8):
         """The text the writer made under ``name``, moved to ``dst``:
-        (text, seconds waited for it)."""
+        (text as ``dtype``, seconds waited for it)."""
         src = os.path.join(TEXTS, name)
         t0 = time.monotonic()
         while not os.path.exists(src):
@@ -820,7 +914,7 @@ def main() -> int:
                                      % name)
             time.sleep(0.2)
         os.replace(src, dst)
-        return np.fromfile(dst, np.uint8), time.monotonic() - t0
+        return np.fromfile(dst, dtype), time.monotonic() - t0
 
     def keep_files(name, paths):
         """Hard links in KEEP to a step's files, for the sharded step at
@@ -876,15 +970,18 @@ def main() -> int:
                 "lf_walk_wm": L["none_wm"] + L["verify_wm"]
                 + L["harvest_wm"],
                 "gap_chain_mk_wm": G["chain_wm"] + G["anchor_wm"],
+                "lf_walk_wm32": L["none_wm32"] + L["verify_wm32"]
+                + L["harvest_wm32"],
+                "gap_chain_mk_wm32": G["chain_wm32"] + G["anchor_wm32"],
                 "lf_walk_select": L["select"],
                 "lf_walk_w": L["none64"] + L["verify64"] + L["harvest64"],
                 "gap_chain": chain, "gap_chain_mk": chain,
                 "gap_chain_mk_w": G["chain64"] + G["anchor64"],
                 "kasai": 0 if launches else kas.kasai_walk.launches,
                 "lf_walk_locate": L["locate"] + L["locate64"]
-                + L["locate_wm"],
+                + L["locate_wm"] + L["locate_wm32"],
                 "lf_walk_decode": L["decode"] + L["decode64"]
-                + L["decode_wm"],
+                + L["decode_wm"] + L["decode_wm32"],
                 "gap_chain_mk (chain form)": G["chain"],
                 "gap_chain_mk (anchor form)": G["anchor"],
                 "lf_walk (by visit)": dict(L)}
@@ -1762,12 +1859,12 @@ def main() -> int:
                 out["bound_by"] = b_by
         return out
 
-    def wm_merge(text16_host, sigma, s, m, e, rate, label, sample=None):
-        """The merge of [s, m) into [m, e) of a text of dense uint16 ids as
-        the engine runs it (``merge_runner``), and ``bwt_gap_chain_mk_wm``
+    def wm_merge(text_ids, sigma, s, m, e, rate, label, sample=None):
+        """The merge of [s, m) into [m, e) of a text of dense ids as the
+        engine runs it (``merge_runner``), and ``bwt_gap_chain_mk_wm``
         against its plain version on its lanes (``level_compare``);
         returns (record, level, right block)."""
-        level, lanes, right = merge_runner(merge_scaled, text16_host, sigma,
+        level, lanes, right = merge_runner(merge_scaled, text_ids, sigma,
                                            s, m, e, rate, dev)
         rec = level_compare(level, {"wavelet": level.focc}, lanes, 3, False,
                             "%s (left %d, right %d ranks, %d lanes):"
@@ -1777,70 +1874,90 @@ def main() -> int:
         rec["bits_per_level"] = wr.DIGIT_BITS
         return rec, level, right
 
+    def wm_names(sigma):
+        """The kernels line's names of the forms over wavelet rows of a
+        dense alphabet of ``sigma`` symbols: the uint16 forms up to 65,536
+        symbols, the uint32 ones past them."""
+        tail = "" if sigma <= wr.U16_SYMBOLS else "32"
+        return "lf_walk_wm" + tail, "gap_chain_mk_wm" + tail
+
     def alphabet_2_22(sigma):
-        """Both new forms against their plain versions at 2^22 symbols over
-        ``sigma`` dense symbols (``wavelet_case_2_22``): the walk's three
-        forms on 131,072 lanes, the chain's recording and anchor forms on
-        a merge of two halves, whose histogram must also be the sort's."""
+        """The forms over wavelet rows against their plain versions at 2^22
+        symbols over ``sigma`` dense symbols (``wavelet_case_2_22``): the
+        walk's three forms on 131,072 lanes, the chain's recording and
+        anchor forms on a merge of two halves, whose histogram must also be
+        the sort's; past 65,536 symbols (the uint32 forms, which no step
+        3c case reaches) also the locate and decode visits at rate 32
+        (``visits_2_22``)."""
+        t0 = time.monotonic()
         text, isa, bwt, lanes = wavelet_case_2_22(sigma, args.seed, dev)
         n = len(text)
         wm = wr.build_wavelet_host(bwt, sigma, dev)
-        t16 = wr.as_u16_bits(torch.from_numpy(text.astype(np.int64)).to(dev))
-        lf = wm_lf_compare(wm, t16, *lanes, "2^22, sigma %d" % sigma)
-        del wm, t16
+        t_ids = wr.as_symbols(torch.from_numpy(text.astype(np.int64)).to(dev),
+                              sigma)
+        walk, chain = wm_names(sigma)
+        out = {walk: wm_lf_compare(wm, t_ids, *lanes,
+                                   "2^22, sigma %d" % sigma)}
+        if sigma > 1 << 16:
+            sa = np.empty(n, np.int64)
+            sa[isa] = np.arange(n)
+            out["visits"] = visits_2_22(wm, sa, isa, t_ids,
+                                        "sigma %d" % sigma, rates=(32,))
+            del sa
+        del wm, t_ids
         m = n // 2
         rec, level, _right = wm_merge(text, sigma, 0, m, n, 64,
-                                      "gap_chain_mk_wm 2^22, sigma %d"
-                                      % sigma)
+                                      "%s 2^22, sigma %d" % (chain, sigma))
         level.compute()
         R = np.searchsorted(np.sort(isa[m:]), isa[:m])
         if not np.array_equal(level.gap.cpu().numpy(),
                               np.bincount(R, minlength=n - m + 1)):
             raise AssertionError("the chain over wavelet rows disagrees with "
                                  "the sort at sigma %d" % sigma)
-        return {"lf_walk_wm": lf, "gap_chain_mk_wm": rec}
+        out[chain] = rec
+        say("alphabet 2^22, sigma %d (%d levels): %.3f s"
+            % (sigma, rec["levels"], time.monotonic() - t0))
+        return out
 
-    def alphabet_path(n, mem):
-        """The path of alphabets past 256 symbols (module docstring, step
-        13); returns its record."""
+    def code_point_path(inp, codes, n, mem, key):
+        """One code-point build of step 13 (module docstring) and its
+        tools on the card, its launches counted as ``path_counts[key]``:
+        ``bwtb3m inputtype=utf-8 bwtonly=1``, ``bwtcomputessa`` held to
+        the ``.preisa``, ``hwtPreIsaToIsa`` (the same ``.isa``),
+        ``bwttestdecodespeed``, ``select_ssa`` of 2^20 ranks held to the
+        ``.sa`` and SA[LF(r)] == SA[r] - 1, ``bwtdecodeblock`` of 2^20
+        symbols held to the text; then, uncounted, the walk's verify and
+        harvest forms on the tools' lanes over the build's rows, the
+        locate visit of the select and the root merge's chain against
+        their plain versions (sampled).  Returns (record, the checkbwt of
+        ``.bwt`` in a fresh process, started: the caller finishes it)."""
         out = {"phases": {}}
-        with uncounted():
-            out["2^22"] = {s: alphabet_2_22(s) for s in (300, 5000, 65536)}
-        shutil.rmtree(WORK, ignore_errors=True)
-        os.makedirs(WORK)
-        inp = os.path.join(WORK, "corpus.txt")
-        t0 = time.monotonic()
-        codes = utf8_corpus(n, args.seed + 13, device=dev)
-        size = write_utf8(inp, codes)
-        say("input: n=%d code points over 5000 symbols (Zipf s=1.0 over "
-            "ASCII, Latin, Greek, Cyrillic, CJK; 1000 mutated repeats), "
-            "%d bytes of UTF-8, made in %.2f s (host)"
-            % (n, size, time.monotonic() - t0))
         bwt = inp + ".bwt"
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        rc, _, out["phases"] = run_tool("bwtb3m (alphabet path)", [
+        rc, _, out["phases"] = run_tool("bwtb3m (%s)" % key, [
             "bwtb3m", "inputtype=utf-8", "bwtonly=1", "device=cuda",
             "mem=%d" % mem, inp])
         if rc != 0 or "chains" not in out["phases"]:
             raise AssertionError("bwtb3m failed or did not take the merge "
-                                 "engine on the alphabet path")
+                                 "engine on the %s" % key)
+        out["build_s"] = run_tool.wall
         out["peak_build"] = torch.cuda.max_memory_allocated()
-        rc, _, _ = run_tool("bwtcomputessa (alphabet path)", [
+        rc, _, _ = run_tool("bwtcomputessa (%s)" % key, [
             "bwtcomputessa", "sasamplingrate=32", "isasamplingrate=262144",
             "device=cuda", bwt])
         if rc != 0:
-            raise AssertionError("bwtcomputessa failed on the alphabet path")
-        prate = ssa_agrees_with_preisa(bwt, "alphabet build")
-        isa_ref = os.path.join(WORK, "ssa.isa")
+            raise AssertionError("bwtcomputessa failed on the %s" % key)
+        prate = ssa_agrees_with_preisa(bwt, key)
+        isa_ref = inp + ".ssa.isa"
         shutil.copy(inp + ".isa", isa_ref)
-        rc, _, _ = run_tool("hwtPreIsaToIsa (alphabet path)", [
+        rc, _, _ = run_tool("hwtPreIsaToIsa (%s)" % key, [
             "hwtPreIsaToIsa", "isasamplingrate=262144", "device=cuda", bwt])
         if rc != 0 or open(inp + ".isa", "rb").read() != \
                 open(isa_ref, "rb").read():
             raise AssertionError("hwtPreIsaToIsa's .isa differs from "
-                                 "bwtcomputessa's on the alphabet path")
-        rc, _, _ = run_tool("bwttestdecodespeed (alphabet path)", [
+                                 "bwtcomputessa's on the %s" % key)
+        rc, _, _ = run_tool("bwttestdecodespeed (%s)" % key, [
             "bwttestdecodespeed", "device=cuda", bwt])
         if rc != 0 or run_tool.log.count("LF-steps/s") != 5:
             raise AssertionError("bwttestdecodespeed failed")
@@ -1856,7 +1973,7 @@ def main() -> int:
         out["select_s"] = time.monotonic() - t0
         if not np.array_equal(got[half:], sa_a[want_a[half:] // 32]):
             raise AssertionError("select_ssa past 256 symbols disagrees with "
-                                 "the .sa")
+                                 "the .sa on the %s" % key)
         wm, _symmap = BwtResult.load(bwt).load_wavelet(dev)
         _sym, lf_r = wr.lf_step(wm, torch.from_numpy(want_a).to(dev))
         del wm
@@ -1864,65 +1981,106 @@ def main() -> int:
         got_lf = select_ssa(bwt, lf_r.cpu().numpy(), device=dev)
         out["select_lf_s"] = time.monotonic() - t0
         if not np.array_equal(got_lf, (got - 1) % n):
-            raise AssertionError("SA[LF(r)] != SA[r] - 1 past 256 symbols")
-        say("select_ssa past 256 symbols (the locate visit over wavelet "
-            "rows): 2^20 ranks in %.3f s, == the .sa at the 2^19 sampled "
-            "ranks; at their LF ranks %.3f s, SA[LF(r)] == (SA[r] - 1) mod n "
-            "for every rank [%s]" % (out["select_s"], out["select_lf_s"],
-                                     smi))
-        path_counts["alphabet path"] = counts()
+            raise AssertionError("SA[LF(r)] != SA[r] - 1 on the %s" % key)
+        say("select_ssa, %s (the locate visit over wavelet rows): 2^20 "
+            "ranks in %.3f s, == the .sa at the 2^19 sampled ranks; at their "
+            "LF ranks %.3f s, SA[LF(r)] == (SA[r] - 1) mod n for every rank "
+            "[%s]" % (key, out["select_s"], out["select_lf_s"], smi))
+        # bwtdecodeblock of 2^20 symbols from a seeded place, held to the
+        # code points by the tool itself (ref=)
+        low = int(np.random.default_rng(args.seed + 20).integers(0, n))
+        rc, _, _ = run_tool("bwtdecodeblock (%s, 2^20 symbols)" % key, [
+            "bwtdecodeblock", "inputtype=utf-8", "ref=" + inp, "device=cuda",
+            bwt, str(low), str(1 << 20)])
+        if rc != 0:
+            raise AssertionError("bwtdecodeblock failed or differs from the "
+                                 "text on the %s" % key)
+        path_counts[key] = counts()
         out["peak"] = torch.cuda.max_memory_allocated()
-        say("alphabet path launches: %s" % path_counts["alphabet path"])
-        if min(path_counts["alphabet path"][k]
-               for k in ("lf_walk_wm", "gap_chain_mk_wm",
-                         "lf_walk_locate")) < 1:
-            raise AssertionError("the alphabet path did not launch the "
-                                 "kernels over wavelet rows")
+        say("%s launches: %s" % (key, path_counts[key]))
         res = BwtResult.load(bwt)
         wm, symmap = res.load_wavelet(dev)
+        walk, chain = wm_names(wm.sigma)
+        if min(path_counts[key][k] for k in (walk, chain, "lf_walk_locate",
+                                             "lf_walk_decode")) < 1:
+            raise AssertionError("the %s did not launch the kernels over "
+                                 "wavelet rows" % key)
         out["wavelet_bytes"] = wm.nbytes()
         out["occtable_bytes"] = wr.occtable_bytes(n, wm.sigma)
-        say("rank rows of the alphabet path: wavelet rows %d bytes (%d "
-            "levels of %d bits, %d 64-byte blocks each), the reference's "
-            "OccTable "
-            "layout would "
-            "need %d bytes (%.1f x) [%s]"
-            % (out["wavelet_bytes"], wm.levels, wr.DIGIT_BITS, wm.nblk,
+        out["sigma"], out["levels"] = wm.sigma, wm.levels
+        say("rank rows of the %s: wavelet rows %d bytes (%d levels of %d "
+            "bits, %d 64-byte blocks each), the reference's OccTable layout "
+            "would need %d bytes (%.1f x) [%s]"
+            % (key, out["wavelet_bytes"], wm.levels, wr.DIGIT_BITS, wm.nblk,
                out["occtable_bytes"],
                out["occtable_bytes"] / out["wavelet_bytes"], smi))
         # the kernels at the path's shapes: the tools' lanes over the
-        # path's own rows, the root merge's chain
+        # path's own rows, the select's locate visit, the root merge's chain
         dense = dense_ids(symmap, codes)
-        del codes
         ranks, positions, _r = res.load_preisa()
         ranks, positions, seg = seed_segments(ranks, positions, n)
-        t16 = torch.from_numpy(dense.view(np.int16)).to(dev)
+        t_ids = wr.as_symbols(torch.from_numpy(
+            dense.view(np.int16 if dense.dtype == np.uint16 else np.int32))
+            .to(dev), wm.sigma)
         with uncounted():
-            out["lf"] = wm_lf_compare(wm, t16, ranks, positions, seg,
-                                      "alphabet path", sample=PLAIN_SAMPLE,
+            out["lf"] = wm_lf_compare(wm, t_ids, ranks, positions, seg, key,
+                                      sample=PLAIN_SAMPLE,
                                       forms=("verify_walk", "harvest_walk"))
         out["locate"] = locate_record(wm, torch.from_numpy(want_a).to(dev),
-                                      32, "alphabet path",
-                                      PLAIN_SAMPLE[0])
-        del t16, wm
+                                      32, key, PLAIN_SAMPLE[0])
+        del t_ids, wm
         opts = BwtOptions(input_path=inp, mem=mem, device="cuda")
         blocks = merge_scaled._plan_blocks_fixed(n, opts.max_block_symbols)
-        if len(blocks) != 3:
-            raise AssertionError("expected 3 blocks, planned %d"
-                                 % len(blocks))
-        # with three blocks the root merges [0, m) with the carried last
-        # block [m, n)
-        m_r, e_r = blocks[-1]
+        if len(blocks) < 2:
+            raise AssertionError("the %s's build is one block" % key)
+        # the root merges [0, m) with the tree's right part [m, n): with
+        # three blocks the carried last block
+        m_r = blocks[1 << ((len(blocks) - 1).bit_length() - 1)][0]
         with uncounted():
             out["chain"], level, _right = wm_merge(
-                dense, len(symmap), 0, m_r, e_r, prate,
-                "gap_chain_mk_wm root merge, alphabet path",
-                sample=PLAIN_SAMPLE)
+                dense, len(symmap), 0, m_r, n, prate,
+                "%s root merge, %s" % (chain, key), sample=PLAIN_SAMPLE)
         del level, _right, dense
         torch.cuda.empty_cache()
-        # checkbwt in a fresh process from .bwt (over wavelet rows), beside
-        # the RLH builds below (both host work)
-        fresh = start_checkbwt(inp, bwt, "utf-8")
+        return out, start_checkbwt(inp, bwt, "utf-8")
+
+    def alphabet_path(n, mem, n32, mem32):
+        """The path of alphabets past 256 symbols (module docstring, step
+        13); returns its record."""
+        out = {}
+        with uncounted():
+            out["2^22"] = {s: alphabet_2_22(s) for s in ALPHABET_2_22}
+        shutil.rmtree(WORK, ignore_errors=True)
+        os.makedirs(WORK)
+        fresh32 = None
+        if n32:
+            inp32 = os.path.join(WORK, "cjk.txt")
+            codes32, waited = take_text("cjk.txt.u32", inp32 + ".u32",
+                                        np.uint32)
+            os.replace(os.path.join(TEXTS, "cjk.txt"), inp32)
+            say("input past 65,536 symbols: n=%d code points over %d symbols "
+                "(Zipf s=1.0 over the CJK Unified Ideographs, Hangul, CJK "
+                "Extensions A-G; 1000 mutated repeats), %d bytes of UTF-8, "
+                "made by the text writer (waited %.2f s)"
+                % (n32, len(cjk_pool()), os.path.getsize(inp32), waited))
+            out["32"], fresh32 = code_point_path(inp32, codes32, n32, mem32,
+                                                 "alphabet32 path")
+            del codes32
+        inp = os.path.join(WORK, "corpus.txt")
+        t0 = time.monotonic()
+        codes = utf8_corpus(n, args.seed + 13, device=dev)
+        size = write_utf8(inp, codes)
+        say("input: n=%d code points over 5000 symbols (Zipf s=1.0 over "
+            "ASCII, Latin, Greek, Cyrillic, CJK; 1000 mutated repeats), "
+            "%d bytes of UTF-8, made in %.2f s (host)"
+            % (n, size, time.monotonic() - t0))
+        out["16"], fresh = code_point_path(inp, codes, n, mem,
+                                           "alphabet path")
+        del codes
+        if fresh32:
+            out["32"]["fresh_checkbwt_s"] = finish_checkbwt(
+                fresh32, "alphabet32 path", ", beside the 5,000-symbol build",
+                "wavelet rows")
         # bwtcodec=rlh, bwtonly=0 at 16,777,259: engine=merge against
         # engine=doubling, every file equal, then checkbwt of the RLH1 file
         n2 = 16_777_259
@@ -1958,49 +2116,66 @@ def main() -> int:
             "(mem=67108864, bwtonly=0: .sa .isa .hwt written, the samples "
             "agree with the .preisa) == engine=doubling, .bwt .hist .preisa "
             "byte-identical; checkbwt gok=1 on the RLH1 file" % n2)
-        out["fresh_checkbwt_s"] = finish_checkbwt(
+        out["16"]["fresh_checkbwt_s"] = finish_checkbwt(
             fresh, "alphabet path", ", beside the RLH builds",
             "wavelet rows")
         shutil.rmtree(WORK, ignore_errors=True)
         return out
 
     def alphabet_kernels(alpha):
-        """The kernels line's rows of the two forms over wavelet rows: the
-        alphabet path's shapes (its tools' verify + harvest walks, its
-        root merge's chain), with the 2^22 cases beside them."""
+        """The kernels line's rows of the forms over wavelet rows: each
+        code-point build's shapes (its tools' verify + harvest walks, its
+        root merge's chain), with the 2^22 cases of the same form beside
+        them."""
         rows = []
-        for name, main in (("lf_walk_wm", alpha["lf"]),
-                           ("gap_chain_mk_wm", alpha["chain"])):
-            cases = {str(s): c[name] for s, c in alpha["2^22"].items()}
-            rows.append({
-                "name": name, "route": "cuda", "source": KERNELS[name][0],
-                "replaces": KERNELS[name][1],
-                "launches": path_counts["alphabet path"][name],
-                "shapes_of": ROW_PATH[name],
-                "launches_by_path": {p: c[name]
-                                     for p, c in path_counts.items()},
-                "max_abs_err": max(errors_in([main, cases])),
-                "ms": main["ms"], "plain_ms": main["plain_ms"],
-                "plain_on": main.get("plain_on"),
-                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": None, "layout": "wavelet",
-                "levels": main["levels"],
-                "bits_per_level": main["bits_per_level"],
-                "forms": main["forms"],
-                "sigma_2^22": cases})
+        for sub in ("16", "32"):
+            path = alpha.get(sub)
+            if path is None:
+                continue
+            for name, main in zip(wm_names(path["sigma"]),
+                                  (path["lf"], path["chain"])):
+                cases = {str(s): c[name] for s, c in alpha["2^22"].items()
+                         if name in c}
+                rows.append({
+                    "name": name, "route": "cuda",
+                    "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+                    "launches": path_counts[ROW_PATH[name]][name],
+                    "shapes_of": ROW_PATH[name],
+                    "launches_by_path": {p: c[name]
+                                         for p, c in path_counts.items()},
+                    "max_abs_err": max(errors_in([main, cases])),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "plain_on": main.get("plain_on"),
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    "library_ms": None, "layout": "wavelet",
+                    "sigma": path["sigma"], "levels": main["levels"],
+                    "bits_per_level": main["bits_per_level"],
+                    "forms": main["forms"], "sigma_2^22": cases,
+                    "visits_2^22": {str(s): c["visits"]
+                                    for s, c in alpha["2^22"].items()
+                                    if "visits" in c and name in c
+                                    and name.startswith("lf_walk")}})
         return rows
 
     def alphabet_report(alpha):
-        for name, (wall, dev_s, _span) in sorted(
-                alpha["phases"].items(), key=lambda kv: -kv[1][0]):
-            say("alphabet build phase %-18s wall %.3f s, device busy %s [%s]"
-                % (name, wall, "%.3f s" % dev_s if dev_s else "not measured",
-                   smi))
-        say("peak device memory: alphabet build %.3f GiB, path %.3f GiB; "
-            "wavelet rows %.3f GiB, OccTable layout %.3f GiB [%s]"
-            % (alpha["peak_build"] / 2 ** 30, alpha["peak"] / 2 ** 30,
-               alpha["wavelet_bytes"] / 2 ** 30,
-               alpha["occtable_bytes"] / 2 ** 30, smi))
+        for sub, label in (("16", "alphabet build"),
+                           ("32", "alphabet32 build")):
+            path = alpha.get(sub)
+            if path is None:
+                continue
+            for name, (wall, dev_s, _span) in sorted(
+                    path["phases"].items(), key=lambda kv: -kv[1][0]):
+                say("%s phase %-18s wall %.3f s, device busy %s [%s]"
+                    % (label, name, wall, "%.3f s" % dev_s if dev_s
+                       else "not measured", smi))
+            say("peak device memory: %s (sigma %d, %d levels) %.3f GiB, "
+                "path %.3f GiB; wavelet rows %.3f GiB, OccTable layout %.3f "
+                "GiB [%s]"
+                % (label, path["sigma"], path["levels"],
+                   path["peak_build"] / 2 ** 30, path["peak"] / 2 ** 30,
+                   path["wavelet_bytes"] / 2 ** 30,
+                   path["occtable_bytes"] / 2 ** 30, smi))
 
     # ---- the FM index: the LF-walk kernel's locate and decode visits ---
     def walk_step_ops(rows):
@@ -2155,7 +2330,7 @@ def main() -> int:
         return [torch.from_numpy(np.asarray(a, np.int64)).to(dev)
                 for a in arrays]
 
-    def visits_2_22(rows, sa, isa, text_t, label):
+    def visits_2_22(rows, sa, isa, text_t, label, rates=(32, 262144)):
         """Phase a on one row family at n = 2^22: the locate visit on
         131,072 seeded ranks at rate 32 and on the first
         ``LONG_LANES_2_22`` of them at rate 262,144, and the decode visit
@@ -2165,12 +2340,12 @@ def main() -> int:
         launch; the locate's plain version runs on ``SAMPLE_2_22[0]``
         lanes that the SA places 1 to 512 steps before one of the 16
         sampled ranks (ISA[SA[s] + k]), the decode's on its 16 lanes cut
-        to ``SAMPLE_2_22[1]`` steps."""
+        to ``SAMPLE_2_22[1]`` steps.  ``rates``: the rates to run."""
         n = rows.n
         rng = np.random.default_rng(args.seed + 17)
         r_all = torch.from_numpy(rng.integers(0, n, 131072)).to(dev)
         rec = {}
-        for rate in (32, 262144):
+        for rate in rates:
             long = rate > 32
             near = None
             if long:
@@ -2265,13 +2440,13 @@ def main() -> int:
             sa = np.empty(n, np.int64)
             sa[isa] = np.arange(n)
             wm = wr.build_wavelet_host(bwt, sigma, dev)
-            t16 = wr.as_u16_bits(torch.from_numpy(text.astype(np.int64))
-                                 .to(dev))
+            t_ids = wr.as_symbols(torch.from_numpy(text.astype(np.int64))
+                                  .to(dev), sigma)
             out["sigma=%d wavelet" % sigma] = visits_2_22(
-                wm, sa, isa, t16, "sigma %d" % sigma)
+                wm, sa, isa, t_ids, "sigma %d" % sigma)
             if sigma > 300:
                 RANK_ALL[sigma] = rank_all_2_22(wm)
-            del wm, t16
+            del wm, t_ids
             say("phase 3c, sigma %d: %.3f s" % (sigma, time.monotonic() - t0))
         say("phase 3c (the visits at 2^22): %.3f s" % (time.monotonic()
                                                        - t_all))
@@ -2854,7 +3029,8 @@ def main() -> int:
         return finish(index_kernels(ipath, idx22, {"cases_2^22": idx22}))
 
     if args.only == "alphabet":
-        alpha = alphabet_path(args.alphabet_n, args.alphabet_mem)
+        alpha = alphabet_path(args.alphabet_n, args.alphabet_mem,
+                              args.alphabet32_n, args.alphabet32_mem)
         say_tools()
         alphabet_report(alpha)
         return finish(alphabet_kernels(alpha))
@@ -4169,7 +4345,8 @@ def main() -> int:
     text = None
     alpha = None
     if args.alphabet_n:
-        alpha = alphabet_path(args.alphabet_n, args.alphabet_mem)
+        alpha = alphabet_path(args.alphabet_n, args.alphabet_mem,
+                              args.alphabet32_n, args.alphabet32_mem)
 
     lap("14")
     # ---- 14. the index path ----------------------------------------------
@@ -4296,7 +4473,10 @@ def main() -> int:
         kernels.extend(alphabet_kernels(alpha))
     if gidx or ipath:
         others = {"cases_2^22": idx22, "index_path": ipath,
-                  "alphabet_path_locate": (alpha or {}).get("locate"),
+                  "alphabet_path_locate": (alpha or {}).get(
+                      "16", {}).get("locate"),
+                  "alphabet32_path_locate": (alpha or {}).get(
+                      "32", {}).get("locate"),
                   "forced_wide_400M_locate": fw_locate}
         kernels.extend(index_kernels(gidx or ipath, others, {
             "genome_path": gidx, **others}))

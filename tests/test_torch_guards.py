@@ -6,11 +6,10 @@
 - ``device=cuda`` without CUDA raises instead of running on the CPU;
 - the multi-rank path (``parallel/``: a group of one and ``run_ranks``'s
   spawned ranks) runs with the same imports refused, in every process;
-- paths that are not ported yet raise ``NotImplementedError`` naming
-  their ROADMAP.md item, and the ones this refusal once covered run
-  (``bwtcodec=rlh``, the tools past 256 symbols, the index tools and
-  applications, the compact-file tools, ``engine=merge-legacy`` up to
-  65,536 distinct symbols);
+- the paths that once raised ``NotImplementedError`` naming their
+  ROADMAP.md item run (``bwtcodec=rlh``, the tools past 256 symbols, the
+  index tools and applications, the compact-file tools,
+  ``engine=merge-legacy`` past 65,536 distinct symbols);
 - a kernel build without ``nvcc`` raises, and the ctypes types of every
   kernel entry point follow its C signature.
 """
@@ -222,26 +221,35 @@ def test_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
         dispatch(["checkbwt", inp, res.bwt_path])
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"engine": "merge-legacy", "input_type": "utf-8"}, "item 11"),
+@pytest.mark.parametrize("kw", [
+    {"engine": "merge-legacy", "input_type": "utf-8", "bwt_only": True},
 ])
-def test_unported_build_paths_raise(tmp_path, monkeypatch, kw, match):
-    """``engine=merge-legacy``, which runs the scaled engine, raises
-    naming item 11 on 65,537 distinct code points, where the reference's
-    legacy engine runs."""
-    kw = dict(kw)
-    if "env" in kw:
-        monkeypatch.setenv(kw.pop("env"), "1")
-    if kw.get("input_type") == "utf-8":
-        p = tmp_path / "wide.txt"
-        p.write_text("".join(map(chr, range(0x10000, 0x10000 + 65537))),
-                     encoding="utf-8")
-        inp = str(p)
-    else:
-        inp = _dna(tmp_path)
-    opts = BwtOptions(input_path=inp, device="cpu", verbose=0, **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        compute_bwt(opts)
+def test_unported_build_paths_raise(tmp_path, kw):
+    """``engine=merge-legacy`` (the scaled engine) on 65,537 distinct code
+    points, which raised naming ROADMAP.md item 11 before the 32-bit
+    symbol forms, builds the files of the reference's ``engine=doubling``
+    (the BWT of a text without equal rotations is unique), byte for
+    byte, and no path of the port raises naming item 11."""
+    from bwtb3m_tpu.engine import BwtOptions as JaxOptions
+    from bwtb3m_tpu.engine import compute_bwt as jax_compute_bwt
+    p = tmp_path / "wide.txt"
+    p.write_text("".join(map(chr, range(0x10000, 0x10000 + 65537))),
+                 encoding="utf-8")
+    inp = str(p)
+    res = compute_bwt(BwtOptions(input_path=inp, device="cpu", verbose=0,
+                                 output_filename=str(tmp_path / "p.bwt"),
+                                 **kw))
+    jax_compute_bwt(JaxOptions(input_path=inp, input_type="utf-8",
+                               verbose=0, bwt_only=True,
+                               output_filename=str(tmp_path / "r.bwt")))
+    assert res.sigma > 1 << 16
+    for ext in ("bwt", "hist", "preisa"):
+        assert (tmp_path / ("p." + ext)).read_bytes() == \
+            (tmp_path / ("r." + ext)).read_bytes(), ext
+    for root, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                assert "item 11" not in open(os.path.join(root, f)).read()
 
 
 @pytest.mark.parametrize("kw", [{"bwt_codec": "rlh"},

@@ -582,14 +582,17 @@ def test_kasai_kernel_refuses_lanes_outside_the_slab(cuda):
 
 
 # ------------------------------------------------ wavelet rows (sigma > 256)
-# 12,240 symbols: the most whose D or start shares the 48 KB of shared
-# memory with the static digit table; 12,288 and 13,000 symbols: D and
-# start past that limit, read with __ldg; 65,536 symbols: 6 levels, the
-# most; n = 96k - 1, 96k and 96k + 1 (the pad block of position n alone,
-# full, and with one digit)
+# 12,232 symbols: the most whose D or start shares the 48 KB of shared
+# memory with the static digit table of 7 levels; 12,233 and 13,000
+# symbols: D and start past that limit, read with __ldg; 65,536 symbols:
+# 6 levels, the most of the uint16 form; n = 96k - 1, 96k and 96k + 1
+# (the pad block of position n alone, full, and with one digit)
 WM_CASES = [(sigma, (1 << 16) + 37)
-            for sigma in (300, 5000, 12240, 12288, 13000)] + [
-    (sigma, 96_000 + d) for sigma in (5000, 65536) for d in (-1, 0, 1)]
+            for sigma in (300, 5000, 12232, 12233, 13000)] + [
+    (sigma, 96_000 + d) for sigma in (5000, 65536) for d in (-1, 0, 1)] + [
+    # past 65,536 symbols: uint32 symbols, 6 levels and 7 (D and start in
+    # global memory)
+    (65537, 96_000), (150_000, 200_003), (1_112_064, 1_200_007)]
 
 
 def _wm_build(sigma, n, rate, cuda):
@@ -608,24 +611,26 @@ def _wm_build(sigma, n, rate, cuda):
 
 @pytest.mark.parametrize("sigma,n", WM_CASES)
 def test_lf_walk_wm_kernel_matches_plain(cuda, sigma, n):
-    """bwt_lf_walk_wm's final-rank, verify and harvest forms against the
+    """bwt_lf_walk_wm's final-rank, verify and harvest forms (the uint16
+    form up to 65,536 symbols, the uint32 one past them) against the
     plain descent, and the harvest against the sort's SA and ISA."""
-    from bwtb3m_tpu_torch.ops.wavelet_rows import as_u16_bits
+    from bwtb3m_tpu_torch.ops.wavelet_rows import as_symbols
     text, sa, isa, wm, (r0, p0, seg) = _wm_build(sigma, n, 64, cuda)
+    form = "_wm" if sigma <= 1 << 16 else "_wm32"
     before = dict(lw.LAUNCHES)
     got = lw.lf_walk(wm, r0, 300)
-    assert lw.LAUNCHES["none_wm"] == before["none_wm"] + 1
+    assert lw.LAUNCHES["none" + form] == before["none" + form] + 1
     assert torch.equal(got, lw.lf_walk_plain(wm, r0, 300))
-    t = as_u16_bits(torch.from_numpy(text).to(cuda))
+    t = as_symbols(torch.from_numpy(text).to(cuda), sigma)
     assert int(lw.verify_walk(wm, t, r0, p0, seg).sum()) == 0
-    t[1000] = as_u16_bits(torch.tensor([(text[1000] + 1) % sigma],
-                                       device=cuda))[0]
+    t[1000] = as_symbols(torch.tensor([(text[1000] + 1) % sigma],
+                                      device=cuda), sigma)[0]
     bad = lw.verify_walk(wm, t, r0, p0, seg)
-    assert lw.LAUNCHES["verify_wm"] == before["verify_wm"] + 2
+    assert lw.LAUNCHES["verify" + form] == before["verify" + form] + 2
     assert torch.equal(bad, lw.verify_walk_plain(wm, t, r0, p0, seg))
     assert int(bad.sum()) == 1
     got = lw.harvest_walk(wm, r0, p0, seg, 32, 48)
-    assert lw.LAUNCHES["harvest_wm"] == before["harvest_wm"] + 1
+    assert lw.LAUNCHES["harvest" + form] == before["harvest" + form] + 1
     want = lw.harvest_walk_plain(wm, r0, p0, seg, 32, 48)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     np.testing.assert_array_equal(got[0].cpu().numpy(), sa[::32])
@@ -635,25 +640,29 @@ def test_lf_walk_wm_kernel_matches_plain(cuda, sigma, n):
 @pytest.mark.parametrize("sigma,n", WM_CASES)
 def test_gap_chain_mk_wm_kernel_matches_plain(cuda, sigma, n):
     """bwt_gap_chain_mk_wm's recording and anchor forms against the plain
-    version on a merge of [0, m) into [m, n) over 16-bit regions, and the
-    recorded ranks against the sort's."""
+    version on a merge of [0, m) into [m, n) over 16-bit regions (32-bit
+    past 65,536 symbols: the uint32 form), and the recorded ranks against
+    the sort's."""
+    from bwtb3m_tpu_torch.engine.merge_scaled import host_symbol_dtype
     from bwtb3m_tpu_torch.ops import gapbatch as gb
-    from bwtb3m_tpu_torch.ops.devzip import pack_region
-    from bwtb3m_tpu_torch.ops.wavelet_rows import as_u16_bits
+    from bwtb3m_tpu_torch.ops.devzip import bits_for, pack_region
+    from bwtb3m_tpu_torch.ops.wavelet_rows import as_symbols
     rng = np.random.default_rng(sigma * 31 + n)
-    text = rng.integers(0, sigma, n).astype(np.uint16)
+    text = rng.integers(0, sigma, n).astype(host_symbol_dtype(sigma))
     text[:sigma] = np.arange(sigma)
     m = n // 2
-    sa, isa, _bwt = suffix_array(text.astype(np.int32), sigma, "cpu")
+    sa, isa, _bwt = suffix_array(text.astype(np.int32), sigma, cuda)
     right = sa[sa >= m]
     R = np.searchsorted(np.sort(isa[m:]), isa)
     hist = np.bincount(text[m:], minlength=sigma)
-    rbwt = as_u16_bits(torch.from_numpy(
-        text[(right - 1) % n].astype(np.int64)).to(cuda))
+    rbwt = as_symbols(torch.from_numpy(
+        text[(right - 1) % n].astype(np.int64)).to(cuda), sigma)
+    bits = bits_for(sigma)
+    form = "_wm" if bits == 16 else "_wm32"
     runner = gb.BatchedGapRunner(
-        torch.from_numpy(text.view(np.int16)).to(cuda), text, sigma,
-        [(0, m, n, int(R[m]), hist)], [pack_region(rbwt, 16)], 16,
-        lane_bucket=512, sample_rate=64)
+        as_symbols(torch.from_numpy(text.astype(np.int64)).to(cuda), sigma),
+        text, sigma, [(0, m, n, int(R[m]), hist)], [pack_region(rbwt, bits)],
+        bits, lane_bucket=512, sample_rate=64)
     bounds = np.linspace(0, m, 513).astype(np.int64)
     starts, lens = bounds[1:] - 1, np.diff(bounds)
     runner._ensure_gt([int(starts.max()) + 1])
@@ -669,7 +678,7 @@ def test_gap_chain_mk_wm_kernel_matches_plain(cuda, sigma, n):
         before = dict(gb.LAUNCHES)
         final = fn(*args, gap, samp, 64)
         if fn is gb.chain_walk_mk:
-            assert gb.LAUNCHES["chain_wm"] == before["chain_wm"] + 1
+            assert gb.LAUNCHES["chain" + form] == before["chain" + form] + 1
         outs.append((final, gap, samp))
     (fk, gk, sk), (fp, gp, sp_) = outs
     assert torch.equal(fk, fp) and torch.equal(gk, gp) \
@@ -679,9 +688,9 @@ def test_gap_chain_mk_wm_kernel_matches_plain(cuda, sigma, n):
         gk.cpu().numpy(), np.bincount(R[:m], minlength=runner.focc.n + 1))
     for r0 in (0, sp.gap_size):
         sd0 = torch.full_like(sd, r0)
-        before = gb.LAUNCHES["anchor_wm"]
+        before = gb.LAUNCHES["anchor" + form]
         a = gb.anchor_walk_mk(*args[:7], sd0, ln)
-        assert gb.LAUNCHES["anchor_wm"] == before + 1
+        assert gb.LAUNCHES["anchor" + form] == before + 1
         assert torch.equal(a, gb.gap_chain_mk_plain(*args[:7], sd0, ln))
     # the runner's own anchors and chains give the sort's ranks
     runner.compute()
@@ -695,13 +704,15 @@ def test_gap_chain_mk_wm_kernel_matches_plain(cuda, sigma, n):
 LOCATE_ROWS = ([("narrow", s, lay) for s, lay in ROWS]
                + [("wide", 4, "sector"), ("wide", 7, "bitplane"),
                   ("wide", 200, "bytes")]
-               + [("wavelet", s, "wavelet") for s in (300, 5000, 65536)])
+               + [("wavelet", s, "wavelet")
+                  for s in (300, 5000, 65536, 150_000, 1_112_064)])
 
 
 def _index_rows(kind, sigma, layout, cuda):
     """(text, sa, isa, rows) at n = 2^16 + 37 of each family: narrow rows,
-    wide rows doctored across 2^32, wavelet rows."""
-    n = (1 << 16) + 37
+    wide rows doctored across 2^32, wavelet rows (n = sigma + 37 past
+    that: every symbol present)."""
+    n = max((1 << 16), sigma) + 37
     if kind == "wavelet":
         text, sa, isa, wm, _lanes = _wm_build(sigma, n, 64, cuda)
         return text, sa, isa, wm
@@ -722,8 +733,8 @@ def test_locate_kernel_matches_plain(cuda, kind, sigma, layout, rate):
     text, sa, isa, rows = _index_rows(kind, sigma, layout, cuda)
     n = len(text)
     rng = np.random.default_rng(rate + sigma)
-    key = {"narrow": "locate", "wide": "locate64",
-           "wavelet": "locate_wm"}[kind]
+    form = "_wm" if sigma <= 1 << 16 else "_wm32"
+    key = {"narrow": "locate", "wide": "locate64", "wavelet": "locate" + form}[kind]
     for nl in (20000, 1 << 19):
         r0 = torch.from_numpy(np.r_[0, n - 1, rng.integers(0, n, nl)]).to(
             cuda)
@@ -775,8 +786,8 @@ def test_decode_kernel_matches_plain(cuda, kind, sigma, layout):
     n = len(text)
     fm = FMIndex(None, sigma, n, SampledSA(32, sa[::32], n),
                  SampledISA(1000, isa[::1000], n), device=cuda, rows=rows)
-    key = {"narrow": "decode", "wide": "decode64",
-           "wavelet": "decode_wm"}[kind]
+    form = "_wm" if sigma <= 1 << 16 else "_wm32"
+    key = {"narrow": "decode", "wide": "decode64", "wavelet": "decode" + form}[kind]
     for start, length in ((0, 5000), (n - 700, 2000), (12345, n), (17, 1)):
         isa_lanes = [torch.from_numpy(a).to(cuda)
                      for a in decode_lanes(fm.isa, n, start, length)]
@@ -797,7 +808,7 @@ def test_decode_kernel_matches_plain(cuda, kind, sigma, layout):
     np.testing.assert_array_equal(fm.locate_batch(ranks), sa[ranks])
 
 
-@pytest.mark.parametrize("sigma", [300, 5000, 65536])
+@pytest.mark.parametrize("sigma", [300, 5000, 65536, 300_000])
 def test_rank_all_symbols_batch_on_card(cuda, sigma):
     """``ops/rank.py::rank_all_symbols_batch`` (torch, the level walk over
     wavelet rows) on the card: every column the per-symbol ``rank`` of

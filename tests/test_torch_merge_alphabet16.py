@@ -141,15 +141,24 @@ def test_stop_file_stops_and_no_checkpoint(tmp_path):
 
 
 def test_engine_gates(tmp_path):
-    """More than 65,536 distinct symbols raise NotImplementedError (a new
-    ROADMAP.md item); a level of merges past 256 symbols runs pair by
-    pair."""
+    """More than 65,536 distinct symbols (which raised NotImplementedError
+    naming ROADMAP.md item 11 before the 32-bit symbol forms) build
+    through ``engine=merge`` the reference's ``engine=doubling`` files;
+    past 2^21 dense symbols the engine refuses; a level of merges past 256
+    symbols runs pair by pair."""
     codes = 0x10000 + np.arange(70000)
     inp = _write_utf8(str(tmp_path / "in.txt"), codes)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        compute_bwt(BwtOptions(input_path=inp, input_type="utf-8",
-                               device="cpu", verbose=0, engine="merge",
-                               bwt_only=True))
+    res = compute_bwt(BwtOptions(input_path=inp, input_type="utf-8",
+                                 device="cpu", verbose=0, engine="merge",
+                                 bwt_only=True, mem=1 << 19,
+                                 output_filename=str(tmp_path / "p.bwt")))
+    jax_compute_bwt(JaxOptions(input_path=inp, input_type="utf-8",
+                               verbose=0, bwt_only=True,
+                               output_filename=str(tmp_path / "r.bwt")))
+    assert res.sigma > 1 << 16
+    for ext in ("bwt", "hist", "preisa"):
+        assert open(str(tmp_path / ("r." + ext)), "rb").read() == \
+            open(str(tmp_path / ("p." + ext)), "rb").read(), ext
 
     class Ctx:
         sigma = 300
@@ -159,6 +168,6 @@ def test_engine_gates(tmp_path):
     tail = ms.Region(2048, 3072, None, None, None, None, 0, None)
     far = ms.Region(3072, 4096, None, None, None, None, 0, None)
     assert not ms._level_fits_batched(Ctx(), [(left, right), (tail, far)])
-    with pytest.raises(ValueError, match="65,536"):
-        ms.blockwise_bwt_scaled(np.zeros(10, np.uint16), 70000,
+    with pytest.raises(ValueError, match="2,097,152"):
+        ms.blockwise_bwt_scaled(np.zeros(10, np.uint32), (1 << 21) + 1,
                                 BwtOptions(input_path="x"), device="cpu")

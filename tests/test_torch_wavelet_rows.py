@@ -194,12 +194,14 @@ def test_load_wavelet_densifies_like_load_occ(tmp_path, sparse):
 
 
 def test_build_gates():
-    with pytest.raises(ValueError, match="65536"):
-        wr.build_wavelet(torch.zeros(4, dtype=torch.int32), 70000)
+    with pytest.raises(ValueError, match="2097152"):
+        wr.build_wavelet(torch.zeros(4, dtype=torch.int32), (1 << 21) + 1)
     with pytest.raises(ValueError, match="outside"):
         wr.build_wavelet(torch.tensor([0, 300], dtype=torch.int32), 300)
     assert wr.levels_for(257) == 3 and wr.levels_for(65536) == 6
     assert wr.levels_for(5000) == 5 and wr.levels_for(4096) == 4
+    assert wr.levels_for(150_000) == 6 and wr.levels_for(1 << 21) == 7
     assert wr.smem_bytes(5000) == 20000 and wr.smem_bytes(13000) == 0
-    # the static digit table shares the 48 KB: 12,240 symbols at most
-    assert wr.smem_bytes(12240) == 48960 and wr.smem_bytes(12241) == 0
+    # the static digit table of 7 levels shares the 48 KB: 12,232 symbols
+    # at most
+    assert wr.smem_bytes(12232) == 48928 and wr.smem_bytes(12233) == 0
