@@ -45,14 +45,14 @@ exception is a text whose rotations come in equal copies (a power of a
 shorter string, poly-A): there the legacy engine's ``.sa`` orders equal
 rotations by position, as the single-block sort does, and the scaled
 engine's SA walk does not (in both packages), so with ``bwtonly=0``
-``merge-legacy`` writes that text's samples from one sort of its root
-(``_power_samples``).  Only ``merge-legacy`` takes that path because
-each engine name writes its own reference engine's files: the
-reference's ``engine=merge`` is the scaled engine, whose samples of
-such a text ``engine=merge`` keeps as they are (ROADMAP.md Queue 3).
-The root is sorted in one block, so a root of more than
-``max_block_symbols`` raises ``NotImplementedError`` before the build
-(Queue 3).
+``merge-legacy`` writes that text's files from its root
+(``_power_files``): one single-block sort of a root of up to
+``max_block_symbols``, else a scaled-engine build of the root whose
+samples the select and harvest visits of the LF-walk kernel take; the
+text itself is never sorted.  Only ``merge-legacy`` takes that path
+because each engine name writes its own reference engine's files: the
+reference's ``engine=merge`` is the scaled engine, whose samples of such
+a text ``engine=merge`` keeps as they are (ROADMAP.md Queue 3).
 
 ``engine=sharded`` runs the sharded suffix sort (``parallel/``) over the
 ranks of a process group: torchrun's (``torchrun --nproc_per_node=N -m
@@ -65,6 +65,7 @@ whole text.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -72,6 +73,7 @@ import sys
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .. import native
 from ..io import formats
@@ -142,22 +144,24 @@ def compute_bwt(options: BwtOptions,
         prate = min(prate, max(32, options.isa_sampling_rate))
     prate = max(1, min(prate, n))
 
+    srate = max(1, options.sa_sampling_rate)
+    irate = max(1, options.isa_sampling_rate)
     period = n
     if options.engine == "merge-legacy" and not options.bwt_only:
         period = _rotation_period(symbols)
-        if options.max_block_symbols < period < n:
-            raise NotImplementedError(
-                "engine=merge-legacy bwtonly=0 on a power of a %d-symbol "
-                "root: the root's sort is single-block, up to "
-                "max_block_symbols=%d (ROADMAP.md Queue 3)"
-                % (period, options.max_block_symbols))
 
     # ---- phase 2+3: suffix sort (device) -------------------------------
     phase = Phases(device)
     sa = isa = None
     rows_out: list = []     # the merge engine's device-rows hand-off
     symmap = None           # dense id -> file symbol (alphabet compaction)
-    if options.engine == "sharded":
+    if period < n:
+        with log.span("power of a %d-symbol root: its files from the root"
+                      % period):
+            bwt, spos, srank, ssa, sisa = _power_files(
+                symbols, period, sigma, prate, srate, irate, options,
+                device, log, phase)
+    elif options.engine == "sharded":
         sa, isa, bwt = _sharded_engine(symbols, sigma, device, log)
         if sa is None:          # a rank other than 0: it writes no files
             return BwtResult({"format": "bwtb3m_tpu/v1", "n": n,
@@ -179,64 +183,21 @@ def compute_bwt(options: BwtOptions,
 
     # ---- phase 4: outputs (host) ---------------------------------------
     base = options.base_name
-    files = {}
-    with log.span("write .bwt (%s)" % options.bwt_codec), \
-            phase("write .bwt"):
-        if options.bwt_codec == "rlh":
-            from ..io.rlh import rlh_encode
-            rlh_encode(options.output_filename, bwt, sigma=sigma)
-        else:
-            write_bwt(options.output_filename, bwt, sigma)
-        files["bwt"] = options.output_filename
-
-    with log.span("output hist"):
-        hist = np.bincount(bwt, minlength=sigma).astype(np.int64)
+    files, hist = _write_files(options.output_filename, options.bwt_codec,
+                               bwt, sigma, spos, srank, prate, phase, log)
 
     def result_of(meta) -> BwtResult:
-        """The result of ``meta``, with the final region's device bytes
-        bound to the .bwt just written (once: the first result made takes
-        them); a handle that does not describe this file is refused."""
-        res = BwtResult(meta)
-        if rows_out:
-            try:
-                res.bind_device_rows(rows_out.pop(), hist, symmap=symmap)
-            except ValueError as exc:   # it saves time, it gates nothing
-                log.v("[W] device-rows hand-off skipped: %s" % exc)
-        return res
-
-    formats.write_hist(base + ".hist", formats.hist_from_array(hist))
-    files["hist"] = base + ".hist"
-    formats.write_preisa(base + ".preisa", srank, spos, prate)
-    files["preisa"] = base + ".preisa"
+        return _bound_result(meta, rows_out, hist, symmap, log)
 
     def write_meta():
-        meta = {
-            "format": "bwtb3m_tpu/v1",
-            "n": n,
-            "sigma": sigma,
-            "input": os.path.abspath(options.input_path),
-            "inputtype": itype.name,
-            "bwtonly": bool(options.bwt_only),
-            "sasamplingrate": options.sa_sampling_rate,
-            "isasamplingrate": options.isa_sampling_rate,
-            "preisasamplingrate": prate,
-            "files": files,
-        }
-        formats.write_meta(base + ".meta", meta)
-        return meta
+        return _write_meta(options, itype.name, n, sigma, prate, files)
 
     # ---- phase 5: sampled SA/ISA + .hwt (bwtonly=0) --------------------
     if not options.bwt_only:
-        srate = max(1, options.sa_sampling_rate)
-        irate = max(1, options.isa_sampling_rate)
         if sa is not None:
             formats.write_sampled_array(base + ".sa", srate, sa[::srate])
             formats.write_sampled_array(base + ".isa", irate, isa[::irate])
         elif period < n:
-            with log.span("sampled SA/ISA of a power of a %d-symbol root"
-                          % period):
-                ssa, sisa = _power_samples(symbols, period, sigma, srate,
-                                           irate, device, log)
             formats.write_sampled_array(base + ".sa", srate, ssa)
             formats.write_sampled_array(base + ".isa", irate, sisa)
         else:
@@ -262,12 +223,71 @@ def compute_bwt(options: BwtOptions,
     return result_of(meta)
 
 
+def _write_files(bwt_path: str, codec: str, bwt, sigma: int, spos, srank,
+                 prate: int, phase: Phases, log: VerboseLog):
+    """A build's ``.bwt`` at ``bwt_path`` (``codec``), and its ``.hist``
+    and ``.preisa`` beside it.  Returns (the files map, the histogram)."""
+    base = bwt_path[:-4] if bwt_path.endswith(".bwt") else bwt_path
+    with log.span("write .bwt (%s)" % codec), phase("write .bwt"):
+        if codec == "rlh":
+            from ..io.rlh import rlh_encode
+            rlh_encode(bwt_path, bwt, sigma=sigma)
+        else:
+            write_bwt(bwt_path, bwt, sigma)
+    with log.span("output hist"):
+        hist = np.bincount(bwt, minlength=sigma).astype(np.int64)
+    formats.write_hist(base + ".hist", formats.hist_from_array(hist))
+    formats.write_preisa(base + ".preisa", srank, spos, prate)
+    return ({"bwt": bwt_path, "hist": base + ".hist",
+             "preisa": base + ".preisa"}, hist)
+
+
+def _write_meta(options: BwtOptions, itype: str, n: int, sigma: int,
+                prate: int, files: dict) -> dict:
+    """Write and return the ``.meta`` beside ``files["bwt"]``."""
+    meta = {
+        "format": "bwtb3m_tpu/v1",
+        "n": n,
+        "sigma": sigma,
+        "input": os.path.abspath(options.input_path),
+        "inputtype": itype,
+        "bwtonly": bool(options.bwt_only),
+        "sasamplingrate": options.sa_sampling_rate,
+        "isasamplingrate": options.isa_sampling_rate,
+        "preisasamplingrate": prate,
+        "files": files,
+    }
+    bwt_path = files["bwt"]
+    base = bwt_path[:-4] if bwt_path.endswith(".bwt") else bwt_path
+    formats.write_meta(base + ".meta", meta)
+    return meta
+
+
+def _bound_result(meta, rows_out: list, hist, symmap,
+                  log: VerboseLog) -> BwtResult:
+    """The result of ``meta``, with the merge engine's final region's
+    device bytes bound to the .bwt just written (once: the first result
+    made takes them); a handle that does not describe this file is
+    refused."""
+    res = BwtResult(meta)
+    if rows_out:
+        try:
+            res.bind_device_rows(rows_out.pop(), hist, symmap=symmap)
+        except ValueError as exc:   # it saves time, it gates nothing
+            log.v("[W] device-rows hand-off skipped: %s" % exc)
+    return res
+
+
+_PERIOD_CHUNK = 1 << 24     # symbols a whole-text period check compares at once
+
+
 def _rotation_period(symbols) -> int:
     """The least p dividing n with text[i] == text[(i + p) mod n] for
     every i: n, unless the text is a power u^(n/p) of a shorter root u,
     whose rotations then come in n/p equal copies.  The divisors are
     tried in increasing order, each on a 4,096-symbol prefix before the
-    whole text."""
+    whole text, which is compared ``_PERIOD_CHUNK`` symbols at a time (a
+    memory-mapped text is read page by page, never whole)."""
     n = len(symbols)
     divs = set()
     for d in range(1, math.isqrt(n) + 1):
@@ -275,29 +295,138 @@ def _rotation_period(symbols) -> int:
             divs.update((d, n // d))
     for p in sorted(divs - {n}):
         head = min(n - p, 4096)
-        if np.array_equal(symbols[:head], symbols[p:p + head]) \
-                and np.array_equal(symbols[:n - p], symbols[p:]):
+        if np.array_equal(symbols[:head], symbols[p:p + head]) and all(
+                np.array_equal(symbols[a:min(a + _PERIOD_CHUNK, n - p)],
+                               symbols[a + p:min(a + _PERIOD_CHUNK + p, n)])
+                for a in range(0, n - p, _PERIOD_CHUNK)):
             return p
     return n
 
 
-def _power_samples(symbols, p: int, sigma: int, srate: int, irate: int,
-                   device, log):
-    """Sampled SA and ISA of a text u^k (k = n / p > 1, u primitive) as
-    the reference's legacy engine writes them, equal rotations in
-    position order: the k copies of u's s-th smallest rotation hold the
-    ranks s k .. s k + k - 1, at positions SA_u[s] + j p.  (The scaled
-    engine's SA walk orders equal rotations otherwise, or misses some, in
-    both packages: ROADMAP.md Queue 3.)  One single-block sort of the
-    root, on ``device``; ``compute_bwt`` refuses a root of more than
-    ``max_block_symbols`` before the build."""
+def _power_files(symbols, p: int, sigma: int, prate: int, srate: int,
+                 irate: int, options: BwtOptions, device, log,
+                 phase: Phases):
+    """Every file of a text t = u^k (k = n / p > 1, u primitive) from its
+    root, as the reference's legacy engine writes them, equal rotations
+    in position order: the k copies of u's s-th smallest rotation hold
+    the ranks s k .. s k + k - 1, at positions SA_u[s] + j p, so
+
+        SA_t[s k + j] = SA_u[s] + j p,   BWT_t[s k + j] = BWT_u[s],
+        ISA_t[q] = ISA_u[q mod p] k + q // p.
+
+    (The scaled engine orders equal rotations otherwise in its SA walk,
+    in both packages, and on t its anchors walk back across every copy
+    of u: ROADMAP.md Queue 3.)  Returns (BWT_t, the .preisa positions
+    0, prate, ... and their ranks, the sampled SA at srate and ISA at
+    irate).  A root of up to ``max_block_symbols`` takes one
+    single-block sort on ``device`` (``_power_files_single``), a longer
+    one a scaled-engine build (``_power_files_scaled``, its phases timed
+    in ``phase``)."""
+    if p <= options.max_block_symbols:
+        return _power_files_single(symbols, p, sigma, prate, srate, irate,
+                                   device, log)
+    return _power_files_scaled(symbols, p, sigma, prate, srate, irate,
+                               options, device, log, phase)
+
+
+def _power_isa(isa_at, g: int, p: int, k: int, n: int, rate: int):
+    """ISA_t at the positions 0, rate, 2 rate, ... < n from ``isa_at``, a
+    tensor of ISA_u at the multiples of g (g divides gcd(rate, p)),
+    gathered where it lies: only these n / rate values reach the host."""
+    q = np.arange(0, n, rate, dtype=np.int64)
+    at = torch.from_numpy((q % p) // g).to(isa_at.device)
+    isa = isa_at[at].cpu().numpy()
+    if (isa < 0).any():
+        raise AssertionError("the root's harvest walk failed to visit "
+                             "every sampled position")
+    return isa * k + q // p
+
+
+def _power_files_single(symbols, p: int, sigma: int, prate: int,
+                        srate: int, irate: int, device, log):
+    """``_power_files`` from one single-block sort of the root."""
     n = len(symbols)
     k = n // p
-    sa_u, isa_u, _bwt = suffix_array(np.asarray(symbols[:p]), sigma, device,
-                                     log)
+    sa_u, isa_u, bwt_u = suffix_array(np.asarray(symbols[:p]), sigma, device,
+                                      log)
+    isa_u = torch.from_numpy(isa_u)
     r = np.arange(0, n, srate, dtype=np.int64)
-    q = np.arange(0, n, irate, dtype=np.int64)
-    return sa_u[r // k] + (r % k) * p, isa_u[q % p] * k + q // p
+    return (np.repeat(bwt_u, k), np.arange(0, n, prate, dtype=np.int64),
+            _power_isa(isa_u, 1, p, k, n, prate), sa_u[r // k] + (r % k) * p,
+            _power_isa(isa_u, 1, p, k, n, irate))
+
+
+def _power_files_scaled(symbols, p: int, sigma: int, prate: int,
+                        srate: int, irate: int, options: BwtOptions,
+                        device, log, phase: Phases):
+    """``_power_files`` of a root past one block, whose SA and ISA the
+    host never holds: the root is built by the scaled engine (the build's
+    alphabet compaction, ``mem=`` and ``hostmem=``; ``<output>.stop``
+    stops it as it stops the build) into ``<tmp_prefix>_root.*`` with a
+    ``.preisa`` at the build's rate.  Its SA at the n / srate ranks
+    s = r // k comes from the select visit (``engine/ssa.py::select_ssa``).
+    Its ISA at the positions q mod p of the ``.preisa`` and ``.isa``
+    positions q, all multiples of g = gcd(irate, prate, p), comes from
+    the harvest visit at ISA rate g: the p / g values stay on the device,
+    which gathers the n / prate + n / irate that the files take.  Past
+    256 symbols, or from 2^32 root symbols, ``select_ssa`` answers
+    through the FM index's locate, which reads a sampled ``.sa``: the
+    harvest then also samples the root's SA (at a power of two of at
+    least max(srate, 4), n / srate values) and writes it.  The root's
+    files are removed on the way out."""
+    from .result import clear_caches
+    from .ssa import _harvest, select_ssa
+
+    n = len(symbols)
+    k = n // p
+    g = math.gcd(math.gcd(irate, prate), p)
+    rprate = min(prate, p)
+    base = options.tmp_prefix + "_root"
+    # the root's checkpoints are its own; its stop file is the build's
+    ropts = dataclasses.replace(options, tmp_prefix=base + "_tmp")
+    rmeta = dataclasses.replace(options, bwt_only=True)
+    itype = parse_input_type(options.input_type).name
+    try:
+        rows_out: list = []
+        with log.span("root of %d symbols: scaled build" % p):
+            bwt_u, spos, srank, symmap = _merge_engine(
+                symbols[:p], sigma, rprate, ropts, device, log, phase,
+                rows_out, None)
+            files, hist = _write_files(base + ".bwt", "rl", bwt_u, sigma,
+                                       spos, srank, rprate, phase, log)
+            meta = _write_meta(rmeta, itype, p, sigma, rprate, files)
+            del spos, srank
+        root = _bound_result(meta, rows_out, hist, symmap, log)
+        need_sa = sigma > 256 or p >= 1 << 32
+        rsrate = 1 << max(2, (srate - 1).bit_length()) if need_sa else p
+        with log.span("root ISA at rate %d (harvest visit)" % g):
+            sa_r, isa_r, _lanes = _harvest(root, rsrate, g, device, log)
+            pisa = _power_isa(isa_r, g, p, k, n, prate)
+            sisa = _power_isa(isa_r, g, p, k, n, irate)
+            del isa_r
+        if need_sa:
+            sa_r = sa_r.cpu().numpy()
+            if (sa_r < 0).any():
+                raise AssertionError("the root's harvest walk failed to "
+                                     "visit every sampled rank")
+            files["sa"] = base + ".sa"
+            formats.write_sampled_array(files["sa"], rsrate, sa_r)
+            _write_meta(rmeta, itype, p, sigma, rprate, files)
+        del sa_r
+        r = np.arange(0, n, srate, dtype=np.int64)
+        s = r // k
+        want = np.unique(s)
+        with log.span("root SA at %d ranks (select)" % len(want)):
+            sa_u = select_ssa(files["bwt"], want, log=log, device=device)
+        ssa = sa_u[np.searchsorted(want, s)] + (r % k) * p
+        del s, want, sa_u
+        return (np.repeat(bwt_u, k), np.arange(0, n, prate, dtype=np.int64),
+                pisa, ssa, sisa)
+    finally:
+        clear_caches()
+        for ext in (".bwt", ".hist", ".preisa", ".preisa.meta", ".sa",
+                    ".meta"):
+            _remove(base + ext)
 
 
 def _sharded_engine(symbols, sigma: int, device, log: VerboseLog):

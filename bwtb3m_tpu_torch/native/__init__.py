@@ -11,9 +11,13 @@ importers use ``get_lib()`` and handle None.  A CUDA run calls
 when the library cannot be built: the numpy fallbacks are minutes slower
 at the sizes a GPU run has.
 
-Only the entry points the port calls are here; ``sais``,
-``gap_interleave``, ``gt0`` and ``pack_bits_u8`` come with the slices
-that need them (ROADMAP.md).  ``cmp_rot`` also takes a uint16 or uint32
+Only the entry points the port calls are here, and ``sais``, the
+reference's SA-IS: the honest CPU baseline and host oracle of the
+benchmark and the tests.  ``gap_interleave``, ``gt0`` and
+``pack_bits_u8`` are not carried over: they serve only the reference's
+host zip and legacy engine, which the port maps onto the scaled engine
+(``engine/merge_scaled.py``: the zip on the device, the gt bits from
+``cmp_rot``).  ``cmp_rot`` also takes a uint16 or uint32
 text (the merge engine's dense ids past 256 and past 65,536 distinct
 symbols), which the reference's does not.
 """
@@ -113,6 +117,8 @@ def get_lib():
         p32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         lib.c_kasai_plcp.argtypes = [p32, p64, i64, p64]
         lib.c_kasai_plcp.restype = None
+        lib.c_sais.argtypes = [p32, i64, i64, p64]
+        lib.c_sais.restype = None
         _lib = lib
         return _lib
 
@@ -289,3 +295,21 @@ def kasai_plcp(text: np.ndarray, sa: np.ndarray) -> Optional[np.ndarray]:
     out = np.zeros(len(text), dtype=np.int64)
     lib.c_kasai_plcp(text, sa, len(text), out)
     return out
+
+
+def sais(text: np.ndarray) -> Optional[np.ndarray]:
+    """Suffix array of text + implicit smallest terminator via native
+    SA-IS (the divsufsort-class CPU engine used as the honest baseline
+    and host oracle). Returns int64 [n] or None without the native lib.
+    For pacterm input (unique terminator 0 present) this equals the
+    circular rotation order."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    text = np.ascontiguousarray(text, dtype=np.int32)
+    n = len(text)
+    out = np.zeros(max(1, n), dtype=np.int64)
+    if n:
+        K = int(text.max()) + 1
+        lib.c_sais(text, n, K, out)
+    return out[:n]

@@ -12,10 +12,12 @@
 //     the byte histogram, the BWA .pac unpack
 //   - the RLB1 .bwt codec (io/rl.py)
 //   - the Phi/Kasai PLCP oracle (lcp/plcp.py::kasai_plcp)
+//   - SA-IS suffix sorting (native.sais: the CPU baseline and host oracle)
 //
-// Still in the reference package only, to come with the slices that call
-// them: c_sais, c_gap_interleave, c_gt0, c_rlh_decode,
-// c_pack_bits / c_unpack_bits / c_pack_bits_u8, c_run_scan.
+// Left in the reference package: c_gap_interleave, c_gt0 and
+// c_pack_bits_u8 serve only its host zip and legacy engine, which the port
+// maps onto the scaled engine; c_pack_bits, c_unpack_bits and c_run_scan
+// have no caller in either package.
 
 #include <algorithm>
 #include <cstdint>
@@ -503,6 +505,137 @@ int64_t c_rl_decode_u8(const char* path, uint8_t* out, int64_t cap) {
   }
   std::fclose(f);
   return o == n ? n : -1;
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------------ SA-IS
+
+// SA-IS suffix-array construction (Nong/Zhang/Chan, the induced-sorting
+// algorithm divsufsort-class engines are built on).  Role: the honest CPU
+// baseline + host oracle standing in for the reference's per-block
+// divsufsort (libmaus2 `suffixsort::divsufsort`, SURVEY.md section 2.2) —
+// not a copy of any reference code; written from the published algorithm.
+// Requires s[n-1] to be the unique smallest symbol (sentinel).
+
+namespace sais_impl {
+
+static inline bool is_lms(const uint8_t* t, int64_t i) {
+  return i > 0 && t[i] && !t[i - 1];
+}
+
+static void get_buckets(const int64_t* s, int64_t* bkt, int64_t n, int64_t K,
+                        bool end) {
+  std::fill(bkt, bkt + K + 1, 0);
+  for (int64_t i = 0; i < n; ++i) bkt[s[i]]++;
+  int64_t sum = 0;
+  for (int64_t i = 0; i <= K; ++i) {
+    sum += bkt[i];
+    bkt[i] = end ? sum : sum - bkt[i];
+  }
+}
+
+static void induce_l(const uint8_t* t, int64_t* SA, const int64_t* s,
+                     int64_t* bkt, int64_t n, int64_t K) {
+  get_buckets(s, bkt, n, K, false);
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t j = SA[i] - 1;
+    if (SA[i] > 0 && !t[j]) SA[bkt[s[j]]++] = j;
+  }
+}
+
+static void induce_s(const uint8_t* t, int64_t* SA, const int64_t* s,
+                     int64_t* bkt, int64_t n, int64_t K) {
+  get_buckets(s, bkt, n, K, true);
+  for (int64_t i = n - 1; i >= 0; --i) {
+    int64_t j = SA[i] - 1;
+    if (SA[i] > 0 && t[j]) SA[--bkt[s[j]]] = j;
+  }
+}
+
+static void sais(const int64_t* s, int64_t* SA, int64_t n, int64_t K) {
+  if (n == 1) { SA[0] = 0; return; }
+  std::vector<uint8_t> t(n);
+  t[n - 1] = 1;
+  if (n >= 2) t[n - 2] = 0;
+  for (int64_t i = n - 3; i >= 0; --i)
+    t[i] = (s[i] < s[i + 1] || (s[i] == s[i + 1] && t[i + 1])) ? 1 : 0;
+  std::vector<int64_t> bkt(K + 1);
+
+  // stage 1: sort LMS substrings by one induced pass
+  std::fill(SA, SA + n, (int64_t)-1);
+  get_buckets(s, bkt.data(), n, K, true);
+  for (int64_t i = 1; i < n; ++i)
+    if (is_lms(t.data(), i)) SA[--bkt[s[i]]] = i;
+  induce_l(t.data(), SA, s, bkt.data(), n, K);
+  induce_s(t.data(), SA, s, bkt.data(), n, K);
+
+  // compact sorted LMS positions into SA[0..n1)
+  int64_t n1 = 0;
+  for (int64_t i = 0; i < n; ++i)
+    if (is_lms(t.data(), SA[i])) SA[n1++] = SA[i];
+
+  // name LMS substrings into SA[n1..n)
+  std::fill(SA + n1, SA + n, (int64_t)-1);
+  int64_t name = 0, prev = -1;
+  for (int64_t i = 0; i < n1; ++i) {
+    int64_t pos = SA[i];
+    bool diff = false;
+    for (int64_t d = 0; d < n; ++d) {
+      if (prev == -1 || s[pos + d] != s[prev + d] ||
+          t[pos + d] != t[prev + d]) {
+        diff = true;
+        break;
+      }
+      if (d > 0 && (is_lms(t.data(), pos + d) || is_lms(t.data(), prev + d)))
+        break;  // both substrings ended equal
+    }
+    if (diff) { ++name; prev = pos; }
+    SA[n1 + pos / 2] = name - 1;
+  }
+  for (int64_t i = n - 1, j = n - 1; i >= n1; --i)
+    if (SA[i] >= 0) SA[j--] = SA[i];
+
+  // stage 2: order the LMS suffixes (recursively if names collide)
+  int64_t* SA1 = SA;
+  int64_t* s1 = SA + n - n1;
+  if (name < n1) {
+    sais(s1, SA1, n1, name - 1);
+  } else {
+    for (int64_t i = 0; i < n1; ++i) SA1[s1[i]] = i;
+  }
+
+  // stage 3: induce the full order from sorted LMS suffixes
+  for (int64_t i = 1, j = 0; i < n; ++i)
+    if (is_lms(t.data(), i)) s1[j++] = i;  // LMS positions in text order
+  for (int64_t i = 0; i < n1; ++i) SA1[i] = s1[SA1[i]];
+  std::fill(SA + n1, SA + n, (int64_t)-1);
+  get_buckets(s, bkt.data(), n, K, true);
+  for (int64_t i = n1 - 1; i >= 0; --i) {
+    int64_t j = SA[i];
+    SA[i] = -1;
+    SA[--bkt[s[j]]] = j;
+  }
+  induce_l(t.data(), SA, s, bkt.data(), n, K);
+  induce_s(t.data(), SA, s, bkt.data(), n, K);
+}
+
+}  // namespace sais_impl
+
+extern "C" {
+
+// Suffix array of text (int32 symbols >= 0) with an implicit unique
+// terminator appended that sorts below everything: out[i] = start of the
+// i-th smallest suffix of text (terminator's trivial suffix excluded).
+// For a pacterm text (terminator 0 already present and unique) this is
+// the circular rotation order directly.
+void c_sais(const int32_t* text, int64_t n, int64_t K, int64_t* out) {
+  std::vector<int64_t> s(n + 1);
+  for (int64_t i = 0; i < n; ++i) s[i] = (int64_t)text[i] + 1;
+  s[n] = 0;
+  std::vector<int64_t> SA(n + 1);
+  sais_impl::sais(s.data(), SA.data(), n + 1, K + 1);
+  std::memcpy(out, SA.data() + 1, (size_t)n * sizeof(int64_t));
 }
 
 }  // extern "C"

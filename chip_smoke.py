@@ -8,7 +8,7 @@
                           [--alphabet-n 100000007] [--alphabet-mem 640M]
                           [--alphabet32-n 400000009] [--alphabet32-mem 2G]
                           [--index-n 100000003]
-                          [--only all|human|alphabet|index|fasta]
+                          [--only all|human|alphabet|index|fasta|power]
 
 Phases, in order; any failure exits non-zero and no result line is
 printed:
@@ -81,7 +81,10 @@ printed:
    which a short numpy prefix doubling (``np.lexsort``) computes here;
 7. the LF-walk kernel against its plain version at step 5's shapes, on
    sector rows (what the tools run) and, in turns within the same run,
-   on bit-plane rows built from the same BWT;
+   on bit-plane rows built from the same BWT (the plain version on
+   8,192 of the lanes cut to 256 steps, ``PLAIN_SAMPLE``, the kernel on
+   the same and, for its time, on every lane at full length; so in steps
+   9 and 10 too);
 8. the FASTA path, engine against engine at 16,777,259 symbols: the
    text as a gzipped FASTA of 16 records (one lowercase, two N runs),
    ``fagzToCompact4 rc=0 seed=42`` (its ``.meta`` must hold the N runs,
@@ -96,6 +99,16 @@ printed:
    checklcp=1`` on the doubling build, its ``lcpbit``, ``checkLCPBit``
    (lcpok=1) and ``checkLCPBit`` on a copy with one bit moved (lcpok=0,
    exit 1): the host oracle runs at this size, not at step 5's;
+8b. the power path: ``bwtb3m engine=merge-legacy bwtonly=0 mem=128M``
+   (blocks of 8,388,608) on u^2, u a 10,000,019-symbol text of
+   ``make_text`` (n = 20,000,038): every file from the root, which is
+   past one block and built by the scaled engine, whose SA samples the
+   select kernel ``bwt_lf_select`` takes and whose ISA the harvest
+   visit; ``checkbwt`` (gok=1); the .bwt, .preisa, .sa and .isa held to
+   the single-block route's (``engine/api.py::_power_files_single``: one
+   device sort of u), max_abs_err 0; the select kernel against its plain
+   version on the root's rows and lanes (rebuilt from that route's
+   files), as step 11 holds it;
 9. the merge path at n = 400,000,009 (three blocks of the default
    mem=2G, two merges, checkpointing on): ``bwtb3m bwtonly=1`` (engine
    auto takes the scaled engine), ``checkbwt`` (gok=1), ``bwtcomputessa``
@@ -343,6 +356,10 @@ KERNELS = {
     # the select visit of the LF-walk kernel, counted on its own
     "lf_walk_select": ("bwtb3m_tpu_torch/csrc/lf_walk.cu",
                        "bwtb3m_tpu/engine/ssa.py:468"),
+    # the same kernel as the power path launches it: the SA samples of a
+    # power text's root past one block (engine=merge-legacy bwtonly=0)
+    "lf_walk_select_power": ("bwtb3m_tpu_torch/csrc/lf_walk.cu",
+                             "bwtb3m_tpu/engine/ssa.py:468"),
     # the 64-bit forms (wide rank rows, n >= 2^32 or BWTB3M_FORCE_WIDE):
     # second instantiations of the same templates, entries bwt_lf_walk_w
     # (the reference's wide walks _verify_chunk_w / _harvest_chunk_w) and
@@ -387,7 +404,8 @@ ROW_PATH = {"lf_walk": "merge path", "gap_chain": "merge path",
             "gap_chain_mk_wm": "alphabet path",
             "lf_walk_wm32": "alphabet32 path",
             "gap_chain_mk_wm32": "alphabet32 path",
-            "lf_walk_locate": "genome path", "lf_walk_decode": "genome path"}
+            "lf_walk_locate": "genome path", "lf_walk_decode": "genome path",
+            "lf_walk_select_power": "power path"}
 # the kernels each path must launch
 NARROW = ("lf_walk", "gap_chain", "gap_chain_mk", "lf_walk_select",
           "lf_walk_locate", "lf_walk_decode")
@@ -431,14 +449,15 @@ WM_STEP_OPS = {"walk": 12, "chain": 30}
 # store's address
 LOCATE_VISIT_OPS = 4
 DECODE_VISIT_OPS = 8
-# the plain versions' share of the genome-scale paths: the recording
+# the plain versions' share of the paths from 100M up: the recording
 # chain and the verify / harvest walks run plain on PLAIN_SAMPLE[0] lanes
 # spread over the path's lanes, each cut to PLAIN_SAMPLE[1] steps, and the
 # select visit on every 64th lane with its cap cut to SELECT_CUT steps;
 # the kernel runs on the same cut lanes for the comparison, and on every
 # lane at full length for its time.  256 steps keep the run within its
-# time: at 1,024 the sampled plain walks took 100 s of a run (NVIDIA
-# H100 80GB HBM3, 700 W)
+# time: at 1,024 the sampled plain walks took 100 s of a run, and the
+# 100M and 400M paths' plain walks over every lane at full length 69 s
+# (NVIDIA H100 80GB HBM3, 700 W)
 PLAIN_SAMPLE = (8192, 256)
 SELECT_CUT = 2048
 # the FM index's visits at 2^22 and rate 262,144 (walks of 10^5-10^6
@@ -786,7 +805,7 @@ def main() -> int:
                     "skips the path)")
     ap.add_argument("--only", default="all",
                     choices=("all", "human", "alphabet", "index", "fasta",
-                             "sharded"),
+                             "sharded", "power"),
                     help="human / alphabet: the environment, the kernel "
                     "build and that path alone; index: the locate and "
                     "decode visits at 2^22 and the index path; fasta (by "
@@ -795,7 +814,8 @@ def main() -> int:
                     "the first and its checkbwt, at --genome-n and "
                     "--genome-mem; sharded: step 15 alone, on a text of "
                     "--n built here with the default engine and on "
-                    "make_text(16,777,259) in place of step 8's FASTA")
+                    "make_text(16,777,259) in place of step 8's FASTA; "
+                    "power: step 8b alone")
     args = ap.parse_args()
     t_start = time.monotonic()
     sys.meta_path.insert(0, _BlockJax())
@@ -2090,11 +2110,13 @@ def main() -> int:
         for eng, extra in (("merge", ["mem=67108864", "bwtonly=0"]),
                            ("doubling", ["bwtonly=1"])):
             outs[eng] = os.path.join(WORK, "c16m_%s.bwt" % eng)
+            # their walls are reported, not their device time: the
+            # profiler's summary of the merge build alone took 6 s
             rc, _, _ = run_tool("bwtb3m bwtcodec=rlh engine=%s n=%d" % (eng,
                                                                         n2), [
                 "bwtb3m", "inputtype=utf-8", "bwtcodec=rlh", "device=cuda",
                 "engine=" + eng, "outputfilename=" + outs[eng], *extra,
-                inp2])
+                inp2], profile=False)
             if rc != 0:
                 raise AssertionError("bwtb3m bwtcodec=rlh engine=%s failed"
                                      % eng)
@@ -3035,6 +3057,139 @@ def main() -> int:
         alphabet_report(alpha)
         return finish(alphabet_kernels(alpha))
 
+    def power_path():
+        """Step 8b: ``bwtb3m engine=merge-legacy bwtonly=0 mem=128M`` on
+        u^2, u an ACGT text of 10,000,019 symbols past one block of
+        8,388,608 (every file from the root, which the scaled engine
+        builds, its SA sampled by the select kernel and its ISA by the
+        harvest visit), and
+        ``checkbwt``; the .bwt, .preisa, .sa and .isa held to the
+        single-block route's (``engine/api.py::_power_files_single``: one
+        device sort of u), and the root's select launch to its plain
+        version on the root's files, rebuilt from that route's BWT and
+        .preisa.  Returns the path's record."""
+        from bwtb3m_tpu_torch.engine import api as engine_api
+        p, mem = 10_000_019, 128 * 1024 ** 2
+        t0 = time.monotonic()
+        inp = os.path.join(WORK, "power.bin")
+        np.tile(make_text(p, args.seed + 15), 2).tofile(inp)
+        n, mbs = 2 * p, BwtOptions(input_path=inp, mem=mem).max_block_symbols
+        if not mbs < p:
+            raise AssertionError("the root of %d symbols fits one block of "
+                                 "%d" % (p, mbs))
+        say("input: u^2, u = %d ACGT symbols with 1000 mutated repeats "
+            "(n=%d, blocks of %d at mem=%d), made in %.2f s (host)"
+            % (p, n, mbs, mem, time.monotonic() - t0))
+        bwt_file = inp + ".bwt"
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rc, _, phases = run_tool("bwtb3m engine=merge-legacy bwtonly=0 "
+                                 "(power path)", [
+            "bwtb3m", "inputtype=bytestream", "engine=merge-legacy",
+            "bwtonly=0", "mem=%d" % mem, "device=cuda", "verbose=1", inp])
+        build_s = run_tool.wall
+        if rc != 0 or "scaled build" not in run_tool.log:
+            raise AssertionError("the power path's build failed or did not "
+                                 "build its root with the scaled engine")
+        rc, out, _ = run_tool("checkbwt (power path)", [
+            "checkbwt", "inputtype=bytestream", "device=cuda", inp, bwt_file])
+        if rc != 0 or "gok=1" not in out:
+            raise AssertionError("checkbwt did not print gok=1 on the power "
+                                 "path")
+        path_counts["power path"] = counts()
+        peak = torch.cuda.max_memory_allocated()
+        say("power path launches: %s" % path_counts["power path"])
+        if min(path_counts["power path"][k] for k in (
+                "lf_walk_select", "lf_walk", "gap_chain_mk")) < 1:
+            raise AssertionError("the power path did not launch the select, "
+                                 "LF-walk and gap-chain kernels")
+        with uncounted():
+            res = BwtResult.load(bwt_file)
+            srate, irate = (res.meta["sasamplingrate"],
+                            res.meta["isasamplingrate"])
+            prate = res.meta["preisasamplingrate"]
+            t0 = time.monotonic()
+            w_bwt, w_pos, w_rank, w_sa, w_isa = \
+                engine_api._power_files_single(
+                    np.fromfile(inp, np.uint8), p, 256, prate, srate, irate,
+                    dev, VerboseLog(0))
+            single_s = time.monotonic() - t0
+            ranks, positions, _rate = res.load_preisa()
+            got = {"bwt": (res.load_bwt(), w_bwt),
+                   "preisa": (np.r_[positions, ranks], np.r_[w_pos, w_rank]),
+                   "sa": (load_sampled_array(res.sa_path)[1], w_sa),
+                   "isa": (load_sampled_array(res.isa_path)[1], w_isa)}
+            errs = {}
+            for ext, (a, b) in got.items():
+                if len(a) != len(b):
+                    raise AssertionError(".%s has %d values, the single-block "
+                                         "route %d" % (ext, len(a), len(b)))
+                errs[ext] = int(np.abs(a.astype(np.int64) - b).max())
+            say(".bwt, .preisa, .sa and .isa of the power path against the "
+                "single-block route (one device sort of the root, %.3f s): "
+                "max_abs_err %s (%d / %d sampled values) [%s]"
+                % (single_s, json.dumps(errs), len(w_sa), len(w_isa), smi))
+            if any(errs.values()):
+                raise AssertionError("the power path's files differ from the "
+                                     "single-block route's")
+            # the root's select launch on the root's files as the build
+            # wrote them (the BWT of a primitive root is unique: BWT_t
+            # takes each of its symbols twice; its .preisa at the build's
+            # rate, ISA_u = ISA_t // 2 below p), its lanes the ranks r // 2
+            rprate = min(prate, p)
+            rbase = os.path.join(WORK, "power_root")
+            files = {"bwt": rbase + ".bwt", "preisa": rbase + ".preisa"}
+            write_bwt(files["bwt"], w_bwt[::2].astype(np.uint8), 256)
+            below = w_pos < p
+            formats.write_preisa(files["preisa"], w_rank[below] // 2,
+                                 w_pos[below], rprate)
+            formats.write_meta(rbase + ".meta", {
+                "format": "bwtb3m_tpu/v1", "n": p, "sigma": 256,
+                "files": files})
+            r = np.arange(0, n, srate, dtype=np.int64)
+            want = np.unique(r // 2)
+            sel = select_compare(files["bwt"], want, "power path root")
+            sa_u = select_ssa(files["bwt"], want, device=dev)
+            if not np.array_equal(
+                    sa_u[np.searchsorted(want, r // 2)] + (r % 2) * p, w_sa):
+                raise AssertionError("select_ssa on the root disagrees with "
+                                     "the root's sort")
+            del got, w_bwt, w_pos, w_rank, w_sa, w_isa, sa_u
+        rec = {"n": n, "root": p, "max_block_symbols": mbs,
+               "build_s": build_s, "checkbwt_s": tools[-1][1],
+               "single_block_route_s": single_s, "peak_device_bytes": peak,
+               **{"%s_max_abs_err" % ext: e for ext, e in errs.items()},
+               "select": sel}
+        for name, (wall, dev_s, _span) in sorted(phases.items(),
+                                                  key=lambda kv: -kv[1][0]):
+            say("power build phase %-18s wall %.3f s, device busy %s [%s]"
+                % (name, wall, "%.3f s" % dev_s if dev_s
+                   else "not measured", smi))
+        say("power path: build %.3f s, checkbwt %.3f s, peak device memory "
+            "%.3f GiB [%s]" % (build_s, rec["checkbwt_s"], peak / 2 ** 30,
+                               smi))
+        return rec
+
+    def power_kernel(rec):
+        """The kernels line's row of the select kernel on the power path."""
+        main = rec["select"]["sector"]
+        return {
+            "name": "lf_walk_select_power", "route": "cuda",
+            "source": KERNELS["lf_walk_select_power"][0],
+            "replaces": KERNELS["lf_walk_select_power"][1],
+            "launches": path_counts[ROW_PATH["lf_walk_select_power"]][
+                "lf_walk_select"],
+            "shapes_of": ROW_PATH["lf_walk_select_power"],
+            "entry": "bwt_lf_select on the root of engine=merge-legacy "
+                     "bwtonly=0's power text",
+            "max_abs_err": max(errors_in(rec)),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "plain_on": main["plain_on"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "layout": "sector", "lanes": main["lanes"],
+            "steps": main["steps"], "power_path": {
+                k: v for k, v in rec.items() if k != "select"}}
+
     def fasta_path(n, mem):
         """By hand (``--only fasta``): the genome path's text
         (``make_text(n, seed + 11)``) as a gzipped FASTA of 24 records
@@ -3096,6 +3251,13 @@ def main() -> int:
                    else "not measured", smi))
         say("peak device memory: FASTA build %.3f GiB [%s]"
             % (peak / 2 ** 30, smi))
+
+    if args.only == "power":
+        os.makedirs(WORK, exist_ok=True)
+        power = power_path()
+        shutil.rmtree(WORK, ignore_errors=True)
+        say_tools()
+        return finish([power_kernel(power)])
 
     if args.only == "fasta":
         fasta_path(args.genome_n, args.genome_mem)
@@ -3632,7 +3794,8 @@ def main() -> int:
 
     lap("7")
     # ---- 7. LF-walk kernel at the single-block path's shapes -------------
-    lf_single = lf_compare(bwt_path, text, "single-block path")
+    lf_single = lf_compare(bwt_path, text, "single-block path",
+                           sample=PLAIN_SAMPLE)
     del text
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -3680,7 +3843,7 @@ def main() -> int:
                             % (eng, n8), [
             "bwtb3m", "inputtype=compactstream", "bwtonly=1", "device=cuda",
             "engine=" + eng, "outputfilename=" + outs[eng], *extra, c4],
-            profile=eng != "merge-legacy")
+            profile=False)
         if rc != 0:
             raise AssertionError("bwtb3m engine=%s failed" % eng)
     for ext in ("bwt", "hist", "preisa"):
@@ -3754,6 +3917,12 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
+    lap("8b")
+    # ---- 8b. the power path: merge-legacy bwtonly=0 on u^2 -------------
+    power = power_path()
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+
     lap("9")
     # ---- 9. the merge path at 400M --------------------------------------
     nm = args.merge_n
@@ -3792,7 +3961,7 @@ def main() -> int:
     prate = ssa_agrees_with_preisa(bwtm, "merge build")
     # the LF walk at the merge path's shapes (the rank rows come from the
     # memo that checkbwt and bwtcomputessa filled)
-    lf_merge = lf_compare(bwtm, text, "merge path")
+    lf_merge = lf_compare(bwtm, text, "merge path", sample=PLAIN_SAMPLE)
 
     lap("10")
     # ---- 10. gap-chain kernel at the root merge's shapes -----------------
@@ -3818,7 +3987,8 @@ def main() -> int:
     kid, starts, seeds, lens = lanes
     root = "root merge (left %d, right %d ranks" % (m_r - s_r, e_r - m_r)
     gc = level_compare(level, foccs, lanes, 3, False,
-                       "%s, %d lanes):" % (root, len(starts)))
+                       "%s, %d lanes):" % (root, len(starts)),
+                       sample=PLAIN_SAMPLE)
     # the same merge through the runner's wide mode and the kernel's
     # 64-bit form (what BWTB3M_FORCE_WIDE and a merge past 2^32 run):
     # its own anchors give the same lanes, then the kernel against its
@@ -3832,7 +4002,8 @@ def main() -> int:
         raise AssertionError("the wide runner's anchors differ from the "
                              "narrow runner's")
     gcw = level_compare(wlevel, wfoccs, lanes, 3, False,
-                        "%s, %d lanes):" % (root, len(starts)))
+                        "%s, %d lanes):" % (root, len(starts)),
+                        sample=PLAIN_SAMPLE)
     for lay, o in gcw.items():
         say("gap_chain_mk %s, %d lanes), %s rows: 64-bit form %.3f ms "
             "(recording %.3f), narrow form %.3f ms (recording %.3f): %.3f x "
@@ -3963,7 +4134,8 @@ def main() -> int:
                                  "64-bit forms alone")
         lf_wide = lf_compare(bwtw, np.fromfile(inpm, np.uint8),
                              "forced-wide merge path", ("sector",),
-                             ("verify_walk", "harvest_walk"), wide=True)
+                             ("verify_walk", "harvest_walk"), wide=True,
+                             sample=PLAIN_SAMPLE)
         for lay, o in lf_wide.items():
             say("kernel lf_walk verify + harvest at n=%d, %s rows: 64-bit "
                 "form %.3f ms, narrow form %.3f ms: %.3f x [%s]"
@@ -4452,6 +4624,7 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "layout": "sector", "layouts": per_layout,
             **extra})
+    kernels.append(power_kernel(power))
     if glcp:        # the genome path's PLCP ran (n < 2^31)
         kernels.append({
             "name": "kasai", "route": "cuda", "source": KERNELS["kasai"][0],
