@@ -35,6 +35,7 @@ from ..engine.result import BwtResult
 from ..index.fm import FMIndex
 from ..io.fasta import iter_fasta, iter_fastq
 from ..ops.lf import backward_search_step
+from ..util import trace
 from ..util.log import VerboseLog
 
 _MAP = np.full(256, -1, dtype=np.int8)
@@ -43,10 +44,9 @@ for i, ch in enumerate(b"ACGT"):
     _MAP[ch + 32] = i
 _BASES = "ACGT"
 READ_CHUNK = 1024           # reads (two patterns each) searched together
-# the breadth-first search's frontier since the last reset: the most live
-# states at one depth, and the states stepped in all (each a lane of
-# backward_search_step)
-FRONTIER = {"max": 0, "stepped": 0}
+# the breadth-first search's states stepped since the last reset (each a
+# lane of backward_search_step)
+FRONTIER = {"stepped": 0}
 
 
 def _revcomp(codes: np.ndarray) -> np.ndarray:
@@ -104,7 +104,6 @@ def hamming_search_batch(fm: FMIndex, patterns: Sequence[np.ndarray],
         idx = torch.nonzero(ok).squeeze(1)
         par = idx // 4
         d = ids[c4[idx]]
-        FRONTIER["max"] = max(FRONTIER["max"], len(idx))
         FRONTIER["stepped"] += len(idx)
         l2, h2 = backward_search_step(fm.rows, d, lo[par], hi[par], C)
         keep = h2 > l2
@@ -148,22 +147,44 @@ def _md_and_nm(ref_codes: np.ndarray, read_codes: np.ndarray
 def all_ham_dna(bwt_path: str, reads_path: str, maxmis: int = 2,
                 out=None, bam_path: str = None, device="cuda") -> int:
     """When ``bam_path`` is given, emit BAM (the reference's output format,
-    allHamDna.cpp:198-253, via io/bam.py); otherwise SAM text to ``out``."""
-    out = out or sys.stdout
+    allHamDna.cpp:198-253, via io/bam.py); otherwise SAM text to ``out``.
+    One ``apps.align`` span of the tracer, with the reads parsed as its
+    ``reads``; under it ``apps.load`` and, for each chunk of reads,
+    ``apps.search``, ``apps.locate`` and ``apps.emit`` (the parse is the
+    root's own time); the closing log line gives each step's seconds."""
     log = VerboseLog(1)
-    result = BwtResult.load(bwt_path)
-    if result.sigma != 5:
-        log.e("allHamDna expects a pacterm index (sigma=5)")
-        return 1
-    fm = FMIndex.from_bwt_result(result, structure="hwt", device=device)
-    if fm.sa is None:
-        log.e("no sampled SA: rebuild without bwtonly or run bwtcomputessa")
-        return 1
-    ref_len = result.n - 1  # excluding terminator
+    with trace.span("apps.align") as align:
+        rc = _all_ham_dna(align, log, bwt_path, reads_path, maxmis,
+                          out or sys.stdout, bam_path, device)
+    if rc == 0:
+        steps = dict.fromkeys(("apps.load", "apps.search", "apps.locate",
+                               "apps.emit"), 0)
+        for r in trace.records(align.start_ns, align.end_ns):
+            if r.parent == align.id:
+                steps[r.name] += r.ns
+        log.v("allHamDna: load %.3fs, search %.3fs, locate %.3fs, emit "
+              "%.3fs, parse and the rest %.3fs"
+              % tuple(v / 1e9 for v in (*steps.values(),
+                                        trace.self_ns(align))))
+    return rc
 
-    # reference text codes {0..3} for MD tags
+
+def _all_ham_dna(align, log, bwt_path, reads_path, maxmis, out, bam_path,
+                 device) -> int:
     from ..io.pac import read_pac
-    ref_codes = read_pac(result.meta["input"])
+    with trace.span("apps.load"):
+        result = BwtResult.load(bwt_path)
+        if result.sigma != 5:
+            log.e("allHamDna expects a pacterm index (sigma=5)")
+            return 1
+        fm = FMIndex.from_bwt_result(result, structure="hwt", device=device)
+        if fm.sa is None:
+            log.e("no sampled SA: rebuild without bwtonly or run "
+                  "bwtcomputessa")
+            return 1
+        # reference text codes {0..3} for MD tags
+        ref_codes = read_pac(result.meta["input"])
+    ref_len = result.n - 1  # excluding terminator
 
     header = ("@HD\tVN:1.6\tSO:unknown\n"
               "@SQ\tSN:ref\tLN:%d\n"
@@ -207,35 +228,39 @@ def all_ham_dna(bwt_path: str, reads_path: str, maxmis: int = 2,
         nonlocal nhits
         pats = [x for _n, _s, codes in chunk
                 for x in (codes, _revcomp(codes))]
-        pid, lo, hi, _nm = hamming_search_batch(fm, pats, maxmis)
-        lo, hi, pid = lo.cpu().numpy(), hi.cpu().numpy(), pid.cpu().numpy()
-        cnt = hi - lo
-        ranks = np.repeat(lo - np.cumsum(np.r_[0, cnt[:-1]]), cnt) \
-            + np.arange(int(cnt.sum()), dtype=np.int64)
-        positions = fm.locate_batch(ranks)  # all hits walk together
-        hit_pid = np.repeat(pid, cnt)
-        order = np.lexsort((positions, hit_pid))
-        hit_pid, positions = hit_pid[order], positions[order]
-        bounds = np.searchsorted(hit_pid, np.arange(len(pats) + 1))
-        for r, (name, seq, codes) in enumerate(chunk):
-            m = len(codes)
-            found = False
-            for strand in (0, 1):
-                k = 2 * r + strand
-                pat = pats[k]
-                ps = positions[bounds[k]:bounds[k + 1]]
-                if not len(ps):
-                    continue
-                read_str = "".join(_BASES[int(c)] for c in pat)
-                for pos in ps.tolist():
-                    if pos + m > ref_len:  # spans the terminator: not a hit
+        with trace.span("apps.search"):
+            pid, lo, hi, _nm = hamming_search_batch(fm, pats, maxmis)
+            lo, hi, pid = (lo.cpu().numpy(), hi.cpu().numpy(),
+                           pid.cpu().numpy())
+        with trace.span("apps.locate"):
+            cnt = hi - lo
+            ranks = np.repeat(lo - np.cumsum(np.r_[0, cnt[:-1]]), cnt) \
+                + np.arange(int(cnt.sum()), dtype=np.int64)
+            positions = fm.locate_batch(ranks)  # all hits walk together
+        with trace.span("apps.emit"):
+            hit_pid = np.repeat(pid, cnt)
+            order = np.lexsort((positions, hit_pid))
+            hit_pid, positions = hit_pid[order], positions[order]
+            bounds = np.searchsorted(hit_pid, np.arange(len(pats) + 1))
+            for r, (name, seq, codes) in enumerate(chunk):
+                m = len(codes)
+                found = False
+                for strand in (0, 1):
+                    k = 2 * r + strand
+                    pat = pats[k]
+                    ps = positions[bounds[k]:bounds[k + 1]]
+                    if not len(ps):
                         continue
-                    md, nm = _md_and_nm(ref_codes[pos:pos + m], pat)
-                    emit(name, 16 * strand, pos, m, read_str, nm, md)
-                    nhits += 1
-                    found = True
-            if not found:
-                emit(name, 4, -1, m, seq.decode(), 0, "")
+                    read_str = "".join(_BASES[int(c)] for c in pat)
+                    for pos in ps.tolist():
+                        if pos + m > ref_len:  # spans the terminator
+                            continue
+                        md, nm = _md_and_nm(ref_codes[pos:pos + m], pat)
+                        emit(name, 16 * strand, pos, m, read_str, nm, md)
+                        nhits += 1
+                        found = True
+                if not found:
+                    emit(name, 4, -1, m, seq.decode(), 0, "")
         chunk.clear()
 
     for name, seq in reads():
@@ -251,5 +276,6 @@ def all_ham_dna(bwt_path: str, reads_path: str, maxmis: int = 2,
     if bam is not None:
         bam.close()
         bam_fh.close()
+    align.attrs["reads"] = nreads
     log.v("allHamDna: %d reads, %d alignments" % (nreads, nhits))
     return 0

@@ -80,6 +80,7 @@ from ..io import formats
 from ..io.inputtypes import parse_input_type
 from ..ops.doubling import suffix_array
 from ..ops.wavelet_rows import MAX_SYMBOLS
+from ..util import trace
 from ..util.devices import resolve_device
 from ..util.log import RealTimeClock, VerboseLog, mem_usage_string
 from ..util.phases import Phases
@@ -116,7 +117,11 @@ def _spill_text(symbols: np.ndarray, options: BwtOptions, log: VerboseLog):
 
 def compute_bwt(options: BwtOptions,
                 log: Optional[VerboseLog] = None) -> BwtResult:
-    log = log or VerboseLog(options.verbose)
+    with trace.span("engine.build"):
+        return _compute_bwt(options, log or VerboseLog(options.verbose))
+
+
+def _compute_bwt(options: BwtOptions, log: VerboseLog) -> BwtResult:
     rtc = RealTimeClock()
     device = resolve_device(options.device)
 

@@ -20,7 +20,6 @@ reference's ``load_occ``), memoized in the same memo.
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -28,6 +27,7 @@ import torch
 
 from ..io import formats
 from ..io.rl import open_bwt, rl_encode
+from ..util import trace
 
 # one-entry memo of built rank rows, shared across BwtResult instances:
 # checkbwt and bwtcomputessa in one process build the rows once
@@ -202,33 +202,33 @@ class BwtResult:
         hit = _FOCC_CACHE.get(key)
         if hit is not None:
             return hit
-        t0 = time.monotonic()
-        bwt = self.load_bwt()
-        t_decode = time.monotonic() - t0
-        t0 = time.monotonic()
-        sym = torch.from_numpy(np.ascontiguousarray(bwt, np.int32)).to(device)
-        del bwt
-        sigma, symmap = self.sigma, None
-        if dense:
-            hist = torch.bincount(sym, minlength=sigma)
-            present = torch.nonzero(hist).squeeze(1)
-            if len(present) and (len(present) < sigma
-                                 or int(present[-1]) >= len(present)):
-                table = torch.zeros(len(hist), dtype=torch.int32,
-                                    device=device)
-                table[present] = torch.arange(len(present), dtype=torch.int32,
-                                              device=device)
-                sym = table[sym.long()]
-                sigma = len(present)
-                symmap = present.cpu().numpy().astype(np.int64)
-        wm = build_wavelet(sym, sigma)
-        del sym
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        with trace.span("index.rows.decode") as decode:
+            bwt = self.load_bwt()
+        with trace.span("index.rows.build") as build:
+            sym = torch.from_numpy(np.ascontiguousarray(bwt, np.int32)).to(
+                device)
+            del bwt
+            sigma, symmap = self.sigma, None
+            if dense:
+                hist = torch.bincount(sym, minlength=sigma)
+                present = torch.nonzero(hist).squeeze(1)
+                if len(present) and (len(present) < sigma
+                                     or int(present[-1]) >= len(present)):
+                    table = torch.zeros(len(hist), dtype=torch.int32,
+                                        device=device)
+                    table[present] = torch.arange(
+                        len(present), dtype=torch.int32, device=device)
+                    sym = table[sym.long()]
+                    sigma = len(present)
+                    symmap = present.cpu().numpy().astype(np.int64)
+            wm = build_wavelet(sym, sigma)
+            del sym
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         if log is not None:
             log.v("rank rows: decode %.3fs (host), densify + build %.3fs "
                   "(%s), sigma=%d, wavelet rows of %d levels, %d bytes"
-                  % (t_decode, time.monotonic() - t0, device, sigma,
+                  % (decode.seconds, build.seconds, device, sigma,
                      wm.levels, wm.nbytes()))
         _FOCC_CACHE.clear()
         _FOCC_CACHE[key] = (wm, symmap)
@@ -256,15 +256,16 @@ class BwtResult:
         from ..ops.focc_build import build_focc_from_packed
 
         self._device_rows = None
-        t0 = time.monotonic()
-        focc = build_focc_from_packed(handle.packed, handle.n, handle.sigma,
-                                      handle.bits, layout, wide=wide)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        with trace.span("index.rows.build") as build:
+            focc = build_focc_from_packed(handle.packed, handle.n,
+                                          handle.sigma, handle.bits, layout,
+                                          wide=wide)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         if log is not None:
             log.v("rank rows: from the build's device symbols (hand-off), "
                   "build %.3fs (%s), sigma=%d, %s%s rows"
-                  % (time.monotonic() - t0, device, handle.sigma,
+                  % (build.seconds, device, handle.sigma,
                      "wide " if wide else "", focc.LAYOUT))
         return focc, symmap
 
@@ -272,32 +273,32 @@ class BwtResult:
                     wide: bool):
         from ..ops.focc_build import build_focc_host
 
-        t0 = time.monotonic()
-        with open_bwt(self.bwt_path) as r:
-            bwt = r.decode_all_u8() if hasattr(r, "decode_all_u8") else None
-        if bwt is None:
-            bwt = self.load_bwt()
-        t_decode = time.monotonic() - t0
+        with trace.span("index.rows.decode") as decode:
+            with open_bwt(self.bwt_path) as r:
+                bwt = (r.decode_all_u8() if hasattr(r, "decode_all_u8")
+                       else None)
+            if bwt is None:
+                bwt = self.load_bwt()
         sigma = self.sigma
         symmap = None
-        t0 = time.monotonic()
-        if dense:
-            present = np.unique(bwt)
-            if len(present) and (len(present) < sigma
-                                 or present[-1] >= len(present)):
-                remap = np.zeros(max(sigma, int(present[-1]) + 1), np.uint8)
-                remap[present] = np.arange(len(present), dtype=np.uint8)
-                bwt = remap[bwt]
-                sigma = len(present)
-                symmap = present.astype(np.int64)
-        t_dense = time.monotonic() - t0
-        t0 = time.monotonic()
-        focc = build_focc_host(bwt, sigma, device, layout, wide=wide)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        with trace.span("index.rows.densify") as densify:
+            if dense:
+                present = np.unique(bwt)
+                if len(present) and (len(present) < sigma
+                                     or present[-1] >= len(present)):
+                    remap = np.zeros(max(sigma, int(present[-1]) + 1),
+                                     np.uint8)
+                    remap[present] = np.arange(len(present), dtype=np.uint8)
+                    bwt = remap[bwt]
+                    sigma = len(present)
+                    symmap = present.astype(np.int64)
+        with trace.span("index.rows.build") as build:
+            focc = build_focc_host(bwt, sigma, device, layout, wide=wide)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         if log is not None:
             log.v("rank rows: decode %.3fs (host), densify %.3fs (host), "
                   "build %.3fs (%s), sigma=%d, %s%s rows"
-                  % (t_decode, t_dense, time.monotonic() - t0, device,
+                  % (decode.seconds, densify.seconds, build.seconds, device,
                      sigma, "wide " if wide else "", focc.LAYOUT))
         return focc, symmap

@@ -41,7 +41,6 @@ exists, as in the reference.
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -50,6 +49,7 @@ import torch
 from ..io import formats
 from ..ops.lf_walk import harvest_walk, select_walk
 from ..ops.wideocc import WideOcc
+from ..util import trace
 from ..util.devices import resolve_device
 from ..util.log import VerboseLog
 from .result import BwtResult
@@ -147,33 +147,35 @@ def compute_ssa(
     device = resolve_device(device)
     if sa_sampling_rate < 1 or isa_sampling_rate < 1:
         raise ValueError("sampling rates must be >= 1")
-    result = result or BwtResult.load(bwt_path)
-    t0 = time.monotonic()
-    sa_dev, isa_dev, nlanes = _harvest(result, sa_sampling_rate,
-                                       isa_sampling_rate, device, log)
-    sa_vals = sa_dev.cpu().numpy()
-    isa_vals = isa_dev.cpu().numpy()
-    log.v("ssa: %d lanes, rank rows + walk + harvest %.3fs (%s)"
-          % (nlanes, time.monotonic() - t0, device))
-    if (sa_vals < 0).any() or (isa_vals < 0).any():
-        raise AssertionError(
-            "LF walk failed to visit every sampled rank/position")
+    with trace.span("engine.ssa"):
+        result = result or BwtResult.load(bwt_path)
+        with trace.span("engine.ssa.walk") as walk:
+            sa_dev, isa_dev, nlanes = _harvest(result, sa_sampling_rate,
+                                               isa_sampling_rate, device, log)
+            sa_vals = sa_dev.cpu().numpy()
+            isa_vals = isa_dev.cpu().numpy()
+        log.v("ssa: %d lanes, rank rows + walk + harvest %.3fs (%s)"
+              % (nlanes, walk.seconds, device))
+        if (sa_vals < 0).any() or (isa_vals < 0).any():
+            raise AssertionError(
+                "LF walk failed to visit every sampled rank/position")
 
-    base = bwt_path[:-4] if bwt_path.endswith(".bwt") else bwt_path
-    sa_path, isa_path = base + ".sa", base + ".isa"
-    formats.write_sampled_array(sa_path, sa_sampling_rate, sa_vals)
-    formats.write_sampled_array(isa_path, isa_sampling_rate, isa_vals)
-    log.v("wrote %s (%d values), %s (%d values)"
-          % (sa_path, len(sa_vals), isa_path, len(isa_vals)))
+        base = bwt_path[:-4] if bwt_path.endswith(".bwt") else bwt_path
+        sa_path, isa_path = base + ".sa", base + ".isa"
+        formats.write_sampled_array(sa_path, sa_sampling_rate, sa_vals)
+        formats.write_sampled_array(isa_path, isa_sampling_rate, isa_vals)
+        log.v("wrote %s (%d values), %s (%d values)"
+              % (sa_path, len(sa_vals), isa_path, len(isa_vals)))
 
-    for ref_path, produced, kind in ((ref_sa, sa_vals, "sa"),
-                                     (ref_isa, isa_vals, "isa")):
-        if ref_path:
-            _rrate, ref_vals = formats.read_sampled_array(ref_path)
-            if len(ref_vals) != len(produced) or (ref_vals != produced).any():
-                raise AssertionError("%s mismatch vs reference file %s"
-                                     % (kind, ref_path))
-            log.v("%s matches reference %s" % (kind, ref_path))
+        for ref_path, produced, kind in ((ref_sa, sa_vals, "sa"),
+                                         (ref_isa, isa_vals, "isa")):
+            if ref_path:
+                _rrate, ref_vals = formats.read_sampled_array(ref_path)
+                if len(ref_vals) != len(produced) or (
+                        ref_vals != produced).any():
+                    raise AssertionError("%s mismatch vs reference file %s"
+                                         % (kind, ref_path))
+                log.v("%s matches reference %s" % (kind, ref_path))
     return sa_path, isa_path
 
 
@@ -252,13 +254,13 @@ def select_ssa(bwt_path: str, ranks: np.ndarray,
     np.bitwise_or.at(words, pr_ranks >> 5,
                      np.uint32(1) << (pr_ranks & 31).astype(np.uint32))
     bitwords = torch.from_numpy(words.view(np.int32)).to(device)
-    t0 = time.monotonic()
     cap = 2 * (int(prate) + 512)
-    r_hit, steps = select_walk(focc, bitwords,
-                               torch.from_numpy(ranks).to(device), cap)
-    r_hit, steps = r_hit.cpu().numpy(), steps.cpu().numpy()
+    with trace.span("engine.ssa.select") as walk:
+        r_hit, steps = select_walk(focc, bitwords,
+                                   torch.from_numpy(ranks).to(device), cap)
+        r_hit, steps = r_hit.cpu().numpy(), steps.cpu().numpy()
     log.v("select: %d lanes, walk %.3fs (%s), %d steps at most"
-          % (len(ranks), time.monotonic() - t0, device,
+          % (len(ranks), walk.seconds, device,
              int(steps.max(initial=0))))
     if (steps < 0).any():
         raise AssertionError(

@@ -28,11 +28,12 @@ the reference under ``ls``).
 from __future__ import annotations
 
 import math
-import time
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..util import trace
 
 
 def _pack_width(sigma: int) -> int:
@@ -113,16 +114,16 @@ def suffix_array(symbols: np.ndarray, sigma: int, device, log=None
     if n == 1:
         return (np.zeros(1, dtype=np.int64), np.zeros(1, dtype=np.int64),
                 np.asarray(symbols, dtype=np.int32))
-    t0 = time.monotonic()
-    sym = torch.from_numpy(np.require(symbols, requirements="CW")).to(
-        device).long()
-    sa_dev, bwt_dev = suffix_sa_bwt(sym, int(sigma), log)
-    sa = sa_dev.cpu().numpy()
-    bwt = bwt_dev.to(torch.int32).cpu().numpy()
-    t1 = time.monotonic()
-    isa = np.zeros(n, dtype=np.int64)
-    isa[sa] = np.arange(n, dtype=np.int64)
+    with trace.span("engine.sort.device") as sort:
+        sym = torch.from_numpy(np.require(symbols, requirements="CW")).to(
+            device).long()
+        sa_dev, bwt_dev = suffix_sa_bwt(sym, int(sigma), log)
+        sa = sa_dev.cpu().numpy()
+        bwt = bwt_dev.to(torch.int32).cpu().numpy()
+    with trace.span("engine.sort.host_inverse") as inverse:
+        isa = np.zeros(n, dtype=np.int64)
+        isa[sa] = np.arange(n, dtype=np.int64)
     if log is not None:
         log.v("suffix sort on %s incl. transfers %.3fs, inverse SA on the "
-              "host %.3fs" % (device, t1 - t0, time.monotonic() - t1))
+              "host %.3fs" % (device, sort.seconds, inverse.seconds))
     return sa, isa, bwt

@@ -3,18 +3,19 @@
 Mirrors the reference's observability conventions (SURVEY.md section 5.1/5.5):
 unstructured stderr logging with ``[V]``/``[W]``/``[E]`` prefixes
 (e.g. upstream src/bwtb3m.cpp:65 style ``MemUsage`` + runtime print),
-``RealTimeClock`` spans around phases, memory telemetry, and a background
-tmp-dir size monitor (``SizeMonitorThread``, upstream src/lcpbit.cpp:3838).
+``RealTimeClock`` and memory telemetry.  ``VerboseLog.span`` prints a
+step's start and its time, and records it as a span of the tracer
+(``util/trace.py``).
 """
 
 from __future__ import annotations
 
-import os
 import resource
 import sys
 import threading
 import time
-from typing import Optional
+
+from . import trace
 
 
 class RealTimeClock:
@@ -78,57 +79,14 @@ class _LogSpan:
     def __init__(self, log: VerboseLog, name: str):
         self.log = log
         self.name = name
-        self.rtc = RealTimeClock()
+        self.span = trace.span(name)
 
     def __enter__(self):
         self.log.v("%s..." % self.name)
-        self.rtc.start()
+        self.span.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self.log.v("%s done in %.3fs" % (self.name, self.rtc.elapsed()))
+        self.span.__exit__(*exc)
+        self.log.v("%s done in %.3fs" % (self.name, self.span.seconds))
 
-
-def dir_size_bytes(path: str) -> int:
-    total = 0
-    for root, _dirs, files in os.walk(path):
-        for f in files:
-            try:
-                total += os.path.getsize(os.path.join(root, f))
-            except OSError:
-                pass
-    return total
-
-
-class SizeMonitor:
-    """Background thread sampling a directory's size (reference
-    ``SizeMonitorThread`` samples tmp-dir size every 5 s,
-    upstream src/lcpbit.cpp:3838,3920-3921)."""
-
-    def __init__(self, path: str, interval: float = 5.0):
-        self.path = path
-        self.interval = interval
-        self.peak = 0
-        self._stop = threading.Event()
-        self._thread: Optional[threading.Thread] = None
-
-    def _run(self) -> None:
-        while not self._stop.wait(self.interval):
-            try:
-                self.peak = max(self.peak, dir_size_bytes(self.path))
-            except OSError:
-                pass
-
-    def __enter__(self) -> "SizeMonitor":
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self._stop.set()
-        if self._thread is not None:
-            self._thread.join(timeout=1.0)
-        try:
-            self.peak = max(self.peak, dir_size_bytes(self.path))
-        except OSError:
-            pass

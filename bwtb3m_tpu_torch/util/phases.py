@@ -2,20 +2,22 @@
 
 ``Phases(device)("name")`` is a context manager that adds the phase's
 wall time (ended by a device sync, so it covers the phase's device work)
-to ``wall["name"]``, exclusive of phases nested inside it, and marks the
-span ``bwtb3m::name`` for ``torch.profiler``: a profiled run reads each
-phase's device time from ``key_averages()`` under that label.
+to ``wall["name"]``, exclusive of phases nested inside it.  Each phase is
+a span ``name`` of the tracer (``util/trace.py``), which under
+``torch.profiler`` annotates it as ``bwtb3m::name``: the benchmark's
+traces name idle stretches by it, and ``chip_smoke.py`` sums the device
+time under each label from ``key_averages()``.  The build logs ``wall``
+as its ``phases (wall s): {json}`` line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-import time
 
 import torch
 
-PREFIX = "bwtb3m::"
+from . import trace
 
 
 class Phases:
@@ -30,14 +32,14 @@ class Phases:
         stack = self._local.__dict__.setdefault("stack", [])
         frame = [0.0]             # wall time of the phases nested inside
         stack.append(frame)
-        t0 = time.monotonic()
+        span = trace.span(name)
         try:
-            with torch.profiler.record_function(PREFIX + name):
+            with span:
                 yield
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
         finally:
-            dt = time.monotonic() - t0
+            dt = span.seconds
             stack.pop()
             if stack:
                 stack[-1][0] += dt

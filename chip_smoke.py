@@ -1150,7 +1150,9 @@ def main() -> int:
         busy_us = sum(e.self_device_time_total for e in evs
                       if e.device_type == cuda and not e.is_user_annotation)
         # per engine phase: the device time of the kernels launched inside
-        # its span (host-side range) and the span on the card's timeline
+        # its span (host-side range) and the span on the card's timeline;
+        # the phases are the keys of the build's ``phases (wall s)`` line
+        # (the tracer's other ``bwtb3m::`` spans nest over them)
         dev_us, span_us = {}, {}
         for e in evs:
             if e.key.startswith(PHASE_PREFIX):
@@ -1163,7 +1165,7 @@ def main() -> int:
                 walls = json.loads(line.split("phases (wall s): ", 1)[1])
         phases = {k: (walls.get(k, 0.0), dev_us.get(k, 0) / 1e6,
                       span_us.get(k, 0) / 1e6)
-                  for k in sorted(set(walls) | set(dev_us))}
+                  for k in sorted(walls)}
         tools.append((name, wall, busy_us / 1e6 if profile else None))
         buf.flush()
         run_tool.out_bytes = raw.getvalue()
@@ -2587,7 +2589,7 @@ def main() -> int:
             "made in %.2f s (host)" % (n, time.monotonic() - t0))
         bwt = pac + ".bwt"
         reset_counts()
-        hamdna.FRONTIER.update(max=0, stepped=0)
+        hamdna.FRONTIER["stepped"] = 0
         rc, _, _ = run_tool("bwtb3m inputtype=pacterm (index path)", [
             "bwtb3m", "inputtype=pacterm", "bwtonly=0", "sasamplingrate=32",
             "device=cuda", pac])
@@ -2648,11 +2650,10 @@ def main() -> int:
         nlines = sum(len(v) for v in by_read.values())
         out["frontier"] = dict(hamdna.FRONTIER)
         say("allHamDna: %d reads, %d SAM lines, %.3f s wall (%.1f reads/s); "
-            "largest frontier %d states, %d states stepped; reads whose "
-            "origin is missing: %d [%s]"
+            "%d states stepped; reads whose origin is missing: %d [%s]"
             % (nreads, nlines, out["allhamdna_s"],
-               nreads / out["allhamdna_s"], out["frontier"]["max"],
-               out["frontier"]["stepped"], len(missing), smi))
+               nreads / out["allhamdna_s"], out["frontier"]["stepped"],
+               len(missing), smi))
         if rc != 0 or missing:
             raise AssertionError("allHamDna missed the origin of reads %s"
                                  % missing[:10])
