@@ -3,9 +3,11 @@
 Port of ``bwtb3m_tpu/engine/result.py``: ``BwtResult`` reads the JSON
 ``.meta`` manifest, and ``load_focc`` builds the fused rank rows of the
 ``.bwt`` on a device for the checkbwt and bwtcomputessa walks: from the
-file, or, on the ``BwtResult`` that a merge-engine build returned, from
-the final region's packed symbols that are still on the device
-(``bind_device_rows``), which skips the host decode and densify.  That
+file (on a CUDA device a narrow RLB1 file is expanded on the card,
+``ops/rl_decode.py``; on every route the alphabet comes from the file's
+count table), or, on the ``BwtResult`` that a merge-engine build
+returned, from the final region's packed symbols that are still on the
+device (``bind_device_rows``), which skips the decode and densify.  That
 hand-off lives on the result object and nowhere else: it is taken by the
 first ``load_focc`` it can serve and goes with the object, so a caller
 that builds and never checks pins the symbols only while it keeps the
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from ..io import formats
-from ..io.rl import open_bwt, rl_encode
+from ..io.rl import RLReader, open_bwt, rl_encode
 from ..util import trace
 
 # one-entry memo of built rank rows, shared across BwtResult instances:
@@ -271,34 +273,102 @@ class BwtResult:
 
     def _build_focc(self, device, dense: bool, log, layout: str,
                     wide: bool):
-        from ..ops.focc_build import build_focc_host
+        """Rows from the file.  On a CUDA device a narrow RLB1 file with
+        its count table takes the device route: the alphabet from the
+        footer's histogram, then the runs read and expanded on the card
+        (``ops/rl_decode.py``), the decoded symbols never on the host.
+        Every other input takes the host route: the native decode, the
+        alphabet from the file's histogram, the remap on the host, the
+        symbols copied to the device."""
+        from ..ops.focc_build import build_focc_device, build_focc_host
+        from ..ops.rl_decode import decode_file
 
-        with trace.span("index.rows.decode") as decode:
-            with open_bwt(self.bwt_path) as r:
-                bwt = (r.decode_all_u8() if hasattr(r, "decode_all_u8")
-                       else None)
-            if bwt is None:
-                bwt = self.load_bwt()
-        sigma = self.sigma
-        symmap = None
-        with trace.span("index.rows.densify") as densify:
-            if dense:
-                present = np.unique(bwt)
-                if len(present) and (len(present) < sigma
-                                     or present[-1] >= len(present)):
-                    remap = np.zeros(max(sigma, int(present[-1]) + 1),
-                                     np.uint8)
-                    remap[present] = np.arange(len(present), dtype=np.uint8)
-                    bwt = remap[bwt]
-                    sigma = len(present)
-                    symmap = present.astype(np.int64)
+        with open_bwt(self.bwt_path) as r:
+            payload = int(r.footer_off - r.block_off[0])
+            if (device.type == "cuda" and isinstance(r, RLReader)
+                    and not r.wide and r.has_counts):
+                route = "device"
+                with trace.span("index.rows.densify") as densify:
+                    hist = r.symbol_histogram()
+                    sigma, symmap = footer_alphabet(hist, self.sigma, dense)
+                    table = dense_table(hist, symmap, dense)
+                with trace.span("index.rows.decode", route=route,
+                                payload_bytes=payload) as decode:
+                    bwt, _ = decode_file(r, torch.from_numpy(table), device)
+            else:
+                route = "host"
+                with trace.span("index.rows.decode", route=route,
+                                payload_bytes=payload) as decode:
+                    bwt = (r.decode_all_u8() if hasattr(r, "decode_all_u8")
+                           else None)
+                    if bwt is None:
+                        bwt = r.decode_all()
+                with trace.span("index.rows.densify") as densify:
+                    hist = r.symbol_histogram()
+                    sigma, symmap = footer_alphabet(hist, self.sigma, dense)
+                    bwt = host_densify(bwt, dense_table(hist, symmap, dense),
+                                       symmap is not None, self.bwt_path)
         with trace.span("index.rows.build") as build:
-            focc = build_focc_host(bwt, sigma, device, layout, wide=wide)
+            if route == "device":
+                focc = build_focc_device(bwt, sigma, layout, wide=wide)
+            else:
+                focc = build_focc_host(bwt, sigma, device, layout, wide=wide)
+            del bwt
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         if log is not None:
-            log.v("rank rows: decode %.3fs (host), densify %.3fs (host), "
-                  "build %.3fs (%s), sigma=%d, %s%s rows"
-                  % (decode.seconds, densify.seconds, build.seconds, device,
-                     sigma, "wide " if wide else "", focc.LAYOUT))
+            log.v("rank rows: decode %.3fs (%s, %d payload bytes), densify "
+                  "%.3fs (the file's histogram), build %.3fs (%s), sigma=%d, "
+                  "%s%s rows"
+                  % (decode.seconds, route, payload, densify.seconds,
+                     build.seconds, device, sigma, "wide " if wide else "",
+                     focc.LAYOUT))
         return focc, symmap
+
+
+def footer_alphabet(hist: np.ndarray, sigma: int, dense: bool):
+    """(sigma, symbol_map or None) of rank rows over a file whose symbol
+    histogram is ``hist``: with ``dense``, where the symbols present are
+    fewer than ``sigma`` or are not 0..k-1, the dense alphabet of those
+    present, ``symbol_map[dense_id]`` being the file's symbol; else
+    ``sigma`` as it is.  What ``np.unique`` of the decoded symbols gives,
+    from the file's count table in O(sigma)."""
+    if not dense:
+        return sigma, None
+    present = np.flatnonzero(hist)
+    if len(present) and (len(present) < sigma
+                         or present[-1] >= len(present)):
+        return len(present), present.astype(np.int64)
+    return sigma, None
+
+
+def dense_table(hist: np.ndarray, symmap, dense: bool) -> np.ndarray:
+    """int16 [256]: the dense id of each byte symbol, -1 for one that the
+    rows do not hold (``ops/rl_decode.py``'s ``table``): the inverse of
+    ``symmap``; without one, the identity on the symbols present (every
+    symbol of the file's alphabet without ``dense``)."""
+    ids = np.full(256, -1, np.int16)
+    if symmap is not None:
+        ids[symmap] = np.arange(len(symmap))
+    else:
+        keep = np.flatnonzero(hist) if dense else np.arange(len(hist))
+        ids[keep] = keep
+    return ids
+
+
+def host_densify(bwt: np.ndarray, ids: np.ndarray, remap: bool,
+                 path: str) -> np.ndarray:
+    """The host route's symbols through ``dense_table``'s ``ids``: mapped
+    where ``remap`` (a symbol map), else as they are; either way a symbol
+    that the count table lacks raises, as the device route's kernel does.
+    A symbol map has at most 255 entries, so 255 marks the absent."""
+    if remap:
+        bwt = np.take(ids.astype(np.uint8), bwt, mode="clip")
+        bad = bool((bwt == 255).any())
+    else:   # the alphabet is 0..k-1: its largest symbol tells
+        top = int(bwt.max()) if bwt.size else 0
+        bad = bool(bwt.size) and (top > 255 or ids[top] < 0)
+    if bad:
+        raise ValueError("malformed .bwt file %s: a symbol outside the "
+                         "alphabet of the count table" % path)
+    return bwt

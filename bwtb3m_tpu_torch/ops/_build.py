@@ -50,6 +50,8 @@ ENTRY_POINTS = {
                                           + [p_] * 11 + [i_, i_, p_], i_)},
     "kasai": {"bwt_kasai_plcp": ([p_, p_, ll_] + [p_] * 5
                                  + [i_, ll_, ll_, ll_, i_, ll_, p_], i_)},
+    "rl_decode": {"bwt_rl_decode_u8": ([p_, ll_, p_] + [ll_] * 5
+                                       + [p_] * 4, i_)},
 }
 
 

@@ -393,8 +393,13 @@ KERNELS = {
                        "bwtb3m_tpu/index/fm.py:111"),
     "lf_walk_decode": ("bwtb3m_tpu_torch/csrc/lf_walk.cu",
                        "bwtb3m_tpu/index/fm.py:130"),
+    # the RLB1 decode of a .bwt into dense symbols on the card; it replaces
+    # no TPU kernel: the JAX package decodes the file on the host
+    "rl_decode": ("bwtb3m_tpu_torch/csrc/rl_decode.cu",
+                  "none (bwtb3m_tpu/engine/result.py:212 decodes on the "
+                  "host)"),
 }
-LIBRARIES = ("lf_walk", "gap_chain", "kasai")
+LIBRARIES = ("lf_walk", "gap_chain", "kasai", "rl_decode")
 # the path whose launches and shapes a row of the kernels line reports
 ROW_PATH = {"lf_walk": "merge path", "gap_chain": "merge path",
             "gap_chain_mk": "genome path", "lf_walk_select": "genome path",
@@ -861,6 +866,7 @@ def main() -> int:
     from bwtb3m_tpu_torch.ops import gapbatch as gb
     from bwtb3m_tpu_torch.ops import kasai as kas
     from bwtb3m_tpu_torch.ops import lf_walk as lw
+    from bwtb3m_tpu_torch.ops import rl_decode as rld
     from bwtb3m_tpu_torch.ops.lf import hamming_search_plain
     from bwtb3m_tpu_torch.ops import wavelet_rows as wr
     from bwtb3m_tpu_torch.ops import wideocc as pw
@@ -979,6 +985,7 @@ def main() -> int:
         lw.reset_launch_counts()
         gb.reset_launch_counts()
         kas.kasai_walk.launches = 0
+        rld.decode_rl_u8.launches = 0
 
     def counts(launches=None):
         """This process's launch counts by kernel; or those a rank of the
@@ -998,6 +1005,7 @@ def main() -> int:
                 "gap_chain": chain, "gap_chain_mk": chain,
                 "gap_chain_mk_w": G["chain64"] + G["anchor64"],
                 "kasai": 0 if launches else kas.kasai_walk.launches,
+                "rl_decode": 0 if launches else rld.decode_rl_u8.launches,
                 "lf_walk_locate": L["locate"] + L["locate64"]
                 + L["locate_wm"] + L["locate_wm32"],
                 "lf_walk_decode": L["decode"] + L["decode64"]
@@ -1183,10 +1191,71 @@ def main() -> int:
         run_tool.wall = wall
         return rc, out, phases
 
+    RL_DECODE = {}
+
+    def rl_decode_compare(bwt_file, label, blocks=64):
+        """The RLB1 decode kernel on ``bwt_file``: the whole file through
+        ``decode_file`` (read, upload, kernel; wall), the kernel alone in
+        one launch over the whole payload on the card, as ``decode_file``
+        launches it (CUDA events), and
+        against its plain version on the first and the last ``blocks``
+        blocks, byte for byte, with the file's dense table."""
+        from bwtb3m_tpu_torch.engine.result import dense_table, footer_alphabet
+        from bwtb3m_tpu_torch.io.rl import RLReader
+        with RLReader(bwt_file) as r:
+            hist = r.symbol_histogram()
+            _sig, symmap = footer_alphabet(hist, r.sigma, dense=True)
+            table = torch.from_numpy(dense_table(hist, symmap, dense=True))
+            t0 = time.monotonic()
+            sym, nbytes = rld.decode_file(r, table, dev)
+            wall = time.monotonic() - t0
+            ends = np.append(r.block_off.astype(np.int64), r.footer_off)
+            raw = np.fromfile(bwt_file, np.uint8)[int(ends[0]):]
+            n, bs, nb = r.n, r.block_size, r.nb
+        payload = torch.from_numpy(raw).to(dev)
+        ends_d, table_d = torch.from_numpy(ends).to(dev), table.to(dev)
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
+        err = torch.zeros(1, dtype=torch.int32, device=dev)
+        _o, k_ms = timed(lambda: rld.decode_rl_u8(
+            payload, ends_d, int(ends[0]), 0, n, bs, table_d, out, err),
+            reps=3)
+        bad = int(err.item()) + int((out != sym).sum())
+        p_ms, plain_err = 0.0, 0
+        for b0 in sorted({0, max(0, nb - blocks)}):
+            b1 = min(nb, b0 + blocks)
+            lo, hi = int(ends[b0] - ends[0]), int(ends[b1] - ends[0])
+            p_out = torch.zeros(n, dtype=torch.uint8)
+            p_err = torch.zeros(1, dtype=torch.int32)
+            t0 = time.monotonic()
+            rld.decode_rl_u8(torch.from_numpy(raw[lo:hi].copy()),
+                             torch.from_numpy(ends[b0:b1 + 1].copy()),
+                             int(ends[b0]), b0, n, bs, table, p_out, p_err)
+            p_ms += (time.monotonic() - t0) * 1e3
+            s0, s1 = b0 * bs, min(n, b1 * bs)
+            plain_err += int(p_err) + int(
+                (p_out[s0:s1] != sym[s0:s1].cpu()).sum())
+        b_ms, b_by = bound(nbytes + n, 0)
+        rec = {"max_abs_err": bad + plain_err, "ms": k_ms,
+               "plain_ms": p_ms, "plain_on": {"blocks": 2 * blocks},
+               "bound_ms": b_ms, "bound_by": b_by, "n": n,
+               "payload_bytes": nbytes, "blocks": nb,
+               "decode_file_wall_s": wall}
+        say("kernel rl_decode %s (n=%d, %d blocks, %d payload bytes): "
+            "max_abs_err %d, kernel %.3f ms in one launch, bound %.3f ms "
+            "(%s), plain %.3f ms on %d blocks; decode_file (read, upload, "
+            "kernel) %.3f s [%s]"
+            % (label, n, nb, nbytes, rec["max_abs_err"], k_ms, b_ms, b_by,
+               p_ms, 2 * blocks, wall, smi))
+        if rec["max_abs_err"]:
+            raise AssertionError("the RLB1 decode kernel disagrees on the "
+                                 "%s" % label)
+        RL_DECODE[label] = rec
+        del payload, out, sym
+
     def lf_compare(bwt_file, raw_text, label,
                    layouts=("sector", "bitplane"),
                    forms=("lf_walk", "verify_walk", "harvest_walk"),
-                   wide=False, sample=None):
+                   wide=False, sample=None, decode_check=False):
         """Every LF-walk form against its plain version on the seeds and
         segments that checkbwt and bwtcomputessa give it for ``bwt_file``:
         on the rank rows the tools built (sector rows for DNA), on
@@ -1200,9 +1269,12 @@ def main() -> int:
         kernel on the same cut lanes (its time on every lane is ``ms``).
         Returns {layout: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
         forms}}; ms, plain_ms and bound_ms are summed over the forms the
-        tools launch (verify + harvest)."""
+        tools launch (verify + harvest).  ``decode_check``: also
+        ``rl_decode_compare`` on the file."""
         res = BwtResult.load(bwt_file)
         focc, symmap = res.load_focc(dev, wide=wide)
+        if decode_check:
+            rl_decode_compare(bwt_file, label)
         if focc.LAYOUT != "sector" or is_wide(focc) != wide:
             raise AssertionError("the tools' rank rows for DNA are %s%s "
                                  "rows" % ("wide " if is_wide(focc) else "",
@@ -3744,9 +3816,11 @@ def main() -> int:
                                "preisa": inp + ".preisa", "sa": ref_sa,
                                "isa": ref_isa})
     say("single-block path launches: %s" % path_counts["single-block path"])
-    if path_counts["single-block path"]["lf_walk"] < 1:
-        raise AssertionError("the single-block path never launched the "
-                             "LF-walk kernel")
+    if min(path_counts["single-block path"][k]
+           for k in ("lf_walk", "rl_decode")) < 1:
+        raise AssertionError("the single-block path's checkbwt and "
+                             "bwtcomputessa never launched the LF-walk or "
+                             "the RLB1 decode kernel")
 
     lap("5b")
     # ---- 5b. the single-block path's PLCP -------------------------------
@@ -3796,7 +3870,7 @@ def main() -> int:
     lap("7")
     # ---- 7. LF-walk kernel at the single-block path's shapes -------------
     lf_single = lf_compare(bwt_path, text, "single-block path",
-                           sample=PLAIN_SAMPLE)
+                           sample=PLAIN_SAMPLE, decode_check=True)
     del text
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -3957,12 +4031,14 @@ def main() -> int:
     path_counts["merge path"] = counts()
     peak_merge = torch.cuda.max_memory_allocated()
     say("merge path launches: %s" % path_counts["merge path"])
-    if min(path_counts["merge path"][k] for k in ("lf_walk", "gap_chain")) < 1:
+    if min(path_counts["merge path"][k]
+           for k in ("lf_walk", "gap_chain", "rl_decode")) < 1:
         raise AssertionError("the merge path did not launch every kernel")
     prate = ssa_agrees_with_preisa(bwtm, "merge build")
     # the LF walk at the merge path's shapes (the rank rows come from the
     # memo that checkbwt and bwtcomputessa filled)
-    lf_merge = lf_compare(bwtm, text, "merge path", sample=PLAIN_SAMPLE)
+    lf_merge = lf_compare(bwtm, text, "merge path", sample=PLAIN_SAMPLE,
+                          decode_check=True)
 
     lap("10")
     # ---- 10. gap-chain kernel at the root merge's shapes -----------------
@@ -4626,6 +4702,20 @@ def main() -> int:
             "library_ms": None, "layout": "sector", "layouts": per_layout,
             **extra})
     kernels.append(power_kernel(power))
+    if RL_DECODE:
+        main = RL_DECODE.get("merge path") or next(iter(RL_DECODE.values()))
+        kernels.append({
+            "name": "rl_decode", "route": "cuda",
+            "source": KERNELS["rl_decode"][0],
+            "replaces": KERNELS["rl_decode"][1],
+            "launches": path_counts.get("merge path", {}).get("rl_decode"),
+            "shapes_of": "merge path",
+            "launches_by_path": {p: c.get("rl_decode")
+                                 for p, c in path_counts.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in RL_DECODE.values()),
+            **{k: main[k] for k in ("ms", "plain_ms", "plain_on", "bound_ms",
+                                    "bound_by", "n", "payload_bytes")},
+            "library_ms": None, "by_path": RL_DECODE})
     if glcp:        # the genome path's PLCP ran (n < 2^31)
         kernels.append({
             "name": "kasai", "route": "cuda", "source": KERNELS["kasai"][0],

@@ -7,7 +7,10 @@ walk ``bwt_kasai_plcp`` (nibble and byte windows, slabs, step caps,
 ragged lanes, p0 inside a lane and at its edge), against the plain
 PyTorch versions, on the card; and the multi-rank path on the one card:
 NCCL in a group of one, and two ranks sharing the card over gloo
-(``parallel/``).  Skipped without a CUDA device; on
+(``parallel/``); and the RLB1 decode ``bwt_rl_decode_u8`` (slabs, long
+runs, malformed blocks, footers that miss a symbol, a card that is not
+the current one) with the rank rows and ``compute_ssa`` that
+load a ``.bwt`` through it.  Skipped without a CUDA device; on
 one, run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
 (the suite's conftest imports JAX, which the card's machine need not
@@ -931,3 +934,215 @@ def test_lane_sharded_level_on_two_ranks_sharing_the_card(cuda):
         if rank == 1:
             compared, kernel_launches, same = check
             assert compared > 0 and kernel_launches == 1 and same
+
+
+def _rl_file(tmp_path, kind, n=None):
+    """(path, symbols) of an RLB1 file written by ``rl_encode``: runs of
+    1-3 DNA symbols and the sentinel (``dna``, 65,536-symbol blocks),
+    runs of 1-700 over the alphabet {0, 3, 200} (``sparse``), runs of
+    254-256 and whole blocks of 1,000 (``escapes``), blocks of 7 symbols
+    (``block_7``) or blocks of 2^20 (``big_blocks``)."""
+    from bwtb3m_tpu_torch.io.rl import rl_encode
+    rng = np.random.default_rng(len(kind))
+    block = {"dna": 1 << 16, "sparse": 65_536, "escapes": 1000,
+             "block_7": 7, "big_blocks": 1 << 20}[kind]
+    if kind == "escapes":
+        lens = np.tile([254, 255, 256, 1000, 1, 2500], 400)
+    else:
+        top = {"dna": 4, "sparse": 700, "block_7": 20, "big_blocks": 4}[kind]
+        lens = rng.integers(1, top, (n or 3_000_017) // max(2, top // 2))
+    alphabet = np.array([0, 3, 200] if kind == "sparse" else [0, 1, 2, 3, 4])
+    steps = rng.integers(1, len(alphabet), len(lens))
+    syms = alphabet[np.cumsum(steps) % len(alphabet)].astype(np.uint8)
+    text = np.repeat(syms, lens)
+    path = str(tmp_path / ("%s.bwt" % kind))
+    rl_encode(path, text, sigma=int(text.max()) + 1, block_size=block)
+    return path, text
+
+
+@pytest.mark.parametrize("kind,per_slab", [("dna", 1), ("dna", 1 << 20),
+                                           ("sparse", 2), ("escapes", 5),
+                                           ("block_7", 100),
+                                           ("big_blocks", 1)])
+def test_rl_decode_kernel_matches_plain(cuda, tmp_path, kind, per_slab):
+    """``bwt_rl_decode_u8`` against the plain version on the same file,
+    byte for byte, with the dense table: ``decode_file``'s one launch
+    over the whole payload, and launches over slabs of ``per_slab``
+    whole blocks (``b0`` > 0, the bytes from ``base``); 2^20-symbol
+    blocks (32 staged windows a block), escapes, blocks of 7 symbols
+    (unaligned stores)."""
+    from bwtb3m_tpu_torch.engine.result import dense_table, footer_alphabet
+    from bwtb3m_tpu_torch.io.rl import RLReader
+    from bwtb3m_tpu_torch.ops import rl_decode
+    path, text = _rl_file(tmp_path, kind)
+    with RLReader(path) as r:
+        ends = np.append(r.block_off.astype(np.int64), r.footer_off)
+        hist = r.symbol_histogram()
+        _sigma, symmap = footer_alphabet(hist, r.sigma, dense=True)
+        table = torch.from_numpy(dense_table(hist, symmap, dense=True))
+        before = rl_decode.decode_rl_u8.launches
+        got, nbytes = rl_decode.decode_file(r, table, cuda)
+        assert rl_decode.decode_rl_u8.launches == before + 1
+        want, _ = rl_decode.decode_file(r, table, "cpu")
+        n, nb, bs = r.n, r.nb, r.block_size
+    assert nbytes == ends[-1] - ends[0]
+    assert torch.equal(got.cpu(), want)
+    remap = np.zeros(256, np.uint8)
+    remap[np.unique(text)] = np.arange(len(np.unique(text)))
+    assert np.array_equal(want.numpy(), remap[text])
+    raw = torch.from_numpy(np.fromfile(path, np.uint8)).to(cuda)
+    out = torch.zeros(n, dtype=torch.uint8, device=cuda)
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for b0 in range(0, nb, per_slab):
+        b1 = min(nb, b0 + per_slab)
+        rl_decode.decode_rl_u8(
+            raw[int(ends[b0]):int(ends[b1])],
+            torch.from_numpy(ends[b0:b1 + 1].copy()).to(cuda),
+            int(ends[b0]), b0, n, bs, table.to(cuda), out, err)
+    assert int(err.item()) == 0 and torch.equal(out, got)
+
+
+@pytest.mark.parametrize("what", ["len8", "escape", "symbol", "header"])
+def test_rl_decode_kernel_raises_on_a_malformed_block(cuda, tmp_path, what):
+    """One altered byte in one block: the kernel's error word, read once
+    after the launch, raises as the plain version does."""
+    from bwtb3m_tpu_torch.engine.result import dense_table
+    from bwtb3m_tpu_torch.io.rl import RLReader
+    from bwtb3m_tpu_torch.ops import rl_decode
+    path, _text = _rl_file(tmp_path, "escapes")
+    with RLReader(path) as r:
+        b = {"len8": 0, "escape": 7, "symbol": 0, "header": r.nb - 1}[what]
+        off = int(r.block_off[b])
+        table = torch.from_numpy(dense_table(r.symbol_histogram(), None,
+                                             dense=True))
+    with open(path, "r+b") as f:
+        f.seek(off)
+        nruns = int.from_bytes(f.read(4), "little")
+        f.seek(off + 8 + nruns)
+        len8 = np.frombuffer(f.read(nruns), np.uint8)
+        at, val = {"len8": (off + 8 + nruns + int(np.argmin(len8)),
+                            int(len8.min()) + 1),
+                   "escape": (off + 8 + nruns + int(np.argmax(len8)), 7),
+                   "symbol": (off + 8, 9),
+                   "header": (off, (nruns + 3) & 0xFF)}[what]
+        f.seek(at)
+        f.write(bytes([val]))
+    for dev in (cuda, "cpu"):
+        with RLReader(path) as r:
+            with pytest.raises(ValueError, match="malformed RLB1 file"):
+                rl_decode.decode_file(r, table, dev)
+
+
+@pytest.mark.parametrize("kind", ["dna", "sparse"])
+def test_load_focc_on_card_equals_the_host_route(cuda, tmp_path, kind):
+    """``load_focc`` on the card takes the device route and gives the
+    rows, C and symbol map of the host route (the ``np.unique`` densify,
+    the host symbols copied to the card), on a sigma-5 file and on one
+    over {0, 3, 200}."""
+    import time as _time
+    from bwtb3m_tpu_torch.engine.result import BwtResult, clear_caches
+    from bwtb3m_tpu_torch.util import trace
+    path, text = _rl_file(tmp_path, kind, n=1_000_003)
+    sigma = int(text.max()) + 1
+    res = BwtResult({"n": len(text), "sigma": sigma,
+                     "files": {"bwt": path}})
+    clear_caches()
+    lo = _time.time_ns()
+    focc, symmap = res.load_focc(cuda)
+    recs = [r for r in trace.records(lo, _time.time_ns())
+            if r.name == "index.rows.decode"]
+    clear_caches()
+    assert [r.attrs["route"] for r in recs] == ["device"]
+    present = np.unique(text)
+    dense = len(present) < sigma or present[-1] >= len(present)
+    remap = np.zeros(256, np.uint8)
+    remap[present] = np.arange(len(present))
+    want = build_focc_host(remap[text], len(present), cuda)
+    assert torch.equal(focc.rows, want.rows) and torch.equal(focc.C, want.C)
+    assert (symmap is None) == (not dense)
+    if dense:
+        assert np.array_equal(symmap, present)
+
+
+@pytest.mark.parametrize("kind,symbol", [("sparse", 200), ("dna", 4)])
+def test_load_focc_routes_agree_on_a_footer_that_misses_a_symbol(
+        cuda, tmp_path, kind, symbol):
+    """A payload symbol that the count table lacks raises on the card's
+    route and on the host's alike."""
+    from bwtb3m_tpu_torch.engine.result import BwtResult, clear_caches
+    from bwtb3m_tpu_torch.io.rl import RLReader
+    path, text = _rl_file(tmp_path, kind, n=200_003)
+    with RLReader(path) as r:         # zero the symbol's total
+        at = r.footer_off + 8 * r.nb + 8 * (r.nb * r.sigma + symbol)
+    with open(path, "r+b") as f:
+        f.seek(at)
+        f.write(bytes(8))
+    with RLReader(path) as r:
+        assert r.symbol_histogram()[symbol] == 0 and symbol in text
+    res = BwtResult({"n": len(text), "sigma": int(text.max()) + 1,
+                     "files": {"bwt": path}})
+    for dev in (cuda, torch.device("cpu")):
+        clear_caches()
+        with pytest.raises(ValueError, match="outside the alphabet"):
+            res.load_focc(dev)
+    clear_caches()
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs two CUDA devices: another card current")
+def test_load_focc_on_a_card_that_is_not_current(cuda, tmp_path):
+    """Rows built on cuda:0 while cuda:1 is the current device: the
+    decode kernel launches on cuda:0's stream and the rows equal those
+    built with cuda:0 current."""
+    from bwtb3m_tpu_torch.engine.result import BwtResult, clear_caches
+    path, text = _rl_file(tmp_path, "dna", n=3_000_017)
+    res = BwtResult({"n": len(text), "sigma": int(text.max()) + 1,
+                     "files": {"bwt": path}})
+    card = torch.device("cuda:0")
+    got = {}
+    for current in (1, 0):
+        clear_caches()
+        with torch.cuda.device(current):
+            focc, _ = res.load_focc(card)
+            got[current] = (focc.rows.cpu(), focc.C.cpu())
+    clear_caches()
+    assert focc.rows.device == card
+    assert all(torch.equal(a, b) for a, b in zip(got[1], got[0]))
+
+
+def test_compute_ssa_on_card_decodes_on_card(cuda, tmp_path):
+    """A ``compute_ssa`` from the files on the card launches the decode
+    kernel, records ``route="device"``, and writes the ``.sa`` and
+    ``.isa`` that the CPU's host route writes."""
+    import shutil
+    import time as _time
+    from bwtb3m_tpu_torch.engine.api import compute_bwt
+    from bwtb3m_tpu_torch.engine.options import BwtOptions
+    from bwtb3m_tpu_torch.engine.result import clear_caches
+    from bwtb3m_tpu_torch.engine.ssa import compute_ssa
+    from bwtb3m_tpu_torch.io.pac import write_pac
+    from bwtb3m_tpu_torch.ops import rl_decode
+    from bwtb3m_tpu_torch.util import trace
+    rng = np.random.default_rng(11)
+    pac = str(tmp_path / "g.pac")
+    write_pac(pac, rng.integers(0, 4, 300_007, dtype=np.int32))
+    res = compute_bwt(BwtOptions(input_path=pac, input_type="pacterm",
+                                 bwt_only=True, verbose=0, device="cuda"))
+    files = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        out.mkdir()
+        for ext in ("bwt", "hist", "preisa", "preisa.meta", "meta"):
+            shutil.copy(res.bwt_path[:-3] + ext, str(out / ("g." + ext)))
+        clear_caches()
+        before = rl_decode.decode_rl_u8.launches
+        lo = _time.time_ns()
+        compute_ssa(str(out / "g.bwt"), 32, 32, device=dev)
+        routes = [r.attrs["route"] for r in trace.records(lo, _time.time_ns())
+                  if r.name == "index.rows.decode"]
+        assert routes == (["device"] if dev == "cuda" else ["host"])
+        assert (rl_decode.decode_rl_u8.launches > before) == (dev == "cuda")
+        files[dev] = [open(str(out / ("g." + e)), "rb").read()
+                      for e in ("sa", "isa")]
+    clear_caches()
+    assert files["cuda"] == files["cpu"]
