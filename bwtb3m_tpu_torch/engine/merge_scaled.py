@@ -82,6 +82,7 @@ from ..ops.wavelet_rows import MAX_SYMBOLS, U16_SYMBOLS, symbol_values
 from ..ops.windowsort import block_suffix_order
 from ..parallel.mesh import any_rank
 from ..parallel.shocc import ShardedOccGapRunner
+from ..util import trace
 from ..util.devices import device_budget
 from ..util.log import VerboseLog
 from ..util.phases import Phases
@@ -362,10 +363,20 @@ def _sort_block(ctx: _Ctx, s: int, e: int) -> Region:
     lookahead starts at 1024 and grows x4 up to max(1024, largelcpthres);
     residual ties then go to ``_resolve_tie_groups``, and only a giant
     mixed tie group grows the window towards n."""
+    with trace.span("merge.block_sort") as sp:
+        return _derive_region(ctx, s, e, _block_order(ctx, s, e, sp.attrs))
+
+
+def _block_order(ctx: _Ctx, s: int, e: int, attrs: dict) -> torch.Tensor:
+    """``_sort_block``'s rotation order; records in ``attrs`` the window
+    sorts done (``windows``: each pad-high confirmation and each
+    lookahead growth counts), the final ``lookahead`` and the positions
+    handed to ``_resolve_tie_groups`` (``tie_positions``)."""
     n = ctx.n
     block_len = e - s
     la_cap = min(max(1024, ctx.options.large_lcp_thres), n)
     la = min(1024, la_cap)
+    attrs.update(windows=0, tie_positions=0)
     while True:
         W = min(block_len + la, block_len + n)
         need = W * SORT_BYTES_PER_SYMBOL
@@ -377,22 +388,23 @@ def _sort_block(ctx: _Ctx, s: int, e: int) -> Region:
                                         ctx.budget()))
         lo_order, hi_order, mism = block_suffix_order(
             _device_window(ctx, s, W), block_len, ctx.sigma)
+        # the pad-high sort was skipped when the two orders are one tensor
+        attrs["windows"] += 1 if hi_order is lo_order else 2
+        attrs["lookahead"] = la
         if mism == 0:
-            sa_local = lo_order
-            break
+            return lo_order
         if la >= la_cap:
             ctx.log.v("block [%d,%d): resolving ties via rotation "
                       "comparator at lookahead %d" % (s, e, la))
+            attrs["tie_positions"] += mism
             sa_local = _resolve_tie_groups(ctx, s, e, lo_order, hi_order)
             if sa_local is not None:
-                break
+                return sa_local
             if la >= n:
-                sa_local = hi_order
-                break
+                return hi_order
             la_cap = n      # giant mixed tie group: grow the window
         la = min(la * 4, la_cap)
         ctx.log.v("block [%d,%d): lookahead extended to %d" % (s, e, la))
-    return _derive_region(ctx, s, e, sa_local)
 
 
 def _derive_region(ctx: _Ctx, s: int, e: int, sa_local: torch.Tensor

@@ -73,6 +73,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..util import trace
 from . import wavelet_rows as wr
 from .focc import as_u32_bits, from_u32_bits, kernel_row_width, rank
 from .focc_build import build_focc_concat, build_focc_from_packed
@@ -611,8 +612,13 @@ class BatchedGapRunner:
             lbs = np.minimum(min(lb, self.n), (e_arr[todo] - 2)
                              - starts[todo])
             lbs = np.maximum(lbs, 1)
-            lo, hi = self._anchor_pass(kid[todo], starts[todo], lbs,
-                                       rbase[todo], rbase[todo] + gapsz[todo])
+            # a round past the first re-walks the lanes left undetermined
+            with (trace.span("merge.anchor_extend", lanes=len(todo),
+                             lookback=lb) if lb > anchor_lookback
+                  else contextlib.nullcontext()):
+                lo, hi = self._anchor_pass(kid[todo], starts[todo], lbs,
+                                           rbase[todo],
+                                           rbase[todo] + gapsz[todo])
             ok = lo == hi
             seeds[todo[ok]] = lo[ok]
             todo = todo[~ok]
