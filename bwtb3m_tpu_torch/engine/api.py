@@ -15,7 +15,11 @@ device in chunks.  After a
 merge-engine build the final region's device bytes are bound to the
 returned ``BwtResult`` (``engine/result.py::BwtResult.bind_device_rows``),
 so a ``check_bwt`` of that result, or the build's own SA/ISA walk, builds
-its rank rows from them instead of decoding the file.
+its rank rows from them instead of decoding the file.  On a CUDA device
+the ``.hwt`` of at most 17 byte symbols is written from the BWT on the
+card (the single-block sort's own, else one upload) by the node-word kernel
+(``ops/hwt_bits.py``), with the histogram of the ``.hist``; the span
+``engine.hwt`` records its ``route``.
 
 The writers are the port's copies of the reference package's host modules
 (``io/``), so every file is byte-identical to the reference's for the
@@ -159,6 +163,7 @@ def _compute_bwt(options: BwtOptions, log: VerboseLog) -> BwtResult:
     phase = Phases(device)
     sa = isa = None
     rows_out: list = []     # the merge engine's device-rows hand-off
+    bwt_dev: list = []      # the sort's BWT left on the card, for the .hwt
     symmap = None           # dense id -> file symbol (alphabet compaction)
     if period < n:
         with log.span("power of a %d-symbol root: its files from the root"
@@ -182,7 +187,10 @@ def _compute_bwt(options: BwtOptions, log: VerboseLog) -> BwtResult:
     else:
         with log.span("suffix sort (single block, prefix doubling, %s) + "
                       "host inverse" % device):
-            sa, isa, bwt = suffix_array(symbols, sigma, device, log)
+            sa, isa, bwt = suffix_array(
+                symbols, sigma, device, log,
+                bwt_out=bwt_dev if device.type == "cuda"
+                and not options.bwt_only else None)
         spos = np.arange(0, n, prate, dtype=np.int64)
         srank = isa[spos]
 
@@ -216,8 +224,13 @@ def _compute_bwt(options: BwtOptions, log: VerboseLog) -> BwtResult:
         files["sa"] = base + ".sa"
         files["isa"] = base + ".isa"
         from ..index.wavelet import HuffmanWaveletTree
-        with log.span("write .hwt (Huffman wavelet tree)"):
-            HuffmanWaveletTree.build(bwt).write(base + ".hwt")
+        with log.span("write .hwt (Huffman wavelet tree)"), \
+                trace.span("engine.hwt") as hwt:
+            tree = HuffmanWaveletTree.build(
+                _hwt_symbols(bwt, hist, device, bwt_dev),
+                hist={int(s): int(hist[s]) for s in np.flatnonzero(hist)})
+            hwt.attrs["route"] = tree.route
+            tree.write(base + ".hwt")
         files["hwt"] = base + ".hwt"
 
     meta = write_meta()
@@ -245,6 +258,25 @@ def _write_files(bwt_path: str, codec: str, bwt, sigma: int, spos, srank,
     formats.write_preisa(base + ".preisa", srank, spos, prate)
     return ({"bwt": bwt_path, "hist": base + ".hist",
              "preisa": base + ".preisa"}, hist)
+
+
+def _hwt_symbols(bwt, hist, device, kept: list):
+    """The BWT the ``.hwt`` is built from: on a CUDA device, where the
+    tree takes the card route (byte symbols, at most ``PER_NODE_MAX`` + 1
+    of them present), a uint8 tensor there (the sort's own, ``kept``,
+    else one upload in chunks); else the host array."""
+    from ..index.wavelet import PER_NODE_MAX
+    card = kept.pop() if kept else None
+    if device.type != "cuda" or len(hist) > 256 \
+            or np.count_nonzero(hist) > PER_NODE_MAX + 1:
+        return bwt
+    if card is not None:
+        return card
+    out = torch.empty(len(bwt), dtype=torch.uint8, device=device)
+    for a in range(0, len(bwt), _UPLOAD_CHUNK):
+        out[a:a + _UPLOAD_CHUNK].copy_(torch.from_numpy(
+            np.array(bwt[a:a + _UPLOAD_CHUNK], np.uint8)))
+    return out
 
 
 def _write_meta(options: BwtOptions, itype: str, n: int, sigma: int,
@@ -284,6 +316,7 @@ def _bound_result(meta, rows_out: list, hist, symmap,
 
 
 _PERIOD_CHUNK = 1 << 24     # symbols a whole-text period check compares at once
+_UPLOAD_CHUNK = 1 << 26     # symbols of a host BWT copied to the card at once
 
 
 def _rotation_period(symbols) -> int:

@@ -49,6 +49,18 @@ class RankBitVector:
         self.words = packed_bytes.view(np.uint64)
         self._super = None
 
+    @classmethod
+    def from_words(cls, n: int, words: np.ndarray) -> "RankBitVector":
+        """The bitvector of ``n`` bits already packed: ``words`` holds
+        ceil(n / 64) u64 words, LSB-first, the bits past n 0."""
+        words = np.asarray(words).view(np.uint64)
+        if len(words) != (n + 63) // 64:
+            raise ValueError("%d bits take %d words, got %d"
+                             % (n, (n + 63) // 64, len(words)))
+        bv = cls.__new__(cls)
+        bv.n, bv.words, bv._super = int(n), words, None
+        return bv
+
     def _directory(self):
         """(superblock prefix counts, total ones), built once."""
         if self._super is None:

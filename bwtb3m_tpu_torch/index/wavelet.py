@@ -11,7 +11,10 @@ index answers its queries on the card over the rank rows
 (``index/fm.py``), not over these trees.  Output is byte-identical to the
 reference package's (tests/test_torch_pipeline.py,
 tests/test_torch_index.py); the build codes the text in chunks,
-scanning it once per node (few nodes) or once per level (many).
+scanning it once per node (few nodes) or once per level (many).  A
+plain-node tree of at most ``PER_NODE_MAX`` inner nodes over a uint8
+CUDA tensor is built on the card instead (``ops/hwt_bits.py``: one kernel
+writes every node's words; the host keeps the header and the file).
 
 File formats (FORMATS.md):
 
@@ -31,6 +34,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple, Type
 
 import numpy as np
+import torch
 
 from ..util import serial
 
@@ -51,6 +55,7 @@ class _WaveletBase:
 
     BV: Type = RankBitVector
     MAGIC = _MAGIC_PLAIN
+    route = "host"      # where ``build`` wrote the node words
 
     def __init__(self, tree: HuffmanTree, n: int, nodes):
         self.tree = tree
@@ -65,8 +70,20 @@ class _WaveletBase:
         self.C = np.concatenate([[0], np.cumsum(counts)])
 
     @classmethod
-    def build(cls, symbols: np.ndarray, hist: Optional[Dict[int, int]] = None):
-        symbols = np.asarray(symbols)
+    def build(cls, symbols, hist: Optional[Dict[int, int]] = None):
+        """The tree of ``symbols`` (``hist``: their counts, when the caller
+        has them).  A CUDA tensor takes the card route (``route`` =
+        "device"): it must be uint8, come with ``hist``, and make a tree
+        of plain bitvectors with at most ``PER_NODE_MAX`` inner nodes;
+        any other CUDA tensor raises, so none is downloaded.  Every other
+        input takes the host route."""
+        on_card = torch.is_tensor(symbols) and symbols.is_cuda
+        if on_card and (cls.BV is not RankBitVector or hist is None
+                        or symbols.dtype != torch.uint8):
+            raise ValueError("the card route takes a uint8 CUDA tensor "
+                             "with its histogram, into plain nodes")
+        if not on_card:
+            symbols = np.asarray(symbols)
         if hist is None:
             if symbols.dtype == np.uint8:
                 cnt = sum(np.bincount(symbols[a:a + BUILD_CHUNK],
@@ -83,8 +100,18 @@ class _WaveletBase:
         # node prefixes/depths from the trie
         prefixes, depths = _node_paths(tree)
         if tree.num_inner <= PER_NODE_MAX:
-            parts = _node_bits(symbols, codes, lengths, prefixes, depths)
+            inside, bit = _node_tables(codes, lengths, prefixes, depths)
+            if on_card:
+                wt = cls(tree, len(symbols),
+                         _card_nodes(symbols, inside, bit))
+                wt.route = "device"
+                return wt
+            parts = _node_bits(symbols, inside, bit)
         else:
+            if on_card:
+                raise ValueError("the card route takes at most %d inner "
+                                 "nodes, this tree has %d"
+                                 % (PER_NODE_MAX, tree.num_inner))
             parts = _level_bits(symbols, sigma, codes, lengths, prefixes,
                                 depths)
         nodes = [cls.BV(np.concatenate(p) if p
@@ -228,27 +255,48 @@ def _node_paths(tree: HuffmanTree):
     return np.array(prefixes), np.array(depths)
 
 
-def _node_bits(symbols, codes, lengths, prefixes, depths):
-    """Each node's bits by one pass over the text per node: per node,
-    which symbols pass through it and the bit each takes there, two
-    small tables, so the text is only gathered through them, in
-    chunks."""
-    in_sym, bit_sym = [], []
-    for node_id in range(len(depths)):
+def _node_tables(codes, lengths, prefixes, depths):
+    """(inside, bit), bool and uint8 [nodes, sigma]: per node, which
+    symbols pass through it and the bit each takes there."""
+    nodes, sigma = len(depths), len(codes)
+    inside = np.zeros((nodes, sigma), bool)
+    bit = np.zeros((nodes, sigma), np.uint8)
+    for node_id in range(nodes):
         d = depths[node_id]
         below = lengths > d
         shift = np.where(below, lengths - d, 0)
-        inside = below & ((codes >> shift) == prefixes[node_id])
-        in_sym.append(inside)
-        bit_sym.append(((codes >> np.maximum(shift - 1, 0)) & 1).astype(
-            np.uint8))
-    parts = [[] for _ in range(len(depths))]
+        inside[node_id] = below & ((codes >> shift) == prefixes[node_id])
+        bit[node_id] = (codes >> np.maximum(shift - 1, 0)) & 1
+    return inside, bit
+
+
+def _node_bits(symbols, inside, bit):
+    """Each node's bits by one pass over the text per node: the text is
+    gathered through the node's two tables (``_node_tables``), in
+    chunks."""
+    parts = [[] for _ in range(len(inside))]
     for a in range(0, len(symbols), BUILD_CHUNK):
         chunk = symbols[a:a + BUILD_CHUNK]
-        for node_id in range(len(depths)):
-            parts[node_id].append(
-                bit_sym[node_id][chunk[in_sym[node_id][chunk]]])
+        for node_id in range(len(inside)):
+            parts[node_id].append(bit[node_id][chunk[inside[node_id][chunk]]])
     return parts
+
+
+def _card_nodes(symbols, inside, bit):
+    """The nodes of a uint8 CUDA text from the node-word kernel, the words
+    downloaded once and taken as they are."""
+    from ..ops.hwt_bits import hwt_node_words
+    pad = ((0, 0), (0, 256 - inside.shape[1]))
+    words, lens = hwt_node_words(symbols,
+                                 torch.from_numpy(np.pad(inside, pad)),
+                                 torch.from_numpy(np.pad(bit, pad)))
+    words = words.cpu().numpy().view(np.uint64)
+    nodes, at = [], 0
+    for m in lens:
+        nw = (m + 63) // 64
+        nodes.append(RankBitVector.from_words(m, words[at:at + nw]))
+        at += nw
+    return nodes
 
 
 def _level_bits(symbols, sigma, codes, lengths, prefixes, depths):

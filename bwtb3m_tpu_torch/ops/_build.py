@@ -52,6 +52,8 @@ ENTRY_POINTS = {
                                  + [i_, ll_, ll_, ll_, i_, ll_, p_], i_)},
     "rl_decode": {"bwt_rl_decode_u8": ([p_, ll_, p_] + [ll_] * 5
                                        + [p_] * 4, i_)},
+    "hwt_bits": {"bwt_hwt_tile_counts": ([p_, ll_, p_, i_, p_, p_], i_),
+                 "bwt_hwt_node_words": ([p_, ll_, p_, i_, p_, p_, p_], i_)},
 }
 
 

@@ -28,7 +28,7 @@ the reference under ``ls``).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,12 +98,15 @@ def suffix_sa_bwt(sym: torch.Tensor, sigma: int, log=None):
     return sa, sym[torch.where(sa == 0, n - 1, sa - 1)]
 
 
-def suffix_array(symbols: np.ndarray, sigma: int, device, log=None
+def suffix_array(symbols: np.ndarray, sigma: int, device, log=None,
+                 bwt_out: Optional[list] = None
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Host wrapper: (sa int64, isa int64, bwt int32) numpy arrays, the
     sort on ``device``.  ``isa`` is the exact inverse permutation of
     ``sa`` (ties broken by position), built on the host as the reference
-    does."""
+    does.  ``bwt_out``, a list, also gets the BWT as a uint8 tensor on
+    ``device`` where sigma <= 256 and n >= 2 (the ``.hwt`` writer's
+    input)."""
     n = len(symbols)
     if n >= 2 ** 31:
         raise ValueError(
@@ -118,6 +121,8 @@ def suffix_array(symbols: np.ndarray, sigma: int, device, log=None
         sym = torch.from_numpy(np.require(symbols, requirements="CW")).to(
             device).long()
         sa_dev, bwt_dev = suffix_sa_bwt(sym, int(sigma), log)
+        if bwt_out is not None and sigma <= 256:
+            bwt_out.append(bwt_dev.to(torch.uint8))
         sa = sa_dev.cpu().numpy()
         bwt = bwt_dev.to(torch.int32).cpu().numpy()
     with trace.span("engine.sort.host_inverse") as inverse:

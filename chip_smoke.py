@@ -398,8 +398,12 @@ KERNELS = {
     "rl_decode": ("bwtb3m_tpu_torch/csrc/rl_decode.cu",
                   "none (bwtb3m_tpu/engine/result.py:212 decodes on the "
                   "host)"),
+    # the .hwt's node words from the BWT on the card; it replaces no TPU
+    # kernel: the JAX package builds the tree on the host
+    "hwt_bits": ("bwtb3m_tpu_torch/csrc/hwt_bits.cu",
+                 "none (bwtb3m_tpu/index/wavelet.py:60 builds on the host)"),
 }
-LIBRARIES = ("lf_walk", "gap_chain", "kasai", "rl_decode")
+LIBRARIES = ("lf_walk", "gap_chain", "kasai", "rl_decode", "hwt_bits")
 # the path whose launches and shapes a row of the kernels line reports
 ROW_PATH = {"lf_walk": "merge path", "gap_chain": "merge path",
             "gap_chain_mk": "genome path", "lf_walk_select": "genome path",
@@ -410,13 +414,14 @@ ROW_PATH = {"lf_walk": "merge path", "gap_chain": "merge path",
             "lf_walk_wm32": "alphabet32 path",
             "gap_chain_mk_wm32": "alphabet32 path",
             "lf_walk_locate": "genome path", "lf_walk_decode": "genome path",
-            "lf_walk_select_power": "power path"}
+            "lf_walk_select_power": "power path", "hwt_bits": "genome path"}
 # the kernels each path must launch
 NARROW = ("lf_walk", "gap_chain", "gap_chain_mk", "lf_walk_select",
           "lf_walk_locate", "lf_walk_decode")
 PHASE_PREFIX = "bwtb3m::"
 BLOCKED = ("jax", "jaxlib", "bwtb3m_tpu")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+HWT_N = 93_419_967              # chr21.build's symbols (both strands + 1)
 OPS_PER_S = 67e12               # float32 outside the tensor cores
 # integer operations of one step, counted from csrc/focc_rows.cuh and the
 # kernels' loops (loads excluded): the row's count and select, the walk's
@@ -810,7 +815,7 @@ def main() -> int:
                     "skips the path)")
     ap.add_argument("--only", default="all",
                     choices=("all", "human", "alphabet", "index", "fasta",
-                             "sharded", "power"),
+                             "sharded", "power", "hwt"),
                     help="human / alphabet: the environment, the kernel "
                     "build and that path alone; index: the locate and "
                     "decode visits at 2^22 and the index path; fasta (by "
@@ -820,7 +825,8 @@ def main() -> int:
                     "--genome-mem; sharded: step 15 alone, on a text of "
                     "--n built here with the default engine and on "
                     "make_text(16,777,259) in place of step 8's FASTA; "
-                    "power: step 8b alone")
+                    "power: step 8b alone; hwt: step 3h alone, with the "
+                    "host route's build of the same tree beside it")
     args = ap.parse_args()
     t_start = time.monotonic()
     sys.meta_path.insert(0, _BlockJax())
@@ -864,6 +870,7 @@ def main() -> int:
     from bwtb3m_tpu_torch.engine.ssa import compute_sa_device
     from bwtb3m_tpu_torch.lcp import plcp as lp
     from bwtb3m_tpu_torch.ops import gapbatch as gb
+    from bwtb3m_tpu_torch.ops import hwt_bits as hb
     from bwtb3m_tpu_torch.ops import kasai as kas
     from bwtb3m_tpu_torch.ops import lf_walk as lw
     from bwtb3m_tpu_torch.ops import rl_decode as rld
@@ -986,6 +993,7 @@ def main() -> int:
         gb.reset_launch_counts()
         kas.kasai_walk.launches = 0
         rld.decode_rl_u8.launches = 0
+        hb.hwt_node_words.launches = 0
 
     def counts(launches=None):
         """This process's launch counts by kernel; or those a rank of the
@@ -1006,6 +1014,7 @@ def main() -> int:
                 "gap_chain_mk_w": G["chain64"] + G["anchor64"],
                 "kasai": 0 if launches else kas.kasai_walk.launches,
                 "rl_decode": 0 if launches else rld.decode_rl_u8.launches,
+                "hwt_bits": 0 if launches else hb.hwt_node_words.launches,
                 "lf_walk_locate": L["locate"] + L["locate64"]
                 + L["locate_wm"] + L["locate_wm32"],
                 "lf_walk_decode": L["decode"] + L["decode64"]
@@ -2769,9 +2778,10 @@ def main() -> int:
         path_counts["index path"] = counts()
         say("index path launches: %s" % path_counts["index path"])
         if min(path_counts["index path"][k] for k in (
-                "lf_walk_locate", "lf_walk_decode")) < 1:
+                "lf_walk_locate", "lf_walk_decode", "hwt_bits")) < 1:
             raise AssertionError("the index path did not launch the LF "
-                                 "walk's locate and decode visits")
+                                 "walk's locate and decode visits and the "
+                                 ".hwt kernel")
         lap("14, the search's plain version")
         # the search's plain version (the recursion over the plain rank)
         # on the 400 patterns of 200 reads: the same intervals, in order
@@ -3173,9 +3183,9 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated()
         say("power path launches: %s" % path_counts["power path"])
         if min(path_counts["power path"][k] for k in (
-                "lf_walk_select", "lf_walk", "gap_chain_mk")) < 1:
+                "lf_walk_select", "lf_walk", "gap_chain_mk", "hwt_bits")) < 1:
             raise AssertionError("the power path did not launch the select, "
-                                 "LF-walk and gap-chain kernels")
+                                 "LF-walk, gap-chain and .hwt kernels")
         with uncounted():
             res = BwtResult.load(bwt_file)
             srate, irate = (res.meta["sasamplingrate"],
@@ -3353,6 +3363,99 @@ def main() -> int:
             "[%s]" % (human["peak_build"] / 2 ** 30,
                       human.get("peak", 0) / 2 ** 30, smi))
         return finish()
+    def hwt_step(n=HWT_N, host=False):
+        """Step 3h: the .hwt node-word kernel at chr21.build's shape (n
+        symbols: a terminator and ACGT at chr21's 41% GC, 4 inner nodes)
+        against its plain version, timed in one call (both passes and the
+        glue between them, CUDA events) beside its bound (the text read
+        once, the words written once, at 3.35 TB/s as
+        portbench/roofline.py has it); the tree's card route end to end
+        (tables, kernel, download, from_words); ``host``: the host
+        route's build of the same tree too."""
+        from bwtb3m_tpu_torch.index.wavelet import HuffmanWaveletTree
+        from bwtb3m_tpu_torch.index import wavelet as wv
+        rng = np.random.default_rng(args.seed + 31)
+        gc = 0.41
+        text = rng.choice(4, n, p=[(1 - gc) / 2, gc / 2, gc / 2,
+                                   (1 - gc) / 2]).astype(np.uint8) + 1
+        text[rng.integers(0, n)] = 0
+        hist = np.bincount(text, minlength=5)
+        hd = {s: int(c) for s, c in enumerate(hist) if c}
+        tree = wv.HuffmanTree(hd)
+        codes, lengths = tree.code_arrays(5)
+        inside, bit = wv._node_tables(codes, lengths, *wv._node_paths(tree))
+        pad = ((0, 0), (0, 256 - inside.shape[1]))
+        inside = torch.from_numpy(np.pad(inside, pad)).to(dev)
+        bit = torch.from_numpy(np.pad(bit, pad)).to(dev)
+        bwt = torch.from_numpy(text).to(dev)
+        before = hb.hwt_node_words.launches
+        (words, lens), call_ms = timed(lambda: hb.hwt_node_words(
+            bwt, inside, bit), reps=5)
+        # the two kernels alone, and the glue between them
+        k = len(lens)
+        tab = hb._table(inside, bit).to(dev)
+        cnt, c_ms = timed(lambda: hb._tile_counts(bwt, tab, k), reps=5)
+        (offs, _l, total), g_ms = timed(lambda: hb._offsets(cnt), reps=5)
+        _w, w_ms = timed(lambda: hb._node_words(bwt, tab, k, offs, total),
+                         reps=5)
+        k_ms = c_ms + w_ms
+        del cnt, offs, _w
+        (pw, plens), p_ms = timed(lambda: hb.hwt_node_words_plain(
+            bwt, inside, bit), reps=1)
+        err = int(lens != plens) + int((words != pw).sum())
+        del pw
+        b_ms, b_by = bound(n + words.numel() * 8, 0)
+        t0 = time.monotonic()
+        card = HuffmanWaveletTree.build(bwt, hist=hd)
+        card_s = time.monotonic() - t0
+        rec = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "n": n,
+               "count_pass_ms": c_ms, "glue_ms": g_ms, "pack_pass_ms": w_ms,
+               "call_ms": call_ms,
+               "inner_nodes": len(lens), "words_bytes": words.numel() * 8,
+               "card_route_build_s": card_s, "tree_route": card.route,
+               "step_launches": hb.hwt_node_words.launches - before}
+        if host:
+            t0 = time.monotonic()
+            ref = HuffmanWaveletTree.build(text.astype(np.int32))
+            rec["host_route_build_s"] = time.monotonic() - t0
+            err += sum(int(not np.array_equal(a.words, b.words))
+                       for a, b in zip(card.nodes, ref.nodes))
+            rec["max_abs_err"] = err
+        say("kernel hwt_bits at chr21.build's shape (n=%d, %d inner nodes, "
+            "%d word bytes): max_abs_err %d, kernel %.3f ms (count pass "
+            "%.3f + pack pass %.3f; glue %.3f, the wrapper's call %.3f), "
+            "bound %.3f ms (%s), plain %.3f ms; the tree's card route %.3f "
+            "s (%s)%s [%s]"
+            % (n, len(lens), rec["words_bytes"], err, k_ms, c_ms, w_ms,
+               g_ms, call_ms, b_ms, b_by, p_ms, card_s, card.route,
+               ", host route %.3f s" % rec["host_route_build_s"]
+               if host else "", smi))
+        if err or card.route != "device":
+            raise AssertionError("the .hwt node-word kernel disagrees with "
+                                 "its plain version or did not run")
+        del words, bwt, card
+        return rec
+
+    def hwt_kernel(rec):
+        """The kernels line's row of the .hwt node-word kernel: its times
+        at step 3h's shape, its launches from the main path's build."""
+        return {"name": "hwt_bits", "route": "cuda",
+                "source": KERNELS["hwt_bits"][0],
+                "replaces": KERNELS["hwt_bits"][1],
+                **rec,
+                "launches": path_counts.get(ROW_PATH["hwt_bits"], {}).get(
+                    "hwt_bits"),
+                "launches_of": ROW_PATH["hwt_bits"],
+                "shapes_of": "chr21.build (step 3h)",
+                "launches_by_path": {p: c.get("hwt_bits")
+                                     for p, c in path_counts.items()},
+                "library_ms": None}
+
+    if args.only == "hwt":
+        rec = hwt_step(host=True)
+        return finish([hwt_kernel(rec)])
+
     LAYOUTS_OF = {4: ("sector", "bitplane"), 7: ("bitplane",),
                   200: ("bytes",)}
 
@@ -3528,6 +3631,10 @@ def main() -> int:
                    lanes * steps / ms["sector"] / 1e6, ms["bitplane"],
                    lanes * steps / ms["bitplane"] / 1e6, smi))
         del foccs
+
+    lap("3h")
+    # ---- 3h. the .hwt node-word kernel at chr21.build's shape ----------
+    hwt = hwt_step()
 
     lap("4")
     # ---- 4. gap-chain kernel against its plain version at 2^22 ---------
@@ -3817,10 +3924,10 @@ def main() -> int:
                                "isa": ref_isa})
     say("single-block path launches: %s" % path_counts["single-block path"])
     if min(path_counts["single-block path"][k]
-           for k in ("lf_walk", "rl_decode")) < 1:
-        raise AssertionError("the single-block path's checkbwt and "
-                             "bwtcomputessa never launched the LF-walk or "
-                             "the RLB1 decode kernel")
+           for k in ("lf_walk", "rl_decode", "hwt_bits")) < 1:
+        raise AssertionError("the single-block path's build, checkbwt and "
+                             "bwtcomputessa never launched the .hwt, the "
+                             "LF-walk or the RLB1 decode kernel")
 
     lap("5b")
     # ---- 5b. the single-block path's PLCP -------------------------------
@@ -4317,6 +4424,7 @@ def main() -> int:
     path_counts["genome path"] = counts()
     say("genome path launches: %s" % path_counts["genome path"])
     need = ("lf_walk_w", "gap_chain_mk", "gap_chain_mk_w") if wide else NARROW
+    need += ("hwt_bits",)       # bwtonly=0 on the card: the .hwt's kernel
     if min(path_counts["genome path"][k] for k in need) < 1:
         raise AssertionError("the genome path did not launch every kernel")
 
@@ -4702,6 +4810,7 @@ def main() -> int:
             "library_ms": None, "layout": "sector", "layouts": per_layout,
             **extra})
     kernels.append(power_kernel(power))
+    kernels.append(hwt_kernel(hwt))
     if RL_DECODE:
         main = RL_DECODE.get("merge path") or next(iter(RL_DECODE.values()))
         kernels.append({

@@ -10,7 +10,10 @@ NCCL in a group of one, and two ranks sharing the card over gloo
 (``parallel/``); and the RLB1 decode ``bwt_rl_decode_u8`` (slabs, long
 runs, malformed blocks, footers that miss a symbol, a card that is not
 the current one) with the rank rows and ``compute_ssa`` that
-load a ``.bwt`` through it.  Skipped without a CUDA device; on
+load a ``.bwt`` through it; and the ``.hwt`` node words
+``bwt_hwt_node_words`` (tile edges, one to 17 symbols, the tree's
+routes, a ``compute_bwt`` that writes the ``.hwt`` on the card).
+Skipped without a CUDA device; on
 one, run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
 (the suite's conftest imports JAX, which the card's machine need not
@@ -1146,3 +1149,169 @@ def test_compute_ssa_on_card_decodes_on_card(cuda, tmp_path):
                       for e in ("sa", "isa")]
     clear_caches()
     assert files["cuda"] == files["cpu"]
+
+
+# ------------------------------------------------ the .hwt node words
+
+def _hwt_case(nsym: int, n: int, seed: int, runs: bool = False):
+    """A uint8 text of n symbols over ``nsym`` byte values (skewed
+    counts; ``runs``: in runs, as a BWT has them) and its tree's node
+    tables, padded to 256 symbols."""
+    from bwtb3m_tpu_torch.index import wavelet
+    from bwtb3m_tpu_torch.index.huffman import HuffmanTree
+    rng = np.random.default_rng(seed)
+    alphabet = np.sort(rng.choice(256, nsym, replace=False))
+    p = 0.6 ** np.arange(nsym)
+    if runs:
+        idx = np.repeat(rng.choice(nsym, n, p=p / p.sum()),
+                        rng.geometric(0.2, n))[:n]
+    else:
+        idx = rng.choice(nsym, n, p=p / p.sum())
+    idx[:min(n, nsym)] = np.arange(min(n, nsym))
+    text = alphabet[idx].astype(np.uint8)
+    uniq, cnt = np.unique(text, return_counts=True)
+    tree = HuffmanTree({int(s): int(c) for s, c in zip(uniq, cnt)})
+    codes, lengths = tree.code_arrays(int(max(tree.symbols)) + 1)
+    inside, bit = wavelet._node_tables(codes, lengths,
+                                       *wavelet._node_paths(tree))
+    pad = ((0, 0), (0, 256 - inside.shape[1]))
+    return text, torch.from_numpy(np.pad(inside, pad)), torch.from_numpy(
+        np.pad(bit, pad))
+
+
+HWT_TILE = 8192
+HWT_CASES = [(5, (1 << 22) + 13, False), (5, (1 << 22) + 13, True),
+             (1, (1 << 22) + 13, False), (17, (1 << 22) + 13, False),
+             (17, (1 << 22) + 13, True), (1, HWT_TILE + 1, False)] + [
+    (5, n, False) for n in (1, 63, 64, 65, HWT_TILE - 1, HWT_TILE,
+                            HWT_TILE + 1, 2 * HWT_TILE, 5 * HWT_TILE + 1025,
+                            64 * HWT_TILE - 3)]
+
+
+@pytest.mark.parametrize("nsym,n,runs", HWT_CASES)
+def test_hwt_node_words_kernel_matches_plain(cuda, nsym, n, runs):
+    from bwtb3m_tpu_torch.ops import hwt_bits
+    text, inside, bit = _hwt_case(nsym, n, nsym * 7 + n, runs)
+    bwt = torch.from_numpy(text).to(cuda)
+    before = hwt_bits.hwt_node_words.launches
+    words, lengths = hwt_bits.hwt_node_words(bwt, inside, bit)
+    torch.cuda.synchronize()
+    assert hwt_bits.hwt_node_words.launches == before + 1
+    want, want_len = hwt_bits.hwt_node_words_plain(bwt, inside.to(cuda),
+                                                   bit.to(cuda))
+    assert lengths == want_len
+    assert torch.equal(words, want)
+
+
+def test_hwt_node_words_kernel_off_a_16_byte_boundary(cuda):
+    """A text that starts one byte into its storage is copied to an
+    aligned one for the kernel's 16-byte loads, with the same words."""
+    from bwtb3m_tpu_torch.ops import hwt_bits
+    text, inside, bit = _hwt_case(5, 3 * HWT_TILE + 5, 1)
+    store = torch.from_numpy(np.r_[np.uint8(0), text]).to(cuda)
+    bwt = store[1:]
+    assert bwt.data_ptr() % 16
+    words, lengths = hwt_bits.hwt_node_words(bwt, inside, bit)
+    want, want_len = hwt_bits.hwt_node_words_plain(bwt, inside.to(cuda),
+                                                   bit.to(cuda))
+    assert lengths == want_len and torch.equal(words, want)
+
+
+def test_hwt_node_words_wrapper_routes_and_refusals(cuda):
+    """A CPU tensor takes the plain version (no launch); a CUDA tensor of
+    another dtype or shape, or tables of 17 nodes, raise."""
+    from bwtb3m_tpu_torch.ops import hwt_bits
+    text, inside, bit = _hwt_case(5, 10_000, 2)
+    before = hwt_bits.hwt_node_words.launches
+    got = hwt_bits.hwt_node_words(torch.from_numpy(text), inside, bit)
+    assert hwt_bits.hwt_node_words.launches == before
+    assert got[0].device.type == "cpu"
+    bwt = torch.from_numpy(text).to(cuda)
+    with pytest.raises(TypeError):
+        hwt_bits.hwt_node_words(bwt.int(), inside, bit)
+    with pytest.raises(TypeError):
+        hwt_bits.hwt_node_words(bwt.view(100, 100), inside, bit)
+    with pytest.raises(ValueError):
+        hwt_bits.hwt_node_words(bwt, torch.ones(17, 256, dtype=torch.bool),
+                                torch.zeros(17, 256, dtype=torch.uint8))
+    assert hwt_bits.hwt_node_words.launches == before
+
+
+def test_hwt_build_routes_on_the_card(cuda, tmp_path):
+    """``HuffmanWaveletTree.build`` of a uint8 CUDA tensor with its
+    histogram: 5 and 17 symbols take the card route and write the bytes
+    of the host build of the same text; 18 symbols (17 inner nodes), a
+    wrong dtype, a missing histogram or RL nodes raise, with no launch
+    and no download, and ``engine/api.py::_hwt_symbols`` keeps such a
+    text's host array."""
+    from bwtb3m_tpu_torch.engine.api import _hwt_symbols
+    from bwtb3m_tpu_torch.index.wavelet import (HuffmanWaveletTree,
+                                                RLHuffmanWaveletTree)
+    from bwtb3m_tpu_torch.ops import hwt_bits
+    for nsym, route in ((5, "device"), (17, "device"), (18, None)):
+        text, _inside, _bit = _hwt_case(nsym, 100_003, nsym)
+        counts = np.bincount(text, minlength=256)
+        hist = {int(s): int(counts[s]) for s in np.flatnonzero(counts)}
+        card = _hwt_symbols(text, counts, torch.device(cuda), [])
+        assert torch.is_tensor(card) == (route is not None)
+        bwt = torch.from_numpy(text).to(cuda)
+        before = hwt_bits.hwt_node_words.launches
+        if route is None:
+            with pytest.raises(ValueError, match="inner nodes"):
+                HuffmanWaveletTree.build(bwt, hist=hist)
+            assert hwt_bits.hwt_node_words.launches == before
+            continue
+        assert torch.equal(card, bwt)
+        tree = HuffmanWaveletTree.build(bwt, hist=hist)
+        assert tree.route == route
+        assert hwt_bits.hwt_node_words.launches == before + 1
+        tree.write(str(tmp_path / "card.hwt"))
+        HuffmanWaveletTree.build(text).write(str(tmp_path / "host.hwt"))
+        assert (tmp_path / "card.hwt").read_bytes() == (
+            tmp_path / "host.hwt").read_bytes(), nsym
+        for cls, sym, h in ((HuffmanWaveletTree, bwt.int(), hist),
+                            (HuffmanWaveletTree, bwt, None),
+                            (RLHuffmanWaveletTree, bwt, hist)):
+            with pytest.raises(ValueError, match="card route"):
+                cls.build(sym, hist=h)
+        assert hwt_bits.hwt_node_words.launches == before + 1
+
+
+def test_compute_bwt_writes_the_hwt_on_the_card(cuda, tmp_path):
+    """``compute_bwt(bwtonly=0, device=cuda)`` of a pacterm text (5
+    symbols, 4 inner nodes): the span ``engine.hwt`` reads
+    ``route=device``, the kernel ran, and the ``.hwt`` is the CPU
+    build's and the benchmark reference's, byte for byte; the merge
+    engine's ``.hwt`` (one upload of its host BWT) is the same."""
+    import time as _time
+    from bwtb3m_tpu_torch.engine.api import compute_bwt
+    from bwtb3m_tpu_torch.engine.options import BwtOptions
+    from bwtb3m_tpu_torch.io.pac import write_pac
+    from bwtb3m_tpu_torch.io.rl import rl_decode
+    from bwtb3m_tpu_torch.ops import hwt_bits
+    from bwtb3m_tpu_torch.util import trace
+    from portbench.reference import files as ref_files
+    rng = np.random.default_rng(21)
+    pac = str(tmp_path / "g.pac")
+    write_pac(pac, rng.integers(0, 4, 100_003, dtype=np.int32))
+    got = {}
+    for name, dev, extra in (("cuda", "cuda", {}), ("cpu", "cpu", {}),
+                             ("merge", "cuda", {"engine": "merge",
+                                                "mem": 1 << 20})):
+        out = tmp_path / name
+        out.mkdir()
+        before = hwt_bits.hwt_node_words.launches
+        lo = _time.time_ns()
+        res = compute_bwt(BwtOptions(
+            input_path=pac, input_type="pacterm", bwt_only=False,
+            output_filename=str(out / "g.bwt"), verbose=0, device=dev,
+            **extra))
+        routes = [r.attrs["route"] for r in trace.records(lo, _time.time_ns())
+                  if r.name == "engine.hwt"]
+        assert routes == (["host"] if dev == "cpu" else ["device"]), name
+        assert hwt_bits.hwt_node_words.launches == before + (dev == "cuda")
+        got[name] = open(res.meta["files"]["hwt"], "rb").read()
+    bwt = torch.from_numpy(np.asarray(rl_decode(str(tmp_path / "cuda" /
+                                                    "g.bwt")), np.uint8))
+    assert got["cuda"] == got["cpu"] == got["merge"]
+    assert got["cuda"] == ref_files.hwt_bytes(bwt, 5)
